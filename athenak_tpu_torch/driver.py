@@ -1,0 +1,253 @@
+"""Driver: integrator tables, the cycle function and the host loop.
+
+Counterpart of ``athenak_tpu/driver.py`` (reference:
+src/driver/driver.cpp).  The 2S-register Shu-Osher tables are the same;
+the cycle runs the explicit stages of one integrator step, and the host
+loop advances time, chooses dt (2x growth limit, CFL, exact stop at tlim;
+reference: src/mesh/mesh.cpp:573-640, kept in float64 on the host) and
+triggers outputs.  The JAX package's batched cycle windows, block
+coalescing and pencil packing are not ported.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+_HUGE = float(np.finfo(np.float32).max)
+
+
+@dataclass
+class IntegratorData:
+    name: str
+    nexp_stages: int
+    cfl_limit: float
+    gam0: List[float]
+    gam1: List[float]
+    beta: List[float]
+    delta: List[float] = field(default_factory=lambda: [0.0] * 4)
+    # ImEx extensions (reference: src/driver/driver.cpp:163-277)
+    nimp_stages: int = 0
+    a_twid: Optional[List[List[float]]] = None
+    a_impl: float = 0.0
+
+
+def make_integrator(name: str) -> IntegratorData:
+    """RK coefficient tables (reference: src/driver/driver.cpp:96-272)."""
+    if name == "rk1":
+        return IntegratorData("rk1", 1, 1.0, [0.0], [1.0], [1.0])
+    if name == "rk2":
+        # Heun / SSPRK(2,2), Gottlieb (2009) eq 3.1
+        return IntegratorData("rk2", 2, 1.0,
+                              [0.0, 0.5], [1.0, 0.5], [1.0, 0.5])
+    if name == "rk3":
+        # SSPRK(3,3), Gottlieb (2009) eq 3.2
+        return IntegratorData("rk3", 3, 1.0,
+                              [0.0, 0.25, 2.0 / 3.0],
+                              [1.0, 0.75, 1.0 / 3.0],
+                              [1.0, 0.25, 2.0 / 3.0])
+    if name == "rk4":
+        # RK4()4[2S] from Table 2 of Ketcheson (2010)
+        return IntegratorData(
+            "rk4", 4, 1.3925,
+            [0.0, 0.121098479554482, -3.843833699660025, 0.546370891121863],
+            [1.0, 0.721781678111411, 2.121209265338722, 0.198653035682705],
+            [1.193743905974738, 0.099279895495783,
+             1.131678018054042, 0.310665766509336],
+            [1.0, 0.217683334308543, 1.065841341361089, 0.0])
+    if name == "imex2":
+        # IMEX-SSP2(3,2,2), Pareschi & Russo (2005) Table III
+        return IntegratorData(
+            "imex2", 2, 1.0, [0.0, 0.5], [1.0, 0.5], [1.0, 0.5],
+            nimp_stages=3,
+            a_twid=[[-1.0, 0.0, 0.0],
+                    [0.5, 0.0, 0.0],
+                    [0.0, 0.25, 0.25]],
+            a_impl=0.5)
+    if name == "imex2+":
+        # IMEX(4,3,2), Krapp et al. (2024) eq. 30
+        g = 1.707106781186547  # 1 + 1/sqrt(2)
+        return IntegratorData(
+            "imex2+", 3, 1.0,
+            [0.0, (2.0 * g - 1.0) / (2.0 * g * g), 1.0],
+            [1.0, 1.0 - (2.0 * g - 1.0) / (2.0 * g * g), 0.0],
+            [g, 1.0 / (2.0 * g), 0.0],
+            nimp_stages=4,
+            a_twid=[[0.0, 0.0, 0.0, 0.0],
+                    [0.0, 0.0, 0.0, 0.0],
+                    [0.0, 0.0, (1.0 - 2.0 * g * g) / (2.0 * g), 0.0],
+                    [0.0, 0.0, 0.0, 0.0]],
+            a_impl=g)
+    if name == "imex3":
+        # IMEX-SSP3(4,3,3), Pareschi & Russo (2005) Table VI
+        a = 0.24169426078821
+        b = 0.06042356519705
+        e = 0.12915286960590
+        return IntegratorData(
+            "imex3", 3, 1.0,
+            [0.0, 0.25, 2.0 / 3.0],
+            [1.0, 0.75, 1.0 / 3.0],
+            [1.0, 0.25, 2.0 / 3.0],
+            nimp_stages=4,
+            a_twid=[[-2.0 * a, 0.0, 0.0, 0.0],
+                    [a, 1.0 - 2.0 * a, 0.0, 0.0],
+                    [b, e - (1.0 - a) / 4.0, 0.5 - b - e - 1.25 * a, 0.0],
+                    [(-2.0 / 3.0) * b, (1.0 - 4.0 * e) / 6.0,
+                     (4.0 * (b + e + a) - 1.0) / 6.0, 2.0 * (1.0 - a) / 3.0]],
+            a_impl=a)
+    raise ValueError(f"integrator '{name}' not implemented "
+                     "(valid: rk1, rk2, rk3, rk4, imex2, imex2+, imex3)")
+
+
+class Driver:
+    """Main evolution loop over the MHD module."""
+
+    # runtime guards, set by the CLI (-t / -w flags; reference: main.cpp
+    # walltime + utils/watchdog.cpp)
+    wall_limit: Optional[float] = None
+    watchdog = None
+
+    def __init__(self, pin, mesh, phys) -> None:
+        self.pin = pin
+        self.mesh = mesh
+        self.phys = phys
+        self.time_evolution = pin.get_string("time", "evolution")
+        if self.time_evolution not in ("static", "kinematic", "dynamic"):
+            raise ValueError(
+                f"time/evolution={self.time_evolution} not implemented")
+        if self.time_evolution != "static":
+            self.integrator = make_integrator(
+                pin.get_or_add_string("time", "integrator", "rk2"))
+            if self.integrator.nimp_stages:
+                raise NotImplementedError(
+                    "ImEx integrators are not ported to athenak_tpu_torch "
+                    "yet")
+            self.tlim = pin.get_real("time", "tlim")
+            self.nlim = pin.get_or_add_integer("time", "nlim", -1)
+            self.ndiag = pin.get_or_add_integer("time", "ndiag", 1)
+            self.cfl_no = pin.get_or_add_real("time", "cfl_number", 0.8)
+        self.ecounters: Dict[str, int] = {}
+        self.nmb_updated = 0
+        self._cycle_fn = None
+
+    # ------------------------------------------------------------------
+    def make_cycle_fn(self) -> Callable:
+        """One cycle: (state, dt) -> (state, dtnew, counters).  ``dt`` is
+        a Python float that each stage scales by its beta in the state's
+        dtype, as the JAX cycle does with its dt array."""
+        integ = self.integrator
+        phys = self.phys
+        if integ.name == "rk4":
+            raise NotImplementedError(
+                "rk4 is not ported to athenak_tpu_torch yet")
+
+        def cycle(state, dt):
+            dtype = state["u"].dtype
+            saved = phys.save_state(state)
+            counters_tot = None
+            dt_fused = None
+            for s in range(integ.nexp_stages):
+                beta_dt = float(torch.tensor(integ.beta[s], dtype=dtype)
+                                * torch.tensor(dt, dtype=dtype))
+                state, counters = phys.stage_update(
+                    state, saved, integ.gam0[s], integ.gam1[s], beta_dt)
+                if "dtmin" in counters:
+                    # new-dt maxima from the stage kernel: keep the last
+                    # stage's value, out of the counter sums
+                    counters = dict(counters)
+                    dt_fused = counters.pop("dtmin")
+                counters_tot = counters if counters_tot is None else {
+                    k: counters_tot[k] + v for k, v in counters.items()}
+            dtnew = dt_fused if dt_fused is not None \
+                else phys.dt_from_state(state)
+            return state, dtnew, counters_tot
+
+        return cycle
+
+    # ------------------------------------------------------------------
+    def initialize(self, state):
+        """Ghost-zone init + first dt (reference: Driver::Initialize,
+        src/driver/driver.cpp:314-372)."""
+        state = self.phys.init_ghosts(state)
+        if self.time_evolution != "static":
+            dtnew = float(self.phys.dt_from_state(state))
+            self.mesh.dt = min(self.cfl_no * dtnew, _HUGE)
+            if self.mesh.time < self.tlim and \
+                    self.mesh.time + self.mesh.dt > self.tlim:
+                self.mesh.dt = self.tlim - self.mesh.time
+        return state
+
+    # ------------------------------------------------------------------
+    def execute(self, state, outputs=None, verbose: bool = False):
+        """Main cycle loop (reference: Driver::Execute,
+        src/driver/driver.cpp:380-460)."""
+        if self.time_evolution == "static":
+            return state
+        if self._cycle_fn is None:
+            self._cycle_fn = self.make_cycle_fn()
+        mesh = self.mesh
+        phys = self.phys
+        outputs = outputs or []
+        wall0 = _time.perf_counter()
+
+        if outputs:
+            sv = phys.unpack_state(state)
+            for out in outputs:
+                out.maybe_write(mesh, sv, force=True)
+
+        while mesh.time < self.tlim and (self.nlim < 0
+                                         or mesh.ncycle < self.nlim):
+            if self.wall_limit is not None \
+                    and _time.perf_counter() - wall0 > self.wall_limit:
+                print("wall-time limit reached; stopping cleanly")
+                break
+            if self.watchdog is not None:
+                self.watchdog.pet()
+            if verbose and mesh.ncycle % self.ndiag == 0:
+                print(f"cycle={mesh.ncycle} time={mesh.time:.6e} "
+                      f"dt={mesh.dt:.6e}")
+
+            state, dtnew, counters = self._cycle_fn(state, mesh.dt)
+            mesh.time += mesh.dt
+            mesh.ncycle += 1
+            self.nmb_updated += mesh.nmb_total
+            for k, v in counters.items():
+                self.ecounters[k] = self.ecounters.get(k, 0) + int(v)
+
+            # new dt: 2x growth limit, CFL, exact tlim stop
+            dtnew = float(dtnew)
+            mesh.dtold = mesh.dt
+            dt = min(2.0 * mesh.dt, self.cfl_no * dtnew)
+            if mesh.time < self.tlim and (mesh.time + dt) > self.tlim:
+                dt = self.tlim - mesh.time
+            mesh.dt = dt
+
+            if outputs and any(out.due(mesh) for out in outputs):
+                sv = phys.unpack_state(state)
+                for out in outputs:
+                    out.maybe_write(mesh, sv)
+
+        if state["u"].is_cuda:
+            torch.cuda.synchronize(state["u"].device)
+        self.wall_seconds = _time.perf_counter() - wall0
+        mbi = mesh.mb_indcs
+        self.zone_cycles = self.nmb_updated * (mbi.nx1 * mbi.nx2 * mbi.nx3)
+        self.zcps = self.zone_cycles / max(self.wall_seconds, 1e-12)
+
+        state = phys.unpack_state(state)
+        for out in outputs:
+            out.maybe_write(mesh, state, force=True)
+        return state
+
+    # ------------------------------------------------------------------
+    def finalize_report(self) -> str:
+        """zone-cycles/s report (reference: Driver::Finalize,
+        src/driver/driver.cpp:465-525)."""
+        return "\n".join([
+            f"zone-cycles/cpu_second = {self.zcps:.6e}",
+            f"cycles = {self.mesh.ncycle}, wall = "
+            f"{self.wall_seconds:.3f} s"])

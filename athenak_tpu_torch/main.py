@@ -1,0 +1,202 @@
+"""Entry point / CLI of the PyTorch + CUDA port.
+
+Counterpart of ``athenak_tpu/main.py`` (reference: src/main.cpp:61-420):
+
+  -i <file>   input athinput file
+  -d <dir>    run directory
+  -n          dump parameters and quit
+  -c          show configuration and quit
+  -m          output mesh structure and quit
+  -v          validate the input deck and quit
+  -t hh:mm:ss wall-time limit
+  -w seconds  watchdog hang-abort window
+plus block/par=value overrides.  ``-r`` (restart) and ``-p`` (profile)
+are not ported yet.
+
+The device comes from ``ATHENAK_DEVICE`` (default ``cuda``) for the CLI,
+or from the ``device=`` argument of ``build``/``run``.  Asking for CUDA
+where there is none raises; the port never falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+
+def setup_precision(pin) -> torch.dtype:
+    """float64 unless <job>/precision=single (reference: config.hpp.in
+    SINGLE_PRECISION_ENABLED); returns the run's dtype."""
+    prec = "double"
+    if pin.does_block_exist("job") and \
+            pin.does_parameter_exist("job", "precision"):
+        prec = pin.get_string("job", "precision")
+    if prec == "double":
+        return torch.float64
+    if prec == "single":
+        return torch.float32
+    raise ValueError(f"job/precision={prec} must be single|double")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The run's device: ``device`` or $ATHENAK_DEVICE (default cuda)."""
+    dev = torch.device(device if device is not None
+                       else os.environ.get("ATHENAK_DEVICE", "cuda"))
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} was asked for but CUDA is not available "
+            "(set ATHENAK_DEVICE=cpu for a CPU run)")
+    return dev
+
+
+def read_deck(path, overrides=()):
+    """The athinput file at ``path`` with block/par=value overrides."""
+    from athenak_tpu.athinput import ParameterInput
+    pin = ParameterInput.from_file(path)
+    pin.modify_from_cmdline(list(overrides))
+    return pin
+
+
+def make_physics(pin, mesh, bvals, device, dtype):
+    """Select and construct the physics module (reference:
+    MeshBlockPack::AddPhysics, meshblock_pack.cpp:102-235)."""
+    for block in ("radiation", "z4c", "adm", "ion-neutral"):
+        if pin.does_block_exist(block):
+            raise NotImplementedError(
+                f"<{block}> physics is not ported to athenak_tpu_torch yet")
+    if pin.does_block_exist("mhd"):
+        from .physics.mhd import MHD
+        return MHD(pin, mesh, bvals, device=device, dtype=dtype)
+    if pin.does_block_exist("hydro"):
+        raise NotImplementedError(
+            "hydro is not ported to athenak_tpu_torch yet")
+    raise ValueError("no <hydro> or <mhd> block in input file")
+
+
+def build(pin, device=None):
+    """Mesh -> boundary values -> physics -> pgen -> driver (reference
+    main.cpp order).  Returns (mesh, phys, pgen, driver, state)."""
+    from athenak_tpu.mesh import Mesh
+
+    from .bvals import BoundaryValues
+    from .driver import Driver
+    from .pgen import get_pgen
+
+    dtype = setup_precision(pin)
+    dev = resolve_device(device)
+    mesh = Mesh(pin)
+    bvals = BoundaryValues(mesh)
+    phys = make_physics(pin, mesh, bvals, dev, dtype)
+    pgen = get_pgen(pin.get_string("problem", "pgen_name"))
+    state = pgen.init(pin, mesh, phys)
+    driver = Driver(pin, mesh, phys)
+    return mesh, phys, pgen, driver, state
+
+
+def run(pin, verbose: bool = False, device=None):
+    """Full run; returns (mesh, phys, driver, state)."""
+    from .outputs import make_outputs
+
+    mesh, phys, pgen, driver, state = build(pin, device=device)
+    outputs = make_outputs(pin, mesh, phys)
+    state = driver.initialize(state)
+    state = driver.execute(state, outputs=outputs, verbose=verbose)
+    return mesh, phys, driver, state
+
+
+def cli(argv=None):
+    """Parse the command line and do what it asks.  Returns the run's
+    (mesh, phys, driver, state), or None for the flags that quit early."""
+    ap = argparse.ArgumentParser(prog="athenak_tpu_torch")
+    ap.add_argument("-i", dest="input", help="input athinput file")
+    ap.add_argument("-r", dest="restart", default=None,
+                    help="restart (.rst) file (not ported yet)")
+    ap.add_argument("-d", dest="rundir", default=None, help="run directory")
+    ap.add_argument("-n", dest="dump_params", action="store_true",
+                    help="dump parameters and quit")
+    ap.add_argument("-c", dest="show_config", action="store_true",
+                    help="show configuration and quit")
+    ap.add_argument("-m", dest="show_mesh", action="store_true",
+                    help="output mesh structure and quit")
+    ap.add_argument("-v", dest="validate", action="store_true",
+                    help="validate input file and quit")
+    ap.add_argument("-t", dest="walltime", default=None,
+                    help="wall time limit hh:mm:ss")
+    ap.add_argument("-p", dest="profile_dir", default=None,
+                    help="profile trace directory (not ported yet)")
+    ap.add_argument("-w", dest="watchdog", default=None, type=float,
+                    help="watchdog hang-abort window in seconds")
+    ap.add_argument("overrides", nargs="*",
+                    help="block/par=value parameter overrides")
+    args = ap.parse_args(argv)
+
+    if args.restart or args.profile_dir:
+        raise NotImplementedError(
+            "-r and -p are not ported to athenak_tpu_torch yet")
+    if args.show_config:
+        dev = resolve_device()
+        name = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+            else "cpu"
+        print(f"athenak_tpu_torch on torch {torch.__version__}, "
+              f"device: {dev} ({name})")
+        return None
+    if not args.input:
+        ap.error("an input file is required (-i)")
+    pin = read_deck(args.input, args.overrides)
+    if args.rundir:
+        os.makedirs(args.rundir, exist_ok=True)
+        os.chdir(args.rundir)
+    if args.dump_params:
+        pin.dump(sys.stdout)
+        return None
+    if args.show_mesh or args.validate:
+        from athenak_tpu.mesh import Mesh
+        mesh = Mesh(pin)
+        if args.show_mesh:
+            print(f"nmb_total={mesh.nmb_total} "
+                  f"({mesh.nmb_x1}x{mesh.nmb_x2}x{mesh.nmb_x3} root blocks)")
+            for gid in range(mesh.nmb_total):
+                loc = mesh.lloc_eachmb[gid]
+                print(f"  gid={gid} lloc=({loc[0]},{loc[1]},{loc[2]}) "
+                      f"level={int(mesh.mb_lev[gid])}")
+        if args.validate:
+            from .outputs import make_outputs
+            _, phys, _, _, _ = build(pin)
+            make_outputs(pin, mesh, phys)
+            pin.check_unused_parameters()
+            print("validation complete")
+        return None
+
+    from .driver import Driver
+    if args.walltime:
+        from athenak_tpu.utils import parse_walltime
+        try:
+            Driver.wall_limit = parse_walltime(args.walltime)
+        except ValueError:
+            ap.error(f"-t expects hh:mm:ss, got '{args.walltime}'")
+    wd = None
+    if args.watchdog:
+        from athenak_tpu.utils import WatchDog
+        wd = WatchDog(args.watchdog)
+        Driver.watchdog = wd
+    try:
+        result = run(pin, verbose=True)
+    finally:
+        if wd is not None:
+            wd.stop()
+        Driver.watchdog = None
+        Driver.wall_limit = None
+    print(result[2].finalize_report())
+    return result
+
+
+def main(argv=None) -> int:
+    cli(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+"""The simulation state carried across packages.
+
+The JAX package's state is a dict of arrays: ``u`` and ``bfc`` (a dict of
+the face arrays x1f, x2f, x3f) and, when present, ``w`` and ``bcc``.  These
+two functions move such a dict (as numpy arrays) into the port and back,
+so both packages can start from one state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_KEYS = ("u", "w", "bcc")
+
+
+def state_from_numpy(d, device, dtype):
+    """numpy state dict -> tensors on ``device`` at ``dtype``."""
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device, dtype=dtype)
+
+    out = {k: t(d[k]) for k in _KEYS if k in d}
+    out["bfc"] = {k: t(v) for k, v in d["bfc"].items()}
+    return out
+
+
+def state_to_numpy(state):
+    """Tensor state dict -> numpy arrays on the host."""
+    def a(x):
+        return x.detach().cpu().numpy()
+
+    out = {k: a(state[k]) for k in _KEYS if k in state}
+    out["bfc"] = {k: a(v) for k, v in state["bfc"].items()}
+    return out
