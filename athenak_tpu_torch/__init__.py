@@ -2,16 +2,17 @@
 
 The JAX package ``athenak_tpu`` is the reference; this package takes the
 same athinput decks and CLI flags and keeps its module names and array
-layouts, so each module here has a counterpart there.  Modules of the JAX
-package that import only numpy (``athinput``, ``indices``, ``mesh``,
-``coordinates``, ``vis.readers``, ``utils``) are imported, not copied.
-Plain tensor code is PyTorch; each Pallas kernel on the ported path is a
-hand-written CUDA kernel under ``csrc/``, built with nvcc at first use
-(``kernels/``).  This package never imports jax.
+layouts, so each module here has a counterpart there.  It imports nothing
+of the JAX package: the modules it needs that import only numpy there
+(``athinput``, ``indices``, ``mesh``, ``coordinates``, ``utils``) are
+copied here.  Plain tensor code is PyTorch; each Pallas kernel on the
+ported paths is a hand-written CUDA kernel under ``csrc/``, built with
+nvcc at first use (``kernels/``).
 
-Ported so far: the 3-D Newtonian ideal-MHD main path (PLM + HLLD, RK2,
-periodic or outflow single-level meshes, the blast problem generator and
-``bin`` outputs).
+Ported so far: 3-D ideal MHD on single-level meshes, Newtonian (PLM +
+HLLD) and special-relativistic (PLM + HLLE or LLF, the Kastaun c2p),
+RK1-RK3, periodic or outflow boundaries, the blast problem generator and
+``bin`` outputs.
 """
 
 __version__ = "0.1.0"

@@ -18,10 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from athenak_tpu.indices import IVX, IVY, IVZ
-from athenak_tpu.mesh import Mesh
-
 from .comm import gather_blocks
+from .indices import IVX, IVY, IVZ
+from .mesh import Mesh
 
 # cell-axis position of each mesh axis in [nmb, nvar, x3, x2, x1] arrays
 _AXIS_OF = {"x1": 4, "x2": 3, "x3": 2}
@@ -44,9 +43,6 @@ class BoundaryValues:
     """Neighbour tables and BC appliers for cell-centred arrays."""
 
     def __init__(self, mesh: Mesh) -> None:
-        if getattr(mesh, "multilevel", False):
-            raise NotImplementedError(
-                "mesh refinement is not ported to athenak_tpu_torch yet")
         self.mesh = mesh
         mbi = mesh.mb_indcs
         self.ng = mbi.ng

@@ -35,33 +35,10 @@
 
 #include "common.cuh"
 #include "hlld.cuh"
+#include "stencil.cuh"
 
 namespace athenak {
 namespace {
-
-struct Dims {
-  int nmb, n3, n2, n1, ng;
-  long long ncell;  // n3 * n2 * n1
-};
-
-__device__ __forceinline__ long long cidx(const Dims& g, int m, int c, int nc,
-                                          int k, int j, int i) {
-  return ((static_cast<long long>(m) * nc + c) * g.n3 + k) * g.n2 * g.n1 +
-         static_cast<long long>(j) * g.n1 + i;
-}
-// face arrays
-__device__ __forceinline__ long long f1idx(const Dims& g, int m, int k, int j,
-                                           int i) {
-  return ((static_cast<long long>(m) * g.n3 + k) * g.n2 + j) * (g.n1 + 1) + i;
-}
-__device__ __forceinline__ long long f2idx(const Dims& g, int m, int k, int j,
-                                           int i) {
-  return ((static_cast<long long>(m) * g.n3 + k) * (g.n2 + 1) + j) * g.n1 + i;
-}
-__device__ __forceinline__ long long f3idx(const Dims& g, int m, int k, int j,
-                                           int i) {
-  return ((static_cast<long long>(m) * (g.n3 + 1) + k) * g.n2 + j) * g.n1 + i;
-}
 
 // ---------------------------------------------------------------- step 1
 template <typename T>
@@ -90,20 +67,6 @@ __global__ void prim_kernel(Dims g, Eos<T> eos, const T* __restrict__ u,
 }
 
 // ---------------------------------------------------------------- step 2
-// PLM (van Leer) left state at face f from cell f-1, right state from f
-template <typename T>
-__device__ __forceinline__ void plm_face(T qm2, T qm1, T q0, T qp1, T& ql,
-                                         T& qr) {
-  T dql = qm1 - qm2, dqr = q0 - qm1, dq2 = dql * dqr;
-  const T dqm_l = dq2 <= T(0) ? T(0) : dq2 / (dql + dqr);
-  ql = qm1 + dqm_l;
-  dql = q0 - qm1;
-  dqr = qp1 - q0;
-  dq2 = dql * dqr;
-  const T dqm_r = dq2 <= T(0) ? T(0) : dq2 / (dql + dqr);
-  qr = q0 - dqm_r;
-}
-
 // DIR 0/1/2 = x1/x2/x3.  One thread per face f along DIR with f in
 // [2, n - 2] (the PLM stencil reaches cells f-2..f+1) and every
 // transverse cell.  Writes the flux [5] and the face EMFs (ey, ez) at
@@ -170,18 +133,6 @@ __global__ void flux_kernel(Dims g, Eos<T> eos, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------- step 3
-// Gardiner & Stone (2005/07) corner value, mirrors physics/mhd.py gs07
-template <typename T>
-__device__ __forceinline__ T gs07(T e_cc, T cc_am, T cc_bm, T cc_mm, T e_a,
-                                  T e_a_m, T e_b, T e_b_m, T f_a, T f_a_m,
-                                  T f_b, T f_b_m) {
-  const T l_b = f_a_m >= T(0) ? e_b_m - cc_mm : e_b - cc_bm;
-  const T r_b = f_a >= T(0) ? e_b_m - cc_am : e_b - e_cc;
-  const T l_a = f_b_m >= T(0) ? e_a_m - cc_mm : e_a - cc_am;
-  const T r_a = f_b >= T(0) ? e_a_m - cc_bm : e_a - e_cc;
-  return T(0.25) * (l_b + r_b + l_a + r_a + e_b_m + e_b + e_a_m + e_a);
-}
-
 // One thread per edge (k, j, i) in [2, n-2]^3: the lower corner of cell
 // (k, j, i).  flx/femf hold the three directions back to back.
 template <typename T>

@@ -138,7 +138,9 @@ class Driver:
     def make_cycle_fn(self) -> Callable:
         """One cycle: (state, dt) -> (state, dtnew, counters).  ``dt`` is
         a Python float that each stage scales by its beta in the state's
-        dtype, as the JAX cycle does with its dt array."""
+        dtype, as the JAX cycle does with its dt array.  The counters are
+        summed over the stages whatever their names: the floor hits, and
+        under SR ``nc2p_fail`` too."""
         integ = self.integrator
         phys = self.phys
         if integ.name == "rk4":

@@ -1,16 +1,18 @@
 """Build, load and count the hand-written CUDA kernels.
 
-The sources in ``athenak_tpu_torch/csrc`` are compiled at first use with
+The sources in ``athenak_tpu_torch/csrc`` are compiled at first use, one
+nvcc process for each ``.cu`` file, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o libathenak_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu
 
-(plus ``--fmad=false``, see ``NVCC_FLAGS``) into
-``athenak_tpu_torch/_build/<hash of the sources>/`` and loaded with
-ctypes.  The library has a plain C interface: every entry point takes
-device pointers, sizes, scalars and the CUDA stream, launches on that
-stream and returns ``cudaGetLastError()``.  Nothing is built or loaded
-when this module is imported; the CPU tests never reach ``library()``.
+and linked with ``nvcc -shared`` into
+``athenak_tpu_torch/_build/<hash of the sources>/libathenak_kernels.so``,
+which is loaded with ctypes.  The library has a plain C interface:
+every entry point takes device pointers, sizes, scalars and the CUDA
+stream, launches on that stream and returns ``cudaGetLastError()``.
+Nothing is built or loaded when this module is imported; the CPU tests
+never reach ``library()``.
 """
 
 from __future__ import annotations
@@ -33,9 +35,9 @@ BUILD_ROOT = _PKG / "_build"
 # in its two products: on a mirror-symmetric state (the blast at rest)
 # the mass flux through a symmetry plane is then exactly zero, as in the
 # plain version, and the GS07 upwind selects cannot flip on its sign.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+                     "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +45,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "athenak_periodic_fill": [_P, ctypes.c_longlong] + [_I] * 7 + [_P],
     "athenak_mega_stage_v2": [_P] * 18 + [_I] * 5 + [_D] * 12 + [_P],
+    "athenak_fused_stage": [_P] * 11 + [_I] * 5 + [_D] * 9 + [_P],
+    "athenak_fused_ct": [_P] * 21 + [_I] * 5 + [_D] * 6 + [_P],
 }
 
 
@@ -65,7 +69,10 @@ MEGA_STAGE_V2 = Kernel("mega_stage_v2", "athenak_mega_stage_v2")
 # one CUDA kernel behind two wrappers (cell and face arrays)
 PERIODIC_FILL_CC = Kernel("periodic_fill_cc", "athenak_periodic_fill")
 PERIODIC_FILL_FC = Kernel("periodic_fill_fc", "athenak_periodic_fill")
-ALL = (MEGA_STAGE_V2, PERIODIC_FILL_CC, PERIODIC_FILL_FC)
+FUSED_STAGE3D = Kernel("fused_stage3d", "athenak_fused_stage")
+FUSED_CT3D = Kernel("fused_ct3d", "athenak_fused_ct")
+ALL = (MEGA_STAGE_V2, PERIODIC_FILL_CC, PERIODIC_FILL_FC, FUSED_STAGE3D,
+       FUSED_CT3D)
 
 _LIB = None
 BUILD_INFO = {}
@@ -102,15 +109,30 @@ def library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libathenak_kernels.{os.getpid()}.so"
-        cmd = [_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)] + [str(p)
-                                                           for p in cus]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        nvcc = _nvcc()
+        tag = os.getpid()
+        objs = [out_dir / f"{p.stem}.{tag}.o" for p in cus]
+        procs = [subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ["-c", "-o", str(o), str(p)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p, o in zip(cus, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(c.name, p.returncode, log)
+                  for c, p, log in zip(cus, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        tmp = out_dir / f"libathenak_kernels.{tag}.so"
+        link = subprocess.run([nvcc, "-shared"] + ARCH + ["-o", str(tmp)]
+                              + [str(o) for o in objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
         os.replace(tmp, so)
-        BUILD_INFO["log"] = proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink()
+        BUILD_INFO["log"] = "".join(logs)
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     BUILD_INFO["path"] = str(so)
     lib = ctypes.CDLL(str(so))

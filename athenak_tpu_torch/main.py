@@ -54,7 +54,7 @@ def resolve_device(device=None) -> torch.device:
 
 def read_deck(path, overrides=()):
     """The athinput file at ``path`` with block/par=value overrides."""
-    from athenak_tpu.athinput import ParameterInput
+    from .athinput import ParameterInput
     pin = ParameterInput.from_file(path)
     pin.modify_from_cmdline(list(overrides))
     return pin
@@ -79,10 +79,9 @@ def make_physics(pin, mesh, bvals, device, dtype):
 def build(pin, device=None):
     """Mesh -> boundary values -> physics -> pgen -> driver (reference
     main.cpp order).  Returns (mesh, phys, pgen, driver, state)."""
-    from athenak_tpu.mesh import Mesh
-
     from .bvals import BoundaryValues
     from .driver import Driver
+    from .mesh import Mesh
     from .pgen import get_pgen
 
     dtype = setup_precision(pin)
@@ -153,7 +152,7 @@ def cli(argv=None):
         pin.dump(sys.stdout)
         return None
     if args.show_mesh or args.validate:
-        from athenak_tpu.mesh import Mesh
+        from .mesh import Mesh
         mesh = Mesh(pin)
         if args.show_mesh:
             print(f"nmb_total={mesh.nmb_total} "
@@ -172,14 +171,14 @@ def cli(argv=None):
 
     from .driver import Driver
     if args.walltime:
-        from athenak_tpu.utils import parse_walltime
+        from .utils import parse_walltime
         try:
             Driver.wall_limit = parse_walltime(args.walltime)
         except ValueError:
             ap.error(f"-t expects hh:mm:ss, got '{args.walltime}'")
     wd = None
     if args.watchdog:
-        from athenak_tpu.utils import WatchDog
+        from .utils import WatchDog
         wd = WatchDog(args.watchdog)
         Driver.watchdog = wd
     try:

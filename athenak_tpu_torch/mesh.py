@@ -1,0 +1,249 @@
+"""Mesh: global grid + MeshBlock decomposition (host-side geometry).
+
+Counterpart of ``athenak_tpu/mesh.py`` for single-level meshes
+(reference: src/mesh/mesh.hpp:92-185, meshblock_tree.cpp,
+build_tree.cpp), copied so that the port never imports the JAX package.
+All geometry (logical locations, neighbour tables, block extents) is
+computed once on the host with numpy.  Blocks are ordered along the
+Z-order (Morton) curve exactly like the reference's tree traversal.
+Mesh refinement (static or adaptive) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+
+from .athinput import ParameterInput
+
+BOUNDARY_FLAGS = ("undef", "periodic", "outflow", "reflect", "inflow",
+                  "diode", "user", "vacuum", "shear_periodic")
+
+
+def _interleave_bits3(x: int, y: int, z: int, nbits: int) -> int:
+    """Morton key with x fastest: bit order (z_i, y_i, x_i)."""
+    key = 0
+    for i in range(nbits):
+        key |= ((x >> i) & 1) << (3 * i)
+        key |= ((y >> i) & 1) << (3 * i + 1)
+        key |= ((z >> i) & 1) << (3 * i + 2)
+    return key
+
+
+@dataclass
+class RegionSize:
+    x1min: float
+    x1max: float
+    x2min: float
+    x2max: float
+    x3min: float
+    x3max: float
+    dx1: float = 0.0
+    dx2: float = 0.0
+    dx3: float = 0.0
+
+
+@dataclass
+class RegionIndcs:
+    """Cell index ranges, mirroring the reference ``RegionIndcs``
+    (reference: src/athena.hpp:166-176)."""
+    ng: int
+    nx1: int
+    nx2: int
+    nx3: int
+    is_: int
+    ie: int
+    js: int
+    je: int
+    ks: int
+    ke: int
+
+    @property
+    def ncells1(self) -> int:
+        return self.nx1 + 2 * self.ng if self.nx1 > 1 else 1
+
+    @property
+    def ncells2(self) -> int:
+        return self.nx2 + 2 * self.ng if self.nx2 > 1 else 1
+
+    @property
+    def ncells3(self) -> int:
+        return self.nx3 + 2 * self.ng if self.nx3 > 1 else 1
+
+
+class Mesh:
+    """Global uniform-level Cartesian mesh decomposed into MeshBlocks."""
+
+    multilevel = False
+
+    def __init__(self, pin: ParameterInput) -> None:
+        self.pin = pin
+
+        ms = RegionSize(
+            x1min=pin.get_real("mesh", "x1min"),
+            x1max=pin.get_real("mesh", "x1max"),
+            x2min=pin.get_real("mesh", "x2min"),
+            x2max=pin.get_real("mesh", "x2max"),
+            x3min=pin.get_real("mesh", "x3min"),
+            x3max=pin.get_real("mesh", "x3max"),
+        )
+        nx1 = pin.get_integer("mesh", "nx1")
+        nx2 = pin.get_integer("mesh", "nx2")
+        nx3 = pin.get_integer("mesh", "nx3")
+        ng = pin.get_or_add_integer("mesh", "nghost", 2)
+        ms.dx1 = (ms.x1max - ms.x1min) / nx1
+        ms.dx2 = (ms.x2max - ms.x2min) / nx2
+        ms.dx3 = (ms.x3max - ms.x3min) / nx3
+        self.mesh_size = ms
+
+        if nx2 == 1 and nx3 > 1:
+            raise ValueError("mesh with nx2=1 but nx3>1 is not supported")
+
+        # meshblock sizes (default: one block spans the mesh)
+        mbnx1 = pin.get_or_add_integer("meshblock", "nx1", nx1)
+        mbnx2 = pin.get_or_add_integer("meshblock", "nx2", nx2)
+        mbnx3 = pin.get_or_add_integer("meshblock", "nx3", nx3)
+        for tot, mb, ax in ((nx1, mbnx1, 1), (nx2, mbnx2, 2), (nx3, mbnx3, 3)):
+            if tot % mb != 0:
+                raise ValueError(f"mesh/nx{ax}={tot} not divisible by "
+                                 f"meshblock/nx{ax}={mb}")
+
+        is1 = ng if mbnx1 > 1 else 0
+        is2 = ng if mbnx2 > 1 else 0
+        is3 = ng if mbnx3 > 1 else 0
+        self.mb_indcs = RegionIndcs(
+            ng=ng, nx1=mbnx1, nx2=mbnx2, nx3=mbnx3,
+            is_=is1, ie=is1 + mbnx1 - 1,
+            js=is2, je=is2 + mbnx2 - 1,
+            ks=is3, ke=is3 + mbnx3 - 1)
+
+        # block grid dimensions
+        self.nmb_x1 = nx1 // mbnx1
+        self.nmb_x2 = nx2 // mbnx2
+        self.nmb_x3 = nx3 // mbnx3
+        self.nmb_total = self.nmb_x1 * self.nmb_x2 * self.nmb_x3
+
+        # boundary flags for the 6 mesh faces
+        def bflag(key: str, default: str) -> str:
+            v = pin.get_or_add_string("mesh", key, default)
+            if v not in BOUNDARY_FLAGS:
+                raise ValueError(f"unknown boundary flag mesh/{key}={v}")
+            return v
+
+        self.mesh_bcs = {
+            "ix1": bflag("ix1_bc", "periodic"),
+            "ox1": bflag("ox1_bc", "periodic"),
+            "ix2": bflag("ix2_bc", "periodic"),
+            "ox2": bflag("ox2_bc", "periodic"),
+            "ix3": bflag("ix3_bc", "periodic"),
+            "ox3": bflag("ox3_bc", "periodic"),
+        }
+        for (a, b) in (("ix1", "ox1"), ("ix2", "ox2"), ("ix3", "ox3")):
+            if (self.mesh_bcs[a] == "periodic") != \
+                    (self.mesh_bcs[b] == "periodic"):
+                raise ValueError(f"{a}/{b} must both be periodic or neither")
+
+        if pin.does_block_exist("mesh_refinement") and pin.get_string(
+                "mesh_refinement", "refinement") != "none":
+            raise NotImplementedError(
+                "mesh refinement is not ported to athenak_tpu_torch yet")
+        self._build_blocks()
+        self.mb_lev = np.zeros(self.nmb_total, dtype=np.int64)
+
+        # time/cycle state, kept on the host
+        self.time = 0.0
+        self.dt = float(np.finfo(np.float32).max)
+        self.dtold = 0.0
+        self.ncycle = 0
+
+    # ------------------------------------------------------------------
+    def _build_blocks(self) -> None:
+        """Create Z-ordered block list, per-block extents, neighbor tables."""
+        n1, n2, n3 = self.nmb_x1, self.nmb_x2, self.nmb_x3
+        nbits = max(1, max(n1 - 1, n2 - 1, n3 - 1).bit_length())
+
+        # Z-order (Morton) sort of block logical locations, matching the
+        # reference tree traversal order
+        # (reference: src/mesh/build_tree.cpp:242)
+        locs = [(lx1, lx2, lx3)
+                for lx3 in range(n3) for lx2 in range(n2) for lx1 in range(n1)]
+        locs.sort(key=lambda t: _interleave_bits3(t[0], t[1], t[2], nbits))
+        self.lloc_eachmb = np.array(locs, dtype=np.int64)  # [nmb, 3]
+
+        # map (lx1,lx2,lx3) -> gid
+        loc2gid: Dict[Tuple[int, int, int], int] = {
+            tuple(loc): gid for gid, loc in enumerate(locs)}
+
+        ms = self.mesh_size
+        mb1 = self.mb_indcs.nx1 * ms.dx1
+        mb2 = self.mb_indcs.nx2 * ms.dx2
+        mb3 = self.mb_indcs.nx3 * ms.dx3
+        nmb = self.nmb_total
+        self.mb_size = {
+            "x1min": np.array([ms.x1min + loc[0] * mb1 for loc in locs]),
+            "x1max": np.array([ms.x1min + (loc[0] + 1) * mb1 for loc in locs]),
+            "x2min": np.array([ms.x2min + loc[1] * mb2 for loc in locs]),
+            "x2max": np.array([ms.x2min + (loc[1] + 1) * mb2 for loc in locs]),
+            "x3min": np.array([ms.x3min + loc[2] * mb3 for loc in locs]),
+            "x3max": np.array([ms.x3min + (loc[2] + 1) * mb3 for loc in locs]),
+            "dx1": np.full(nmb, ms.dx1),
+            "dx2": np.full(nmb, ms.dx2),
+            "dx3": np.full(nmb, ms.dx3),
+        }
+
+        # Face-neighbor gather tables.  nbr[d][s] is an int array [nmb]: the
+        # gid whose interior supplies this block's ghost zones on side s of
+        # axis d.  Blocks on a non-periodic physical boundary point at
+        # themselves; the physical-BC pass overwrites those ghosts afterwards
+        # (mask arrays below say which blocks those are).
+        self.nbr_gid: Dict[str, np.ndarray] = {}
+        self.phys_bc_mask: Dict[str, np.ndarray] = {}
+        axes = (("x1", 0, n1), ("x2", 1, n2), ("x3", 2, n3))
+        for name, ax, nax in axes:
+            for side, delta in (("m", -1), ("p", +1)):
+                key = f"{name}{side}"
+                flag = self.mesh_bcs[f"i{name}" if side == "m"
+                                     else f"o{name}"]
+                wraps = flag in ("periodic", "shear_periodic")
+                gids = np.empty(nmb, dtype=np.int32)
+                mask = np.zeros(nmb, dtype=bool)
+                for gid, loc in enumerate(locs):
+                    tgt = list(loc)
+                    tgt[ax] += delta
+                    if 0 <= tgt[ax] < nax:
+                        gids[gid] = loc2gid[tuple(tgt)]
+                    else:
+                        if wraps:
+                            tgt[ax] %= nax
+                            gids[gid] = loc2gid[tuple(tgt)]
+                        else:
+                            gids[gid] = gid
+                        mask[gid] = (flag != "periodic")
+                self.nbr_gid[key] = gids
+                self.phys_bc_mask[key] = mask
+
+    # ------------------------------------------------------------------
+    def cell_centers(self, gid: int):
+        """Cell-center coordinate arrays (active + ghost cells) for block gid.
+
+        Uses the symmetrized linear map of the reference ``CellCenterX``
+        (reference: src/coordinates/cell_locations.hpp:36-40) so roundoff
+        matches bit-for-bit.
+        """
+        mbi = self.mb_indcs
+
+        def centers(n, ncells, istart, xmin, xmax):
+            ith = np.arange(ncells, dtype=np.float64) - istart
+            x = (ith + 0.5) / n
+            return (x * xmax - x * xmin) - (0.5 * xmax - 0.5 * xmin) \
+                + (0.5 * xmin + 0.5 * xmax)
+
+        x1v = centers(mbi.nx1, mbi.ncells1, mbi.is_,
+                      self.mb_size["x1min"][gid], self.mb_size["x1max"][gid])
+        x2v = centers(mbi.nx2, mbi.ncells2, mbi.js,
+                      self.mb_size["x2min"][gid], self.mb_size["x2max"][gid])
+        x3v = centers(mbi.nx3, mbi.ncells3, mbi.ks,
+                      self.mb_size["x3min"][gid], self.mb_size["x3max"][gid])
+        return x1v, x2v, x3v

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from athenak_tpu.indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
+from ..indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 
 # floors default to the float32 ``tiny`` even in double precision,
 # exactly as the JAX package does

@@ -20,8 +20,7 @@ from typing import Tuple
 
 import torch
 
-from athenak_tpu.indices import IDN, IEN, IVX
-
+from ..indices import IDN, IEN, IVX
 from .eos import EOSData
 
 _HLLD_SMALL = 1.0e-4

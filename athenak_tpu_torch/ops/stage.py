@@ -46,11 +46,36 @@ def supports_mega_v2(phys, mesh) -> bool:
     level, two ghost cells (the JAX gates ``supports_mega_stage`` and
     ``supports_mega_v2``; the physics the port has not ported raises in
     the MHD constructor)."""
-    return (len(phys.dirs) == 3
+    return (len(phys.dirs) == 3 and not phys.is_sr
             and phys.recon_method == "plm" and phys.rsolver == "hlld"
             and phys.nscalars == 0 and phys.eos.is_ideal
             and not getattr(mesh, "multilevel", False)
             and mesh.mb_indcs.ng == NG)
+
+
+def dirs3(dxs):
+    """(name, axis, ivx, dx) of the three directions of a 3-D block."""
+    return [("x1", 4, 1, dxs["x1"]), ("x2", 3, 2, dxs["x2"]),
+            ("x3", 2, 3, dxs["x3"])]
+
+
+def check_tensor(kernel, name, t, shape, like):
+    """Raise unless ``t`` lies on ``like``'s card with its dtype, has
+    ``shape`` and is contiguous: what a kernel's C entry point takes."""
+    if not t.is_cuda or t.device != like.device:
+        raise ValueError(f"{kernel}: {name} must lie on {like.device}")
+    if t.dtype != like.dtype:
+        raise TypeError(f"{kernel}: {name} is {t.dtype}, not {like.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def face_shapes(nmb, n3, n2, n1):
+    return {"x1f": (nmb, n3, n2, n1 + 1), "x2f": (nmb, n3, n2 + 1, n1),
+            "x3f": (nmb, n3 + 1, n2, n1)}
 
 
 def interior_mask(shape, device):
@@ -71,27 +96,14 @@ def mega_stage_v2_plain(u, bfc, u1, bfc_old, eos: EOSData, gam0, gam1,
                         beta_dt, dxs):
     """The stage as plain tensor operations; returns (u', bfc', counters)
     with counters neos_dfloor/efloor/tfloor and dtmin."""
-    from ..physics.mhd import (EY_NAME, EZ_NAME, compute_bcc, corner_e,
-                               ct_update, face_floors, rk_update,
-                               signal_speeds)
-    from .recon import plm
+    from ..physics.mhd import (compute_bcc, corner_e, ct_update,
+                               face_fluxes, rk_update, signal_speeds)
     from .rsolvers_mhd import hlld
 
     bcc = compute_bcc(bfc)
     w, u0, _ = cons_to_prim_mhd(u, bcc, eos)
-    bface = {"x1": bfc["x1f"][..., :-1], "x2": bfc["x2f"][..., :-1, :],
-             "x3": bfc["x3f"][..., :-1, :, :]}
-    dirs = [("x1", 4, 1, dxs["x1"]), ("x2", 3, 2, dxs["x2"]),
-            ("x3", 2, 3, dxs["x3"])]
-    flx, emf = {}, {}
-    for name, axis, ivx, _dx in dirs:
-        wl, wr = plm(w, axis)
-        bl, br = plm(bcc, axis)
-        f, ey, ez = hlld(face_floors(wl, eos), face_floors(wr, eos), bl, br,
-                         bface[name], eos, ivx)
-        flx[name] = f
-        emf[EY_NAME[name]] = ey
-        emf[EZ_NAME[name]] = ez
+    dirs = dirs3(dxs)
+    flx, emf = face_fluxes(w, bcc, bfc, eos, hlld, dirs, floors=True)
     un = rk_update(u0, u1, flx, gam0, gam1, beta_dt, dirs)
     e1, e2, e3 = corner_e(w, bcc, {n: flx[n][:, 0] for n in flx}, emf, 3)
     bn = ct_update(bfc, bfc_old, e1, e2, e3, gam0, gam1, beta_dt, dxs, 3)
@@ -101,19 +113,6 @@ def mega_stage_v2_plain(u, bfc, u1, bfc_old, eos: EOSData, gam0, gam1,
     dv = signal_speeds(eos, wn, bccn)
     counters["dtmin"] = _dtmin(dxs, [d[:, mask].max() for d in dv])
     return un, bn, counters
-
-
-def _check(name, t, shape, like):
-    if not t.is_cuda or t.device != like.device:
-        raise ValueError(f"mega_stage_v2: {name} must lie on {like.device}")
-    if t.dtype != like.dtype:
-        raise TypeError(f"mega_stage_v2: {name} is {t.dtype}, "
-                        f"not {like.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"mega_stage_v2: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"mega_stage_v2: {name} must be contiguous")
 
 
 def mega_stage_v2(u, bfc, u1, bfc_old, eos: EOSData, gam0, gam1, beta_dt,
@@ -132,13 +131,13 @@ def mega_stage_v2(u, bfc, u1, bfc_old, eos: EOSData, gam0, gam1, beta_dt,
         raise ValueError(f"mega_stage_v2: block {n3}x{n2}x{n1} too small")
     if not eos.is_ideal:
         raise ValueError("mega_stage_v2: ideal-gas EOS only")
-    fshape = {"x1f": (nmb, n3, n2, n1 + 1), "x2f": (nmb, n3, n2 + 1, n1),
-              "x3f": (nmb, n3 + 1, n2, n1)}
-    _check("u", u, u.shape, u)
-    _check("u1", u1, u.shape, u)
+    fshape = face_shapes(nmb, n3, n2, n1)
+    name = "mega_stage_v2"
+    check_tensor(name, "u", u, u.shape, u)
+    check_tensor(name, "u1", u1, u.shape, u)
     for c, s in fshape.items():
-        _check(f"bfc[{c}]", bfc[c], s, u)
-        _check(f"bfc_old[{c}]", bfc_old[c], s, u)
+        check_tensor(name, f"bfc[{c}]", bfc[c], s, u)
+        check_tensor(name, f"bfc_old[{c}]", bfc_old[c], s, u)
 
     def empty(*shape):
         return torch.empty(shape, dtype=u.dtype, device=u.device)

@@ -1,17 +1,19 @@
-"""Spherical blast wave (MHD).
+"""Spherical blast wave (MHD, Newtonian or SR).
 
 Counterpart of ``athenak_tpu/pgen/blast.py`` (reference:
 src/pgen/fluids/blast.cpp, Cartesian branch): ambient state with a
 pressure/density ratio inside a sphere, a log-smooth ramp between the
 inner and outer radii, and a uniform Bx from A3 = b_amb * y.  The initial
-conditions are made in host numpy and then moved to the device.
+primitives are made in host numpy and moved to the device, where the
+physics module's p2c (the SR one under <coord>/special_rel) makes the
+conserved state.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from athenak_tpu.indices import IDN, IEN
+from ..indices import IDN, IEN
 
 from . import state_from_prims
 

@@ -1,4 +1,5 @@
-"""Newtonian ideal magnetohydrodynamics with constrained transport.
+"""Ideal magnetohydrodynamics with constrained transport, Newtonian or
+special-relativistic.
 
 Counterpart of ``athenak_tpu/physics/mhd.py`` for single-level meshes
 (reference: src/mhd/mhd.hpp, mhd_tasks.cpp:48-81, mhd_fluxes.cpp,
@@ -10,27 +11,41 @@ mhd_corner_e.cpp, mhd_ct.cpp).  Layouts are the JAX package's:
   * edge EMFs are cell-indexed: entry (k, j, i) is the edge at the lower
     corner of cell (k, j, i).
 
-A stage runs one of two paths.  On the card in float32, a 3-D PLM+HLLD
-deck takes the stage kernel (``ops/stage.py``, kernel A) and then the
-ghost fills (kernel B for a single periodic block).  Everywhere else the
-general path composes the plain tensor functions below.  The deck option
-``<mhd>/use_kernels = false`` keeps a run on the general path and the
-sweep fills, for comparison.
+A stage runs one of three paths.  On the card in float32:
+
+  * a Newtonian 3-D PLM+HLLD deck takes the stage kernel
+    (``ops/stage.py``, kernel A) and then the ghost fills (kernel B for
+    a single periodic block);
+  * an SR 3-D PLM deck (HLLE or LLF) takes the split stage: kernel C
+    (``ops/stage_split.py::fused_stage3d``: PLM, face floors, Riemann
+    solve, RK update) and kernel D (``fused_ct3d``: GS07 corner EMFs +
+    CT), then the fills, bcc and c2p.  Kernel C's HLLD instance serves
+    the Newtonian decks its gate admits when kernel A's does not; the
+    port has none yet;
+  * every other deck takes the general path, the plain tensor functions
+    below; a 3-D single-level deck still runs its CT through kernel D
+    there, as the JAX package does.
+
+Everywhere else (the CPU, float64) the general path runs throughout.
+The deck option ``<mhd>/use_kernels = false`` keeps a run on the general
+path and the sweep fills, for comparison.  GR MHD is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from athenak_tpu.coordinates import Coordinates
-from athenak_tpu.indices import IDN, IEN, IVX, IVY, IVZ, RECON_NGHOST
-from athenak_tpu.mesh import Mesh
-
 from ..bvals import _AXIS_OF, BoundaryValues, kernel_dtype_ok
 from ..comm import gather_blocks
+from ..coordinates import Coordinates
+from ..indices import IDN, IEN, IVX, IVY, IVZ, RECON_NGHOST
+from ..mesh import Mesh
 from ..ops import recon as recon_ops
 from ..ops import rsolvers_mhd
 from ..ops.eos import EOSData, cons_to_prim_mhd, prim_to_cons_mhd
+from ..ops.eos_sr import (cons_to_prim_sr_mhd, prim_to_cons_sr_mhd,
+                          sr_mhd_fast_speeds)
+from ..ops.rsolvers_srmhd import SR_MHD_RSOLVER_FNS
 
 # axes of the 4-D [nmb, n3, n2, n1] EMF / face arrays
 KA, JA, IA = 1, 2, 3
@@ -56,6 +71,29 @@ def face_floors(q, eos: EOSData):
     """Density and internal-energy floors on reconstructed face states."""
     return torch.cat([torch.clamp(q[:, :1], min=eos.dfloor), q[:, 1:4],
                       torch.clamp(q[:, 4:5], min=eos.efloor)], dim=1)
+
+
+def face_fluxes(w, bcc, bfc, eos: EOSData, solve, dirs, rec=recon_ops.plm,
+                floors: bool = False):
+    """Reconstruct (w, bcc) and solve per direction; returns (flx, emf)
+    with the reference EMF names (reference:
+    src/mhd/mhd_fluxes.cpp:120-250).  ``floors`` applies the density and
+    internal-energy floors to the face states, as the stage kernels do;
+    ``dirs`` lists (name, axis, ivx, dx)."""
+    bface = {"x1": bfc["x1f"][..., :-1],
+             "x2": bfc["x2f"][..., :-1, :],
+             "x3": bfc["x3f"][..., :-1, :, :]}
+    flx, emf = {}, {}
+    for name, axis, ivx, _dx in dirs:
+        wl, wr = rec(w, axis)
+        bl, br = rec(bcc, axis)
+        if floors:
+            wl, wr = face_floors(wl, eos), face_floors(wr, eos)
+        f, ey, ez = solve(wl, wr, bl, br, bface[name], eos, ivx)
+        flx[name] = f
+        emf[EY_NAME[name]] = ey
+        emf[EZ_NAME[name]] = ez
+    return flx, emf
 
 
 def rk_update(u0, u1, flx, gam0, gam1, beta_dt, dirs):
@@ -88,14 +126,19 @@ def _gs07(e_cc, e_a, e_b, f_a, f_b, axa, axb):
     return 0.25 * (l_b + r_b + l_a + r_a + e_b_m + e_b + e_a_m + e_a)
 
 
-def corner_e(w, bcc, fden, emf, ndim: int):
+def corner_e(w, bcc, fden, emf, ndim: int, is_sr: bool = False):
     """Edge EMFs by Gardiner-Stone (2005/07) upwinding (reference:
     src/mhd/mhd_corner_e.cpp).  ``fden`` holds the mass flux per direction
-    ([nmb, n3, n2, n1]); returns cell-indexed e1, e2, e3."""
+    ([nmb, n3, n2, n1]); returns cell-indexed e1, e2, e3.  SR primitives
+    store u^i = gamma v^i, so under SR the transport velocity in
+    E = -v x B is u^i / gamma (reference: mhd_corner_e.cpp:136-143)."""
     if ndim == 1:
         e2 = emf["e2x1"]
         return torch.zeros_like(e2), e2, emf["e3x1"]
     vx, vy, vz = w[:, IVX], w[:, IVY], w[:, IVZ]
+    if is_sr:
+        lor = torch.sqrt(1.0 + vx * vx + vy * vy + vz * vz)
+        vx, vy, vz = vx / lor, vy / lor, vz / lor
     bx, by, bz = bcc[:, 0], bcc[:, 1], bcc[:, 2]
     e3cc = vy * bx - vx * by
     e3 = _gs07(e3cc, emf["e3x1"], emf["e3x2"], fden["x1"], fden["x2"],
@@ -153,6 +196,27 @@ def signal_speeds(eos: EOSData, w, bcc):
             torch.abs(w[:, IVZ]) + eos.mhd_fast_speed(d, p, b3, b1, b2))
 
 
+def sr_signal_speeds(eos: EOSData, w, bcc):
+    """max(|lambda_-|, lambda_+) per direction (reference: the SR branch
+    of src/mhd/mhd_newdt.cpp)."""
+    d = w[:, IDN]
+    ux, uy, uz = w[:, IVX], w[:, IVY], w[:, IVZ]
+    lor = torch.sqrt(1.0 + ux * ux + uy * uy + uz * uz)
+    p = eos.pressure(w[:, IEN])
+    # b^mu b_mu from the cell-centred field
+    bx, by, bz = bcc[:, 0], bcc[:, 1], bcc[:, 2]
+    b0 = bx * ux + by * uy + bz * uz
+    b1 = (bx + b0 * ux) / lor
+    b2 = (by + b0 * uy) / lor
+    b3 = (bz + b0 * uz) / lor
+    bsq = -b0 * b0 + b1 * b1 + b2 * b2 + b3 * b3
+    out = []
+    for uu in (ux, uy, uz):
+        lp, lm = sr_mhd_fast_speeds(eos, d, p, uu, lor, bsq)
+        out.append(torch.maximum(torch.abs(lm), lp))
+    return tuple(out)
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to athenak_tpu_torch "
                                "yet")
@@ -170,8 +234,9 @@ class MHD:
         self.device = torch.device(device)
         self.dtype = dtype
         coord = Coordinates(pin)
-        if coord.is_special_relativistic or coord.is_general_relativistic:
-            raise _not_ported("relativistic MHD")
+        if coord.is_general_relativistic:
+            raise _not_ported("general-relativistic MHD")
+        self.is_sr = coord.is_special_relativistic
         self.eos = EOSData.from_input(pin, "mhd")
         if not self.eos.is_ideal:
             raise _not_ported("isothermal MHD")
@@ -185,8 +250,17 @@ class MHD:
         if self.recon_method not in recon_ops.RECON_FNS:
             raise _not_ported(f"mhd/reconstruct={self.recon_method}")
         self.rsolver = pin.get_or_add_string("mhd", "rsolver", "llf")
-        if self.rsolver not in rsolvers_mhd.MHD_RSOLVER_FNS:
-            raise _not_ported(f"mhd/rsolver={self.rsolver}")
+        if self.is_sr:
+            # SR runs map the solver names onto the SR variants
+            # (reference: src/mhd/mhd.cpp solver dispatch)
+            if self.rsolver not in SR_MHD_RSOLVER_FNS:
+                raise ValueError(
+                    f"mhd/rsolver={self.rsolver} not available in SR MHD")
+            self._solve = SR_MHD_RSOLVER_FNS[self.rsolver]
+        else:
+            if self.rsolver not in rsolvers_mhd.MHD_RSOLVER_FNS:
+                raise _not_ported(f"mhd/rsolver={self.rsolver}")
+            self._solve = rsolvers_mhd.MHD_RSOLVER_FNS[self.rsolver]
         ng_need = RECON_NGHOST[self.recon_method]
         if mesh.mb_indcs.ng < ng_need:
             raise ValueError(
@@ -225,12 +299,18 @@ class MHD:
 
         use_kernels = pin.get_or_add_boolean("mhd", "use_kernels", True)
         from ..ops.stage import supports_mega_v2
+        from ..ops.stage_split import (solver_for, supports_fused_ct,
+                                       supports_fused_stage)
         self.use_mega_v2 = use_kernels and supports_mega_v2(self, mesh)
+        self.use_fused_stage = (use_kernels and not self.use_mega_v2
+                                and supports_fused_stage(self, mesh))
+        self.use_fused_ct = use_kernels and supports_fused_ct(self, mesh)
+        self.stage_solver = solver_for(self)
         if not use_kernels:
             bvals.use_fill_kernel = False
 
     def kernel_path(self, u) -> bool:
-        """True when a stage on ``u`` runs the stage kernel."""
+        """True when a stage on ``u`` runs the stage kernel A."""
         return self.use_mega_v2 and kernel_dtype_ok(u)
 
     # ---------------------------------------------------------------- eos
@@ -238,37 +318,28 @@ class MHD:
         return compute_bcc(bfc)
 
     def cons_to_prim(self, u, bcc):
+        if self.is_sr:
+            return cons_to_prim_sr_mhd(u, bcc, self.eos)
         return cons_to_prim_mhd(u, bcc, self.eos)
 
     def prim_to_cons(self, w, bcc):
+        if self.is_sr:
+            return prim_to_cons_sr_mhd(w, bcc, self.eos)
         return prim_to_cons_mhd(w, bcc, self.eos)
 
     # ------------------------------------------------------------- fluxes
     def fluxes(self, w, bcc, bfc):
-        """Reconstruct (w, bcc) and solve per direction; returns (flx,
-        emf) with the reference EMF names (reference:
-        src/mhd/mhd_fluxes.cpp:120-250).  No face-state floors for PLM,
-        as on the JAX package's general path."""
-        rec = recon_ops.RECON_FNS[self.recon_method]
-        solve = rsolvers_mhd.MHD_RSOLVER_FNS[self.rsolver]
-        bface = {"x1": bfc["x1f"][..., :-1],
-                 "x2": bfc["x2f"][..., :-1, :],
-                 "x3": bfc["x3f"][..., :-1, :, :]}
-        flx, emf = {}, {}
-        for name, axis, ivx, _dx in self.dirs:
-            wl, wr = rec(w, axis)
-            bl, br = rec(bcc, axis)
-            f, ey, ez = solve(wl, wr, bl, br, bface[name], self.eos, ivx)
-            flx[name] = f
-            emf[EY_NAME[name]] = ey
-            emf[EZ_NAME[name]] = ez
-        return flx, emf
+        """Per-direction fluxes and face EMFs with the deck's solver (the
+        SR one under SR).  No face-state floors for PLM, as on the JAX
+        package's general path."""
+        return face_fluxes(w, bcc, bfc, self.eos, self._solve, self.dirs,
+                           rec=recon_ops.RECON_FNS[self.recon_method])
 
     def rk_update(self, u0, u1, flx, gam0, gam1, beta_dt):
         return rk_update(u0, u1, flx, gam0, gam1, beta_dt, self.dirs)
 
     def corner_e(self, w, bcc, fden, emf):
-        return corner_e(w, bcc, fden, emf, len(self.dirs))
+        return corner_e(w, bcc, fden, emf, len(self.dirs), is_sr=self.is_sr)
 
     def ct_update(self, bfc, bfc_old, e1, e2, e3, gam0, gam1, beta_dt):
         return ct_update(bfc, bfc_old, e1, e2, e3, gam0, gam1, beta_dt,
@@ -348,6 +419,8 @@ class MHD:
         if self.time_evolution == "kinematic":
             dv = (torch.abs(wa[:, IVX]), torch.abs(wa[:, IVY]),
                   torch.abs(wa[:, IVZ]))
+        elif self.is_sr:
+            dv = sr_signal_speeds(self.eos, wa, ba)
         else:
             dv = signal_speeds(self.eos, wa, ba)
         dt = torch.min(self.dxs["x1"] / dv[0])
@@ -399,12 +472,31 @@ class MHD:
             u = self.bvals.fill_ghosts(u)
             return dict(state, u=u, bfc=bfc), counters
         u, w, bfc, bcc = state["u"], state["w"], state["bfc"], state["bcc"]
-        flx, emf = self.fluxes(w, bcc, bfc)
-        u = self.rk_update(u, saved["u1"], flx, gam0, gam1, beta_dt)
-        e1, e2, e3 = self.corner_e(
-            w, bcc, {n: flx[n][:, IDN] for n in flx}, emf)
-        bfc = self.ct_update(bfc, saved["bfc1"], e1, e2, e3,
-                             gam0, gam1, beta_dt)
+        on_card = kernel_dtype_ok(u)
+        if self.use_fused_stage and on_card:
+            # kernel C: the 5-channel fluxes never leave the kernel's
+            # scratch; only the mass flux and the face EMFs come back
+            from ..ops.stage_split import fused_stage3d
+            u, fden, emf = fused_stage3d(
+                w, bcc, bfc, u, saved["u1"], self.eos, gam0, gam1,
+                beta_dt, self.dxs, self.stage_solver)
+        else:
+            flx, emf = self.fluxes(w, bcc, bfc)
+            u = self.rk_update(u, saved["u1"], flx, gam0, gam1, beta_dt)
+            fden = {n: flx[n][:, IDN] for n in flx}
+        if self.use_fused_ct and on_card:
+            # kernel D: corner EMFs + CT (reference: mhd.py:1638-1642,
+            # 1680-1686 of the JAX package)
+            from ..ops.stage_split import fused_ct3d
+            bfc = fused_ct3d(
+                w, bcc, {n: f.contiguous() for n, f in fden.items()},
+                {n: e.contiguous() for n, e in emf.items()}, bfc,
+                saved["bfc1"], gam0, gam1, beta_dt, self.dxs,
+                is_sr=self.is_sr)
+        else:
+            e1, e2, e3 = self.corner_e(w, bcc, fden, emf)
+            bfc = self.ct_update(bfc, saved["bfc1"], e1, e2, e3,
+                                 gam0, gam1, beta_dt)
         u = self.bvals.fill_ghosts(u)
         bfc = self.fill_ghosts_fc(bfc)
         bcc = compute_bcc(bfc)

@@ -22,11 +22,29 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      div(B) at roundoff and conserve mass, and the ``bin`` dumps must
      exist.  Then it times 20 cycles of the kernel path and of the plain
      path (``mhd/use_kernels=false``) with CUDA events after a warm-up
-     cycle.
+     cycle;
+  5. holds the split-stage kernels (``fused_stage3d``, ``fused_ct3d``)
+     against their plain versions on both RK2 stages of the 124^3 SR
+     blast after initialisation (SR HLLE and SR LLF) and of the 124^3
+     Newtonian blast (HLLD): float32 within the two-tier bound on acc,
+     the mass fluxes, the face EMFs and the new face fields, float64
+     within 1e-10 of the field scale; it times both kernels, their plain
+     versions and the SR c2p;
+  6. drives the SR main path through the CLI on ``SR_DECK`` (the ``sr``
+     case of ``bench.py``, copied here as text) for 10 cycles, with the
+     launch counts set to 0 just before: both split-stage kernels must
+     launch twice a cycle and the fill kernels at least once; the state
+     must be finite, keep div(B) at roundoff and conserve the interior
+     sum of D.  Then it times 10 cycles of the kernel path and of the
+     plain path with CUDA events after a warm-up cycle.
 
 Every failure raises, so the exit code is not 0.  The last lines of
-standard output are one JSON line with the kernels' numbers and one JSON
-line ``{"ok": true, "device": {...}}``.
+standard output are the card's name and power limit, one JSON line with
+the kernels' numbers and one JSON line ``{"ok": true, "device": {...}}``.
+Each kernel's ``bound_ms`` is the least time the card could take for the
+same work: the larger of the bytes it must move (each input read once,
+each output written once) over 3.35 TB/s and its operations over the
+float32 peak of 67 TFLOP/s (H100 SXM data sheet).
 """
 
 from __future__ import annotations
@@ -41,6 +59,54 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DECK = os.path.join(ROOT, "inputs", "mhd", "blast.athinput")
 NCYC = 20
+NCYC_SR = 10
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM
+FP32_OPS_PER_S = 67e12         # H100 SXM, outside the tensor cores
+# operations per face or cell, counted from the CUDA sources and rounded:
+# PLM of 7 channels + face floors, then the Riemann solver
+OPS_FACE = {"hlld": 325, "sr_hlle": 375, "sr_llf": 355}
+OPS_ACC = 65          # per cell: RK update of 5 channels
+OPS_CT = 100          # per cell: 3 GS07 corners + 3 face updates
+OPS_MEGA = 1250       # per cell: 2 c2p, 3 HLLD faces, RK, GS07, CT, dt
+SR_DECK = """
+<job>
+basename = bench_srblast
+precision = single
+
+<mesh>
+nghost = 2
+nx1 = 124
+x1min = -1.0
+x1max = 1.0
+nx2 = 124
+x2min = -1.0
+x2max = 1.0
+nx3 = 124
+x3min = -1.0
+x3max = 1.0
+
+<coord>
+special_rel = true
+
+<time>
+evolution = dynamic
+integrator = rk2
+cfl_number = 0.25
+tlim = 10.0
+
+<mhd>
+eos = ideal
+gamma = 1.3333333333333333
+reconstruct = plm
+rsolver = hlle
+
+<problem>
+pgen_name = blast
+inner_radius = 0.1
+outer_radius = 0.25
+prat = 5.0
+b_amb = 0.1
+"""
 
 
 def smi() -> str:
@@ -83,9 +149,25 @@ def interior(t, ng=2):
     return t[..., ng:-ng, ng:-ng, ng:-ng]
 
 
-def pin_for(overrides):
+def faces(t):
+    """Faces [2, n-2] on every axis of a cell-indexed face quantity."""
+    return t[..., 2:-1, 2:-1, 2:-1]
+
+
+def pin_for(overrides, deck=DECK):
     from athenak_tpu_torch.main import read_deck
-    return read_deck(DECK, overrides)
+    return read_deck(deck, overrides)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_moved, ops):
+    """(bound_ms, bound_by): the larger of memory and arithmetic time."""
+    t_mem = nbytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
 def phase_fill(torch, fill, card):
@@ -120,19 +202,45 @@ def phase_fill(torch, fill, card):
             errs["periodic_fill_fc"] = max(errs["periodic_fill_fc"],
                                            float((fa[k] - ref).abs().max()))
         if dtype == torch.float32:
+            pad = torch.nn.functional.pad
+            # one PyTorch call for the same function, timed as a yardstick
+            # only: the circular pad of the interior; for a face array the
+            # nx faces [2, nx + 2) of its normal axis are padded 2 below
+            # and 3 above (the shared face is owned once)
+            cc_int = interior(a)
+            if not torch.equal(pad(cc_int, (2,) * 6, mode="circular"), a):
+                raise AssertionError("circular pad differs from the fill")
+            tr, nrm = slice(2, -2), slice(2, -3)
+            fc_int = {"x1f": fa["x1f"][:, tr, tr, nrm],
+                      "x2f": fa["x2f"][:, tr, nrm, tr],
+                      "x3f": fa["x3f"][:, nrm, tr, tr]}
+            fc_int = {k: v.unsqueeze(1) for k, v in fc_int.items()}
+            fc_pad = {"x1f": (2, 3, 2, 2, 2, 2), "x2f": (2, 2, 2, 3, 2, 2),
+                      "x3f": (2, 2, 2, 2, 2, 3)}
+            # ghosts: each read once from its source and written once
+            ghost_cc = a.numel() - cc_int.numel()
+            ghost_fc = sum(v.numel() - v[:, tr, tr, tr].numel()
+                           for v in fa.values())
             times["periodic_fill_cc"] = (
                 cuda_ms(lambda: fill.periodic_fill_cc(a), 50),
                 cuda_ms(lambda: fill.fill_plain(b, fill.shifts(b.shape)),
-                        50))
+                        50),
+                cuda_ms(lambda: pad(cc_int, (2,) * 6, mode="circular"), 50),
+                bound(2 * ghost_cc * a.element_size(), 0))
             times["periodic_fill_fc"] = (
                 cuda_ms(lambda: fill.periodic_fill_fc(fa), 50),
                 cuda_ms(lambda: [fill.fill_plain(v, fill.shifts(v.shape, k))
-                                 for k, v in fc.items()], 50))
+                                 for k, v in fc.items()], 50),
+                cuda_ms(lambda: [pad(fc_int[k], fc_pad[k], mode="circular")
+                                 for k in fa], 50),
+                bound(2 * ghost_fc * a.element_size(), 0))
     print(f"phase 2: periodic fill kernels bitwise equal to the plain "
           f"version (f32, f64); [{card}] cc {times['periodic_fill_cc'][0]:.4f}"
-          f" ms (plain {times['periodic_fill_cc'][1]:.4f} ms), fc "
+          f" ms (plain {times['periodic_fill_cc'][1]:.4f} ms, circular pad "
+          f"{times['periodic_fill_cc'][2]:.4f} ms), fc "
           f"{times['periodic_fill_fc'][0]:.4f} ms (plain "
-          f"{times['periodic_fill_fc'][1]:.4f} ms)")
+          f"{times['periodic_fill_fc'][1]:.4f} ms, circular pad "
+          f"{times['periodic_fill_fc'][2]:.4f} ms)")
     return times, errs
 
 
@@ -195,7 +303,11 @@ def phase_stage(torch, card):
             args = (u0, b0, u0, b0, eos, 0.0, 1.0, dt, dxs)
             ms = cuda_ms(lambda: stage.mega_stage_v2(*args), 10)
             plain_ms = cuda_ms(lambda: stage.mega_stage_v2_plain(*args), 3)
-            result = {"max_abs_err": maxerr, "ms": ms, "plain_ms": plain_ms}
+            # reads u, bfc, u1, bfc_old; writes u', bfc'
+            moved = 2 * nbytes(u0, *b0.values()) + nbytes(u0, *b0.values())
+            result = {"max_abs_err": maxerr, "ms": ms, "plain_ms": plain_ms,
+                      "bound": bound(moved,
+                                     OPS_MEGA * interior(u0[:, 0]).numel())}
         print(f"phase 3: mega_stage_v2 agrees with its plain version on "
               f"both RK2 stages ({prec})")
     print(f"phase 3: [{card}] mega_stage_v2 {result['ms']:.3f} ms/stage, "
@@ -203,11 +315,11 @@ def phase_stage(torch, card):
     return result
 
 
-def timed_cycles(torch, use_kernels: str, card: str) -> float:
-    """zone-cycles/s over NCYC cycles after one warm-up cycle."""
+def timed_cycles(torch, use_kernels: str, deck=DECK, ncyc=NCYC) -> float:
+    """zone-cycles/s over ncyc cycles after one warm-up cycle."""
     from athenak_tpu_torch.main import build
     mesh, phys, _, driver, state = build(
-        pin_for([f"mhd/use_kernels={use_kernels}"]), device="cuda")
+        pin_for([f"mhd/use_kernels={use_kernels}"], deck), device="cuda")
     state = driver.initialize(state)
     cycle = driver.make_cycle_fn()
     dt = mesh.dt
@@ -217,22 +329,25 @@ def timed_cycles(torch, use_kernels: str, card: str) -> float:
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(NCYC):
+    for _ in range(ncyc):
         state, dtnew, _ = cycle(state, dt)
         dt = min(2.0 * dt, driver.cfl_no * float(dtnew))
     t1.record()
     torch.cuda.synchronize()
     sec = t0.elapsed_time(t1) / 1e3
     mbi = mesh.mb_indcs
-    return NCYC * mbi.nx1 * mbi.nx2 * mbi.nx3 / sec
+    return ncyc * mbi.nx1 * mbi.nx2 * mbi.nx3 / sec
 
 
-def phase_main(torch, kernels, card):
-    """The main path through the CLI, with its checks and timings."""
+def run_cli(torch, kernels, deck, ncyc):
+    """Drive ``main.cli`` on ``deck`` for ncyc cycles with the launch
+    counts set to 0 just before; returns the counts read just after, the
+    run, the relative change of the interior sum of u[IDN] and the names
+    of the bin files written."""
     from athenak_tpu_torch import main as cli_main
     from athenak_tpu_torch.main import build
 
-    _, _, _, _, state0 = build(pin_for([]), device="cuda")
+    _, _, _, _, state0 = build(pin_for([], deck), device="cuda")
     mass0 = float(interior(state0["u"][:, 0]).double().sum())
     os.environ["ATHENAK_DEVICE"] = "cuda"
     cwd = os.getcwd()
@@ -240,36 +355,53 @@ def phase_main(torch, kernels, card):
         kernels.reset_counts()
         try:
             mesh, phys, driver, state = cli_main.cli(
-                ["-i", DECK, "-d", tmp, f"time/nlim={NCYC}"])
+                ["-i", deck, "-d", tmp, f"time/nlim={ncyc}"])
         finally:
             os.chdir(cwd)
         launches = {k.name: k.launches for k in kernels.ALL}
         bins = sorted(f for f in os.listdir(tmp) if f.endswith(".bin"))
+    if mesh.ncycle != ncyc:
+        raise AssertionError(f"{mesh.ncycle} cycles run, {ncyc} asked")
+    mass = float(interior(state["u"][:, 0]).double().sum())
+    return (launches, mesh, phys, driver, state, abs(mass - mass0) / mass0,
+            bins)
+
+
+def check_state(torch, phys, state, dmass, label) -> float:
+    """Finite state, max|div B| dx / max|B| <= 1e-5 and the interior sum
+    of u[IDN] kept to 1e-5; returns the div(B) measure."""
+    u, bfc = state["u"], state["bfc"]
+    if not (bool(torch.isfinite(u).all())
+            and all(bool(torch.isfinite(v).all()) for v in bfc.values())):
+        raise AssertionError(f"{label}: non-finite state")
+    b1, b2, b3 = bfc["x1f"], bfc["x2f"], bfc["x3f"]
+    div = ((b1[..., 1:] - b1[..., :-1]) / phys.dxs["x1"]
+           + (b2[..., 1:, :] - b2[..., :-1, :]) / phys.dxs["x2"]
+           + (b3[:, 1:] - b3[:, :-1]) / phys.dxs["x3"])
+    bmax = max(float(v.abs().max()) for v in bfc.values())
+    divb = float(interior(div).abs().max()) * phys.dxs["x1"] / bmax
+    if divb > 1e-5:
+        raise AssertionError(f"{label}: max|div B| dx / max|B| = {divb:g} "
+                             "> 1e-5")
+    if dmass > 1e-5:
+        raise AssertionError(f"{label}: interior sum of D changed by "
+                             f"{dmass:g} (relative)")
+    return divb
+
+
+def phase_main(torch, kernels, card):
+    """The main path through the CLI, with its checks and timings."""
+    launches, mesh, phys, driver, state, dmass, bins = run_cli(
+        torch, kernels, DECK, NCYC)
     ncyc = mesh.ncycle
-    if launches["mega_stage_v2"] != 2 * ncyc or ncyc != NCYC:
+    if launches["mega_stage_v2"] != 2 * ncyc:
         raise AssertionError(f"mega_stage_v2 launched "
                              f"{launches['mega_stage_v2']} times in "
                              f"{ncyc} cycles")
     for name in ("periodic_fill_cc", "periodic_fill_fc"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
-    u, bfc = state["u"], state["bfc"]
-    if not (bool(torch.isfinite(u).all())
-            and all(bool(torch.isfinite(v).all()) for v in bfc.values())):
-        raise AssertionError("main path: non-finite state")
-    dx = phys.dxs["x1"]
-    b1, b2, b3 = bfc["x1f"], bfc["x2f"], bfc["x3f"]
-    div = ((b1[..., 1:] - b1[..., :-1]) / phys.dxs["x1"]
-           + (b2[..., 1:, :] - b2[..., :-1, :]) / phys.dxs["x2"]
-           + (b3[:, 1:] - b3[:, :-1]) / phys.dxs["x3"])
-    bmax = max(float(v.abs().max()) for v in bfc.values())
-    divb = float(interior(div).abs().max()) * dx / bmax
-    if divb > 1e-5:
-        raise AssertionError(f"max|div B| dx / max|B| = {divb:g} > 1e-5")
-    mass = float(interior(u[:, 0]).double().sum())
-    dmass = abs(mass - mass0) / mass0
-    if dmass > 1e-5:
-        raise AssertionError(f"mass changed by {dmass:g} (relative)")
+    divb = check_state(torch, phys, state, dmass, "main path")
     if not bins:
         raise AssertionError("no bin output written")
     print(f"phase 4: main path {ncyc} cycles, launches {launches}, "
@@ -278,11 +410,176 @@ def phase_main(torch, kernels, card):
           f"(wall clock, first cycle included)")
     rates = {}
     for label in ("true", "false", "true", "false"):
-        rates.setdefault(label, []).append(timed_cycles(torch, label, card))
+        rates.setdefault(label, []).append(timed_cycles(torch, label))
     print(f"phase 4: [{card}] zone-cycles/s over {NCYC} cycles after a "
           f"warm-up, kernel path {rates['true']}, plain path "
           f"{rates['false']} (CUDA events)")
     return launches, rates
+
+
+RK2 = ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))   # (gam0, gam1, beta) per stage
+
+
+def phase_split(torch, card, sr_deck):
+    """Kernels C and D against their plain versions on both RK2 stages:
+    SR HLLE and SR LLF on the SR blast, HLLD on the Newtonian blast."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import fill, stage_split
+
+    err = {"fused_stage3d": 0.0, "fused_ct3d": 0.0}
+    res = {}
+    cases = (("sr_hlle", sr_deck, []), ("sr_llf", sr_deck,
+                                        ["mhd/rsolver=llf"]),
+             ("hlld", DECK, []))
+    for solver, deck, extra in cases:
+        for prec in ("single", "double"):
+            mesh, phys, _, driver, state = build(
+                pin_for(extra + [f"job/precision={prec}"], deck),
+                device="cuda")
+            state = phys.unpack_state(driver.initialize(state))
+            if phys.stage_solver != solver:
+                raise AssertionError(f"{solver}: the deck gives "
+                                     f"{phys.stage_solver}")
+            u0, b0 = state["u"], state["bfc"]
+            inp = (state["w"], state["bcc"], b0, u0)
+            for s, (g0, g1, beta) in enumerate(RK2):
+                bdt = float(torch.tensor(beta, dtype=u0.dtype)
+                            * torch.tensor(mesh.dt, dtype=u0.dtype))
+                w, bcc, bfc, u = inp
+                sargs = (w, bcc, bfc, u, u0, phys.eos, g0, g1, bdt,
+                         phys.dxs, solver)
+                ka, kf, ke = stage_split.fused_stage3d(*sargs)
+                pa, pf, pe = stage_split.fused_stage3d_plain(*sargs)
+                pf = {d: v.contiguous() for d, v in pf.items()}
+                # kernel D on the plain fluxes and EMFs, so that it is
+                # held alone against its plain version
+                cargs = (w, bcc, pf, pe, bfc, b0, g0, g1, bdt, phys.dxs)
+                kb = stage_split.fused_ct3d(*cargs, is_sr=phys.is_sr)
+                pb = stage_split.fused_ct3d_plain(*cargs, is_sr=phys.is_sr)
+                torch.cuda.synchronize()
+                label = f"{solver} stage {s + 1} {prec}"
+                uscale = interior(pa).abs().amax(dim=(-3, -2, -1),
+                                                 keepdim=True)
+                fscale = max(max(float(faces(v).abs().max())
+                                 for v in pf.values()), 1e-30)
+                escale = max(max(float(faces(v).abs().max())
+                                 for v in pe.values()), 1e-30)
+                bscale = max(float(interior(v).abs().max())
+                             for v in pb.values())
+                pairs = ([("acc", interior(ka), interior(pa), uscale)]
+                         + [(f"fden[{d}]", faces(kf[d]), faces(pf[d]),
+                             fscale) for d in pf]
+                         + [(f"emf[{e}]", faces(ke[e]), faces(pe[e]),
+                             escale) for e in pe])
+                ct_pairs = [(c, interior(kb[c]), interior(pb[c]), bscale)
+                            for c in pb]
+                for kernel, group in (("fused_stage3d", pairs),
+                                      ("fused_ct3d", ct_pairs)):
+                    for name, got, ref, scale in group:
+                        if prec == "single":
+                            err[kernel] = max(err[kernel], two_tier(
+                                got, ref, scale, f"{label} {name}"))
+                        else:
+                            rel = float(((got - ref).abs() / scale).max())
+                            if rel > 1e-10:
+                                raise AssertionError(
+                                    f"{label} {name}: {rel:g} > 1e-10")
+                # the next stage starts from the plain result
+                un = fill.fill_plain(pa, fill.shifts(pa.shape))
+                bn = {c: fill.fill_plain(v, fill.shifts(v.shape, c))
+                      for c, v in pb.items()}
+                bccn = phys.compute_bcc(bn)
+                wn, un, _ = phys.cons_to_prim(un, bccn)
+                inp = (wn, bccn, bn, un)
+            print(f"phase 5: fused_stage3d and fused_ct3d agree with their "
+                  f"plain versions on both RK2 stages ({solver}, {prec})")
+            if prec == "single" and solver == "sr_hlle":
+                res = time_split(torch, stage_split, phys, state, mesh.dt)
+    res["fused_stage3d"]["max_abs_err"] = err["fused_stage3d"]
+    res["fused_ct3d"]["max_abs_err"] = err["fused_ct3d"]
+    for name in ("fused_stage3d", "fused_ct3d"):
+        r = res[name]
+        print(f"phase 5: [{card}] {name} {r['ms']:.4f} ms/stage, plain "
+              f"{r['plain_ms']:.4f} ms/stage, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}) (f32, SR HLLE, 124^3)")
+    print(f"phase 5: [{card}] SR c2p (cons_to_prim_sr_mhd, 25 + 25 "
+          f"Illinois trips) {res['c2p_ms']:.4f} ms/call (f32, 128^3 "
+          f"cells with ghosts)")
+    return res
+
+
+def time_split(torch, stage_split, phys, state, dt):
+    """Times of kernels C and D, their plain versions and the SR c2p on
+    the first RK2 stage of the SR blast, with each kernel's bound."""
+    w, bcc, bfc, u = state["w"], state["bcc"], state["bfc"], state["u"]
+    sargs = (w, bcc, bfc, u, u, phys.eos, 0.0, 1.0, dt, phys.dxs,
+             "sr_hlle")
+    acc, fden, emf = stage_split.fused_stage3d(*sargs)
+    cargs = (w, bcc, fden, emf, bfc, bfc, 0.0, 1.0, dt, phys.dxs)
+    nb = stage_split.fused_ct3d(*cargs, is_sr=True)
+    ncell = w[:, 0].numel()
+    # gam0 == 0: u0 is not read; reads w, bcc, faces, u1
+    moved_c = (nbytes(w, bcc, *bfc.values(), u)
+               + nbytes(acc, *fden.values(), *emf.values()))
+    ops_c = (3 * OPS_FACE["sr_hlle"] + OPS_ACC) * ncell
+    # reads the 3 velocity channels of w, bcc, fluxes, EMFs, 2 x faces
+    moved_d = (nbytes(w) * 3 // 5 + nbytes(bcc, *fden.values(),
+                                           *emf.values())
+               + 2 * nbytes(*bfc.values()) + nbytes(*nb.values()))
+    return {
+        "fused_stage3d": {
+            "ms": cuda_ms(lambda: stage_split.fused_stage3d(*sargs), 20),
+            "plain_ms": cuda_ms(
+                lambda: stage_split.fused_stage3d_plain(*sargs), 3),
+            "bound": bound(moved_c, ops_c)},
+        "fused_ct3d": {
+            "ms": cuda_ms(lambda: stage_split.fused_ct3d(*cargs, is_sr=True),
+                          20),
+            "plain_ms": cuda_ms(
+                lambda: stage_split.fused_ct3d_plain(*cargs, is_sr=True), 3),
+            "bound": bound(moved_d, OPS_CT * ncell)},
+        "c2p_ms": cuda_ms(lambda: phys.cons_to_prim(u, bcc), 3)}
+
+
+def phase_sr_main(torch, kernels, card, sr_deck):
+    """The SR main path through the CLI, with its checks and timings."""
+    launches, mesh, phys, driver, state, dmass, _ = run_cli(
+        torch, kernels, sr_deck, NCYC_SR)
+    ncyc = mesh.ncycle
+    for name in ("fused_stage3d", "fused_ct3d"):
+        if launches[name] != 2 * ncyc:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in {ncyc} cycles of the SR path")
+    for name in ("periodic_fill_cc", "periodic_fill_fc"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the SR path")
+    if launches["mega_stage_v2"]:
+        raise AssertionError("mega_stage_v2 launched on the SR path")
+    divb = check_state(torch, phys, state, dmass, "SR path")
+    print(f"phase 6: SR path {ncyc} cycles, launches {launches}, "
+          f"div(B) {divb:.3e}, drift of the interior sum of D {dmass:.3e}, "
+          f"nc2p_fail {driver.ecounters['nc2p_fail']}, counters "
+          f"{driver.ecounters}; [{card}] CLI zone-cycles/s "
+          f"{driver.zcps:.6e} (wall clock, first cycle included)")
+    rates = {}
+    for label in ("true", "false", "true", "false"):
+        rates.setdefault(label, []).append(
+            timed_cycles(torch, label, sr_deck, NCYC_SR))
+    print(f"phase 6: [{card}] SR zone-cycles/s over {NCYC_SR} cycles after "
+          f"a warm-up, kernel path {rates['true']}, plain path "
+          f"{rates['false']} (CUDA events)")
+    return launches, rates
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                 bound_, library_ms):
+    return {"name": name, "route": "cuda",
+            "source": f"athenak_tpu_torch/csrc/{source}",
+            "replaces": f"athenak_tpu/ops/{replaces}",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_[0],
+            "bound_by": bound_[1], "library_ms": library_ms}
 
 
 def main() -> int:
@@ -306,33 +603,50 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    fill_times, fill_errs = phase_fill(torch, fill, card)
-    stage_res = phase_stage(torch, card)
-    launches, rates = phase_main(torch, kernels, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        sr_deck = os.path.join(tmp, "sr_blast.athinput")
+        with open(sr_deck, "w") as f:
+            f.write(SR_DECK)
+        fill_times, fill_errs = phase_fill(torch, fill, card)
+        stage_res = phase_stage(torch, card)
+        launches, rates = phase_main(torch, kernels, card)
+        split_res = phase_split(torch, card, sr_deck)
+        sr_launches, sr_rates = phase_sr_main(torch, kernels, card, sr_deck)
 
+    def runs(name):
+        return {"blast": launches[name], "sr_blast": sr_launches[name]}
+
+    ft, fe = fill_times, fill_errs
     print(json.dumps({"kernels": [
-        {"name": "mega_stage_v2", "route": "cuda",
-         "source": "athenak_tpu_torch/csrc/mega_stage_v2.cu",
-         "replaces": "athenak_tpu/ops/pallas_stage.py:823",
-         "launches": launches["mega_stage_v2"],
-         "max_abs_err": stage_res["max_abs_err"],
-         "ms": stage_res["ms"], "plain_ms": stage_res["plain_ms"]},
-        {"name": "periodic_fill_cc", "route": "cuda",
-         "source": "athenak_tpu_torch/csrc/periodic_fill.cu",
-         "replaces": "athenak_tpu/ops/pallas_fill.py:68",
-         "launches": launches["periodic_fill_cc"],
-         "max_abs_err": fill_errs["periodic_fill_cc"],
-         "ms": fill_times["periodic_fill_cc"][0],
-         "plain_ms": fill_times["periodic_fill_cc"][1]},
-        {"name": "periodic_fill_fc", "route": "cuda",
-         "source": "athenak_tpu_torch/csrc/periodic_fill.cu",
-         "replaces": "athenak_tpu/ops/pallas_fill.py:89",
-         "launches": launches["periodic_fill_fc"],
-         "max_abs_err": fill_errs["periodic_fill_fc"],
-         "ms": fill_times["periodic_fill_fc"][0],
-         "plain_ms": fill_times["periodic_fill_fc"][1]},
+        kernel_entry("mega_stage_v2", "mega_stage_v2.cu",
+                     "pallas_stage.py:823", runs("mega_stage_v2"),
+                     stage_res["max_abs_err"], stage_res["ms"],
+                     stage_res["plain_ms"], stage_res["bound"], None),
+        kernel_entry("periodic_fill_cc", "periodic_fill.cu",
+                     "pallas_fill.py:68", runs("periodic_fill_cc"),
+                     fe["periodic_fill_cc"], *ft["periodic_fill_cc"][:2],
+                     ft["periodic_fill_cc"][3], ft["periodic_fill_cc"][2]),
+        kernel_entry("periodic_fill_fc", "periodic_fill.cu",
+                     "pallas_fill.py:89", runs("periodic_fill_fc"),
+                     fe["periodic_fill_fc"], *ft["periodic_fill_fc"][:2],
+                     ft["periodic_fill_fc"][3], ft["periodic_fill_fc"][2]),
+        kernel_entry("fused_stage3d", "fused_stage.cu",
+                     "pallas_stage.py:191", runs("fused_stage3d"),
+                     split_res["fused_stage3d"]["max_abs_err"],
+                     split_res["fused_stage3d"]["ms"],
+                     split_res["fused_stage3d"]["plain_ms"],
+                     split_res["fused_stage3d"]["bound"], None),
+        kernel_entry("fused_ct3d", "fused_ct.cu", "pallas_stage.py:382",
+                     runs("fused_ct3d"),
+                     split_res["fused_ct3d"]["max_abs_err"],
+                     split_res["fused_ct3d"]["ms"],
+                     split_res["fused_ct3d"]["plain_ms"],
+                     split_res["fused_ct3d"]["bound"], None),
     ], "zone_cycles_per_s": {"kernel": rates["true"],
-                             "plain": rates["false"]}, "card": card}))
+                             "plain": rates["false"],
+                             "sr_kernel": sr_rates["true"],
+                             "sr_plain": sr_rates["false"]},
+        "sr_c2p_ms": split_res["c2p_ms"], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

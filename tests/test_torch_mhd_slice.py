@@ -10,9 +10,11 @@ field after one cycle; eager JAX rounds operation by operation, as torch
 does, and the packages agree to 1e-10.
 """
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -146,18 +148,97 @@ def test_cli_bin_output_parity(jax_run, monkeypatch, tmp_path):
             assert np.abs(a - b).max() <= 1e-10 * scale, v
 
 
+def _port_files():
+    return sorted(Path(ROOT, "athenak_tpu_torch").rglob("*.py")) + [
+        Path(ROOT, "chip_smoke.py")]
+
+
+def _port_modules():
+    names = []
+    for path in _port_files()[:-1]:
+        parts = list(path.relative_to(ROOT).with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        names.append(".".join(parts))
+    return names
+
+
+def _jax_side(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "athenak_tpu")
+
+
 def test_port_never_imports_jax():
-    code = ("import sys; import athenak_tpu_torch, athenak_tpu_torch.main, "
-            "athenak_tpu_torch.driver, athenak_tpu_torch.bvals, "
-            "athenak_tpu_torch.physics.mhd, athenak_tpu_torch.ops.stage, "
-            "athenak_tpu_torch.ops.fill, athenak_tpu_torch.outputs, "
-            "athenak_tpu_torch.pgen.blast, athenak_tpu_torch.state, "
-            "athenak_tpu_torch.kernels; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+    """Every module of the port, and chip_smoke as a module (its main not
+    run), in a fresh interpreter: neither jax nor anything of the JAX
+    package is imported."""
+    mods = _port_modules()
+    assert "athenak_tpu_torch.ops.stage_split" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'athenak_tpu'))\n"
+            "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_port_sources_import_nothing_of_jax():
+    """The same, read from the sources with ast: no import statement of
+    the port or of chip_smoke names jax or the JAX package."""
+    found = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [f"{path.name}:{node.lineno} {n}" for n in names
+                      if _jax_side(n)]
+    assert not found, found
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["coord/special_rel=true", "mhd/rsolver=hlle",
+     "mhd/gamma=1.3333333333333333"],
+    ["meshblock/nx1=8", "meshblock/nx2=4", "meshblock/nx3=8",
+     "mesh/ix1_bc=outflow", "mesh/ox1_bc=outflow", "mesh/ix3_bc=reflect",
+     "mesh/ox3_bc=reflect"]])
+def test_copied_input_and_mesh_match_jax(extra):
+    """The port's copies of ParameterInput and Mesh against the JAX
+    package's on the blast deck, its SR variant and a multi-block mesh
+    with physical boundaries: same parameters, neighbour tables,
+    physical-boundary masks, block extents and cell centres."""
+    from athenak_tpu.mesh import Mesh as JaxMesh
+    from athenak_tpu_torch.athinput import ParameterInput as TorchInput
+    from athenak_tpu_torch.mesh import Mesh as TorchMesh
+
+    pj = _pin(extra)
+    pt = TorchInput.from_file(DECK)
+    pt.modify_from_cmdline(OVERRIDES + list(extra))
+    assert pt.dump() == pj.dump()
+    mj, mt = JaxMesh(pj), TorchMesh(pt)
+    assert mt.nmb_total == mj.nmb_total
+    assert (mt.nmb_total > 1) == bool(extra and "meshblock" in extra[0])
+    np.testing.assert_array_equal(mt.lloc_eachmb, mj.lloc_eachmb)
+    assert set(mt.nbr_gid) == set(mj.nbr_gid)
+    for key in mj.nbr_gid:
+        np.testing.assert_array_equal(mt.nbr_gid[key], mj.nbr_gid[key])
+        np.testing.assert_array_equal(mt.phys_bc_mask[key],
+                                      mj.phys_bc_mask[key])
+    for key in ("x1min", "x1max", "x2min", "x2max", "x3min", "x3max"):
+        np.testing.assert_array_equal(mt.mb_size[key], mj.mb_size[key])
+    for gid in range(mj.nmb_total):
+        for a, b in zip(mt.cell_centers(gid), mj.cell_centers(gid)):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_general_path_2d_outflow_parity():
