@@ -9,8 +9,10 @@ which lets the port write the ghost slabs in place: ``fill_ghosts``
 returns the tensor it was given, with its ghosts filled.
 
 A single fully periodic block takes the fill kernel
-(``ops/fill.py``) when the tensor lies on the card in float32, the
-port's counterpart of the JAX package's TPU gate.
+(``ops/fill.py``, kernel B) and a same-level periodic pool of blocks the
+pool-fill kernel (``ops/pool_fill.py``, kernel G) when the tensor lies
+on the card in float32, the port's counterpart of the JAX package's TPU
+gate.
 """
 
 from __future__ import annotations
@@ -71,6 +73,27 @@ class BoundaryValues:
             and self.ng == 2
             and not any(self.any_phys.values())
             and all(f == "periodic" for f in self.flag.values()))
+        # same-level periodic pool of blocks: one pool-fill launch
+        from .ops.pool_fill import supports_pool_fill
+        self.use_pool_fill = supports_pool_fill(mesh)
+        self._nbr27 = None
+        self._nbr27_dev = None
+
+    def nbr27(self, device=None):
+        """The [nmb, 27] donor table of the pool fill: host numpy, or with
+        ``device`` an int32 tensor there, copied once and kept."""
+        if self._nbr27 is None:
+            from .ops.pool_fill import neighbor27
+            self._nbr27 = neighbor27(self.mesh)
+        if device is None:
+            return self._nbr27
+        if self._nbr27_dev is None or self._nbr27_dev.device != device:
+            self._nbr27_dev = torch.as_tensor(self._nbr27, device=device)
+        return self._nbr27_dev
+
+    def pool_fill_active(self, t) -> bool:
+        """True when the pool-fill kernel fills ``t``'s ghosts."""
+        return self.use_pool_fill and kernel_dtype_ok(t)
 
     def local_mask(self, key: str, ndim: int, device):
         """Per-block physical-BC mask of one face, broadcastable."""
@@ -87,6 +110,9 @@ class BoundaryValues:
         if self.use_fill_kernel and kernel_dtype_ok(u):
             from .ops.fill import periodic_fill_cc
             return periodic_fill_cc(u)
+        if self.pool_fill_active(u):
+            from .ops.pool_fill import pool_fill_cc
+            return pool_fill_cc(u, self.nbr27(u.device), self.mesh)
         for ax in self.active_axes:
             self._sweep_axis(u, ax)
         return u

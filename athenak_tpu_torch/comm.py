@@ -1,8 +1,10 @@
-"""Donor-slab movement along the block axis, single device.
+"""Donor-slab movement and reductions along the block axis, single
+device.
 
-Counterpart of ``athenak_tpu/comm.py:27-63`` outside any sharded region:
-a gather along the block axis and the identity on per-block tables.  The
-multi-device exchange (``torch.distributed``) is not ported yet.
+Counterpart of ``athenak_tpu/comm.py:27-76`` outside any sharded region:
+a gather along the block axis, the identity on per-block tables and on
+all-block sums.  The multi-device exchange (``torch.distributed``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -24,3 +26,10 @@ def gather_blocks(slab, idx):
 def local_blocks(tab, pad_edge: bool = False):
     """Per-block host table -> the rows owned locally: all of them."""
     return tab
+
+
+def global_sum(x):
+    """All-block reduction of a partial sum: on one device the identity,
+    since a torch reduction already sees every block (the JAX package
+    psums it inside its shard cycle)."""
+    return x

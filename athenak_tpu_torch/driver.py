@@ -6,7 +6,11 @@ the cycle runs the explicit stages of one integrator step, and the host
 loop advances time, chooses dt (2x growth limit, CFL, exact stop at tlim;
 reference: src/mesh/mesh.cpp:573-640, kept in float64 on the host) and
 triggers outputs.  The JAX package's batched cycle windows, block
-coalescing and pencil packing are not ported.
+coalescing and pencil packing are not ported: coalescing repacks a pool
+into one superblock for the TPU's lane layout, so a multi-block deck
+runs here as a pool of blocks whatever ``mesh/coalesce`` says, with the
+same answer.  A driven run applies its turbulence forcing once a cycle,
+before the stages.
 """
 
 from __future__ import annotations
@@ -149,6 +153,10 @@ class Driver:
 
         def cycle(state, dt):
             dtype = state["u"].dtype
+            # before-time-integrator tasks: the turbulence forcing
+            # (reference: driver.cpp:401 "before_timeintegrator")
+            if getattr(phys, "pturb", None) is not None:
+                state = phys.pturb.apply(state, dt, phys)
             saved = phys.save_state(state)
             counters_tot = None
             dt_fused = None

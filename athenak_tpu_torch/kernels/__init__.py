@@ -47,6 +47,9 @@ _SIGNATURES = {
     "athenak_mega_stage_v2": [_P] * 18 + [_I] * 5 + [_D] * 12 + [_P],
     "athenak_fused_stage": [_P] * 11 + [_I] * 5 + [_D] * 9 + [_P],
     "athenak_fused_ct": [_P] * 21 + [_I] * 5 + [_D] * 6 + [_P],
+    "athenak_mega_stage_v1": [_P] * 17 + [_I] * 6 + [_D] * 12 + [_P],
+    "athenak_fused_aux": [_P] * 8 + [_I] * 6 + [_D] * 6 + [_P],
+    "athenak_pool_fill": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P],
 }
 
 
@@ -71,8 +74,11 @@ PERIODIC_FILL_CC = Kernel("periodic_fill_cc", "athenak_periodic_fill")
 PERIODIC_FILL_FC = Kernel("periodic_fill_fc", "athenak_periodic_fill")
 FUSED_STAGE3D = Kernel("fused_stage3d", "athenak_fused_stage")
 FUSED_CT3D = Kernel("fused_ct3d", "athenak_fused_ct")
+MEGA_STAGE_V1 = Kernel("mega_stage_v1", "athenak_mega_stage_v1")
+FUSED_AUX3D = Kernel("fused_aux3d", "athenak_fused_aux")
+POOL_FILL = Kernel("pool_fill", "athenak_pool_fill")
 ALL = (MEGA_STAGE_V2, PERIODIC_FILL_CC, PERIODIC_FILL_FC, FUSED_STAGE3D,
-       FUSED_CT3D)
+       FUSED_CT3D, MEGA_STAGE_V1, FUSED_AUX3D, POOL_FILL)
 
 _LIB = None
 BUILD_INFO = {}

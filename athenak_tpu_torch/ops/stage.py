@@ -41,16 +41,24 @@ from ..ops.eos import EOSData, cons_to_prim_mhd
 NG = 2
 
 
-def supports_mega_v2(phys, mesh) -> bool:
-    """Gate for the stage kernel: Newtonian ideal PLM+HLLD, 3-D, one
-    level, two ghost cells (the JAX gates ``supports_mega_stage`` and
-    ``supports_mega_v2``; the physics the port has not ported raises in
-    the MHD constructor)."""
+def supports_mega_stage(phys, mesh) -> bool:
+    """Gate of the Newtonian stage kernels (A here, E in
+    ``ops/stage_v1.py``): ideal PLM+HLLD, 3-D, one level, two ghost cells
+    (the JAX ``supports_mega_stage``; the physics the port has not ported
+    raises in the MHD constructor)."""
     return (len(phys.dirs) == 3 and not phys.is_sr
             and phys.recon_method == "plm" and phys.rsolver == "hlld"
             and phys.nscalars == 0 and phys.eos.is_ideal
             and not getattr(mesh, "multilevel", False)
             and mesh.mb_indcs.ng == NG)
+
+
+def supports_mega_v2(phys, mesh) -> bool:
+    """Gate of kernel A: the stage-kernel gate and no turbulence driving,
+    whose forcing reads the state's primitives between cycles (the JAX
+    ``supports_mega_v2``)."""
+    return (getattr(phys, "pturb", None) is None
+            and supports_mega_stage(phys, mesh))
 
 
 def dirs3(dxs):

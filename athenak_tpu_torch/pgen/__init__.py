@@ -5,7 +5,8 @@ src/pgen/pgen.hpp:27-93).  Each generator is a module with
 
     init(pin, mesh, phys) -> state      # tensors on phys.device
 
-selected by <problem>/pgen_name.  Only the blast wave is ported so far.
+selected by <problem>/pgen_name.  The blast wave and driven turbulence
+(MHD) are ported so far.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 _REGISTRY = {
     "blast": "athenak_tpu_torch.pgen.blast",
+    "turb": "athenak_tpu_torch.pgen.turb",
 }
 
 

@@ -11,11 +11,18 @@ mhd_corner_e.cpp, mhd_ct.cpp).  Layouts are the JAX package's:
   * edge EMFs are cell-indexed: entry (k, j, i) is the edge at the lower
     corner of cell (k, j, i).
 
-A stage runs one of three paths.  On the card in float32:
+A stage runs one of four paths.  On the card in float32:
 
   * a Newtonian 3-D PLM+HLLD deck takes the stage kernel
     (``ops/stage.py``, kernel A) and then the ghost fills (kernel B for
-    a single periodic block);
+    a single periodic block, kernel G for a same-level periodic pool of
+    blocks);
+  * such a deck with turbulence driving, whose forcing reads the
+    state's primitives, takes the v1 route instead: kernel E
+    (``ops/stage_v1.py``, the stage from w and bcc), the face fill, then
+    kernel F (``ops/aux.py``: bcc, c2p, floor counts and the new-dt
+    maxima; with the periodic wrap on a single block, after the pool
+    fill of u on a pool);
   * an SR 3-D PLM deck (HLLE or LLF) takes the split stage: kernel C
     (``ops/stage_split.py::fused_stage3d``: PLM, face floors, Riemann
     solve, RK update) and kernel D (``fused_ct3d``: GS07 corner EMFs +
@@ -29,6 +36,8 @@ A stage runs one of three paths.  On the card in float32:
 Everywhere else (the CPU, float64) the general path runs throughout.
 The deck option ``<mhd>/use_kernels = false`` keeps a run on the general
 path and the sweep fills, for comparison.  GR MHD is not ported yet.
+A driven run (``<turb_driving>``) carries ``turb_force`` in its state;
+the driver applies the forcing once a cycle before the stages.
 """
 
 from __future__ import annotations
@@ -273,7 +282,6 @@ class MHD:
         if pin.get_or_add_boolean("mhd", "fofc", False):
             raise _not_ported("first-order flux correction")
         for block, what in (("mhd_srcterms", "MHD source terms"),
-                            ("turb_driving", "turbulence driving"),
                             ("shearing_box", "the shearing box"),
                             ("particles", "particles"),
                             ("gravity", "self-gravity")):
@@ -296,18 +304,27 @@ class MHD:
             self.dirs.append(("x3", 2, IVZ, ms.dx3))
         self.time_evolution = pin.get_string("time", "evolution") \
             if pin.does_block_exist("time") else "dynamic"
+        # turbulence driving (reference: src/srcterms/turb_driver.cpp),
+        # applied by the driver once a cycle before the stages
+        from ..turb_driver import TurbulenceDriver
+        self.pturb = TurbulenceDriver(pin, mesh, self.device) \
+            if pin.does_block_exist("turb_driving") else None
 
         use_kernels = pin.get_or_add_boolean("mhd", "use_kernels", True)
-        from ..ops.stage import supports_mega_v2
+        from ..ops.stage import supports_mega_stage, supports_mega_v2
         from ..ops.stage_split import (solver_for, supports_fused_ct,
                                        supports_fused_stage)
         self.use_mega_v2 = use_kernels and supports_mega_v2(self, mesh)
+        self.use_mega_stage = (use_kernels and not self.use_mega_v2
+                               and supports_mega_stage(self, mesh))
         self.use_fused_stage = (use_kernels and not self.use_mega_v2
+                                and not self.use_mega_stage
                                 and supports_fused_stage(self, mesh))
         self.use_fused_ct = use_kernels and supports_fused_ct(self, mesh)
         self.stage_solver = solver_for(self)
         if not use_kernels:
             bvals.use_fill_kernel = False
+            bvals.use_pool_fill = False
 
     def kernel_path(self, u) -> bool:
         """True when a stage on ``u`` runs the stage kernel A."""
@@ -355,6 +372,10 @@ class MHD:
         if bv.use_fill_kernel and kernel_dtype_ok(bfc["x1f"]):
             from ..ops.fill import periodic_fill_fc
             return periodic_fill_fc(bfc)
+        if bv.pool_fill_active(bfc["x1f"]):
+            from ..ops.pool_fill import pool_fill_fc
+            return pool_fill_fc(bfc, bv.nbr27(bfc["x1f"].device),
+                                self.mesh)
         mbi = self.mesh.mb_indcs
         ng = mbi.ng
         nx_of = {"x1": mbi.nx1, "x2": mbi.nx2, "x3": mbi.nx3}
@@ -432,8 +453,11 @@ class MHD:
 
     # ------------------------------------------------ state-dict interface
     def make_state(self, u, w, bfc, bcc=None):
-        return {"u": u, "w": w, "bfc": bfc,
-                "bcc": bcc if bcc is not None else compute_bcc(bfc)}
+        state = {"u": u, "w": w, "bfc": bfc,
+                 "bcc": bcc if bcc is not None else compute_bcc(bfc)}
+        if self.pturb is not None:
+            state.update(self.pturb.init_state_entries(u.dtype))
+        return state
 
     def save_state(self, state):
         return {"u1": state["u"], "bfc1": state["bfc"]}
@@ -473,6 +497,8 @@ class MHD:
             return dict(state, u=u, bfc=bfc), counters
         u, w, bfc, bcc = state["u"], state["w"], state["bfc"], state["bcc"]
         on_card = kernel_dtype_ok(u)
+        if self.use_mega_stage and on_card:
+            return self._stage_v1(state, saved, gam0, gam1, beta_dt)
         if self.use_fused_stage and on_card:
             # kernel C: the 5-channel fluxes never leave the kernel's
             # scratch; only the mass flux and the face EMFs come back
@@ -501,6 +527,32 @@ class MHD:
         bfc = self.fill_ghosts_fc(bfc)
         bcc = compute_bcc(bfc)
         w, u, counters = self.cons_to_prim(u, bcc)
+        return dict(state, u=u, w=w, bfc=bfc, bcc=bcc), counters
+
+    def _stage_v1(self, state, saved, gam0, gam1, beta_dt):
+        """The v1 stage route (JAX ``mhd.py:1586-1625``): kernel E from
+        the state's primitives, the face fill, then kernel F.  A single
+        periodic block takes F with its periodic wrap; a pool takes the
+        pool fill of u and F without it; any other mesh the general fill,
+        bcc and c2p.  F's new-dt maxima ride along in dynamic runs."""
+        from ..ops.aux import fused_aux3d
+        from ..ops.stage_v1 import fused_mega_stage3d
+        bv = self.bvals
+        u, bfc = fused_mega_stage3d(
+            state["w"], state["bcc"], state["bfc"], state["u"], saved["u1"],
+            saved["bfc1"], self.eos, gam0, gam1, beta_dt, self.dxs)
+        bfc = self.fill_ghosts_fc(bfc)
+        dxs = self.dxs if self.time_evolution == "dynamic" else None
+        if bv.use_fill_kernel:
+            u, w, bcc, counters = fused_aux3d(u, bfc, self.eos, dxs=dxs)
+        elif bv.pool_fill_active(u):
+            u = bv.fill_ghosts(u)
+            u, w, bcc, counters = fused_aux3d(u, bfc, self.eos, dxs=dxs,
+                                              wrap=False)
+        else:
+            u = bv.fill_ghosts(u)
+            bcc = compute_bcc(bfc)
+            w, u, counters = self.cons_to_prim(u, bcc)
         return dict(state, u=u, w=w, bfc=bfc, bcc=bcc), counters
 
     def dt_from_state(self, state):

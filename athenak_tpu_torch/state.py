@@ -1,9 +1,11 @@
 """The simulation state carried across packages.
 
 The JAX package's state is a dict of arrays: ``u`` and ``bfc`` (a dict of
-the face arrays x1f, x2f, x3f) and, when present, ``w`` and ``bcc``.  These
-two functions move such a dict (as numpy arrays) into the port and back,
-so both packages can start from one state.
+the face arrays x1f, x2f, x3f) and, when present, ``w``, ``bcc`` and the
+turbulence driver's ``turb_force``.  These two functions move such a dict
+(as numpy arrays) into the port and back, so both packages can start from
+one state.  The JAX driver's random key ``turb_key`` is not carried: the
+port draws from a ``torch.Generator`` (``turb_driver.py``).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_KEYS = ("u", "w", "bcc")
+_KEYS = ("u", "w", "bcc", "turb_force")
 
 
 def state_from_numpy(d, device, dtype):

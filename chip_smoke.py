@@ -11,7 +11,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      blast deck's shapes (128^3 with ghosts), float32 and float64,
      cell and face arrays: bitwise equal;
   3. holds the stage kernel against its plain version on both RK2 stages
-     of the 124^3 blast after initialisation: float32 within the two-tier
+     of the 124^3 blast after initialisation, and of the same blast as
+     8 x 62^3 blocks (``POOL_DECK``): float32 within the two-tier
      bound (> 95% of interior cells within 3e-5 of the field scale, all
      within 5e-3), dtmin within rtol 1e-4, floor counts equal; float64
      within 1e-10 of the field scale;
@@ -38,6 +39,32 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      sum of D.  Then it times 10 cycles of the kernel path and of the
      plain path with CUDA events after a warm-up cycle.
 
+  7. holds the v1-route kernels against their plain versions on random
+     states at the driven-turbulence decks' shapes: ``fused_mega_stage3d``
+     (kernel E) on one 128^3 block and on 8 blocks of 64^3 for both RK2
+     stages, ``fused_aux3d`` (kernel F) with its periodic wrap on one
+     128^3 block and without it on 8 blocks of 64^3, with floors that
+     fire: every value within 1e-6 (float32) or 1e-10 (float64) of the
+     field scale, F's floor counts equal and its dtmin within rtol 1e-4.
+     It times both kernels and their plain versions;
+  8. holds the pool fill (kernel G) against its plain version, bitwise,
+     float32 and float64, cell and face arrays, on the 8-block pools of
+     ``turb8`` (8 x 64^3) and ``pool`` (8 x 62^3), and times it beside
+     one ``torch.take`` of every ghost cell's donor;
+  9. drives three more decks through the CLI for 10 cycles each, with the
+     launch counts set to 0 just before, each count checked exactly:
+     ``turb1`` (``TURB_DECK``: driven MHD turbulence at 128^3 on one
+     block; E and F twice a cycle, the face fill after every E),
+     ``turb8`` (the same deck as 8 x 64^3 blocks; E and F twice a cycle,
+     G for the faces and for u in every stage) and ``pool``
+     (``POOL_DECK``, ``bench.py``'s blast at 124^3 as 8 x 62^3 blocks;
+     kernel A twice a cycle, G twice in every stage).  The
+     state must be finite, keep div(B) at roundoff and conserve mass; on
+     the driven decks the force is finite and one more forcing leaves a
+     net momentum below 1e-6 of the total |M|.  Then it times 10 cycles of
+     the kernel path and of the plain path of each deck with CUDA events,
+     in turns.
+
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
 the kernels' numbers and one JSON line ``{"ok": true, "device": {...}}``.
@@ -50,6 +77,7 @@ float32 peak of 67 TFLOP/s (H100 SXM data sheet).
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -68,6 +96,104 @@ OPS_FACE = {"hlld": 325, "sr_hlle": 375, "sr_llf": 355}
 OPS_ACC = 65          # per cell: RK update of 5 channels
 OPS_CT = 100          # per cell: 3 GS07 corners + 3 face updates
 OPS_MEGA = 1250       # per cell: 2 c2p, 3 HLLD faces, RK, GS07, CT, dt
+OPS_AUX = 100         # per cell: bcc, c2p with floors, 3 fast speeds
+NCYC_TURB = 10
+RK2 = ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))   # (gam0, gam1, beta) per stage
+# inputs/hydro/turb.athinput's mesh, time and driving blocks at 128^3, with
+# <hydro> replaced by <mhd> (PLM, HLLD) and a uniform x1 field b0
+TURB_DECK = """
+<job>
+basename = turb
+precision = single
+
+<mesh>
+nghost = 2
+nx1 = 128
+x1min = -0.5
+x1max = 0.5
+ix1_bc = periodic
+ox1_bc = periodic
+nx2 = 128
+x2min = -0.5
+x2max = 0.5
+ix2_bc = periodic
+ox2_bc = periodic
+nx3 = 128
+x3min = -0.5
+x3max = 0.5
+ix3_bc = periodic
+ox3_bc = periodic
+
+<time>
+evolution = dynamic
+integrator = rk2
+cfl_number = 0.3
+tlim = 1.0
+
+<mhd>
+eos = ideal
+gamma = 1.6666666666666667
+reconstruct = plm
+rsolver = hlld
+
+<turb_driving>
+nlow = 1
+nhigh = 2
+dedt = 0.5
+tcorr = 0.5
+seed = 1
+
+<problem>
+pgen_name = turb
+d0 = 1.0
+p0 = 1.0
+b0 = 0.1
+"""
+TURB8 = ["meshblock/nx1=64", "meshblock/nx2=64", "meshblock/nx3=64",
+         "mesh/coalesce=false"]
+# bench.py's DECK as run_config(124, 62, coalesce=False) makes it
+POOL_DECK = """
+<job>
+basename = bench_blast
+precision = single
+
+<mesh>
+nghost = 2
+nx1 = 124
+x1min = -1.0
+x1max = 1.0
+nx2 = 124
+x2min = -1.0
+x2max = 1.0
+nx3 = 124
+x3min = -1.0
+x3max = 1.0
+coalesce = false
+
+<meshblock>
+nx1 = 62
+nx2 = 62
+nx3 = 62
+
+<time>
+evolution = dynamic
+integrator = rk2
+cfl_number = 0.3
+tlim = 10.0
+
+<mhd>
+eos = ideal
+gamma = 1.6666666666666667
+reconstruct = plm
+rsolver = hlld
+
+<problem>
+pgen_name = blast
+inner_radius = 0.1
+outer_radius = 0.25
+prat = 100.0
+b_amb = 0.1
+"""
 SR_DECK = """
 <job>
 basename = bench_srblast
@@ -244,21 +370,36 @@ def phase_fill(torch, fill, card):
     return times, errs
 
 
-def phase_stage(torch, card):
-    """Kernel A against its plain version on both RK2 stages."""
-    from athenak_tpu_torch.main import build
-    from athenak_tpu_torch.ops import fill, stage
+def fill_plain(phys, u, bfc):
+    """(u, bfc) with their ghosts filled by the plain fills: the periodic
+    fill on one block, the ordered pool sweeps on a pool."""
+    from athenak_tpu_torch.ops import fill, pool_fill
+    if phys.mesh.nmb_total == 1:
+        return (fill.fill_plain(u, fill.shifts(u.shape)),
+                {c: fill.fill_plain(v, fill.shifts(v.shape, c))
+                 for c, v in bfc.items()})
+    pool_fill.pool_fill_plain([u, *bfc.values()], ["cc", *bfc],
+                              phys.bvals.nbr27(), phys.mesh)
+    return u, bfc
 
-    result = {}
-    for prec in ("single", "double"):
+
+def phase_stage(torch, card, pool_deck):
+    """Kernel A against its plain version on both RK2 stages of the 124^3
+    blast and of the pool deck (the same blast as 8 x 62^3 blocks)."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import stage
+
+    result, maxerr = {}, 0.0
+    for (label0, deck), prec in ((d, p) for d in (("124^3", DECK),
+                                                  ("8 x 62^3", pool_deck))
+                                 for p in ("single", "double")):
         mesh, phys, _, driver, state = build(
-            pin_for([f"job/precision={prec}"]), device="cuda")
+            pin_for([f"job/precision={prec}"], deck), device="cuda")
         state = phys.unpack_state(driver.initialize(state))
         dt = mesh.dt
         u0, b0 = state["u"], state["bfc"]
         eos, dxs = phys.eos, phys.dxs
         inp_u, inp_b = u0, b0
-        maxerr = 0.0
         for s, (g0, g1, beta) in enumerate(((0.0, 1.0, 1.0),
                                             (0.5, 0.5, 0.5))):
             bdt = float(torch.tensor(beta, dtype=u0.dtype)
@@ -270,13 +411,14 @@ def phase_stage(torch, card):
             bscale = max(float(interior(bp[c]).abs().max())
                          for c in bp)
             uscale = interior(up).abs().amax(dim=(-3, -2, -1), keepdim=True)
-            label = f"stage {s + 1} {prec}"
+            label = f"stage {s + 1} {label0} {prec}"
             if prec == "single":
                 maxerr = max(maxerr, two_tier(interior(uk), interior(up),
                                               uscale, f"{label} u"))
                 for c in bp:
-                    two_tier(interior(bk[c]), interior(bp[c]), bscale,
-                             f"{label} {c}")
+                    maxerr = max(maxerr, two_tier(
+                        interior(bk[c]), interior(bp[c]), bscale,
+                        f"{label} {c}"))
                 for key in ("neos_dfloor", "neos_efloor", "neos_tfloor"):
                     if int(ck[key]) != int(cp[key]):
                         raise AssertionError(f"{label} {key}: "
@@ -296,30 +438,36 @@ def phase_stage(torch, card):
             if abs(dk - dp) > rtol * abs(dp):
                 raise AssertionError(f"{label} dtmin {dk!r} vs {dp!r}")
             # next stage from the plain result, ghosts filled
-            inp_u = fill.fill_plain(up, fill.shifts(up.shape))
-            inp_b = {c: fill.fill_plain(v, fill.shifts(v.shape, c))
-                     for c, v in bp.items()}
+            inp_u, inp_b = fill_plain(phys, up, bp)
         if prec == "single":
             args = (u0, b0, u0, b0, eos, 0.0, 1.0, dt, dxs)
             ms = cuda_ms(lambda: stage.mega_stage_v2(*args), 10)
-            plain_ms = cuda_ms(lambda: stage.mega_stage_v2_plain(*args), 3)
-            # reads u, bfc, u1, bfc_old; writes u', bfc'
-            moved = 2 * nbytes(u0, *b0.values()) + nbytes(u0, *b0.values())
-            result = {"max_abs_err": maxerr, "ms": ms, "plain_ms": plain_ms,
-                      "bound": bound(moved,
-                                     OPS_MEGA * interior(u0[:, 0]).numel())}
+            if deck == DECK:
+                plain_ms = cuda_ms(
+                    lambda: stage.mega_stage_v2_plain(*args), 3)
+                # reads u, bfc, u1, bfc_old; writes u', bfc'
+                moved = 3 * nbytes(u0, *b0.values())
+                result = {"ms": ms, "plain_ms": plain_ms,
+                          "bound": bound(moved, OPS_MEGA
+                                         * interior(u0[:, 0]).numel())}
+            else:
+                result["pool_ms"] = ms
         print(f"phase 3: mega_stage_v2 agrees with its plain version on "
-              f"both RK2 stages ({prec})")
+              f"both RK2 stages ({label0}, {prec})")
+    result["max_abs_err"] = maxerr
     print(f"phase 3: [{card}] mega_stage_v2 {result['ms']:.3f} ms/stage, "
-          f"plain {result['plain_ms']:.3f} ms/stage (f32, 124^3)")
+          f"plain {result['plain_ms']:.3f} ms/stage (f32, 124^3); "
+          f"{result['pool_ms']:.3f} ms/stage on 8 x 62^3")
     return result
 
 
-def timed_cycles(torch, use_kernels: str, deck=DECK, ncyc=NCYC) -> float:
+def timed_cycles(torch, use_kernels: str, deck=DECK, ncyc=NCYC,
+                 extra=()) -> float:
     """zone-cycles/s over ncyc cycles after one warm-up cycle."""
     from athenak_tpu_torch.main import build
     mesh, phys, _, driver, state = build(
-        pin_for([f"mhd/use_kernels={use_kernels}"], deck), device="cuda")
+        pin_for([f"mhd/use_kernels={use_kernels}", *extra], deck),
+        device="cuda")
     state = driver.initialize(state)
     cycle = driver.make_cycle_fn()
     dt = mesh.dt
@@ -336,10 +484,10 @@ def timed_cycles(torch, use_kernels: str, deck=DECK, ncyc=NCYC) -> float:
     torch.cuda.synchronize()
     sec = t0.elapsed_time(t1) / 1e3
     mbi = mesh.mb_indcs
-    return ncyc * mbi.nx1 * mbi.nx2 * mbi.nx3 / sec
+    return ncyc * mesh.nmb_total * mbi.nx1 * mbi.nx2 * mbi.nx3 / sec
 
 
-def run_cli(torch, kernels, deck, ncyc):
+def run_cli(torch, kernels, deck, ncyc, extra=()):
     """Drive ``main.cli`` on ``deck`` for ncyc cycles with the launch
     counts set to 0 just before; returns the counts read just after, the
     run, the relative change of the interior sum of u[IDN] and the names
@@ -347,15 +495,16 @@ def run_cli(torch, kernels, deck, ncyc):
     from athenak_tpu_torch import main as cli_main
     from athenak_tpu_torch.main import build
 
-    _, _, _, _, state0 = build(pin_for([], deck), device="cuda")
+    _, _, _, _, state0 = build(pin_for(list(extra), deck), device="cuda")
     mass0 = float(interior(state0["u"][:, 0]).double().sum())
+    del state0
     os.environ["ATHENAK_DEVICE"] = "cuda"
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         kernels.reset_counts()
         try:
             mesh, phys, driver, state = cli_main.cli(
-                ["-i", deck, "-d", tmp, f"time/nlim={ncyc}"])
+                ["-i", deck, "-d", tmp, f"time/nlim={ncyc}", *extra])
         finally:
             os.chdir(cwd)
         launches = {k.name: k.launches for k in kernels.ALL}
@@ -416,8 +565,6 @@ def phase_main(torch, kernels, card):
           f"{rates['false']} (CUDA events)")
     return launches, rates
 
-
-RK2 = ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))   # (gam0, gam1, beta) per stage
 
 
 def phase_split(torch, card, sr_deck):
@@ -571,6 +718,341 @@ def phase_sr_main(torch, kernels, card, sr_deck):
     return launches, rates
 
 
+def random_mhd(torch, gen, nmb, n, dtype, bimodal=False):
+    """Random primitives, face field and bcc of nmb blocks of n^3 cells
+    (ghosts included) on the card.  ``bimodal`` draws density and
+    pressure from [0.2, 0.4] or [0.6, 1.5], so floors at 0.5 fire on a
+    share of the cells and no value lies within rounding of them."""
+    from athenak_tpu_torch.physics.mhd import compute_bcc
+
+    def r(lo, hi, *shape):
+        x = torch.rand(shape, generator=gen, dtype=torch.float64)
+        return lo + (hi - lo) * x
+
+    def pos(*shape):
+        if not bimodal:
+            return r(0.5, 1.5, *shape)
+        low = torch.rand(shape, generator=gen, dtype=torch.float64) < 0.3
+        return torch.where(low, r(0.2, 0.4, *shape), r(0.6, 1.5, *shape))
+
+    cell = (nmb, n, n, n)
+    w = torch.stack([pos(*cell), r(-0.5, 0.5, *cell), r(-0.5, 0.5, *cell),
+                     r(-0.5, 0.5, *cell), pos(*cell)], dim=1)
+    bfc = {"x1f": r(-0.5, 0.5, nmb, n, n, n + 1),
+           "x2f": r(-0.5, 0.5, nmb, n, n + 1, n),
+           "x3f": r(-0.5, 0.5, nmb, n + 1, n, n)}
+    w = w.to("cuda", dtype)
+    bfc = {k: v.to("cuda", dtype) for k, v in bfc.items()}
+    return w, bfc, compute_bcc(bfc)
+
+
+def check_pair(torch, got, ref, scale, label, f32):
+    """Every value within 1e-6 (float32) or 1e-10 (float64) of the scale:
+    kernels E and F repeat their plain versions' operations in order.
+    Returns the max absolute error."""
+    tol = 1e-6 if f32 else 1e-10
+    err = (got.double() - ref.double()).abs()
+    rel = float((err / scale).max())
+    if rel > tol:
+        raise AssertionError(f"{label}: {rel:g} of the scale > {tol:g}")
+    return float(err.max())
+
+
+def phase_mega_v1(torch, card):
+    """Kernel E against its plain version on both RK2 stages of random
+    states at the driven decks' shapes: one 128^3 block (turb1) and 8
+    blocks of 64^3 (turb8), ghosts included."""
+    from athenak_tpu_torch.ops import stage_v1
+    from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
+
+    eos = EOSData()
+    err, res, pool_ms = 0.0, {}, None
+    for dtype, (nmb, n) in ((d, s) for d in (torch.float32, torch.float64)
+                            for s in ((1, 132), (8, 68))):
+        nx = n - 4
+        dxs = {"x1": 1 / nx, "x2": 1 / nx, "x3": 1 / nx}
+        gen = torch.Generator().manual_seed(11)
+        w, bfc, bcc = random_mhd(torch, gen, nmb, n, dtype)
+        w1, bfc1, bcc1 = random_mhd(torch, gen, nmb, n, dtype)
+        u0 = prim_to_cons_mhd(w, bcc, eos)
+        u1 = prim_to_cons_mhd(w1, bcc1, eos)
+        f32 = dtype == torch.float32
+        for s, (g0, g1, beta) in enumerate(RK2):
+            args = (w, bcc, bfc, u0, u1, bfc1, eos, g0, g1,
+                    beta * 0.1 / nx, dxs)
+            uk, bk = stage_v1.fused_mega_stage3d(*args)
+            up, bp = stage_v1.fused_mega_stage3d_plain(*args)
+            torch.cuda.synchronize()
+            label = f"mega_stage_v1 stage {s + 1} {nmb} x {nx}^3 {dtype}"
+            uscale = interior(up).abs().amax(dim=(-3, -2, -1), keepdim=True)
+            bscale = max(float(interior(v).abs().max()) for v in bp.values())
+            e = check_pair(torch, interior(uk), interior(up), uscale,
+                           f"{label} u", f32)
+            for c in bp:
+                e = max(e, check_pair(torch, interior(bk[c]),
+                                      interior(bp[c]), bscale,
+                                      f"{label} {c}", f32))
+            if f32:
+                err = max(err, e)
+            if f32 and nmb > 1 and g1 != 0.0:
+                pool_ms = cuda_ms(lambda: stage_v1.fused_mega_stage3d(*args),
+                                  10)
+            elif f32:
+                # reads w, bcc, bfc, u0 (+ u1, bfc_old); writes u', bfc'
+                moved = nbytes(w, bcc, *bfc.values(), u0, uk, *bk.values())
+                if g1 != 0.0:
+                    moved += nbytes(u1, *bfc1.values())
+                ops = (3 * OPS_FACE["hlld"] + OPS_ACC + OPS_CT) \
+                    * interior(u0[:, 0]).numel()
+                res[s] = {
+                    "ms": cuda_ms(lambda: stage_v1.fused_mega_stage3d(*args),
+                                  10),
+                    "plain_ms": cuda_ms(
+                        lambda: stage_v1.fused_mega_stage3d_plain(*args), 3),
+                    "bound": bound(moved, ops)}
+        print(f"phase 7: fused_mega_stage3d agrees with its plain version on "
+              f"both RK2 stages ({dtype}, {nmb} x {nx}^3 random)")
+    for s in res:
+        print(f"phase 7: [{card}] fused_mega_stage3d stage {s + 1} "
+              f"{res[s]['ms']:.4f} ms, plain {res[s]['plain_ms']:.4f} ms, "
+              f"bound {res[s]['bound'][0]:.4f} ms ({res[s]['bound'][1]}) "
+              f"(f32, 128^3)")
+    print(f"phase 7: [{card}] fused_mega_stage3d stage 2 {pool_ms:.4f} ms "
+          f"(f32, 8 x 64^3)")
+    # the entry reports the second stage, which reads the RK register
+    return dict(res[1], max_abs_err=err, stage1_ms=res[0]["ms"],
+                pool_ms=pool_ms)
+
+
+def phase_aux(torch, card):
+    """Kernel F against its plain version: with its wrap on one random
+    128^3 block, without it on 8 random blocks of 64^3; floors at 0.5 fire
+    on a share of the cells."""
+    from athenak_tpu_torch.ops import aux
+    from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
+
+    eos = EOSData(dfloor=0.5, pfloor=0.5)
+    err, res = 0.0, {}
+    for dtype in (torch.float32, torch.float64):
+        f32 = dtype == torch.float32
+        for wrap, nmb, n in ((True, 1, 132), (False, 8, 68)):
+            gen = torch.Generator().manual_seed(12)
+            w, bfc, bcc = random_mhd(torch, gen, nmb, n, dtype, bimodal=True)
+            u = prim_to_cons_mhd(w, bcc, EOSData())
+            dxs = {"x1": 1 / (n - 4), "x2": 1 / (n - 4), "x3": 1 / (n - 4)}
+            args = (u, bfc, eos, dxs, wrap)
+            ku = aux.fused_aux3d(*args)
+            pu = aux.fused_aux3d_plain(*args)
+            torch.cuda.synchronize()
+            label = f"fused_aux3d wrap={wrap} {dtype}"
+            for name, a, b in zip(("u", "w", "bcc"), ku[:3], pu[:3]):
+                scale = b.abs().amax(dim=(-3, -2, -1), keepdim=True)
+                e = check_pair(torch, a, b, scale, f"{label} {name}", f32)
+                if f32:
+                    err = max(err, e)
+            kc, pc = ku[3], pu[3]
+            for key in ("neos_dfloor", "neos_efloor", "neos_tfloor"):
+                if int(kc[key]) != int(pc[key]):
+                    raise AssertionError(f"{label} {key}: {int(kc[key])} "
+                                         f"!= {int(pc[key])}")
+            if not (int(pc["neos_dfloor"]) and int(pc["neos_efloor"])):
+                raise AssertionError(f"{label}: the floors never fired")
+            rtol = 1e-4 if f32 else 1e-10
+            dk, dp = float(kc["dtmin"]), float(pc["dtmin"])
+            if abs(dk - dp) > rtol * abs(dp):
+                raise AssertionError(f"{label} dtmin {dk!r} vs {dp!r}")
+            if f32:
+                # reads u and the face field; writes u, w and bcc
+                moved = nbytes(u, *bfc.values(), *ku[:3])
+                res[wrap] = {
+                    "ms": cuda_ms(lambda: aux.fused_aux3d(*args), 20),
+                    "plain_ms": cuda_ms(lambda: aux.fused_aux3d_plain(*args),
+                                        3),
+                    "bound": bound(moved, OPS_AUX * u[:, 0].numel()),
+                    "counts": {k: int(kc[k]) for k in kc if k != "dtmin"}}
+        print(f"phase 7: fused_aux3d agrees with its plain version, wrap on "
+              f"1 x 128^3 and off on 8 x 64^3 ({dtype}); counts "
+              f"{res[True]['counts']} and {res[False]['counts']}")
+    for wrap in res:
+        print(f"phase 7: [{card}] fused_aux3d wrap={wrap} "
+              f"{res[wrap]['ms']:.4f} ms, plain {res[wrap]['plain_ms']:.4f} "
+              f"ms, bound {res[wrap]['bound'][0]:.4f} ms "
+              f"({res[wrap]['bound'][1]})")
+    # the entry reports the wrap of the single 128^3 block (turb1)
+    return dict(res[True], max_abs_err=err, nowrap_ms=res[False]["ms"])
+
+
+def pool_mesh(deck, extra):
+    from athenak_tpu_torch.mesh import Mesh
+    return Mesh(pin_for(list(extra), deck))
+
+
+def ghost_donors(torch, pool_fill, shape, kind, nbr, mesh):
+    """(dst, src): flat indices of every ghost element of an array and of
+    the interior element it copies, read off the plain fill of arange."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64).reshape(shape)
+    filled = idx.clone()
+    pool_fill.pool_fill_plain([filled], [kind], nbr, mesh)
+    dst = (filled != idx).reshape(-1).nonzero().squeeze(1)
+    return dst, filled.reshape(-1)[dst]
+
+
+def phase_pool_fill(torch, card, turb_deck, pool_deck):
+    """Kernel G against its plain version, bitwise, on the pools of turb8
+    and pool; times on turb8 beside one torch.take of every ghost."""
+    from athenak_tpu_torch.ops import pool_fill
+
+    res, maxerr = {}, 0.0
+    for label, deck, extra in (("turb8", turb_deck, TURB8),
+                               ("pool", pool_deck, [])):
+        mesh = pool_mesh(deck, extra)
+        nbr = torch.as_tensor(pool_fill.neighbor27(mesh), device="cuda")
+        nmb, n = mesh.nmb_total, mesh.mb_indcs.ncells1
+        shapes = {"cc": (nmb, 5, n, n, n), "x1f": (nmb, n, n, n + 1),
+                  "x2f": (nmb, n, n + 1, n), "x3f": (nmb, n + 1, n, n)}
+        for dtype in (torch.float32, torch.float64):
+            gen = torch.Generator().manual_seed(13)
+            arrs = {k: torch.rand(v, generator=gen, dtype=dtype).cuda()
+                    for k, v in shapes.items()}
+            got = {k: v.clone() for k, v in arrs.items()}
+            fcs = {k: got[k] for k in ("x1f", "x2f", "x3f")}
+            pool_fill.pool_fill_cc(got["cc"], nbr, mesh)
+            pool_fill.pool_fill_fc(fcs, nbr, mesh)
+            ref = {k: v.clone() for k, v in arrs.items()}
+            pool_fill.pool_fill_plain(list(ref.values()), list(ref), nbr,
+                                      mesh)
+            torch.cuda.synchronize()
+            for k in arrs:
+                if not torch.equal(got[k], ref[k]):
+                    raise AssertionError(f"pool_fill {label} {k} {dtype}: "
+                                         "not bitwise")
+                maxerr = max(maxerr, float((got[k] - ref[k]).abs().max()))
+            if label == "turb8" and dtype == torch.float32:
+                u = got["cc"]
+                dst, src = ghost_donors(torch, pool_fill, shapes["cc"], "cc",
+                                        nbr.cpu(), mesh)
+                dst, src = dst.cuda(), src.cuda()
+                if not torch.equal(torch.take(u, src), u.reshape(-1)[dst]):
+                    raise AssertionError("the donor index differs from the "
+                                         "pool fill")
+                res = {
+                    "ms": cuda_ms(lambda: pool_fill.pool_fill_cc(u, nbr,
+                                                                 mesh), 50),
+                    "fc_ms": cuda_ms(lambda: pool_fill.pool_fill_fc(
+                        fcs, nbr, mesh), 50),
+                    "plain_ms": cuda_ms(lambda: pool_fill.pool_fill_plain(
+                        [u], ["cc"], nbr, mesh), 20),
+                    "library_ms": cuda_ms(lambda: torch.take(u, src), 50),
+                    # every ghost read once and written once
+                    "bound": bound(2 * dst.numel() * u.element_size(), 0),
+                    "ghosts": dst.numel()}
+        print(f"phase 8: pool_fill bitwise equal to its plain version on "
+              f"{label} ({nmb} x {n - 4}^3; f32, f64; cell and face arrays)")
+    print(f"phase 8: [{card}] pool_fill of u on turb8 {res['ms']:.4f} ms "
+          f"({res['ghosts']} ghosts), of the face field "
+          f"{res['fc_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+          f"torch.take of every donor {res['library_ms']:.4f} ms, bound "
+          f"{res['bound'][0]:.5f} ms")
+    res["max_abs_err"] = maxerr
+    return res
+
+
+def check_forcing(torch, phys, state, mesh, label) -> float:
+    """The force is finite; one more forcing leaves a net interior
+    momentum below 1e-6 of the total |M|.  Returns that ratio."""
+    if not bool(torch.isfinite(state["turb_force"]).all()):
+        raise AssertionError(f"{label}: non-finite force")
+    forced = phys.pturb.apply(state, mesh.dt, phys)
+    mom = interior(forced["u"][:, 1:4]).double()
+    ratio = float(mom.sum(dim=(0, 2, 3, 4)).abs().max() / mom.abs().sum())
+    if ratio > 1e-6:
+        raise AssertionError(f"{label}: net momentum {ratio:g} of the total "
+                             "after forcing")
+    return ratio
+
+
+def stage_parts(torch, phys, state, mesh) -> dict:
+    """ms per call of each piece of a cycle on the deck's own state: the
+    forcing, the stage kernel, bcc + c2p and the fills (the launch counts
+    say how often a cycle calls each)."""
+    from athenak_tpu_torch.ops import aux, stage, stage_v1
+
+    u, bfc, dt = state["u"], state["bfc"], mesh.dt
+    bv = phys.bvals
+    parts = {"fill_fc": cuda_ms(lambda: phys.fill_ghosts_fc(bfc), 20)}
+    if phys.pturb is not None:
+        parts["forcing"] = cuda_ms(
+            lambda: phys.pturb.apply(state, dt, phys), 5)
+        parts["mega_stage_v1"] = cuda_ms(lambda: stage_v1.fused_mega_stage3d(
+            state["w"], state["bcc"], bfc, u, u, bfc, phys.eos, 0.5, 0.5,
+            0.5 * dt, phys.dxs), 10)
+        parts["fused_aux3d"] = cuda_ms(lambda: aux.fused_aux3d(
+            u, bfc, phys.eos, dxs=phys.dxs, wrap=bv.use_fill_kernel), 20)
+    else:
+        parts["mega_stage_v2"] = cuda_ms(lambda: stage.mega_stage_v2(
+            u, bfc, u, bfc, phys.eos, 0.5, 0.5, 0.5 * dt, phys.dxs), 10)
+    if not bv.use_fill_kernel:
+        parts["fill_cc"] = cuda_ms(lambda: bv.fill_ghosts(u), 20)
+    return parts
+
+
+def phase_turb_main(torch, kernels, card, turb_deck, pool_deck):
+    """turb1, turb8 and pool through the CLI, with their checks and
+    timings."""
+    out = {}
+    runs = (("turb1", turb_deck, []), ("turb8", turb_deck, TURB8),
+            ("pool", pool_deck, []))
+    for label, deck, extra in runs:
+        launches, mesh, phys, driver, state, dmass, _ = run_cli(
+            torch, kernels, deck, NCYC_TURB, extra)
+        n = mesh.ncycle
+        # Fills: one of the faces after every stage (a periodic fill
+        # counts one launch per face array), and on a pool one of u too;
+        # initialisation fills u and the faces once, and on the kernel-A
+        # pool, whose cycle state holds no primitives, twice more (the
+        # first dt and the final state).
+        expect = {"turb1": {"mega_stage_v1": 2 * n, "fused_aux3d": 2 * n,
+                            "periodic_fill_fc": 6 * n + 3,
+                            "periodic_fill_cc": 1, "mega_stage_v2": 0,
+                            "pool_fill": 0},
+                  "turb8": {"mega_stage_v1": 2 * n, "fused_aux3d": 2 * n,
+                            "pool_fill": 4 * n + 2, "mega_stage_v2": 0,
+                            "periodic_fill_fc": 0, "periodic_fill_cc": 0},
+                  "pool": {"mega_stage_v2": 2 * n, "pool_fill": 4 * n + 6,
+                           "mega_stage_v1": 0, "fused_aux3d": 0,
+                           "periodic_fill_fc": 0,
+                           "periodic_fill_cc": 0}}[label]
+        for name, count in expect.items():
+            if launches[name] != count:
+                raise AssertionError(f"{label}: {name} launched "
+                                     f"{launches[name]} times in {n} cycles, "
+                                     f"not {count}")
+        divb = check_state(torch, phys, state, dmass, label)
+        mom = check_forcing(torch, phys, state, mesh, label) \
+            if phys.pturb is not None else None
+        parts = stage_parts(torch, phys, state, mesh)
+        print(f"phase 9: {label} {n} cycles, launches {launches}, div(B) "
+              f"{divb:.3e}, mass drift {dmass:.3e}, net momentum after "
+              f"forcing {mom}, counters {driver.ecounters}; [{card}] CLI "
+              f"zone-cycles/s {driver.zcps:.6e} (wall clock, first cycle "
+              f"included)")
+        del state
+        rates = {}
+        for use in ("true", "false", "true", "false"):
+            rates.setdefault(use, []).append(
+                timed_cycles(torch, use, deck, NCYC_TURB, extra))
+        mbi = mesh.mb_indcs
+        zones = mesh.nmb_total * mbi.nx1 * mbi.nx2 * mbi.nx3
+        cycle_ms = [zones / r * 1e3 for r in rates["true"]]
+        print(f"phase 9: [{card}] {label} zone-cycles/s over {NCYC_TURB} "
+              f"cycles after a warm-up, kernel path {rates['true']}, plain "
+              f"path {rates['false']} (CUDA events); kernel-path cycle "
+              f"{cycle_ms} ms; ms per call on the deck's state {parts}")
+        out[label] = {"launches": launches, "rates": rates, "parts": parts,
+                      "cycle_ms": cycle_ms}
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
     return {"name": name, "route": "cuda",
@@ -605,16 +1087,25 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         sr_deck = os.path.join(tmp, "sr_blast.athinput")
-        with open(sr_deck, "w") as f:
-            f.write(SR_DECK)
+        turb_deck = os.path.join(tmp, "turb.athinput")
+        pool_deck = os.path.join(tmp, "pool.athinput")
+        for path, text in ((sr_deck, SR_DECK), (turb_deck, TURB_DECK),
+                           (pool_deck, POOL_DECK)):
+            with open(path, "w") as f:
+                f.write(text)
         fill_times, fill_errs = phase_fill(torch, fill, card)
-        stage_res = phase_stage(torch, card)
+        stage_res = phase_stage(torch, card, pool_deck)
         launches, rates = phase_main(torch, kernels, card)
         split_res = phase_split(torch, card, sr_deck)
         sr_launches, sr_rates = phase_sr_main(torch, kernels, card, sr_deck)
+        v1_res = phase_mega_v1(torch, card)
+        aux_res = phase_aux(torch, card)
+        pool_res = phase_pool_fill(torch, card, turb_deck, pool_deck)
+        turb = phase_turb_main(torch, kernels, card, turb_deck, pool_deck)
 
     def runs(name):
-        return {"blast": launches[name], "sr_blast": sr_launches[name]}
+        return {"blast": launches[name], "sr_blast": sr_launches[name],
+                **{k: v["launches"][name] for k, v in turb.items()}}
 
     ft, fe = fill_times, fill_errs
     print(json.dumps({"kernels": [
@@ -642,10 +1133,32 @@ def main() -> int:
                      split_res["fused_ct3d"]["ms"],
                      split_res["fused_ct3d"]["plain_ms"],
                      split_res["fused_ct3d"]["bound"], None),
+        kernel_entry("mega_stage_v1", "mega_stage_v1.cu",
+                     "pallas_stage.py:576", runs("mega_stage_v1"),
+                     v1_res["max_abs_err"], v1_res["ms"],
+                     v1_res["plain_ms"], v1_res["bound"], None),
+        kernel_entry("fused_aux3d", "fused_aux.cu", "pallas_stage.py:1129",
+                     runs("fused_aux3d"), aux_res["max_abs_err"],
+                     aux_res["ms"], aux_res["plain_ms"], aux_res["bound"],
+                     None),
+        kernel_entry("pool_fill", "pool_fill.cu", "pallas_pool_fill.py:221",
+                     runs("pool_fill"), pool_res["max_abs_err"],
+                     pool_res["ms"], pool_res["plain_ms"], pool_res["bound"],
+                     pool_res["library_ms"]),
     ], "zone_cycles_per_s": {"kernel": rates["true"],
                              "plain": rates["false"],
                              "sr_kernel": sr_rates["true"],
-                             "sr_plain": sr_rates["false"]},
+                             "sr_plain": sr_rates["false"],
+                             **{f"{k}_kernel": v["rates"]["true"]
+                                for k, v in turb.items()},
+                             **{f"{k}_plain": v["rates"]["false"]
+                                for k, v in turb.items()}},
+        "cycle_parts_ms": {k: v["parts"] for k, v in turb.items()},
+        "mega_stage_v1_stage1_ms": v1_res["stage1_ms"],
+        "mega_stage_v1_8x64_ms": v1_res["pool_ms"],
+        "mega_stage_v2_8x62_ms": stage_res["pool_ms"],
+        "fused_aux3d_nowrap_ms": aux_res["nowrap_ms"],
+        "pool_fill_fc_ms": pool_res["fc_ms"],
         "sr_c2p_ms": split_res["c2p_ms"], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,8 @@ torch = pytest.importorskip("torch")
 from athenak_tpu.athinput import ParameterInput  # noqa: E402
 from athenak_tpu_torch import kernels  # noqa: E402
 from athenak_tpu_torch.main import build  # noqa: E402
-from athenak_tpu_torch.ops import fill, stage, stage_split  # noqa: E402
+from athenak_tpu_torch.ops import aux, fill, pool_fill, stage  # noqa: E402
+from athenak_tpu_torch.ops import stage_split, stage_v1  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 DECK = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -152,3 +153,142 @@ def test_split_stage_kernels_reject_bad_input(card):
     with pytest.raises(ValueError):        # not contiguous
         stage_split.fused_ct3d(w, bcc, strided, emf, bfc, bfc, 0.0, 1.0,
                                0.1, dxs)
+
+
+def _random_prims(gen, nmb, n, dtype, card):
+    """Random primitives with positive density and pressure, a random face
+    field and its bcc, on the card."""
+    from athenak_tpu_torch.physics.mhd import compute_bcc
+
+    def r(lo, hi, *shape):
+        return (lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                            dtype=torch.float64)).to(
+            card, dtype)
+
+    w = torch.stack([r(0.5, 1.5, nmb, n, n, n), r(-0.5, 0.5, nmb, n, n, n),
+                     r(-0.5, 0.5, nmb, n, n, n), r(-0.5, 0.5, nmb, n, n, n),
+                     r(0.5, 1.5, nmb, n, n, n)], dim=1)
+    bfc = {"x1f": r(-0.5, 0.5, nmb, n, n, n + 1),
+           "x2f": r(-0.5, 0.5, nmb, n, n + 1, n),
+           "x3f": r(-0.5, 0.5, nmb, n + 1, n, n)}
+    return w, bfc, compute_bcc(bfc)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("gam0,gam1", [(0.0, 1.0), (0.5, 0.5)])
+def test_mega_stage_v1_kernel(card, dtype, gam0, gam1):
+    """Kernel E against its plain version on random states (two blocks):
+    float64 within 1e-10 of the field scale, float32 within the two-tier
+    bound (> 95% within 3e-5, all within 5e-3)."""
+    from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(5)
+    w, bfc, bcc = _random_prims(gen, 2, 16, dt, card)
+    _, bfc1, bcc1 = _random_prims(gen, 2, 16, dt, card)
+    eos = EOSData()
+    u0 = prim_to_cons_mhd(w, bcc, eos)
+    u1 = prim_to_cons_mhd(w.flip(-1).contiguous(), bcc1, eos)
+    dxs = {"x1": 1 / 12, "x2": 1 / 12, "x3": 1 / 12}
+    args = (w, bcc, bfc, u0, u1, bfc1, eos, gam0, gam1, 0.01, dxs)
+    n0 = kernels.MEGA_STAGE_V1.launches
+    uk, bk = stage_v1.fused_mega_stage3d(*args)
+    assert kernels.MEGA_STAGE_V1.launches == n0 + 1
+    up, bp = stage_v1.fused_mega_stage3d_plain(*args)
+    scale = float(up[INT].abs().max())
+    bscale = max(float(v[INT].abs().max()) for v in bp.values())
+    pairs = [(uk, up, scale)] + [(bk[c], bp[c], bscale) for c in bp]
+    for got, ref, sc in pairs:
+        err = (got[INT] - ref[INT]).abs().double() / sc
+        if dtype == "float64":
+            assert float(err.max()) <= 1e-10
+        else:
+            # HLLD branch selects may flip on float32 ulps in a few cells
+            assert float((err < 3e-5).double().mean()) > 0.95
+            assert float(err.max()) < 5e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_fused_aux_kernel(card, dtype, wrap):
+    """Kernel F against its plain version: u, w and bcc on the whole
+    array (wrap) or pointwise, the floor counts equal, dtmin close.  A
+    raised pressure floor makes the energy floor fire."""
+    from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(6)
+    nmb = 1 if wrap else 2
+    w, bfc, bcc = _random_prims(gen, nmb, 16, dt, card)
+    eos = EOSData(pfloor=0.5)
+    u = prim_to_cons_mhd(w, bcc, EOSData())
+    dxs = {"x1": 0.1, "x2": 0.1, "x3": 0.1}
+    n0 = kernels.FUSED_AUX3D.launches
+    uk, wk, bk, ck = aux.fused_aux3d(u, bfc, eos, dxs=dxs, wrap=wrap)
+    assert kernels.FUSED_AUX3D.launches == n0 + 1
+    up, wp, bp, cp = aux.fused_aux3d_plain(u, bfc, eos, dxs=dxs, wrap=wrap)
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    for name, a, b in (("u", uk, up), ("w", wk, wp), ("bcc", bk, bp)):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol * scale, name
+    for k in ("neos_dfloor", "neos_efloor", "neos_tfloor"):
+        assert int(ck[k]) == int(cp[k]), k
+    assert int(cp["neos_efloor"]) > 0
+    assert abs(float(ck["dtmin"]) - float(cp["dtmin"])) \
+        <= tol * float(cp["dtmin"])
+
+
+def _pool_mesh(layout, nx=8):
+    from athenak_tpu_torch.athinput import ParameterInput as Pin
+    from athenak_tpu_torch.mesh import Mesh
+    pin = Pin.from_file(DECK)
+    pin.modify_from_cmdline(
+        [f"mesh/nx{a}={nx * m}" for a, m in zip((1, 2, 3), layout)]
+        + [f"meshblock/nx{a}={nx}" for a in (1, 2, 3)])
+    return Mesh(pin)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("layout", [(2, 2, 2), (4, 2, 1), (1, 1, 2)])
+def test_pool_fill_kernel_bitwise(card, dtype, layout):
+    """Kernel G against the ordered sweeps of its plain version, cell and
+    face arrays, bitwise."""
+    dt = getattr(torch, dtype)
+    mesh = _pool_mesh(layout)
+    nbr = torch.as_tensor(pool_fill.neighbor27(mesh), device=card)
+    nmb, n = mesh.nmb_total, 12
+    gen = torch.Generator().manual_seed(7)
+    shapes = {"cc": (nmb, 5, n, n, n), "x1f": (nmb, n, n, n + 1),
+              "x2f": (nmb, n, n + 1, n), "x3f": (nmb, n + 1, n, n)}
+    arrs = {k: torch.rand(s, generator=gen, dtype=dt).to(card)
+            for k, s in shapes.items()}
+    got = {k: v.clone() for k, v in arrs.items()}
+    n0 = kernels.POOL_FILL.launches
+    pool_fill.pool_fill_cc(got["cc"], nbr, mesh)
+    pool_fill.pool_fill_fc({k: got[k] for k in ("x1f", "x2f", "x3f")}, nbr,
+                           mesh)
+    assert kernels.POOL_FILL.launches == n0 + 2
+    ref = {k: v.clone() for k, v in arrs.items()}
+    pool_fill.pool_fill_plain(list(ref.values()), list(ref), nbr, mesh)
+    for k in arrs:
+        assert torch.equal(got[k], ref[k]), k
+
+
+def test_v1_kernels_reject_bad_input(card):
+    from athenak_tpu_torch.ops.eos import EOSData
+    w = torch.zeros((1, 5, 12, 12, 12), device=card)
+    bcc = torch.zeros((1, 3, 12, 12, 12), device=card)
+    bfc = {"x1f": torch.zeros((1, 12, 12, 13), device=card),
+           "x2f": torch.zeros((1, 12, 13, 12), device=card),
+           "x3f": torch.zeros((1, 13, 12, 12), device=card)}
+    dxs = {"x1": 0.1, "x2": 0.1, "x3": 0.1}
+    with pytest.raises(TypeError):         # float64 u1 with float32 w
+        stage_v1.fused_mega_stage3d(w, bcc, bfc, w, w.double(), bfc,
+                                    EOSData(), 0.5, 0.5, 0.1, dxs)
+    with pytest.raises(ValueError):        # a CPU face array
+        aux.fused_aux3d(w, dict(bfc, x3f=bfc["x3f"].cpu()), EOSData())
+    mesh = _pool_mesh((2, 1, 1))
+    nbr = pool_fill.neighbor27(mesh)
+    with pytest.raises(ValueError):        # a block count of another mesh
+        pool_fill.pool_fill_cc(w, torch.as_tensor(nbr, device=card), mesh)
+    with pytest.raises(ValueError):        # a host table
+        pool_fill.pool_fill_cc(torch.zeros((2, 5, 12, 12, 12), device=card),
+                               nbr, mesh)

@@ -173,7 +173,9 @@ def test_port_never_imports_jax():
     run), in a fresh interpreter: neither jax nor anything of the JAX
     package is imported."""
     mods = _port_modules()
-    assert "athenak_tpu_torch.ops.stage_split" in mods
+    for m in ("ops.stage_split", "ops.stage_v1", "ops.aux", "ops.pool_fill",
+              "turb_driver", "pgen.turb"):
+        assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
