@@ -11,8 +11,9 @@ nvcc at first use (``kernels/``).
 
 Ported so far: 3-D ideal MHD on single-level meshes, Newtonian (PLM +
 HLLD) and special-relativistic (PLM + HLLE or LLF, the Kastaun c2p),
-RK1-RK3, periodic or outflow boundaries, the blast problem generator and
-``bin`` outputs.
+with driven turbulence; vacuum Z4c numerical relativity (the single
+puncture); RK1-RK4, periodic or outflow boundaries, the blast, turb and
+z4c_one_puncture problem generators and ``bin`` outputs.
 """
 
 __version__ = "0.1.0"

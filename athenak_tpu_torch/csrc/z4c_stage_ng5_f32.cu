@@ -1,0 +1,8 @@
+// Kernel H for nghost 5 in float; see z4c_rhs.cuh.  One file for each
+// (nghost, type), so that the parallel build compiles the eight at once.
+
+#include "z4c_rhs.cuh"
+
+namespace athenak {
+template int z4c_stage_launch<float, 5>(const Z4cArgs&);
+}  // namespace athenak

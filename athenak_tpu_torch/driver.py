@@ -5,12 +5,13 @@ src/driver/driver.cpp).  The 2S-register Shu-Osher tables are the same;
 the cycle runs the explicit stages of one integrator step, and the host
 loop advances time, chooses dt (2x growth limit, CFL, exact stop at tlim;
 reference: src/mesh/mesh.cpp:573-640, kept in float64 on the host) and
-triggers outputs.  The JAX package's batched cycle windows, block
-coalescing and pencil packing are not ported: coalescing repacks a pool
-into one superblock for the TPU's lane layout, so a multi-block deck
-runs here as a pool of blocks whatever ``mesh/coalesce`` says, with the
-same answer.  A driven run applies its turbulence forcing once a cycle,
-before the stages.
+triggers outputs.  RK4 accumulates its second register before every
+stage after the first (``accumulate_rk4``).  The JAX package's batched
+cycle windows, block coalescing and pencil packing are not ported:
+coalescing repacks a pool into one superblock for the TPU's lane layout,
+so a multi-block deck runs here as a pool of blocks whatever
+``mesh/coalesce`` says, with the same answer.  A driven run applies its
+turbulence forcing once a cycle, before the stages.
 """
 
 from __future__ import annotations
@@ -108,7 +109,7 @@ def make_integrator(name: str) -> IntegratorData:
 
 
 class Driver:
-    """Main evolution loop over the MHD module."""
+    """Main evolution loop over a physics module (MHD or Z4c)."""
 
     # runtime guards, set by the CLI (-t / -w flags; reference: main.cpp
     # walltime + utils/watchdog.cpp)
@@ -147,9 +148,7 @@ class Driver:
         under SR ``nc2p_fail`` too."""
         integ = self.integrator
         phys = self.phys
-        if integ.name == "rk4":
-            raise NotImplementedError(
-                "rk4 is not ported to athenak_tpu_torch yet")
+        is_rk4 = integ.name == "rk4"
 
         def cycle(state, dt):
             dtype = state["u"].dtype
@@ -161,6 +160,10 @@ class Driver:
             counters_tot = None
             dt_fused = None
             for s in range(integ.nexp_stages):
+                if s > 0 and is_rk4:
+                    # the 2S register of RK4()4[2S] (Ketcheson 2010)
+                    saved = phys.accumulate_rk4(saved, state,
+                                                integ.delta[s])
                 beta_dt = float(torch.tensor(integ.beta[s], dtype=dtype)
                                 * torch.tensor(dt, dtype=dtype))
                 state, counters = phys.stage_update(

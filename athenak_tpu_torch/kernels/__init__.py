@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "athenak_mega_stage_v1": [_P] * 17 + [_I] * 6 + [_D] * 12 + [_P],
     "athenak_fused_aux": [_P] * 8 + [_I] * 6 + [_D] * 6 + [_P],
     "athenak_pool_fill": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P],
+    "athenak_z4c_stage": [_P] * 4 + [_I] * 5 + [_P] * 2,
+    "athenak_z4c_outflow_fill": [_P, ctypes.c_longlong] + [_I] * 4 + [_P],
 }
 
 
@@ -77,8 +80,11 @@ FUSED_CT3D = Kernel("fused_ct3d", "athenak_fused_ct")
 MEGA_STAGE_V1 = Kernel("mega_stage_v1", "athenak_mega_stage_v1")
 FUSED_AUX3D = Kernel("fused_aux3d", "athenak_fused_aux")
 POOL_FILL = Kernel("pool_fill", "athenak_pool_fill")
+Z4C_STAGE = Kernel("z4c_stage", "athenak_z4c_stage")
+Z4C_OUTFLOW_FILL = Kernel("z4c_outflow_fill", "athenak_z4c_outflow_fill")
 ALL = (MEGA_STAGE_V2, PERIODIC_FILL_CC, PERIODIC_FILL_FC, FUSED_STAGE3D,
-       FUSED_CT3D, MEGA_STAGE_V1, FUSED_AUX3D, POOL_FILL)
+       FUSED_CT3D, MEGA_STAGE_V1, FUSED_AUX3D, POOL_FILL, Z4C_STAGE,
+       Z4C_OUTFLOW_FILL)
 
 _LIB = None
 BUILD_INFO = {}
@@ -118,16 +124,24 @@ def library() -> ctypes.CDLL:
         nvcc = _nvcc()
         tag = os.getpid()
         objs = [out_dir / f"{p.stem}.{tag}.o" for p in cus]
-        procs = [subprocess.Popen(
-            [nvcc] + NVCC_FLAGS + ["-c", "-o", str(o), str(p)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for p, o in zip(cus, objs)]
-        logs = [p.communicate()[0] for p in procs]
-        failed = [(c.name, p.returncode, log)
-                  for c, p, log in zip(cus, procs, logs) if p.returncode]
+
+        def compile_one(src, obj):
+            t = time.perf_counter()
+            run = subprocess.run(
+                [nvcc] + NVCC_FLAGS + ["-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return run.returncode, run.stdout, time.perf_counter() - t
+
+        with ThreadPoolExecutor(len(cus)) as pool:
+            runs = list(pool.map(compile_one, cus, objs))
+        failed = [(c.name, rc, log)
+                  for c, (rc, log, _) in zip(cus, runs) if rc]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        logs = [log for _, log, _ in runs]
+        BUILD_INFO["source_seconds"] = {
+            c.name: round(sec, 1) for c, (_, _, sec) in zip(cus, runs)}
         tmp = out_dir / f"libathenak_kernels.{tag}.so"
         link = subprocess.run([nvcc, "-shared"] + ARCH + ["-o", str(tmp)]
                               + [str(o) for o in objs],

@@ -63,10 +63,18 @@ def read_deck(path, overrides=()):
 def make_physics(pin, mesh, bvals, device, dtype):
     """Select and construct the physics module (reference:
     MeshBlockPack::AddPhysics, meshblock_pack.cpp:102-235)."""
-    for block in ("radiation", "z4c", "adm", "ion-neutral"):
+    for block in ("radiation", "adm", "ion-neutral"):
         if pin.does_block_exist(block):
             raise NotImplementedError(
                 f"<{block}> physics is not ported to athenak_tpu_torch yet")
+    if pin.does_block_exist("z4c"):
+        if pin.does_block_exist("mhd"):
+            raise NotImplementedError(
+                "dynamical GRMHD (<mhd> with <z4c>) is not ported to "
+                "athenak_tpu_torch yet")
+        # vacuum numerical relativity (reference: AddPhysics z4c branch)
+        from .z4c.z4c import Z4c
+        return Z4c(pin, mesh, bvals, device=device, dtype=dtype)
     if pin.does_block_exist("mhd"):
         from .physics.mhd import MHD
         return MHD(pin, mesh, bvals, device=device, dtype=dtype)

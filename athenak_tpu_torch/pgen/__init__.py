@@ -6,7 +6,7 @@ src/pgen/pgen.hpp:27-93).  Each generator is a module with
     init(pin, mesh, phys) -> state      # tensors on phys.device
 
 selected by <problem>/pgen_name.  The blast wave and driven turbulence
-(MHD) are ported so far.
+(MHD) and the Z4c single puncture are ported so far.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 _REGISTRY = {
     "blast": "athenak_tpu_torch.pgen.blast",
     "turb": "athenak_tpu_torch.pgen.turb",
+    "z4c_one_puncture": "athenak_tpu_torch.pgen.z4c_one_puncture",
 }
 
 

@@ -1,11 +1,13 @@
 """The simulation state carried across packages.
 
-The JAX package's state is a dict of arrays: ``u`` and ``bfc`` (a dict of
-the face arrays x1f, x2f, x3f) and, when present, ``w``, ``bcc`` and the
-turbulence driver's ``turb_force``.  These two functions move such a dict
-(as numpy arrays) into the port and back, so both packages can start from
-one state.  The JAX driver's random key ``turb_key`` is not carried: the
-port draws from a ``torch.Generator`` (``turb_driver.py``).
+The JAX package's state is a dict of arrays: ``u``, under MHD ``bfc`` (a
+dict of the face arrays x1f, x2f, x3f) and, when present, ``w``, ``bcc``
+and the turbulence driver's ``turb_force``.  A Z4c state holds ``u``
+(and ``w``, the same array) and no ``bfc``.  These two functions move
+such a dict (as numpy arrays) into the port and back, so both packages
+can start from one state.  The JAX driver's random key ``turb_key`` is
+not carried: the port draws from a ``torch.Generator``
+(``turb_driver.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ def state_from_numpy(d, device, dtype):
         return torch.tensor(np.asarray(a), device=device, dtype=dtype)
 
     out = {k: t(d[k]) for k in _KEYS if k in d}
-    out["bfc"] = {k: t(v) for k, v in d["bfc"].items()}
+    if "bfc" in d:
+        out["bfc"] = {k: t(v) for k, v in d["bfc"].items()}
     return out
 
 
@@ -32,5 +35,6 @@ def state_to_numpy(state):
         return x.detach().cpu().numpy()
 
     out = {k: a(state[k]) for k in _KEYS if k in state}
-    out["bfc"] = {k: a(v) for k, v in state["bfc"].items()}
+    if "bfc" in state:
+        out["bfc"] = {k: a(v) for k, v in state["bfc"].items()}
     return out

@@ -64,6 +64,28 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      net momentum below 1e-6 of the total |M|.  Then it times 10 cycles of
      the kernel path and of the plain path of each deck with CUDA events,
      in turns.
+ 10. holds the Z4c stage kernel (``z4c_stage``) against its plain version
+     on the four RK4 coefficient sets at three shapes: ``Z4C_DECK`` (the
+     ``z4c`` case of ``bench.py``, copied here as text: 60^3, nghost 2),
+     ``inputs/z4c/one_puncture.athinput`` (64^3, nghost 3) and that deck
+     as two blocks of 32^3 with nghost 4, each state after
+     initialisation with every channel perturbed and a perturbed RK
+     register: float32 within 2e-5 and float64 within 1e-10 of
+     max(|value|, 1) on interior cells; the outflow fill kernel
+     (``z4c_outflow_fill``) bitwise equal to the plain sweeps and to the
+     general fill, the pool's sweep fill after the stage within the same
+     tolerances.  It times both kernels, their plain versions and, for
+     the fill, the replicate pad;
+ 11. drives both Z4c decks (``one_puncture.athinput`` in float32)
+     through the CLI for 10 cycles, kernel path and plain path
+     (``z4c/use_kernels=false``), with the launch counts set to 0 just
+     before each run and checked exactly (the stage and the fill four
+     times a cycle on RK4, three on RK3; nothing on the plain path): the
+     state must be finite, chi above its floor, the lapse at the
+     puncture moved by the gauge and inside (0, 1), and the two paths
+     within Z4C_PATH_TOL of each other.  It reports each path's
+     zone-cycles/s (CUDA events, in turns) and the split of a kernel-path
+     cycle into the stage, the fill, accumulate_rk4 and the host.
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -99,6 +121,23 @@ OPS_MEGA = 1250       # per cell: 2 c2p, 3 HLLD faces, RK, GS07, CT, dt
 OPS_AUX = 100         # per cell: bcc, c2p with floors, 3 fast speeds
 NCYC_TURB = 10
 RK2 = ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))   # (gam0, gam1, beta) per stage
+PUNCTURE = os.path.join(ROOT, "inputs", "z4c", "one_puncture.athinput")
+NCYC_Z4C = 10
+# phase 10's pool: one_puncture.athinput as two blocks of 32^3, nghost 4
+Z4C_POOL = ["mesh/nghost=4", "mesh/nx1=64", "mesh/nx2=32", "mesh/nx3=32",
+            "meshblock/nx1=32", "meshblock/nx2=32", "meshblock/nx3=32"]
+# kernel H's operations (add, subtract, multiply, divide, negate; pow and
+# cbrt count one) by nghost: (a cell, the extra on a Sommerfeld cell),
+# counted from csrc/z4c_rhs.cuh by tests/test_torch_z4c_host.py
+Z4C_OPS = {2: (5563, 264), 3: (7471, 264), 4: (9907, 264), 5: (12871, 264)}
+# channels whose mixed second derivatives kernel H takes (chi, the metric,
+# alpha, the shift): the only reads of u's edge ghosts
+Z4C_MIXED = 11
+# kernel path against plain path after NCYC_Z4C cycles in float32, of
+# max(|value|, 1): the two round differently only in AlgConstr's cube
+# root (cbrt against x ** (1/3), an ulp), and such differences grow over
+# the 30-40 stages without a physical instability to feed on
+Z4C_PATH_TOL = 1e-4
 # inputs/hydro/turb.athinput's mesh, time and driving blocks at 128^3, with
 # <hydro> replaced by <mhd> (PLM, HLLD) and a uniform x1 field b0
 TURB_DECK = """
@@ -233,6 +272,43 @@ outer_radius = 0.25
 prat = 5.0
 b_amb = 0.1
 """
+# bench.py's z4c case (its Z4C_DECK), copied as text
+Z4C_DECK = """
+<job>
+basename = bench_punc
+precision = single
+
+<mesh>
+nghost = 2
+nx1 = 60
+x1min = -6.0
+x1max = 6.0
+ix1_bc = outflow
+ox1_bc = outflow
+nx2 = 60
+x2min = -6.0
+x2max = 6.0
+ix2_bc = outflow
+ox2_bc = outflow
+nx3 = 60
+x3min = -6.0
+x3max = 6.0
+ix3_bc = outflow
+ox3_bc = outflow
+
+<time>
+evolution = dynamic
+integrator = rk4
+cfl_number = 0.25
+tlim = 100.0
+
+<z4c>
+diss = 0.5
+
+<problem>
+pgen_name = z4c_one_puncture
+punc_ADM_mass = 1.0
+"""
 
 
 def smi() -> str:
@@ -241,6 +317,31 @@ def smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str):
+    """nvcc's -Xptxas -v report, short: one line for each kernel that
+    spills (its mangled name, registers, stack and spills), one line for
+    the rest."""
+    import re
+    out, name, spill, rest = [], None, "", []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill stores" in line and name:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            if spill.startswith("0 bytes stack"):
+                rest.append(regs)
+            else:
+                out.append(f"{name[:64]}: {regs} registers, {spill}")
+            name, spill = None, ""
+    if rest:
+        out.append(f"{len(rest)} other kernels: no stack, no spills, at "
+                   f"most {max(rest)} registers")
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -462,11 +563,11 @@ def phase_stage(torch, card, pool_deck):
 
 
 def timed_cycles(torch, use_kernels: str, deck=DECK, ncyc=NCYC,
-                 extra=()) -> float:
+                 extra=(), block="mhd") -> float:
     """zone-cycles/s over ncyc cycles after one warm-up cycle."""
     from athenak_tpu_torch.main import build
     mesh, phys, _, driver, state = build(
-        pin_for([f"mhd/use_kernels={use_kernels}", *extra], deck),
+        pin_for([f"{block}/use_kernels={use_kernels}", *extra], deck),
         device="cuda")
     state = driver.initialize(state)
     cycle = driver.make_cycle_fn()
@@ -753,7 +854,7 @@ def check_pair(torch, got, ref, scale, label, f32):
     tol = 1e-6 if f32 else 1e-10
     err = (got.double() - ref.double()).abs()
     rel = float((err / scale).max())
-    if rel > tol:
+    if not rel <= tol:                     # NaN fails too
         raise AssertionError(f"{label}: {rel:g} of the scale > {tol:g}")
     return float(err.max())
 
@@ -1053,6 +1154,253 @@ def phase_turb_main(torch, kernels, card, turb_deck, pool_deck):
     return out
 
 
+def z4c_inputs(torch, deck, extra, prec):
+    """The deck's state after initialisation on the card, plus 1e-3 N on
+    every channel (so the shift, zero in the initial data, takes both
+    signs), and a register u1 = u (1 + 1e-3 N); drawn in float64 from a
+    seeded generator, then cast to the run's dtype."""
+    from athenak_tpu_torch.main import build
+    mesh, phys, _, driver, st = build(
+        pin_for([f"job/precision={prec}", *extra], deck), device="cuda")
+    st = driver.initialize(st)
+    dev = st["u"].device
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def noise():
+        return torch.randn(st["u"].shape, generator=gen, device=dev,
+                           dtype=torch.float64)
+
+    u = st["u"].double() + 1e-3 * noise()
+    u1 = u * (1.0 + 1e-3 * noise())
+    dtype = st["u"].dtype
+    return phys, u.to(dtype), u1.to(dtype), mesh.dt
+
+
+def rk4_sets(torch, dtype, dt):
+    """(gam0, gam1, beta * dt) of the four RK4 stages, beta * dt rounded
+    to ``dtype`` as the driver rounds it."""
+    from athenak_tpu_torch.driver import make_integrator
+    rk = make_integrator("rk4")
+    return [(rk.gam0[s], rk.gam1[s],
+             float(torch.tensor(rk.beta[s], dtype=dtype)
+                   * torch.tensor(dt, dtype=dtype))) for s in range(4)]
+
+
+def z4c_bound(phys, u):
+    """Kernel H's bound on ``u``, each value it needs moved once: u on
+    the interior and the face ghost slabs (the dissipation and advection
+    stencils reach nghost along each axis) and, for the Z4C_MIXED
+    channels, the edge bands (nghost - 1)^2 deep that the mixed
+    derivatives reach; u1 read and u' written on the interior; the
+    Sommerfeld mask read on the interior and the other four geometry
+    channels on the mask's cells.  Z4C_OPS operations a cell, and the
+    Sommerfeld rows' extra on the mask's cells."""
+    mbi = phys.mesh.mb_indcs
+    nx, ng = (mbi.nx1, mbi.nx2, mbi.nx3), phys.ng
+    nmb, nch = u.shape[0], u.shape[1]
+    cells = nx[0] * nx[1] * nx[2]
+    face_ghosts = 2 * ng * (nx[1] * nx[2] + nx[0] * nx[2] + nx[0] * nx[1])
+    edge_ghosts = 4 * sum(nx) * (ng - 1) ** 2
+    values = nmb * (nch * (cells + face_ghosts) + Z4C_MIXED * edge_ghosts
+                    + 2 * nch * cells)
+    n_mask = 0
+    if phys.sbc_mask is not None:
+        n_mask = int(phys.sbc_mask.sum())
+        values += nmb * cells + 4 * n_mask
+    base, somm = Z4C_OPS[ng]
+    return bound(values * u.element_size(),
+                 base * nmb * cells + somm * n_mask)
+
+
+def outflow_fill_bound(phys, u):
+    """Kernel I's bound on ``u``: every ghost written once, and every
+    cell of the one-cell interior shell that the ghosts copy read once."""
+    mbi = phys.mesh.mb_indcs
+    nx = (mbi.nx1, mbi.nx2, mbi.nx3)
+    cells = nx[0] * nx[1] * nx[2]
+    shell = cells - math.prod(n - 2 for n in nx)
+    planes = u.shape[0] * u.shape[1]
+    ghosts = math.prod(u.shape[-3:]) - cells
+    return bound(planes * (ghosts + shell) * u.element_size(), 0)
+
+
+def phase_z4c_stage(torch, card, z4c_deck):
+    """Kernel H against its plain version on the four RK4 stages at three
+    shapes, f32 and f64; kernel I against the sweeps; times at each
+    shape."""
+    from athenak_tpu_torch.ops import z4c_stage as zs
+    pad = torch.nn.functional.pad
+    shapes = (("60^3 ng 2", z4c_deck, []), ("64^3 ng 3", PUNCTURE, []),
+              ("2 x 32^3 ng 4", PUNCTURE, Z4C_POOL))
+    err, fill_err, res = 0.0, 0.0, {}
+    for label, deck, extra in shapes:
+        for prec in ("single", "double"):
+            phys, u, u1, dt = z4c_inputs(torch, deck, extra, prec)
+            ng, f32 = phys.ng, prec == "single"
+            tol = 2e-5 if f32 else 1e-10
+            worst = 0.0
+            for g0, g1, bdt in rk4_sets(torch, u.dtype, dt):
+                got = zs.fused_z4c_stage(u, u1, phys, g0, g1, bdt)
+                want = zs.fused_z4c_stage_plain(u, u1, phys, g0, g1, bdt)
+                torch.cuda.synchronize()
+                a = interior(got, ng).double()
+                b = interior(want, ng).double()
+                rel = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                if not rel <= tol:             # NaN fails too
+                    raise AssertionError(f"z4c_stage {label} {prec}: "
+                                         f"{rel:g} > {tol:g}")
+                worst = max(worst, rel)
+                if f32:
+                    err = max(err, float((a - b).abs().max()))
+                if phys.fold_bc:
+                    # kernel I on the kernel's stage, against its plain
+                    # version, the sweep fill: bitwise and finite
+                    k = zs.outflow_fill(got.clone(), phys.bvals)
+                    p = phys.bvals.fill_ghosts(got.clone())
+                    if not (torch.equal(k, p)
+                            and bool(torch.isfinite(k).all())):
+                        raise AssertionError(f"z4c_outflow_fill {label} "
+                                             f"{prec}: not bitwise or not "
+                                             f"finite")
+                    fill_err = max(fill_err, float((k - p).abs().max()))
+                else:
+                    # the pool's route: the sweep fill after the stage
+                    kf = phys.bvals.fill_ghosts(got).double()
+                    pf = phys.bvals.fill_ghosts(want).double()
+                    rel = float(((kf - pf).abs()
+                                 / pf.abs().clamp(min=1.0)).max())
+                    if not (rel <= tol and bool(torch.isfinite(kf).all())):
+                        raise AssertionError(f"z4c pool fill {label} "
+                                             f"{prec}: {rel:g} > {tol:g}")
+            print(f"phase 10: z4c_stage agrees with its plain version on the "
+                  f"four RK4 stages ({label}, {prec}): max scale-relative "
+                  f"error {worst:.3e}")
+            if not f32:
+                continue
+            args = (u, u1, phys) + rk4_sets(torch, u.dtype, dt)[1]
+            r = {"ms": cuda_ms(lambda: zs.fused_z4c_stage(*args), 20),
+                 "plain_ms": cuda_ms(
+                     lambda: zs.fused_z4c_stage_plain(*args), 2),
+                 "bound": z4c_bound(phys, u)}
+            if phys.fold_bc:
+                a = zs.outflow_fill(zs.fused_z4c_stage(*args), phys.bvals)
+                ai = interior(a, ng)
+                if not torch.equal(pad(ai, (ng,) * 6, mode="replicate"), a):
+                    raise AssertionError("replicate pad differs from the "
+                                         "outflow fill")
+                r["fill"] = {
+                    "ms": cuda_ms(lambda: zs.outflow_fill(a, phys.bvals), 50),
+                    "plain_ms": cuda_ms(
+                        lambda: phys.bvals.fill_ghosts(a), 20),
+                    "library_ms": cuda_ms(
+                        lambda: pad(ai, (ng,) * 6, mode="replicate"), 50),
+                    "bound": outflow_fill_bound(phys, a)}
+            res[label] = r
+    for label, r in res.items():
+        print(f"phase 10: [{card}] z4c_stage {label} {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})")
+        if "fill" in r:
+            f = r["fill"]
+            print(f"phase 10: [{card}] z4c_outflow_fill {label} "
+                  f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, "
+                  f"replicate pad {f['library_ms']:.4f} ms, bound "
+                  f"{f['bound'][0]:.5f} ms")
+    return {"res": res, "max_abs_err": err, "fill_max_abs_err": fill_err}
+
+
+def lapse_at_puncture(u):
+    """alpha on the 8 cells around the centre of a single block (the
+    puncture sits at the origin, a cell corner)."""
+    c = u.shape[-1] // 2
+    return u[0, 18, c - 1:c + 1, c - 1:c + 1, c - 1:c + 1].double()
+
+
+def phase_z4c_main(torch, kernels, card, z4c_deck):
+    """Both Z4c decks through the CLI for NCYC_Z4C cycles, kernel path and
+    plain path, with their checks, rates and the split of a cycle."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import z4c_stage as zs
+    out = {}
+    for label, deck, extra, nstage in (
+            ("z4c", z4c_deck, [], 4),
+            ("puncture", PUNCTURE, ["job/precision=single"], 3)):
+        _, phys0, _, _, st0 = build(pin_for(extra, deck), device="cuda")
+        alpha0 = lapse_at_puncture(st0["u"])
+        runs = {}
+        for use in ("true", "false"):
+            launches, mesh, phys, driver, state, _, _ = run_cli(
+                torch, kernels, deck, NCYC_Z4C,
+                extra + [f"z4c/use_kernels={use}"])
+            n = mesh.ncycle
+            expect = {k: 0 for k in launches}
+            if use == "true":
+                expect["z4c_stage"] = nstage * n
+                expect["z4c_outflow_fill"] = nstage * n
+            if launches != expect:
+                raise AssertionError(f"{label} use_kernels={use}: launches "
+                                     f"{launches}, not {expect}")
+            u = state["u"]
+            if not bool(torch.isfinite(u).all()):
+                raise AssertionError(f"{label}: non-finite state")
+            chi_min = float(interior(u[:, 0], phys.ng).min())
+            if chi_min < phys.opt.chi_min_floor:
+                raise AssertionError(f"{label}: chi {chi_min} below floor")
+            # 1+log slicing moves the precollapsed lapse at the puncture
+            # (within the first half M it rises there, in the JAX
+            # package as here); it stays in (0, 1)
+            alpha = lapse_at_puncture(u)
+            moved = float(((alpha - alpha0).abs() / alpha0).min())
+            if not (moved > 1e-3 and bool((alpha > 0).all())
+                    and bool((alpha < 1).all())):
+                raise AssertionError(f"{label}: the lapse at the puncture "
+                                     f"{alpha.flatten().tolist()} from "
+                                     f"{alpha0.flatten().tolist()}")
+            runs[use] = (launches, mesh, phys, driver, state)
+        a, b = runs["true"][4]["u"].double(), runs["false"][4]["u"].double()
+        diff = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        if not diff <= Z4C_PATH_TOL:
+            raise AssertionError(f"{label}: kernel and plain paths part by "
+                                 f"{diff:g} > {Z4C_PATH_TOL:g}")
+        launches, mesh, phys, driver, state = runs["true"]
+        alpha = lapse_at_puncture(state["u"])
+        print(f"phase 11: {label} {mesh.ncycle} cycles, launches {launches}; "
+              f"chi >= {chi_min:.4e}; lapse at the puncture "
+              f"{float(alpha0.mean()):.5f} -> {float(alpha.mean()):.5f}; "
+              f"kernel vs plain path {diff:.3e}; [{card}] CLI zone-cycles/s "
+              f"{driver.zcps:.6e} (wall clock, first cycle included)")
+        # the split of a cycle: ms per call on the run's own state
+        u = state["u"]
+        dt = mesh.dt
+        parts = {"z4c_stage": cuda_ms(lambda: zs.fused_z4c_stage(
+                     u, u, phys, 0.5, 0.5, 0.5 * dt), 20),
+                 "z4c_outflow_fill": cuda_ms(
+                     lambda: zs.outflow_fill(u, phys.bvals), 50)}
+        if nstage == 4:
+            parts["accumulate_rk4"] = cuda_ms(lambda: phys.accumulate_rk4(
+                {"u1": u}, {"u": u}, 0.2), 50)
+        del state, runs
+        # the plain path (some 5,000 torch launches a stage) is timed
+        # once: it is the slowest part of the script
+        rates = {}
+        for use in ("true", "false", "true"):
+            rates.setdefault(use, []).append(timed_cycles(
+                torch, use, deck, NCYC_Z4C, extra, block="z4c"))
+        mbi = mesh.mb_indcs
+        zones = mbi.nx1 * mbi.nx2 * mbi.nx3
+        cycle_ms = [zones / r * 1e3 for r in rates["true"]]
+        device_ms = nstage * (parts["z4c_stage"] + parts["z4c_outflow_fill"]) \
+            + (nstage - 1) * parts.get("accumulate_rk4", 0.0)
+        parts["host_and_glue"] = [c - device_ms for c in cycle_ms]
+        print(f"phase 11: [{card}] {label} zone-cycles/s over {NCYC_Z4C} "
+              f"cycles after a warm-up, kernel path {rates['true']}, plain "
+              f"path {rates['false']} (CUDA events); kernel-path cycle "
+              f"{cycle_ms} ms; ms per call {parts}")
+        out[label] = {"launches": launches, "rates": rates, "parts": parts,
+                      "cycle_ms": cycle_ms, "path_diff": diff}
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
     return {"name": name, "route": "cuda",
@@ -1079,35 +1427,51 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     kernels.library()
-    print(f"phase 1: kernels built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s ({kernels.BUILD_INFO['path']})")
-    for line in kernels.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    seconds = {"1": time.perf_counter() - t0}
+    print(f"phase 1: kernels built and loaded in {seconds['1']:.1f} s "
+          f"({kernels.BUILD_INFO['path']}); seconds a source, all started "
+          f"together: {kernels.BUILD_INFO.get('source_seconds')}")
+    for line in ptxas_summary(kernels.BUILD_INFO.get("log", "")):
+        print("  ptxas:", line)
+
+    def phase(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        return out
 
     with tempfile.TemporaryDirectory() as tmp:
         sr_deck = os.path.join(tmp, "sr_blast.athinput")
         turb_deck = os.path.join(tmp, "turb.athinput")
         pool_deck = os.path.join(tmp, "pool.athinput")
+        z4c_deck = os.path.join(tmp, "z4c.athinput")
         for path, text in ((sr_deck, SR_DECK), (turb_deck, TURB_DECK),
-                           (pool_deck, POOL_DECK)):
+                           (pool_deck, POOL_DECK), (z4c_deck, Z4C_DECK)):
             with open(path, "w") as f:
                 f.write(text)
-        fill_times, fill_errs = phase_fill(torch, fill, card)
-        stage_res = phase_stage(torch, card, pool_deck)
-        launches, rates = phase_main(torch, kernels, card)
-        split_res = phase_split(torch, card, sr_deck)
-        sr_launches, sr_rates = phase_sr_main(torch, kernels, card, sr_deck)
-        v1_res = phase_mega_v1(torch, card)
-        aux_res = phase_aux(torch, card)
-        pool_res = phase_pool_fill(torch, card, turb_deck, pool_deck)
-        turb = phase_turb_main(torch, kernels, card, turb_deck, pool_deck)
+        fill_times, fill_errs = phase("2", phase_fill, torch, fill, card)
+        stage_res = phase("3", phase_stage, torch, card, pool_deck)
+        launches, rates = phase("4", phase_main, torch, kernels, card)
+        split_res = phase("5", phase_split, torch, card, sr_deck)
+        sr_launches, sr_rates = phase("6", phase_sr_main, torch, kernels,
+                                      card, sr_deck)
+        v1_res = phase("7a", phase_mega_v1, torch, card)
+        aux_res = phase("7b", phase_aux, torch, card)
+        pool_res = phase("8", phase_pool_fill, torch, card, turb_deck,
+                         pool_deck)
+        turb = phase("9", phase_turb_main, torch, kernels, card, turb_deck,
+                     pool_deck)
+        z4c_res = phase("10", phase_z4c_stage, torch, card, z4c_deck)
+        z4c = phase("11", phase_z4c_main, torch, kernels, card, z4c_deck)
+    print(f"seconds a phase: {seconds}")
 
     def runs(name):
         return {"blast": launches[name], "sr_blast": sr_launches[name],
-                **{k: v["launches"][name] for k, v in turb.items()}}
+                **{k: v["launches"][name] for k, v in turb.items()},
+                **{k: v["launches"][name] for k, v in z4c.items()}}
 
     ft, fe = fill_times, fill_errs
+    zr = z4c_res["res"]["60^3 ng 2"]
     print(json.dumps({"kernels": [
         kernel_entry("mega_stage_v2", "mega_stage_v2.cu",
                      "pallas_stage.py:823", runs("mega_stage_v2"),
@@ -1145,6 +1509,13 @@ def main() -> int:
                      runs("pool_fill"), pool_res["max_abs_err"],
                      pool_res["ms"], pool_res["plain_ms"], pool_res["bound"],
                      pool_res["library_ms"]),
+        kernel_entry("z4c_stage", "z4c_rhs.cuh", "pallas_z4c.py:384",
+                     runs("z4c_stage"), z4c_res["max_abs_err"], zr["ms"],
+                     zr["plain_ms"], zr["bound"], None),
+        kernel_entry("z4c_outflow_fill", "z4c_stage.cu", "pallas_z4c.py:533",
+                     runs("z4c_outflow_fill"), z4c_res["fill_max_abs_err"],
+                     zr["fill"]["ms"], zr["fill"]["plain_ms"],
+                     zr["fill"]["bound"], zr["fill"]["library_ms"]),
     ], "zone_cycles_per_s": {"kernel": rates["true"],
                              "plain": rates["false"],
                              "sr_kernel": sr_rates["true"],
@@ -1152,14 +1523,25 @@ def main() -> int:
                              **{f"{k}_kernel": v["rates"]["true"]
                                 for k, v in turb.items()},
                              **{f"{k}_plain": v["rates"]["false"]
-                                for k, v in turb.items()}},
-        "cycle_parts_ms": {k: v["parts"] for k, v in turb.items()},
+                                for k, v in turb.items()},
+                             **{f"{k}_kernel": v["rates"]["true"]
+                                for k, v in z4c.items()},
+                             **{f"{k}_plain": v["rates"]["false"]
+                                for k, v in z4c.items()}},
+        "cycle_parts_ms": {k: v["parts"]
+                           for k, v in {**turb, **z4c}.items()},
+        "z4c_stage_ms": {k: v["ms"] for k, v in z4c_res["res"].items()},
+        "z4c_stage_bound_ms": {k: v["bound"][0]
+                               for k, v in z4c_res["res"].items()},
+        "z4c_path_diff": {k: v["path_diff"] for k, v in z4c.items()},
         "mega_stage_v1_stage1_ms": v1_res["stage1_ms"],
         "mega_stage_v1_8x64_ms": v1_res["pool_ms"],
         "mega_stage_v2_8x62_ms": stage_res["pool_ms"],
         "fused_aux3d_nowrap_ms": aux_res["nowrap_ms"],
         "pool_fill_fc_ms": pool_res["fc_ms"],
-        "sr_c2p_ms": split_res["c2p_ms"], "card": card}))
+        "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
+        "build_seconds": kernels.BUILD_INFO.get("source_seconds"),
+        "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -292,3 +292,108 @@ def test_v1_kernels_reject_bad_input(card):
     with pytest.raises(ValueError):        # a host table
         pool_fill.pool_fill_cc(torch.zeros((2, 5, 12, 12, 12), device=card),
                                nbr, mesh)
+
+
+def _z4c(extra, dtype_name):
+    """The single-puncture deck at 16^3 on the card, initialised, with
+    every channel perturbed (the shift too) and a register u1."""
+    from athenak_tpu_torch.athinput import ParameterInput as Pin
+    pin = Pin.from_file(os.path.join(os.path.dirname(DECK), "..", "z4c",
+                                     "one_puncture.athinput"))
+    pin.modify_from_cmdline(
+        ["mesh/nx1=16", "mesh/nx2=16", "mesh/nx3=16",
+         f"job/precision={dtype_name}"] + list(extra))
+    mesh, phys, _, driver, st = build(pin, device="cuda")
+    st = driver.initialize(st)
+    gen = torch.Generator().manual_seed(5)
+    u = st["u"].double().cpu()
+    u = u + 1e-2 * torch.randn(u.shape, generator=gen, dtype=torch.float64)
+    u1 = u * (1.0 + 1e-3 * torch.randn(u.shape, generator=gen,
+                                       dtype=torch.float64))
+    dt = st["u"].dtype
+    return phys, u.to("cuda", dt).contiguous(), u1.to("cuda", dt)
+
+
+@pytest.mark.parametrize("dtype", ["single", "double"])
+@pytest.mark.parametrize("ng", [2, 4, 5])
+def test_z4c_stage_kernel(card, dtype, ng):
+    """Kernel H against its plain version on interior cells, for the four
+    RK4 coefficient sets: float32 to 2e-5 and float64 to 1e-10 of
+    max(|value|, 1)."""
+    from athenak_tpu_torch.driver import make_integrator
+    from athenak_tpu_torch.ops import z4c_stage
+    phys, u, u1 = _z4c([f"mesh/nghost={ng}"], dtype)
+    rk4 = make_integrator("rk4")
+    core = (slice(None), slice(None), slice(ng, -ng), slice(ng, -ng),
+            slice(ng, -ng))
+    tol = 2e-5 if dtype == "single" else 1e-10
+    for s in range(4):
+        args = (u, u1, phys, rk4.gam0[s], rk4.gam1[s], rk4.beta[s] * 0.1)
+        n0 = kernels.Z4C_STAGE.launches
+        got = z4c_stage.fused_z4c_stage(*args)
+        assert kernels.Z4C_STAGE.launches == n0 + 1
+        want = z4c_stage.fused_z4c_stage_plain(*args)
+        assert kernels.Z4C_STAGE.launches == n0 + 1
+        err = ((got[core] - want[core]).abs()
+               / want[core].abs().clamp(min=1.0)).max()
+        assert float(err) <= tol, (s, float(err))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ng", [2, 3, 4])
+def test_z4c_outflow_fill_kernel_bitwise(card, dtype, ng):
+    """Kernel I against its plain version, the outflow sweeps."""
+    from athenak_tpu_torch.ops import z4c_stage
+    phys, u, _ = _z4c([f"mesh/nghost={ng}"],
+                      "single" if dtype == "float32" else "double")
+    gen = torch.Generator().manual_seed(ng)
+    a = torch.rand(u.shape, generator=gen,
+                   dtype=getattr(torch, dtype)).to(card)
+    b = a.clone()
+    n0 = kernels.Z4C_OUTFLOW_FILL.launches
+    z4c_stage.outflow_fill(a, phys.bvals)
+    assert kernels.Z4C_OUTFLOW_FILL.launches == n0 + 1
+    phys.bvals.fill_ghosts(b)
+    assert torch.equal(a, b)
+
+
+def test_z4c_kernels_reject_bad_input(card):
+    from athenak_tpu_torch.ops import z4c_stage
+    phys, u, u1 = _z4c(["mesh/nghost=2"], "single")
+    with pytest.raises(ValueError):        # u1 of another dtype
+        z4c_stage.fused_z4c_stage(u, u1.double(), phys, 0.5, 0.5, 0.1)
+    with pytest.raises(ValueError):        # u1 on the host
+        z4c_stage.fused_z4c_stage(u, u1.cpu(), phys, 0.5, 0.5, 0.1)
+    with pytest.raises(ValueError):        # not the mesh's shape
+        z4c_stage.fused_z4c_stage(u[..., 1:], u1[..., 1:], phys, 0.5, 0.5,
+                                  0.1)
+    with pytest.raises(ValueError):        # not contiguous
+        z4c_stage.fused_z4c_stage(u.transpose(3, 4), u1, phys, 0.5, 0.5,
+                                  0.1)
+    with pytest.raises(TypeError):         # half precision
+        z4c_stage.fused_z4c_stage(u.half(), u1.half(), phys, 0.5, 0.5, 0.1)
+    with pytest.raises(ValueError):        # not contiguous
+        z4c_stage.outflow_fill(u.transpose(3, 4), phys.bvals)
+    pool, _, _ = _z4c(["mesh/nx1=32", "meshblock/nx1=16", "meshblock/nx2=16",
+                       "meshblock/nx3=16"], "single")
+    with pytest.raises(ValueError):        # a mesh of two blocks
+        z4c_stage.outflow_fill(torch.zeros(pool.shape, device=card),
+                               pool.bvals)
+
+
+def test_z4c_main_path_launches(card):
+    """Two RK4 cycles of the 16^3 bench deck on the card in float32: the
+    stage kernel and the outflow fill launch four times a cycle each; the
+    float64 run takes the plain path and launches neither."""
+    import chip_smoke
+    from athenak_tpu_torch.athinput import ParameterInput as Pin
+    from athenak_tpu_torch.main import run
+    for prec, per_cycle in (("single", 4), ("double", 0)):
+        pin = Pin.from_string(chip_smoke.Z4C_DECK)
+        pin.modify_from_cmdline(["mesh/nx1=16", "mesh/nx2=16", "mesh/nx3=16",
+                                 f"job/precision={prec}", "time/nlim=2"])
+        kernels.reset_counts()
+        _, _, _, st = run(pin, device="cuda")
+        assert kernels.Z4C_STAGE.launches == 2 * per_cycle
+        assert kernels.Z4C_OUTFLOW_FILL.launches == 2 * per_cycle
+        assert bool(torch.isfinite(st["u"]).all())

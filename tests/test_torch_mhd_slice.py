@@ -174,7 +174,8 @@ def test_port_never_imports_jax():
     package is imported."""
     mods = _port_modules()
     for m in ("ops.stage_split", "ops.stage_v1", "ops.aux", "ops.pool_fill",
-              "turb_driver", "pgen.turb"):
+              "turb_driver", "pgen.turb", "z4c.fd", "z4c.z4c",
+              "z4c.rhs_core", "ops.z4c_stage", "pgen.z4c_one_puncture"):
         assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
