@@ -1,12 +1,22 @@
 """Ghost-zone filling for cell-centred arrays: halo exchange + physical BCs.
 
-Counterpart of ``athenak_tpu/bvals.py`` for single-level meshes
-(reference: src/bvals/bvals_cc.cpp, src/bvals/physics/hydro_bcs.cpp).
-The axes are swept in order x1, x2, x3; each sweep copies the full current
-extent of the transverse axes, so edge and corner ghosts fill
-transitively.  Every sweep reads only interior cells along its own axis,
-which lets the port write the ghost slabs in place: ``fill_ghosts``
-returns the tensor it was given, with its ghosts filled.
+Counterpart of ``athenak_tpu/bvals.py`` (reference:
+src/bvals/bvals_cc.cpp, src/bvals/physics/hydro_bcs.cpp).  The axes are
+swept in order x1, x2, x3; each sweep copies the full current extent of
+the transverse axes, so edge and corner ghosts fill transitively.  Each
+sweep computes both of its ghost slabs from the array as it stands
+before the sweep, as the JAX package's functional sweep does, and only
+then writes them: ``fill_ghosts`` returns the tensor it was given, with
+its ghosts filled in place.
+
+On a statically refined mesh the sweeps run twice (the second round
+restricts and prolongs from donors whose own ghosts the first round
+filled) and a face whose neighbour sits on another level takes its
+ghosts by restriction from the finer donors or min-mod prolongation
+from the coarser one (``_ml_override``); a last pass fills the edge and
+corner patches straight from diagonal donors (``_fill_corners``).
+Prolongation in primitive variables
+(``<mesh_refinement>/prolong_primitives``) is not ported yet and raises.
 
 A single fully periodic block takes the fill kernel
 (``ops/fill.py``, kernel B) and a same-level periodic pool of blocks the
@@ -20,9 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .comm import gather_blocks
 from .indices import IVX, IVY, IVZ
 from .mesh import Mesh
+from .refinement import (box, donor_columns, mixed_level,
+                         pair_merge, parity, prolong_cc, restrict_cc)
 
 # cell-axis position of each mesh axis in [nmb, nvar, x3, x2, x1] arrays
 _AXIS_OF = {"x1": 4, "x2": 3, "x3": 2}
@@ -51,6 +62,12 @@ class BoundaryValues:
         self.active_axes = [ax for ax, nx in
                             (("x1", mbi.nx1), ("x2", mbi.nx2),
                              ("x3", mbi.nx3)) if nx > 1]
+        self.multilevel = mesh.multilevel
+        if self.multilevel and mesh.pin.get_or_add_boolean(
+                "mesh_refinement", "prolong_primitives", False):
+            raise NotImplementedError(
+                "mesh_refinement/prolong_primitives is not ported to "
+                "athenak_tpu_torch yet")
         self.nbr = {k: np.asarray(v) for k, v in mesh.nbr_gid.items()}
         self.mask = {k: np.asarray(v) for k, v in mesh.phys_bc_mask.items()}
         self.any_phys = {k: bool(v.any())
@@ -61,7 +78,7 @@ class BoundaryValues:
             "x3m": mesh.mesh_bcs["ix3"], "x3p": mesh.mesh_bcs["ox3"],
         }
         for key, flag in self.flag.items():
-            if self.any_phys[key] and flag not in (
+            if self.any_phys.get(key, False) and flag not in (
                     "periodic", "outflow", "reflect", "diode", "vacuum"):
                 raise NotImplementedError(
                     f"boundary flag '{flag}' is not ported to "
@@ -97,8 +114,7 @@ class BoundaryValues:
 
     def local_mask(self, key: str, ndim: int, device):
         """Per-block physical-BC mask of one face, broadcastable."""
-        return torch.as_tensor(self.mask[key], device=device).reshape(
-            (-1,) + (1,) * (ndim - 1))
+        return self.mesh.tables.mask(self.mask[key], ndim, device)
 
     # ------------------------------------------------------------------
     def fill_ghosts(self, u):
@@ -113,27 +129,196 @@ class BoundaryValues:
         if self.pool_fill_active(u):
             from .ops.pool_fill import pool_fill_cc
             return pool_fill_cc(u, self.nbr27(u.device), self.mesh)
-        for ax in self.active_axes:
-            self._sweep_axis(u, ax)
+        for _ in range(2 if self.multilevel else 1):
+            for ax in self.active_axes:
+                self._sweep_axis(u, ax)
+        if self.multilevel:
+            self._fill_corners(u)
         return u
 
     def _sweep_axis(self, u, ax: str) -> None:
         ng = self.ng
         axis = _AXIS_OF[ax]
         n = u.shape[axis]
-        # both donor slabs are interior cells along this axis; gather
-        # them before any ghost is written
-        ghost_m = gather_blocks(u[_slc(axis, n - 2 * ng, n - ng)],
-                                self.nbr[f"{ax}m"]).clone()
-        ghost_p = gather_blocks(u[_slc(axis, ng, 2 * ng)],
-                                self.nbr[f"{ax}p"]).clone()
-        if self.any_phys[f"{ax}m"]:
-            ghost_m = self._phys_bc(u, ax, "m", ghost_m)
-        if self.any_phys[f"{ax}p"]:
-            ghost_p = self._phys_bc(u, ax, "p", ghost_p)
-        u[_slc(axis, 0, ng)] = ghost_m
-        u[_slc(axis, n - ng, n)] = ghost_p
+        # both ghost slabs come from u as it stands before the sweep:
+        # gather and override them before any ghost is written
+        ghost = {}
+        for side, lo in (("m", n - 2 * ng), ("p", ng)):
+            g = self.mesh.tables.gather(u[_slc(axis, lo, lo + ng)],
+                                        self.nbr[f"{ax}{side}"]).clone()
+            if self.multilevel:
+                g = self._ml_override(u, ax, side, g)
+            if self.any_phys[f"{ax}{side}"]:
+                g = self._phys_bc(u, ax, side, g)
+            ghost[side] = g
+        u[_slc(axis, 0, ng)] = ghost["m"]
+        u[_slc(axis, n - ng, n)] = ghost["p"]
 
+    # ------------------------------------------------------------------
+    def _ml_override(self, u, ax: str, side: str, ghost):
+        """Replace the same-level ghost candidate with restriction (finer
+        donors) or prolongation (coarser donor) where the face is a
+        level boundary (reference: bvals_cc.cpp pack/unpack with coarse
+        buffers + ProlongCC; the JAX package's masked selects over
+        gathered slabs).  Reads u only; returns a new slab."""
+        t = self.mesh.ml[f"{ax}{side}"]
+        if not (t["any_fine"] or t["any_coarse"]):
+            return ghost
+        dev = u.device
+        tables = self.mesh.tables
+        ng, h = self.ng, self.ng // 2
+        axis = _AXIS_OF[ax]
+        n = u.shape[axis]
+        # mixed-level blocks have no same-level donor: their gathered
+        # candidate is self-garbage.  Start from the CURRENT ghost content
+        # instead, so slab parts outside the restriction/prolongation
+        # write regions (corner rings) keep what earlier sweeps copied.
+        mlm = tables.mask(mixed_level(t), 5, dev)
+        cur = u[_slc(axis, 0, ng)] if side == "m" \
+            else u[_slc(axis, n - ng, n)]
+        ghost = torch.where(mlm, cur, ghost)
+        mbi = self.mesh.mb_indcs
+        nx_of = {"x1": mbi.nx1, "x2": mbi.nx2, "x3": mbi.nx3}
+        nc_of = {"x1": mbi.ncells1, "x2": mbi.ncells2, "x3": mbi.ncells3}
+        tn = t["t_names"]
+        cell_axes = [_AXIS_OF[a] - 5 for a in self.active_axes]
+
+        # ---- finer donors: 2x cell-average restriction, quadrant assembly
+        if t["any_fine"]:
+            slab = u[_slc(axis, n - 3 * ng, n - ng)] if side == "m" \
+                else u[_slc(axis, ng, 3 * ng)]
+            parts = [restrict_cc(tables.gather(slab, col), cell_axes)
+                     for col in donor_columns(t)]
+            # pair-merge along each transverse axis (fastest quadrant bit
+            # first); each restricted slab covers my transverse cells
+            # [h, mid+h) / [mid-h, nc-h), overlapping by 2h donor-ghost
+            # cells that both donors agree on
+            for a2 in tn:
+                parts = pair_merge(parts, _AXIS_OF[a2], nx_of[a2] // 2 + h, h)
+            region = box(ghost, {_AXIS_OF[a2]: (h, nc_of[a2] - h)
+                                  for a2 in tn})
+            fmask = tables.mask(t["fine_mask"], 5, dev)
+            region.copy_(torch.where(fmask, parts[0], region))
+
+        # ---- coarser donor: min-mod prolongation over a per-block
+        # parity-selected window of the donor face
+        if t["any_coarse"]:
+            g = 1  # guard cells of the min-mod stencil
+            slab = u[_slc(axis, n - ng - h - g, n - ng + g)] if side == "m" \
+                else u[_slc(axis, ng - g, ng + h + g)]
+            d = tables.gather(slab, t["coarse"])
+            for a2 in tn:
+                t_axis = _AXIS_OF[a2]
+                half = nx_of[a2] // 2
+                ln = half + ng + 2 * g
+                s0 = ng - h - g
+                sel = tables.mask(parity(t, a2), 5, dev)
+                d = torch.where(sel, d.narrow(t_axis, s0 + half, ln),
+                                d.narrow(t_axis, s0, ln))
+            pro = prolong_cc(d, cell_axes)
+            wmask = tables.mask(t["coarse_mask"], 5, dev)
+            # guard the transverse corner strips: where the diagonal
+            # neighbour is same-level or finer, the sweeps already placed
+            # the correct (copied/restricted) values there (concave trees;
+            # see refinement.build_ml_tables pkeep)
+            for a2 in tn:
+                t_axis = _AXIS_OF[a2]
+                ncc = nc_of[a2]
+                shp = [1] * 5
+                shp[t_axis] = ncc
+                pos = torch.arange(ncc, device=dev).reshape(shp)
+                km = tables.mask(t["pkeep"][a2]["m"], 5, dev)
+                kp = tables.mask(t["pkeep"][a2]["p"], 5, dev)
+                wmask = wmask & ((pos >= ng) | km) & ((pos < ncc - ng) | kp)
+            ghost = torch.where(wmask, pro, ghost)
+        return ghost
+
+    # ------------------------------------------------------------------
+    def _fill_corners(self, u) -> None:
+        """Direct diagonal-donor fill of the edge/corner ghost patches, in
+        place.  At mixed-level junctions the restriction/prolongation
+        write regions leave corner holes; this pass copies or restricts
+        the ng-deep corner patches straight from the diagonal donors
+        (reference: the edge/corner buffers of src/bvals/bvals.hpp:61-101;
+        the JAX package's ``_fill_corners``)."""
+        mesh = self.mesh
+        mbi = mesh.mb_indcs
+        ng, h = self.ng, self.ng // 2
+        nx_of = {"x1": mbi.nx1, "x2": mbi.nx2, "x3": mbi.nx3}
+        act = self.active_axes
+        dev = u.device
+        tables = self.mesh.tables
+
+        def side_slices(s, n):
+            """(my ghost span, same-donor span, fine-donor span)."""
+            if s == "m":
+                return (0, ng), (n - 2 * ng, n - ng), (n - 3 * ng, n - ng)
+            return (n - ng, n), (ng, 2 * ng), (ng, 3 * ng)
+
+        pairs = [(d1, d2) for i, d1 in enumerate(act) for d2 in act[i + 1:]]
+        for d1, d2 in pairs:
+            a1, a2 = _AXIS_OF[d1], _AXIS_OF[d2]
+            # edge direction (3D) / absent (2D)
+            rest = [a for a in act if a not in (d1, d2)]
+            for s1 in ("m", "p"):
+                for s2 in ("m", "p"):
+                    t = mesh.ml.get(f"e_{d1}{s1}{d2}{s2}")
+                    if t is None or not (t["any_same"] or t["any"]):
+                        continue
+                    my1, dn1, fn1 = side_slices(s1, u.shape[a1])
+                    my2, dn2, fn2 = side_slices(s2, u.shape[a2])
+                    if t["any_same"]:
+                        region = box(u, {a1: my1, a2: my2})
+                        donor = tables.gather(box(u, {a1: dn1, a2: dn2}),
+                                              t["same_gid"])
+                        mb = tables.mask(t["same_mask"], 5, dev)
+                        region.copy_(torch.where(mb, donor, region))
+                    if t["any"]:
+                        caxes = [a1 - 5, a2 - 5]
+                        if rest:
+                            caxes.append(_AXIS_OF[rest[0]] - 5)
+                        src = box(u, {a1: fn1, a2: fn2})
+                        parts = [restrict_cc(tables.gather(src, col), caxes)
+                                 for col in donor_columns(t)]
+                        spans = {a1: my1, a2: my2}
+                        if rest:
+                            # assemble the two edge-axis donors over the
+                            # transverse core (vertex cubes via v_ pass)
+                            ar = _AXIS_OF[rest[0]]
+                            assembled = pair_merge(
+                                parts, ar, nx_of[rest[0]] // 2 + h, h)[0]
+                            spans[ar] = (h, u.shape[ar] - h)
+                        else:
+                            assembled = parts[0]
+                        region = box(u, spans)
+                        mb = tables.mask(t["mask"], 5, dev)
+                        region.copy_(torch.where(mb, assembled, region))
+        if len(act) != 3:
+            return
+        axes = (_AXIS_OF["x1"], _AXIS_OF["x2"], _AXIS_OF["x3"])
+        for s1 in ("m", "p"):
+            for s2 in ("m", "p"):
+                for s3 in ("m", "p"):
+                    t = mesh.ml.get(f"v_{s1}{s2}{s3}")
+                    if t is None or not (t["any_same"] or t["any_fine"]):
+                        continue
+                    sl = [side_slices(s, u.shape[a])
+                          for s, a in zip((s1, s2, s3), axes)]
+                    region = box(u, {a: s[0] for a, s in zip(axes, sl)})
+                    if t["any_same"]:
+                        donor = tables.gather(
+                            box(u, {a: s[1] for a, s in zip(axes, sl)}),
+                            t["same_gid"])
+                        mb = tables.mask(t["same_mask"], 5, dev)
+                        region.copy_(torch.where(mb, donor, region))
+                    if t["any_fine"]:
+                        donor = restrict_cc(tables.gather(
+                            box(u, {a: s[2] for a, s in zip(axes, sl)}),
+                            t["fine_gid"]), [a - 5 for a in axes])
+                        mb = tables.mask(t["fine_mask"], 5, dev)
+                        region.copy_(torch.where(mb, donor, region))
+
+    # ------------------------------------------------------------------
     def _phys_bc(self, u, ax: str, side: str, gathered):
         """Physical-BC ghost values selected on the masked blocks
         (reference: src/bvals/physics/hydro_bcs.cpp:85-130)."""

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "athenak_pool_fill": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P],
     "athenak_z4c_stage": [_P] * 4 + [_I] * 5 + [_P] * 2,
     "athenak_z4c_outflow_fill": [_P, ctypes.c_longlong] + [_I] * 4 + [_P],
+    "athenak_flux_dir": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_P],
 }
 
 
@@ -82,9 +83,10 @@ FUSED_AUX3D = Kernel("fused_aux3d", "athenak_fused_aux")
 POOL_FILL = Kernel("pool_fill", "athenak_pool_fill")
 Z4C_STAGE = Kernel("z4c_stage", "athenak_z4c_stage")
 Z4C_OUTFLOW_FILL = Kernel("z4c_outflow_fill", "athenak_z4c_outflow_fill")
+FLUX_DIR = Kernel("fused_flux_dir", "athenak_flux_dir")
 ALL = (MEGA_STAGE_V2, PERIODIC_FILL_CC, PERIODIC_FILL_FC, FUSED_STAGE3D,
        FUSED_CT3D, MEGA_STAGE_V1, FUSED_AUX3D, POOL_FILL, Z4C_STAGE,
-       Z4C_OUTFLOW_FILL)
+       Z4C_OUTFLOW_FILL, FLUX_DIR)
 
 _LIB = None
 BUILD_INFO = {}

@@ -1,12 +1,15 @@
 """Mesh: global grid + MeshBlock decomposition (host-side geometry).
 
-Counterpart of ``athenak_tpu/mesh.py`` for single-level meshes
-(reference: src/mesh/mesh.hpp:92-185, meshblock_tree.cpp,
-build_tree.cpp), copied so that the port never imports the JAX package.
-All geometry (logical locations, neighbour tables, block extents) is
-computed once on the host with numpy.  Blocks are ordered along the
-Z-order (Morton) curve exactly like the reference's tree traversal.
-Mesh refinement (static or adaptive) is not ported yet and raises.
+Counterpart of ``athenak_tpu/mesh.py`` (reference:
+src/mesh/mesh.hpp:92-185, meshblock_tree.cpp, build_tree.cpp), copied so
+that the port never imports the JAX package.  All geometry (logical
+locations, neighbour tables, block extents) is computed once on the host
+with numpy.  Blocks are ordered along the Z-order (Morton) curve exactly
+like the reference's tree traversal.  A statically refined mesh
+(``<mesh_refinement>/refinement = static``) builds its leaves and the
+mixed-level donor tables ``ml`` with ``refinement.py``; its blocks carry
+their own extents and cell sizes.  Adaptive refinement is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from .athinput import ParameterInput
+from .comm import BlockTables
 
 BOUNDARY_FLAGS = ("undef", "periodic", "outflow", "reflect", "inflow",
                   "diode", "user", "vacuum", "shear_periodic")
@@ -74,9 +78,8 @@ class RegionIndcs:
 
 
 class Mesh:
-    """Global uniform-level Cartesian mesh decomposed into MeshBlocks."""
-
-    multilevel = False
+    """Global Cartesian mesh decomposed into MeshBlocks: one level, or
+    statically refined."""
 
     def __init__(self, pin: ParameterInput) -> None:
         self.pin = pin
@@ -145,12 +148,38 @@ class Mesh:
                     (self.mesh_bcs[b] == "periodic"):
                 raise ValueError(f"{a}/{b} must both be periodic or neither")
 
-        if pin.does_block_exist("mesh_refinement") and pin.get_string(
-                "mesh_refinement", "refinement") != "none":
-            raise NotImplementedError(
-                "mesh refinement is not ported to athenak_tpu_torch yet")
-        self._build_blocks()
-        self.mb_lev = np.zeros(self.nmb_total, dtype=np.int64)
+        # mesh refinement (reference: build_tree.cpp:62-229)
+        self.multilevel = False
+        ref = "none"
+        if pin.does_block_exist("mesh_refinement"):
+            ref = pin.get_string("mesh_refinement", "refinement")
+            if ref == "adaptive":
+                raise NotImplementedError(
+                    "adaptive mesh refinement is not ported to "
+                    "athenak_tpu_torch yet")
+            if ref not in ("static", "none"):
+                raise ValueError(f"mesh_refinement/refinement={ref}")
+        if ref == "static":
+            if ng % 2 != 0:
+                raise ValueError("SMR/AMR requires an even nghost")
+            for mb, act in ((mbnx1, True), (mbnx2, nx2 > 1),
+                            (mbnx3, nx3 > 1)):
+                if act and mb % 2 != 0:
+                    raise ValueError(
+                        "SMR/AMR requires even meshblock extents")
+            if "shear_periodic" in self.mesh_bcs.values():
+                raise NotImplementedError(
+                    "the shearing box on a refined mesh is not ported to "
+                    "athenak_tpu_torch yet")
+            self._build_blocks_ml()
+            self.multilevel = self.max_level > 0
+        else:
+            self._build_blocks()
+            self.mb_lev = np.zeros(self.nmb_total, dtype=np.int64)
+            self.ml = None
+
+        # the gid maps and masks on the device, moved there once
+        self.tables = BlockTables()
 
         # time/cycle state, kept on the host
         self.time = 0.0
@@ -225,6 +254,54 @@ class Mesh:
                 self.phys_bc_mask[key] = mask
 
     # ------------------------------------------------------------------
+    def _build_blocks_ml(self) -> None:
+        """Refined tree: leaves, per-block (level-dependent) extents and
+        cell sizes, and the mixed-level donor tables (reference:
+        build_tree.cpp:62-229 + the bvals neighbour enumeration)."""
+        from .refinement import build_ml_tables, build_static_tree
+
+        ms = self.mesh_size
+        pin = self.pin
+        active = (True, pin.get_integer("mesh", "nx2") > 1,
+                  pin.get_integer("mesh", "nx3") > 1)
+        nrbx = (self.nmb_x1, self.nmb_x2, self.nmb_x3)
+        domain = (ms.x1min, ms.x1max, ms.x2min, ms.x2max,
+                  ms.x3min, ms.x3max)
+        leaves = build_static_tree(pin, nrbx, active, domain)
+        self.leaves = list(leaves)
+        self.nmb_total = len(leaves)
+        self.lloc_eachmb = np.array([[l1, l2, l3] for l1, l2, l3, _ in
+                                     leaves], dtype=np.int64)
+        self.mb_lev = np.array([lev for _, _, _, lev in leaves],
+                               dtype=np.int64)
+        self.max_level = int(self.mb_lev.max())
+
+        two = 2.0 ** self.mb_lev
+        one = np.ones_like(two)
+        w1 = (ms.x1max - ms.x1min) / (nrbx[0] * two)
+        w2 = (ms.x2max - ms.x2min) / (nrbx[1] * (two if active[1] else one))
+        w3 = (ms.x3max - ms.x3min) / (nrbx[2] * (two if active[2] else one))
+        l1 = self.lloc_eachmb[:, 0]
+        l2 = self.lloc_eachmb[:, 1]
+        l3 = self.lloc_eachmb[:, 2]
+        self.mb_size = {
+            "x1min": ms.x1min + l1 * w1, "x1max": ms.x1min + (l1 + 1) * w1,
+            "x2min": ms.x2min + l2 * w2, "x2max": ms.x2min + (l2 + 1) * w2,
+            "x3min": ms.x3min + l3 * w3, "x3max": ms.x3min + (l3 + 1) * w3,
+            "dx1": w1 / self.mb_indcs.nx1,
+            "dx2": w2 / self.mb_indcs.nx2,
+            "dx3": w3 / self.mb_indcs.nx3,
+        }
+
+        wraps = {ax: self.mesh_bcs[f"i{ax}"] in ("periodic", "shear_periodic")
+                 for ax in ("x1", "x2", "x3")}
+        self.ml = build_ml_tables(leaves, nrbx, active, wraps)
+        face_keys = [k for k, v in self.ml.items()
+                     if isinstance(v, dict) and "same" in v]
+        self.nbr_gid = {k: self.ml[k]["same"] for k in face_keys}
+        self.phys_bc_mask = {k: self.ml[k]["phys"] for k in face_keys}
+
+    # ------------------------------------------------------------------
     def cell_centers(self, gid: int):
         """Cell-center coordinate arrays (active + ghost cells) for block gid.
 
@@ -247,3 +324,21 @@ class Mesh:
         x3v = centers(mbi.nx3, mbi.ncells3, mbi.ks,
                       self.mb_size["x3min"][gid], self.mb_size["x3max"][gid])
         return x1v, x2v, x3v
+
+    def face_edges(self, gid: int):
+        """Left-edge coordinate arrays (reference ``LeftEdgeX``)."""
+        mbi = self.mb_indcs
+
+        def edges(n, ncells, istart, xmin, xmax):
+            ith = np.arange(ncells + 1, dtype=np.float64) - istart
+            x = ith / n
+            return (x * xmax - x * xmin) - (0.5 * xmax - 0.5 * xmin) \
+                + (0.5 * xmin + 0.5 * xmax)
+
+        x1f = edges(mbi.nx1, mbi.ncells1, mbi.is_,
+                    self.mb_size["x1min"][gid], self.mb_size["x1max"][gid])
+        x2f = edges(mbi.nx2, mbi.ncells2, mbi.js,
+                    self.mb_size["x2min"][gid], self.mb_size["x2max"][gid])
+        x3f = edges(mbi.nx3, mbi.ncells3, mbi.ks,
+                    self.mb_size["x3min"][gid], self.mb_size["x3max"][gid])
+        return x1f, x2f, x3f

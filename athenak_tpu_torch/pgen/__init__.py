@@ -5,8 +5,9 @@ src/pgen/pgen.hpp:27-93).  Each generator is a module with
 
     init(pin, mesh, phys) -> state      # tensors on phys.device
 
-selected by <problem>/pgen_name.  The blast wave and driven turbulence
-(MHD) and the Z4c single puncture are ported so far.
+selected by <problem>/pgen_name.  The blast wave, the Orszag-Tang vortex
+and driven turbulence (MHD) and the Z4c single puncture are ported so
+far.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 _REGISTRY = {
     "blast": "athenak_tpu_torch.pgen.blast",
+    "orszag_tang": "athenak_tpu_torch.pgen.orszag_tang",
     "turb": "athenak_tpu_torch.pgen.turb",
     "z4c_one_puncture": "athenak_tpu_torch.pgen.z4c_one_puncture",
 }

@@ -1,9 +1,9 @@
 """Ideal magnetohydrodynamics with constrained transport, Newtonian or
 special-relativistic.
 
-Counterpart of ``athenak_tpu/physics/mhd.py`` for single-level meshes
-(reference: src/mhd/mhd.hpp, mhd_tasks.cpp:48-81, mhd_fluxes.cpp,
-mhd_corner_e.cpp, mhd_ct.cpp).  Layouts are the JAX package's:
+Counterpart of ``athenak_tpu/physics/mhd.py`` (reference:
+src/mhd/mhd.hpp, mhd_tasks.cpp:48-81, mhd_fluxes.cpp, mhd_corner_e.cpp,
+mhd_ct.cpp).  Layouts are the JAX package's:
 
   * ``u``/``w`` are [nmb, nvar, n3, n2, n1] (ghosts included);
   * the face field is a dict x1f [nmb, n3, n2, n1+1], x2f [nmb, n3, n2+1,
@@ -31,9 +31,17 @@ A stage runs one of four paths.  On the card in float32:
     port has none yet;
   * every other deck takes the general path, the plain tensor functions
     below; a 3-D single-level deck still runs its CT through kernel D
-    there, as the JAX package does.
+    there, as the JAX package does, and a Newtonian PLM+HLLD deck (a
+    statically refined mesh, a 2-D deck) forms its fluxes with kernel J
+    (``ops/flux.py``: PLM, face floors and HLLD, one launch per
+    direction).  SR decks keep the SR solver there, never HLLD.
 
 Everywhere else (the CPU, float64) the general path runs throughout.
+On a statically refined mesh the general path adds the JAX package's
+three multilevel steps: the flux correction after the fluxes
+(``refinement.flux_correct_cc``), the EMF correction after the corner
+EMFs (``mhd_smr.emf_correct``) and the mixed-level fills; the cell sizes
+are per block, [nmb, 1, 1, 1(, 1)] tensors on the run's device.
 The deck option ``<mhd>/use_kernels = false`` keeps a run on the general
 path and the sweep fills, for comparison.  GR MHD is not ported yet.
 A driven run (``<turb_driving>``) carries ``turb_force`` in its state;
@@ -45,7 +53,8 @@ from __future__ import annotations
 import torch
 
 from ..bvals import _AXIS_OF, BoundaryValues, kernel_dtype_ok
-from ..comm import gather_blocks
+from ..refinement import flux_correct_cc
+from . import mhd_smr
 from ..coordinates import Coordinates
 from ..indices import IDN, IEN, IVX, IVY, IVZ, RECON_NGHOST
 from ..mesh import Mesh
@@ -289,19 +298,34 @@ class MHD:
                 raise _not_ported(what)
 
         mbi = mesh.mb_indcs
+        self.multilevel = mesh.multilevel
+        if self.multilevel and (mbi.nx1 < 2 * mbi.ng or (
+                mbi.nx2 > 1 and mbi.nx2 < 2 * mbi.ng)):
+            raise ValueError("SMR requires meshblocks >= 2*nghost")
         n1, n2, n3 = mbi.ncells1, mbi.ncells2, mbi.ncells3
         self.fc_shapes = {
             "x1f": (mesh.nmb_total, n3, n2, n1 + 1),
             "x2f": (mesh.nmb_total, n3, n2 + 1, n1),
             "x3f": (mesh.nmb_total, n3 + 1, n2, n1),
         }
+        # the cell size: a scalar on one level, per block on a refined
+        # mesh ([nmb, 1, 1, 1] for the 4-D face and EMF arrays, with one
+        # more axis in dirs for the 5-D cell arrays)
         ms = mesh.mesh_size
-        self.dxs = {"x1": ms.dx1, "x2": ms.dx2, "x3": ms.dx3}
-        self.dirs = [("x1", 4, IVX, ms.dx1)]
+        if self.multilevel:
+            self.dxs = {n: torch.as_tensor(
+                mesh.mb_size[f"d{n}"], dtype=dtype,
+                device=self.device).reshape(-1, 1, 1, 1)
+                for n in ("x1", "x2", "x3")}
+            dx5 = {n: d[..., None] for n, d in self.dxs.items()}
+        else:
+            self.dxs = {"x1": ms.dx1, "x2": ms.dx2, "x3": ms.dx3}
+            dx5 = self.dxs
+        self.dirs = [("x1", 4, IVX, dx5["x1"])]
         if mbi.nx2 > 1:
-            self.dirs.append(("x2", 3, IVY, ms.dx2))
+            self.dirs.append(("x2", 3, IVY, dx5["x2"]))
         if mbi.nx3 > 1:
-            self.dirs.append(("x3", 2, IVZ, ms.dx3))
+            self.dirs.append(("x3", 2, IVZ, dx5["x3"]))
         self.time_evolution = pin.get_string("time", "evolution") \
             if pin.does_block_exist("time") else "dynamic"
         # turbulence driving (reference: src/srcterms/turb_driver.cpp),
@@ -311,6 +335,7 @@ class MHD:
             if pin.does_block_exist("turb_driving") else None
 
         use_kernels = pin.get_or_add_boolean("mhd", "use_kernels", True)
+        from ..ops.flux import supports_flux_dir
         from ..ops.stage import supports_mega_stage, supports_mega_v2
         from ..ops.stage_split import (solver_for, supports_fused_ct,
                                        supports_fused_stage)
@@ -321,6 +346,11 @@ class MHD:
                                 and not self.use_mega_stage
                                 and supports_fused_stage(self, mesh))
         self.use_fused_ct = use_kernels and supports_fused_ct(self, mesh)
+        # kernel J: the fluxes of the general path
+        self.use_flux_dir = (use_kernels and not self.use_mega_v2
+                             and not self.use_mega_stage
+                             and not self.use_fused_stage
+                             and supports_flux_dir(self))
         self.stage_solver = solver_for(self)
         if not use_kernels:
             bvals.use_fill_kernel = False
@@ -347,8 +377,20 @@ class MHD:
     # ------------------------------------------------------------- fluxes
     def fluxes(self, w, bcc, bfc):
         """Per-direction fluxes and face EMFs with the deck's solver (the
-        SR one under SR).  No face-state floors for PLM, as on the JAX
-        package's general path."""
+        SR one under SR).  Kernel J forms them on the card in float32 where
+        its gate admits the deck, with the face-state floors of the JAX
+        package's ``pallas_flux`` route; elsewhere no face-state floors
+        for PLM, as on the JAX package's general path."""
+        if self.use_flux_dir and kernel_dtype_ok(w):
+            from ..ops.flux import fused_flux_dir
+            flx, emf = {}, {}
+            for name, _axis, ivx, _dx in self.dirs:
+                f, ey, ez = fused_flux_dir(w, bcc, bfc[f"{name}f"],
+                                           self.eos, name, ivx)
+                flx[name] = f
+                emf[EY_NAME[name]] = ey
+                emf[EZ_NAME[name]] = ez
+            return flx, emf
         return face_fluxes(w, bcc, bfc, self.eos, self._solve, self.dirs,
                            rec=recon_ops.RECON_FNS[self.recon_method])
 
@@ -379,25 +421,41 @@ class MHD:
         mbi = self.mesh.mb_indcs
         ng = mbi.ng
         nx_of = {"x1": mbi.nx1, "x2": mbi.nx2, "x3": mbi.nx3}
-        for ax in bv.active_axes:
-            axis4 = _AXIS_OF[ax] - 1
-            nxa = nx_of[ax]
-            for comp, arr in bfc.items():
-                n = arr.shape[axis4]
-                if comp == f"{ax}f":
-                    src_m, src_p = (nxa, ng + 1)
-                    dst_p = ng + nxa + 1
-                else:
-                    src_m, src_p = (n - 2 * ng, ng)
-                    dst_p = n - ng
-                donor_m = gather_blocks(arr.narrow(axis4, src_m, ng),
-                                        bv.nbr[f"{ax}m"]).clone()
-                donor_p = gather_blocks(arr.narrow(axis4, src_p, ng),
-                                        bv.nbr[f"{ax}p"]).clone()
-                arr.narrow(axis4, 0, ng).copy_(donor_m)
-                arr.narrow(axis4, dst_p, ng).copy_(donor_p)
-            self._phys_bc_fc(bfc, ax)
+        # a refined mesh sweeps twice, like the cell-centred fill, and
+        # then fills the edge and corner patches from diagonal donors
+        for _ in range(2 if self.multilevel else 1):
+            for ax in bv.active_axes:
+                self._sweep_fc(bfc, ax, ng, nx_of[ax])
+        if self.multilevel:
+            mhd_smr.fc_fill_corners(self.mesh, bv.active_axes, bfc)
         return bfc
+
+    def _sweep_fc(self, bfc, ax: str, ng: int, nxa: int) -> None:
+        """One axis sweep of the face-field fill, in place."""
+        bv = self.bvals
+        axis4 = _AXIS_OF[ax] - 1
+        for comp, arr in bfc.items():
+            # the mixed-level overrides read their donors from the
+            # array as it stood before the sweep
+            src = mhd_smr.DonorBands(arr, axis4, ng) \
+                if self.multilevel else None
+            n = arr.shape[axis4]
+            if comp == f"{ax}f":
+                src_m, src_p = (nxa, ng + 1)
+                dst_p = ng + nxa + 1
+            else:
+                src_m, src_p = (n - 2 * ng, ng)
+                dst_p = n - ng
+            donor_m = self.mesh.tables.gather(arr.narrow(axis4, src_m, ng),
+                                    bv.nbr[f"{ax}m"]).clone()
+            donor_p = self.mesh.tables.gather(arr.narrow(axis4, src_p, ng),
+                                    bv.nbr[f"{ax}p"]).clone()
+            arr.narrow(axis4, 0, ng).copy_(donor_m)
+            arr.narrow(axis4, dst_p, ng).copy_(donor_p)
+            if src is not None:
+                mhd_smr.ml_fc_override(self.mesh, bv.active_axes, arr,
+                                       src, ax, comp)
+        self._phys_bc_fc(bfc, ax)
 
     def _phys_bc_fc(self, bfc, ax: str) -> None:
         """Physical BCs for the face field, in place (reference:
@@ -508,6 +566,9 @@ class MHD:
                 beta_dt, self.dxs, self.stage_solver)
         else:
             flx, emf = self.fluxes(w, bcc, bfc)
+            if self.multilevel:
+                flx = flux_correct_cc(flx, self.mesh,
+                                      [d[0] for d in self.dirs])
             u = self.rk_update(u, saved["u1"], flx, gam0, gam1, beta_dt)
             fden = {n: flx[n][:, IDN] for n in flx}
         if self.use_fused_ct and on_card:
@@ -521,6 +582,9 @@ class MHD:
                 is_sr=self.is_sr)
         else:
             e1, e2, e3 = self.corner_e(w, bcc, fden, emf)
+            if self.multilevel:
+                e1, e2, e3 = mhd_smr.emf_correct(
+                    self.mesh, self.bvals.active_axes, e1, e2, e3)
             bfc = self.ct_update(bfc, saved["bfc1"], e1, e2, e3,
                                  gam0, gam1, beta_dt)
         u = self.bvals.fill_ghosts(u)

@@ -2,12 +2,11 @@
 
 The JAX package's state is a dict of arrays: ``u``, under MHD ``bfc`` (a
 dict of the face arrays x1f, x2f, x3f) and, when present, ``w``, ``bcc``
-and the turbulence driver's ``turb_force``.  A Z4c state holds ``u``
-(and ``w``, the same array) and no ``bfc``.  These two functions move
-such a dict (as numpy arrays) into the port and back, so both packages
-can start from one state.  The JAX driver's random key ``turb_key`` is
-not carried: the port draws from a ``torch.Generator``
-(``turb_driver.py``).
+and the turbulence driver's ``turb_force`` and threefry key
+``turb_key`` (two uint32 words; an int64 tensor in the port,
+``prng.py``).  A Z4c state holds ``u`` (and ``w``, the same array) and
+no ``bfc``.  These two functions move such a dict (as numpy arrays) into
+the port and back, so both packages can start from one state.
 """
 
 from __future__ import annotations
@@ -24,6 +23,9 @@ def state_from_numpy(d, device, dtype):
         return torch.tensor(np.asarray(a), device=device, dtype=dtype)
 
     out = {k: t(d[k]) for k in _KEYS if k in d}
+    if "turb_key" in d:
+        out["turb_key"] = torch.tensor(
+            np.asarray(d["turb_key"]).astype(np.int64), device=device)
     if "bfc" in d:
         out["bfc"] = {k: t(v) for k, v in d["bfc"].items()}
     return out
@@ -35,6 +37,8 @@ def state_to_numpy(state):
         return x.detach().cpu().numpy()
 
     out = {k: a(state[k]) for k in _KEYS if k in state}
+    if "turb_key" in state:
+        out["turb_key"] = a(state["turb_key"]).astype(np.uint32)
     if "bfc" in state:
         out["bfc"] = {k: a(v) for k, v in state["bfc"].items()}
     return out

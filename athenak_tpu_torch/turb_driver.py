@@ -12,14 +12,12 @@ in numpy exactly as the JAX package builds them; the force is the same
 sum over modes of A_k cos(k.x) + B_k sin(k.x), mode by mode in the same
 order.
 
-Random numbers: same ensemble, different stream.  The JAX package draws
-its Gaussian amplitudes with ``jax.random`` from a key carried in the
-state; threefry streams are not reproducible in torch.  The port keeps a
-``torch.Generator`` on the run's device, seeded from
-``<turb_driving>/seed``, and makes every draw in one method, ``draw``,
-which the tests replace on an instance with one that returns the JAX
-draws; under those draws the force and the forced state agree with the
-JAX package to round-off.  The state carries ``turb_force`` but no key.
+Random numbers: the JAX package's stream.  The state carries the
+threefry key ``turb_key`` from ``<turb_driving>/seed`` as the JAX package
+carries it; each cycle splits it, and the force field splits its subkey
+into the keys of its two Gaussian amplitude sets (``prng.py``, integer
+arithmetic on the run's device), so a driven run follows the JAX
+package's realisation.
 """
 
 from __future__ import annotations
@@ -29,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from . import prng
 from .comm import global_sum
 from .indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 
@@ -48,8 +47,6 @@ class TurbulenceDriver:
         if self.driving_type != 0:
             raise NotImplementedError(
                 "only isotropic driving (driving_type=0) is implemented")
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(self.seed)
 
         ms = mesh.mesh_size
         lx = ms.x1max - ms.x1min
@@ -105,7 +102,8 @@ class TurbulenceDriver:
     # ------------------------------------------------------------------
     def init_state_entries(self, dtype):
         return {"turb_force": torch.zeros(self.shape, dtype=dtype,
-                                          device=self.device)}
+                                          device=self.device),
+                "turb_key": prng.prng_key(self.seed, self.device)}
 
     def _table(self, name: str, dtype):
         """Host table ``name`` on the run's device at ``dtype``, copied
@@ -117,18 +115,12 @@ class TurbulenceDriver:
         return self._tables[key]
 
     # ------------------------------------------------------------------
-    def draw(self, nmode: int, dtype):
-        """The Gaussian amplitudes of one force field: (a, b), each
-        [nmode, 3], from the driver's generator."""
-        a = torch.randn((nmode, 3), generator=self.gen, dtype=dtype,
-                        device=self.device)
-        b = torch.randn((nmode, 3), generator=self.gen, dtype=dtype,
-                        device=self.device)
-        return a, b
-
-    def _synthesize(self, dtype):
-        """New solenoidal Gaussian force field [nmb, 3, n3, n2, n1]."""
-        a, b = self.draw(self.nmode, dtype)
+    def _synthesize(self, key, dtype):
+        """New solenoidal Gaussian force field [nmb, 3, n3, n2, n1] from
+        the threefry key ``key``."""
+        ka, kb = prng.split(key)
+        a = prng.normal(ka, (self.nmode, 3), dtype)
+        b = prng.normal(kb, (self.nmode, 3), dtype)
         kv = self._table("kvec", dtype)
         nrm = self._table("norm", dtype)
         ksq = torch.sum(kv * kv, dim=1, keepdim=True)
@@ -165,7 +157,8 @@ class TurbulenceDriver:
                slice(mbi.js, mbi.je + 1),
                slice(mbi.is_, mbi.ie + 1))
 
-        ftmp = self._synthesize(dtype)
+        key, sub = prng.split(state["turb_key"])
+        ftmp = self._synthesize(sub, dtype)
 
         den = u[:, IDN]
         dact = (slice(None), slice(mbi.ks, mbi.ke + 1),
@@ -217,4 +210,4 @@ class TurbulenceDriver:
             tc = global_sum(torch.sum(wv * u[act][:, im]))
             u[:, im] += -den * tc / t0
 
-        return dict(state, u=u, turb_force=force)
+        return dict(state, u=u, turb_force=force, turb_key=key)

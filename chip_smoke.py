@@ -85,7 +85,25 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      puncture moved by the gauge and inside (0, 1), and the two paths
      within Z4C_PATH_TOL of each other.  It reports each path's
      zone-cycles/s (CUDA events, in turns) and the split of a kernel-path
-     cycle into the stage, the fill, accumulate_rk4 and the host.
+     cycle into the stage, the fill, accumulate_rk4 and the host;
+ 12. holds the flux kernel of the general path (``fused_flux_dir``,
+     kernel J: PLM, face floors and HLLD for one direction) against its
+     plain version, every direction, on ``inputs/mhd/blast_smr.athinput``
+     at its full size (``SMR_FULL``: 128^3 root cells in 32^3 blocks,
+     120 blocks on two levels) as initialised and after 5 cycles, and on
+     ``inputs/mhd/orszag_tang.athinput`` at 1024^2: float32 within the
+     two-tier bound of each channel's scale on the faces the update
+     reads, float64 within 1e-10; it times each direction and its plain
+     version;
+ 13. drives both decks through the CLI in float32 for 10 cycles, kernel
+     path and plain path (``mhd/use_kernels=false``), with the launch
+     counts set to 0 just before each run: kernel J must launch exactly
+     once a direction a stage (60 and 40 times) and nothing else, and
+     nothing on the plain path; the state must be finite, keep div(B) at
+     roundoff on every level and the volume-weighted mass to 1e-5, and
+     the two paths within SMR_PATH_TOL of each other.  It reports each
+     path's zone-cycles/s over all blocks of all levels (CUDA events, in
+     turns) and the split of one SMR stage into its parts.
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -121,6 +139,26 @@ OPS_MEGA = 1250       # per cell: 2 c2p, 3 HLLD faces, RK, GS07, CT, dt
 OPS_AUX = 100         # per cell: bcc, c2p with floors, 3 fast speeds
 NCYC_TURB = 10
 RK2 = ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))   # (gam0, gam1, beta) per stage
+SMR_DECK = os.path.join(ROOT, "inputs", "mhd", "blast_smr.athinput")
+OT_DECK = os.path.join(ROOT, "inputs", "mhd", "orszag_tang.athinput")
+# phases 12-13: blast_smr.athinput at its full size, 128^3 root cells in
+# 32^3 blocks (120 blocks of 36^3 with ghosts: 56 at level 0, 64 at
+# level 1), and the Orszag-Tang deck at 1024^2 on one block
+SMR_FULL = ["mesh/nx1=128", "mesh/nx2=128", "mesh/nx3=128",
+            "meshblock/nx1=32", "meshblock/nx2=32", "meshblock/nx3=32"]
+OT_FULL = ["mesh/nx1=1024", "mesh/nx2=1024"]
+NCYC_SMR = 10
+# tests/test_torch_cuda.py's small SMR deck: orszag_tang.athinput on a
+# 32^2 root grid of 8^2 blocks with one level-1 region (28 blocks)
+OT_SMR = ["mesh/nx1=32", "mesh/nx2=32", "meshblock/nx1=8",
+          "meshblock/nx2=8", "mesh_refinement/refinement=static",
+          "refined_region1/level=1", "refined_region1/x1min=-0.125",
+          "refined_region1/x1max=0.125", "refined_region1/x2min=-0.125",
+          "refined_region1/x2max=0.125"]
+# kernel path (kernel J, face floors on) against the plain path (no face
+# floors) after NCYC_SMR cycles in float32, of each field's scale: more
+# than 95% of the interior cells within the first, all within the second
+SMR_PATH_TOL = (1e-4, 1e-2)
 PUNCTURE = os.path.join(ROOT, "inputs", "z4c", "one_puncture.athinput")
 NCYC_Z4C = 10
 # phase 10's pool: one_puncture.athinput as two blocks of 32^3, nghost 4
@@ -373,12 +411,23 @@ def two_tier(got, ref, scale, label, tight=3e-5, loose=5e-3):
 
 
 def interior(t, ng=2):
-    return t[..., ng:-ng, ng:-ng, ng:-ng]
+    """The interior of a cell or face array: ng cells off both ends of
+    every axis that has ghosts (a 2-D deck's x3 axis has none)."""
+    sl = [slice(None)] * t.dim()
+    for ax in range(t.dim() - 3, t.dim()):
+        if t.shape[ax] > 2 * ng:
+            sl[ax] = slice(ng, -ng)
+    return t[tuple(sl)]
 
 
 def faces(t):
-    """Faces [2, n-2] on every axis of a cell-indexed face quantity."""
-    return t[..., 2:-1, 2:-1, 2:-1]
+    """Faces [2, n-2] on every axis with ghosts of a cell-indexed face
+    quantity: the faces the RK update and the corner EMFs read."""
+    sl = [slice(None)] * t.dim()
+    for ax in range(t.dim() - 3, t.dim()):
+        if t.shape[ax] > 1:
+            sl[ax] = slice(2, -1)
+    return t[tuple(sl)]
 
 
 def pin_for(overrides, deck=DECK):
@@ -1401,6 +1450,226 @@ def phase_z4c_main(torch, kernels, card, z4c_deck):
     return out
 
 
+def deck_state(torch, deck, extra, prec, ncyc=0):
+    """(state with w and bcc, phys) of a deck on the card after
+    initialisation and ``ncyc`` cycles of the kernel path."""
+    from athenak_tpu_torch.main import build
+    mesh, phys, _, driver, state = build(
+        pin_for([f"job/precision={prec}", *extra], deck), device="cuda")
+    state = driver.initialize(state)
+    cycle, dt = driver.make_cycle_fn(), mesh.dt
+    for _ in range(ncyc):
+        state, dtnew, _ = cycle(state, dt)
+        dt = min(2.0 * dt, driver.cfl_no * float(dtnew))
+    return phys.unpack_state(state), phys
+
+
+def phase_flux_dir(torch, card):
+    """Kernel J against its plain version on the SMR deck's state at
+    128^3 / 32^3 (as initialised and after 5 cycles) and on the
+    Orszag-Tang deck at 1024^2, per direction: float32 within the
+    two-tier bound of each channel's scale, float64 within 1e-10; f32
+    times of the initial states."""
+    from athenak_tpu_torch.ops import flux
+    maxerr, res = 0.0, {}
+    cases = (("smr", SMR_FULL, SMR_DECK, 0), ("smr 5 cycles", SMR_FULL,
+                                               SMR_DECK, 5),
+             ("ot", OT_FULL, OT_DECK, 0))
+    for label, extra, deck, ncyc in cases:
+        for prec in ("single", "double"):
+            state, phys = deck_state(torch, deck, extra, prec, ncyc)
+            w, bcc, bfc = state["w"], state["bcc"], state["bfc"]
+            del state
+            for name, _axis, ivx, _dx in phys.dirs:
+                args = (w, bcc, bfc[f"{name}f"], phys.eos, name, ivx)
+                got = flux.fused_flux_dir(*args)
+                ref = flux.flux_dir_plain(*args)
+                torch.cuda.synchronize()
+                tag = f"{label} {prec} {name}"
+                pairs = [(got[0][:, c], ref[0][:, c], f"flux {c}")
+                         for c in range(5)]
+                pairs += [(got[1], ref[1], "ey"), (got[2], ref[2], "ez")]
+                for g, r, what in pairs:
+                    g, r = faces(g), faces(r)
+                    scale = float(r.abs().max()) or 1.0
+                    if prec == "single":
+                        maxerr = max(maxerr, two_tier(g, r, scale,
+                                                      f"{tag} {what}"))
+                    else:
+                        err = float((g - r).abs().max()) / scale
+                        if err > 1e-10:
+                            raise AssertionError(f"{tag} {what}: {err:g}")
+                if prec == "single" and ncyc == 0:
+                    cells = w[:, 0].numel()
+                    for _ in range(10):  # clocks up after host-bound work
+                        flux.fused_flux_dir(*args)
+                    res.setdefault(label, {})[name] = {
+                        "ms": cuda_ms(lambda: flux.fused_flux_dir(*args),
+                                      20),
+                        "plain_ms": cuda_ms(
+                            lambda: flux.flux_dir_plain(*args), 3),
+                        # w (5), the two transverse bcc channels and
+                        # the normal field read; flux (5), ey, ez
+                        # written: 15 values a face
+                        "bound": bound(15 * cells * w.element_size(),
+                                       OPS_FACE["hlld"] * cells),
+                        "cells": cells}
+            del w, bcc, bfc, got, ref
+        print(f"phase 12: fused_flux_dir agrees with its plain version on "
+              f"{label} (f32 two-tier, f64 1e-10; every direction)")
+    for label, dirs in res.items():
+        print(f"phase 12: [{card}] fused_flux_dir on {label} "
+              f"({next(iter(dirs.values()))['cells']} cells): " + "; ".join(
+                  f"{d} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                  f"{r['bound'][0]:.4f} by {r['bound'][1]})"
+                  for d, r in dirs.items()))
+    smr = res["smr"]
+    return {"max_abs_err": maxerr, "by_deck": res,
+            "ms": sum(r["ms"] for r in smr.values()) / len(smr),
+            "plain_ms": sum(r["plain_ms"] for r in smr.values()) / len(smr),
+            "bound": smr["x1"]["bound"]}
+
+
+def volume_mass(torch, mesh, u):
+    """The interior integral of u[IDN], each block weighted by its cell
+    volume (float64)."""
+    ms = mesh.mb_size
+    dv = torch.as_tensor(ms["dx1"] * ms["dx2"] * ms["dx3"], device=u.device)
+    return float((interior(u[:, 0]).double().sum(dim=(1, 2, 3)) * dv)
+                 .sum())
+
+
+def check_levels(torch, mesh, state, label):
+    """Finite state and max|div B| dx / max|B| <= 1e-5 on every level;
+    returns that measure per level."""
+    u, bfc = state["u"], state["bfc"]
+    if not (bool(torch.isfinite(u).all())
+            and all(bool(torch.isfinite(v).all()) for v in bfc.values())):
+        raise AssertionError(f"{label}: non-finite state")
+    dx = {d: torch.as_tensor(mesh.mb_size[f"d{d}"], device=u.device,
+                             dtype=u.dtype).reshape(-1, 1, 1, 1)
+          for d in ("x1", "x2", "x3")}
+    b1, b2, b3 = bfc["x1f"], bfc["x2f"], bfc["x3f"]
+    div = ((b1[..., 1:] - b1[..., :-1]) / dx["x1"]
+           + (b2[..., 1:, :] - b2[..., :-1, :]) / dx["x2"])
+    if b3.shape[1] > 2:
+        div = div + (b3[:, 1:] - b3[:, :-1]) / dx["x3"]
+    div = (interior(div).abs().amax(dim=(1, 2, 3)) * dx["x1"].flatten())
+    bmax = max(float(v.abs().max()) for v in bfc.values())
+    out = []
+    for lev in range(int(mesh.mb_lev.max()) + 1):
+        sel = torch.as_tensor(mesh.mb_lev == lev, device=u.device)
+        out.append(float(div[sel].max()) / bmax)
+    if max(out) > 1e-5:
+        raise AssertionError(f"{label}: max|div B| dx / max|B| by level "
+                             f"{out} > 1e-5")
+    return out
+
+
+def smr_stage_parts(torch, phys, state, dt) -> dict:
+    """ms per call of each piece of one general-path stage on a refined
+    mesh, on the deck's own state."""
+    from athenak_tpu_torch.physics import mhd_smr
+    from athenak_tpu_torch.physics.mhd import compute_bcc
+    from athenak_tpu_torch.refinement import flux_correct_cc
+    w, bcc, bfc, u = state["w"], state["bcc"], state["bfc"], state["u"]
+    mesh, act = phys.mesh, phys.bvals.active_axes
+    names = [d[0] for d in phys.dirs]
+    flx, emf = phys.fluxes(w, bcc, bfc)
+    fden = {n: flx[n][:, 0] for n in flx}
+    uc = u.clone()
+    bc = {k: v.clone() for k, v in bfc.items()}
+
+    def emf_ct():
+        e = mhd_smr.emf_correct(mesh, act, *phys.corner_e(w, bcc, fden, emf))
+        return phys.ct_update(bfc, bfc, *e, 0.5, 0.5, 0.5 * dt)
+
+    return {"fused_flux_dir x3": cuda_ms(lambda: phys.fluxes(w, bcc, bfc),
+                                         5),
+            "flux_correct": cuda_ms(
+                lambda: flux_correct_cc(flx, mesh, names), 5),
+            "rk_update": cuda_ms(lambda: phys.rk_update(
+                u, u, flx, 0.5, 0.5, 0.5 * dt), 5),
+            "corner_e + emf_correct + ct": cuda_ms(emf_ct, 5),
+            "fill_cc": cuda_ms(lambda: phys.bvals.fill_ghosts(uc), 5),
+            "fill_fc": cuda_ms(lambda: phys.fill_ghosts_fc(bc), 5),
+            "bcc + c2p": cuda_ms(lambda: phys.cons_to_prim(
+                u, compute_bcc(bfc)), 5)}
+
+
+def phase_smr_main(torch, kernels, card):
+    """The SMR deck at 128^3 / 32^3 and the Orszag-Tang deck at 1024^2
+    through the CLI for NCYC_SMR cycles, kernel path and plain path: the
+    exact launches of kernel J (and of nothing else), div(B) by level,
+    the volume-weighted mass, the paths against each other; timings."""
+    from athenak_tpu_torch.main import build
+    out = {}
+    runs = (("smr", SMR_DECK, SMR_FULL, 3), ("ot", OT_DECK, OT_FULL, 2))
+    for label, deck, extra, ndir in runs:
+        extra = ["job/precision=single", *extra]
+        mesh0, _, _, _, state0 = build(pin_for(extra, deck), device="cuda")
+        mass0 = volume_mass(torch, mesh0, state0["u"])
+        del state0
+        states, launches = {}, {}
+        for use in ("true", "false"):
+            got, mesh, phys, driver, state, _, _ = run_cli(
+                torch, kernels, deck, NCYC_SMR,
+                extra + [f"mhd/use_kernels={use}"])
+            n = mesh.ncycle
+            expect = ndir * 2 * n if use == "true" else 0
+            if got["fused_flux_dir"] != expect or \
+                    sum(got.values()) != expect:
+                raise AssertionError(f"{label} use_kernels={use}: launches "
+                                     f"{got}, fused_flux_dir should be "
+                                     f"{expect} and nothing else")
+            divb = check_levels(torch, mesh, state, f"{label} {use}")
+            dmass = abs(volume_mass(torch, mesh, state["u"]) - mass0) / mass0
+            if dmass > 1e-5:
+                raise AssertionError(f"{label} {use}: mass drift {dmass:g}")
+            states[use], launches[use] = state, got
+            if use == "true":
+                kphys, kmesh = phys, mesh
+            print(f"phase 13: {label} use_kernels={use}: {n} cycles on "
+                  f"{mesh.nmb_total} blocks (levels "
+                  f"{sorted(set(mesh.mb_lev.tolist()))}), launches {got}, "
+                  f"max|div B| dx / max|B| by level {divb}, mass drift "
+                  f"{dmass:.3e}, counters {driver.ecounters}; [{card}] CLI "
+                  f"zone-cycles/s {driver.zcps:.6e} (wall clock, first cycle "
+                  f"included)")
+        k, p = states["true"], states["false"]
+        diff = {}
+        for key, a, b in [("u", k["u"], p["u"])] + [
+                (c, k["bfc"][c], p["bfc"][c]) for c in k["bfc"]]:
+            a, b = interior(a), interior(b)
+            scale = max(float(b.abs().max()), 1e-30)
+            rel = ((a - b).abs() / scale).double()
+            diff[key] = (float((rel < SMR_PATH_TOL[0]).double().mean()),
+                         float(rel.max()))
+            if not (diff[key][0] > 0.95 and diff[key][1] < SMR_PATH_TOL[1]):
+                raise AssertionError(f"{label}: kernel and plain path apart "
+                                     f"in {key}: {diff[key]}")
+        parts = smr_stage_parts(torch, kphys, k, kmesh.dt) \
+            if label == "smr" else None
+        del states, k, p, state, kphys
+        rates = {}
+        for use in ("true", "false", "true", "false"):
+            rates.setdefault(use, []).append(
+                timed_cycles(torch, use, deck, NCYC_SMR, extra))
+        mbi = mesh.mb_indcs
+        zones = mesh.nmb_total * mbi.nx1 * mbi.nx2 * mbi.nx3
+        cycle_ms = [zones / r * 1e3 for r in rates["true"]]
+        print(f"phase 13: [{card}] {label} kernel vs plain path after "
+              f"{NCYC_SMR} cycles (share within {SMR_PATH_TOL[0]}, max "
+              f"scale-relative) {diff}; zone-cycles/s over {NCYC_SMR} "
+              f"cycles after a warm-up, kernel path {rates['true']}, plain "
+              f"path {rates['false']} (CUDA events); kernel-path cycle "
+              f"{cycle_ms} ms; one stage's parts, ms {parts}")
+        out[label] = {"launches": launches["true"], "rates": rates,
+                      "cycle_ms": cycle_ms, "parts": parts,
+                      "path_diff": diff}
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
     return {"name": name, "route": "cuda",
@@ -1463,12 +1732,15 @@ def main() -> int:
                      pool_deck)
         z4c_res = phase("10", phase_z4c_stage, torch, card, z4c_deck)
         z4c = phase("11", phase_z4c_main, torch, kernels, card, z4c_deck)
+        flux_res = phase("12", phase_flux_dir, torch, card)
+        smr = phase("13", phase_smr_main, torch, kernels, card)
     print(f"seconds a phase: {seconds}")
 
     def runs(name):
         return {"blast": launches[name], "sr_blast": sr_launches[name],
                 **{k: v["launches"][name] for k, v in turb.items()},
-                **{k: v["launches"][name] for k, v in z4c.items()}}
+                **{k: v["launches"][name] for k, v in z4c.items()},
+                **{k: v["launches"][name] for k, v in smr.items()}}
 
     ft, fe = fill_times, fill_errs
     zr = z4c_res["res"]["60^3 ng 2"]
@@ -1516,6 +1788,10 @@ def main() -> int:
                      runs("z4c_outflow_fill"), z4c_res["fill_max_abs_err"],
                      zr["fill"]["ms"], zr["fill"]["plain_ms"],
                      zr["fill"]["bound"], zr["fill"]["library_ms"]),
+        kernel_entry("fused_flux_dir", "flux_dir.cu", "pallas_flux.py:92",
+                     runs("fused_flux_dir"), flux_res["max_abs_err"],
+                     flux_res["ms"], flux_res["plain_ms"], flux_res["bound"],
+                     None),
     ], "zone_cycles_per_s": {"kernel": rates["true"],
                              "plain": rates["false"],
                              "sr_kernel": sr_rates["true"],
@@ -1527,9 +1803,21 @@ def main() -> int:
                              **{f"{k}_kernel": v["rates"]["true"]
                                 for k, v in z4c.items()},
                              **{f"{k}_plain": v["rates"]["false"]
-                                for k, v in z4c.items()}},
+                                for k, v in z4c.items()},
+                             **{f"{k}_kernel": v["rates"]["true"]
+                                for k, v in smr.items()},
+                             **{f"{k}_plain": v["rates"]["false"]
+                                for k, v in smr.items()}},
         "cycle_parts_ms": {k: v["parts"]
-                           for k, v in {**turb, **z4c}.items()},
+                           for k, v in {**turb, **z4c, **smr}.items()},
+        "flux_dir_ms": {deck: {d: r["ms"] for d, r in dirs.items()}
+                        for deck, dirs in flux_res["by_deck"].items()},
+        "flux_dir_plain_ms": {
+            deck: {d: r["plain_ms"] for d, r in dirs.items()}
+            for deck, dirs in flux_res["by_deck"].items()},
+        "flux_dir_bound_ms": {deck: dirs["x1"]["bound"][0]
+                              for deck, dirs in flux_res["by_deck"].items()},
+        "smr_path_diff": {k: v["path_diff"] for k, v in smr.items()},
         "z4c_stage_ms": {k: v["ms"] for k, v in z4c_res["res"].items()},
         "z4c_stage_bound_ms": {k: v["bound"][0]
                                for k, v in z4c_res["res"].items()},

@@ -397,3 +397,91 @@ def test_z4c_main_path_launches(card):
         assert kernels.Z4C_STAGE.launches == 2 * per_cycle
         assert kernels.Z4C_OUTFLOW_FILL.launches == 2 * per_cycle
         assert bool(torch.isfinite(st["u"]).all())
+
+
+def _flux_inputs(gen, kind, dtype, card):
+    """Random primitives, cell-centred and face fields on 2 blocks."""
+    shp = (2, 12, 10, 14) if kind == "3d" else (2, 1, 12, 16)
+
+    def uni(lo, hi, shape):
+        return (lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                            dtype=torch.float64)).to(
+            card, dtype)
+
+    w = torch.stack([uni(0.5, 1.5, shp), uni(-0.5, 0.5, shp),
+                     uni(-0.5, 0.5, shp), uni(-0.5, 0.5, shp),
+                     uni(0.5, 1.5, shp)], dim=1)
+    bcc = uni(-0.5, 0.5, (2, 3) + shp[1:])
+    n3, n2, n1 = shp[1:]
+    faces = {"x1": (2, n3, n2, n1 + 1), "x2": (2, n3, n2 + 1, n1),
+             "x3": (2, n3 + 1, n2, n1)}
+    return w, bcc, {k: uni(-0.5, 0.5, s) for k, s in faces.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind,name", [("3d", "x1"), ("3d", "x2"),
+                                       ("3d", "x3"), ("2d", "x1"),
+                                       ("2d", "x2")])
+def test_flux_dir_kernel(card, dtype, kind, name):
+    """Kernel J against its plain version on random states with the
+    face floors binding: every face within 1e-10 (float64) or 1e-5
+    (float32) of the channel's scale."""
+    from athenak_tpu_torch.ops import flux
+    from athenak_tpu_torch.ops.eos import EOSData
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(5)
+    w, bcc, bfc = _flux_inputs(gen, kind, dt, card)
+    eos = EOSData(dfloor=0.6, pfloor=0.5)
+    ivx = {"x1": 1, "x2": 2, "x3": 3}[name]
+    n0 = kernels.FLUX_DIR.launches
+    got = flux.fused_flux_dir(w, bcc, bfc[name], eos, name, ivx)
+    assert kernels.FLUX_DIR.launches == n0 + 1
+    ref = flux.flux_dir_plain(w, bcc, bfc[name], eos, name, ivx)
+    tol = 1e-10 if dtype == "float64" else 1e-5
+    for c in range(5):
+        scale = float(ref[0][:, c].abs().max())
+        assert float((got[0][:, c] - ref[0][:, c]).abs().max()) \
+            <= tol * scale, c
+    for g, r in zip(got[1:], ref[1:]):
+        assert float((g - r).abs().max()) <= tol * float(r.abs().max())
+
+
+def test_flux_dir_kernel_rejects_bad_input(card):
+    from athenak_tpu_torch.ops import flux
+    from athenak_tpu_torch.ops.eos import EOSData
+    gen = torch.Generator().manual_seed(6)
+    w, bcc, bfc = _flux_inputs(gen, "3d", torch.float32, card)
+    eos = EOSData()
+    with pytest.raises(TypeError):
+        flux.fused_flux_dir(w.half(), bcc, bfc["x1"], eos, "x1", 1)
+    with pytest.raises(ValueError):
+        flux.fused_flux_dir(w, bcc.cpu(), bfc["x1"], eos, "x1", 1)
+    with pytest.raises(ValueError):
+        flux.fused_flux_dir(w, bcc, bfc["x2"], eos, "x1", 1)
+    with pytest.raises(ValueError):
+        flux.fused_flux_dir(w, bcc, bfc["x1"], eos, "x1", 2)
+
+
+def test_smr_main_path_kernel_vs_plain(card):
+    """Two cycles of the 2-D SMR deck (28 blocks, two levels) on the card
+    in float32: kernel J launches twice a stage, and the state agrees
+    with the plain path's (``mhd/use_kernels = false``, no face floors)
+    under the two-tier bound; div(B) stays at round-off."""
+    import chip_smoke
+    from athenak_tpu_torch.main import read_deck, run
+    out = {}
+    for use in ("true", "false"):
+        pin = read_deck(chip_smoke.OT_DECK, chip_smoke.OT_SMR + [
+            "job/precision=single", "time/nlim=2",
+            f"mhd/use_kernels={use}"])
+        kernels.reset_counts()
+        mesh, phys, _, st = run(pin, device="cuda")
+        assert kernels.FLUX_DIR.launches == (8 if use == "true" else 0)
+        assert bool(torch.isfinite(st["u"]).all())
+        out[use] = st
+    a, b = out["true"]["u"][INT[:1] + INT[2:]], out["false"]["u"]
+    b = b[INT[:1] + INT[2:]]
+    err = ((a - b).abs() / b.abs().amax(dim=(0, 2, 3, 4), keepdim=True)
+           .clamp(min=1e-30)).double()
+    assert float((err < 3e-5).double().mean()) > 0.95
+    assert float(err.max()) < 5e-3

@@ -175,7 +175,9 @@ def test_port_never_imports_jax():
     mods = _port_modules()
     for m in ("ops.stage_split", "ops.stage_v1", "ops.aux", "ops.pool_fill",
               "turb_driver", "pgen.turb", "z4c.fd", "z4c.z4c",
-              "z4c.rhs_core", "ops.z4c_stage", "pgen.z4c_one_puncture"):
+              "z4c.rhs_core", "ops.z4c_stage", "pgen.z4c_one_puncture",
+              "refinement", "physics.mhd_smr", "ops.flux", "prng",
+              "pgen.orszag_tang"):
         assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

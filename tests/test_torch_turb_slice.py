@@ -6,13 +6,14 @@ uniform x1 field b0 = 0.1, in float64 (JAX runs in float64 in this
 suite, tests/conftest.py), on one block and on a 2x2x2 pool of 8^3
 blocks.
 
-The two packages draw their random amplitudes from different generators
-(``jax.random`` and a ``torch.Generator``), so every test replaces the
-port driver's ``draw`` with one that returns the JAX package's draws,
-made exactly as ``athenak_tpu/turb_driver.py:107-109, 155`` makes them.
-Under those draws the mode tables are equal, the force field and the
-forced state agree to 1e-12, and three cycles of the deck agree to
-1e-10 of the field scale, with the dt chain.  The v1 stage
+The port draws its random amplitudes from the JAX package's own stream:
+the threefry key in the state, split as ``athenak_tpu/turb_driver.py:
+101, 107-109, 155`` splits it (``athenak_tpu_torch/prng.py``).  The keys
+and the random words are bitwise equal to JAX's, the normals equal to
+within the rounding of the inverse error function, and with no draws
+injected the mode tables are equal, the force field and the forced
+state agree to 1e-12, and three cycles of the deck agree to 1e-10 of
+the field scale, with the dt chain.  The v1 stage
 route and the pool fill run here too: with the kernel gate opened for
 CPU tensors, each wrapper runs its plain version.  The JAX side runs
 under ``jax.jit`` at XLA's backend optimisation level 0, which compiles
@@ -32,11 +33,12 @@ from athenak_tpu.athinput import ParameterInput as JaxInput  # noqa: E402
 from athenak_tpu_torch import bvals as torch_bvals  # noqa: E402
 from athenak_tpu_torch import kernels  # noqa: E402
 from athenak_tpu_torch import main as torch_main  # noqa: E402
+from athenak_tpu_torch import prng  # noqa: E402
 from athenak_tpu_torch.athinput import ParameterInput  # noqa: E402
 from athenak_tpu_torch.physics import mhd as torch_mhd  # noqa: E402
 from athenak_tpu_torch.state import state_from_numpy  # noqa: E402
 from athenak_tpu_torch.state import state_to_numpy  # noqa: E402
-from athenak_tpu_torch.turb_driver import TurbulenceDriver  # noqa: E402
+from test_torch_refinement import one_torch_thread  # noqa: E402,F401
 
 INT = (slice(None), slice(None), slice(2, -2), slice(2, -2), slice(2, -2))
 INTF = INT[1:]
@@ -96,23 +98,53 @@ def _builds(extra=()):
     return jax_main.build(pj), torch_main.build(pt, device="cpu")
 
 
-class JaxDraws:
-    """The JAX driver's draws, in its order: each force field splits the
-    carried key, then splits the subkey into the a and b keys."""
+def _key(jkey):
+    """A JAX key as the port's int64 key tensor."""
+    return torch.from_numpy(np.asarray(jkey).astype(np.int64))
 
-    def __init__(self, seed):
-        self.key = jax.random.PRNGKey(seed)
 
-    def __call__(self, nmode, dtype):
-        self.key, sub = jax.random.split(self.key)
-        return self.draws(sub, nmode)
+@pytest.mark.parametrize("seed", [0, 1, 7, 123456789, 2 ** 33 + 5])
+def test_threefry_words_match_jax(seed):
+    """PRNGKey, split and the random words of a draw, bitwise."""
+    from jax._src import prng as jax_prng
+    kj = jax.random.PRNGKey(seed)
+    kt = prng.prng_key(seed)
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    for _ in range(3):
+        kj, sj = jax.random.split(kj)
+        kt, st = prng.split(kt)
+        np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+        np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    bits = np.asarray(jax_prng.threefry_random_bits(sj, 32, (29, 3)))
+    b1, b2 = prng._hash_iota(st, 87)
+    np.testing.assert_array_equal((b1 ^ b2).numpy().reshape(29, 3), bits)
 
-    @staticmethod
-    def draws(sub, nmode):
-        ka, kb = jax.random.split(sub)
-        return tuple(torch.from_numpy(np.array(
-            jax.random.normal(k, (nmode, 3), dtype=jnp.float64)))
-            for k in (ka, kb))
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_normals_match_jax(dtype):
+    """jax.random.normal and the port's normal on the same keys: the
+    uniforms bitwise, the normals to the inverse error function's
+    rounding (XLA's CPU log1p sits up to 128 ulp from the correctly
+    rounded one in float64): 5e-15 relative in float64, 4 ulp in
+    float32."""
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    worst = 0.0
+    for seed in range(8):
+        kj = jax.random.split(jax.random.PRNGKey(seed))[1]
+        kt = _key(kj)
+        uj = np.asarray(jax.random.uniform(kj, (500, 3), dtype=jd,
+                                           minval=1.0, maxval=2.0))
+        np.testing.assert_array_equal(
+            prng.uniform_bits(kt, (500, 3), td).numpy(), uj)
+        a = np.asarray(jax.random.normal(kj, (500, 3), dtype=jd))
+        b = prng.normal(kt, (500, 3), td).numpy()
+        assert b.dtype == a.dtype
+        if dtype == "float64":
+            worst = max(worst, float(np.max(np.abs(b - a) / np.abs(a))))
+        else:
+            worst = max(worst, float(np.max(np.abs(b - a)
+                                            / np.spacing(np.abs(a)))))
+    assert worst <= (5e-15 if dtype == "float64" else 4), worst
 
 
 def _jit_o0(fn):
@@ -135,9 +167,11 @@ def test_tables_match_jax(extra):
     for name in ("kvec", "norm", "xc", "yc", "zc", "wvol"):
         np.testing.assert_array_equal(getattr(dt_, name), getattr(dj, name),
                                       err_msg=name)
-    # the state carries the OU force; the port carries no key
-    assert set(st) == set(sj) - {"turb_key"}
+    # the state carries the OU force and the JAX package's key
+    assert set(st) == set(sj)
     assert not st["turb_force"].any()
+    np.testing.assert_array_equal(state_to_numpy(st)["turb_key"],
+                                  np.asarray(sj["turb_key"]))
     moved = state_from_numpy(jax.tree_util.tree_map(np.asarray, sj), "cpu",
                              torch.float64)
     assert set(moved) == set(st)
@@ -146,13 +180,13 @@ def test_tables_match_jax(extra):
 
 
 def test_synthesize_and_apply_match_jax():
-    """One force field from the same draws, then apply() on a random state
-    with a random OU force: force, u and turb_force to 1e-12."""
+    """One force field from the same key, then apply() on a random state
+    with a random OU force and key: force, u and turb_force to 1e-12, the
+    next key bitwise."""
     (_, pj, _, _, _), (_, pt, _, _, _) = _builds(POOL)
     sub = jax.random.PRNGKey(7)
-    pt.pturb.draw = lambda nmode, dtype: JaxDraws.draws(sub, nmode)
     fj = _jit_o0(lambda k: pj.pturb._synthesize(k, jnp.float64))(sub)
-    ft = pt.pturb._synthesize(torch.float64)
+    ft = pt.pturb._synthesize(_key(sub), torch.float64)
     _close(ft.numpy(), fj, 1e-12, "force")
 
     rng = np.random.default_rng(3)
@@ -169,14 +203,14 @@ def test_synthesize_and_apply_match_jax():
     state_j = {"u": jnp.asarray(u), "w": jnp.asarray(w),
                "turb_force": jnp.asarray(force0), "turb_key": key}
     state_t = {"u": torch.from_numpy(u.copy()), "w": torch.from_numpy(w),
-               "turb_force": torch.from_numpy(force0)}
-    pt.pturb.draw = JaxDraws(0)
-    pt.pturb.draw.key = key
+               "turb_force": torch.from_numpy(force0), "turb_key": _key(key)}
     oj = _jit_o0(lambda s, d: pj.pturb.apply(s, d, pj))(state_j,
                                                         jnp.asarray(dt))
     ot = pt.pturb.apply(state_t, dt, pt)
     _close(ot["u"].numpy(), oj["u"], 1e-12, "u")
     _close(ot["turb_force"].numpy(), oj["turb_force"], 1e-12, "turb_force")
+    np.testing.assert_array_equal(ot["turb_key"].numpy(),
+                                  np.asarray(oj["turb_key"]))
     # the input state is not written; the net momentum is removed
     np.testing.assert_array_equal(state_t["u"].numpy(), u)
     mom = ot["u"][INT][:, 1:4].sum(dim=(0, 2, 3, 4))
@@ -223,7 +257,6 @@ def test_three_cycles_match_jax(extra, route, monkeypatch):
     _, (mt, pt, _, dt_, st) = _builds(extra)
     assert pt.bvals.pool_fill_active(st["u"]) == (route == "v1"
                                                   and bool(extra))
-    pt.pturb.draw = JaxDraws(pt.pturb.seed)
     st = dt_.initialize(st)
     np.testing.assert_allclose(mt.dt, dt0, rtol=1e-12)
     cyc_t = dt_.make_cycle_fn()
@@ -236,6 +269,7 @@ def test_three_cycles_match_jax(extra, route, monkeypatch):
             err = np.abs(got["bfc"][c][INTF] - v[INTF]).max()
             assert err <= 1e-10 * bmax, f"{c}: {err / bmax:g}"
         _close(got["turb_force"], sj["turb_force"], 1e-10, "turb_force")
+        np.testing.assert_array_equal(got["turb_key"], sj["turb_key"])
         np.testing.assert_allclose(float(dn_t), dn_j, rtol=1e-10)
     # the forcing moved the gas; nothing launched a CUDA kernel
     assert float(np.abs(got["u"][:, 1:4]).max()) > 1e-3
@@ -244,12 +278,9 @@ def test_three_cycles_match_jax(extra, route, monkeypatch):
 
 @pytest.mark.parametrize("extra", [[], POOL])
 def test_cli_run_matches_jax(extra, monkeypatch, tmp_path):
-    """``main.cli`` on the deck for three cycles, every driver drawing the
-    JAX package's amplitudes: the final state as after three JAX cycles."""
+    """``main.cli`` on the deck for three cycles, drawing from the deck's
+    seed: the final state as after three JAX cycles."""
     _, steps = _jax_run(extra)
-    draws = JaxDraws(1)
-    monkeypatch.setattr(TurbulenceDriver, "draw",
-                        lambda self, nmode, dtype: draws(nmode, dtype))
     monkeypatch.setenv("ATHENAK_DEVICE", "cpu")
     monkeypatch.chdir(tmp_path)
     deck = tmp_path / "turb.athinput"
