@@ -1,6 +1,7 @@
-// Launches and helpers shared by the Newtonian MHD stage kernels
-// (mega_stage_v2.cu, kernel A; mega_stage_v1.cu, kernel E) and the
-// post-stage bcc + c2p kernel (fused_aux.cu, kernel F).
+// Launches and helpers shared by the Newtonian MHD stage kernel from
+// primitives (mega_stage_v1.cu, kernel E) and the post-stage bcc + c2p
+// kernel (fused_aux.cu, kernel F); kernel A (mega_stage_v2.cu) takes
+// Coef and max_bits from here.
 //
 //   flux_kernel: one thread per face along DIR, PLM + face-state floors +
 //                HLLD, writes the flux [5] and the face EMFs (ey, ez);

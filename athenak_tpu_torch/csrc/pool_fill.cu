@@ -16,95 +16,144 @@
 // and never written, so the copy is race-free in place and bitwise equal
 // to the sweeps.
 //
+// What bounds it on the H100: one read and one write of every ghost
+// element (some 26% of a 68^3 block), 5 us for turb8's u at 3.35 TB/s.
+// The first design (one CUDA block a plane, a dependent load of the donor
+// id before every 4-byte copy, two copies a thread) was bound by latency
+// and ran slower than torch.take of the donors.  This design:
+//   * numbers the ghost items of the whole call flatly (pool_fill.cuh)
+//     and cuts them into equal chunks, kSlots items a thread, the
+//     neighbouring threads on neighbouring items, so a warp reads and
+//     writes whole rows; one wave of CUDA blocks strides over the chunks;
+//   * copies pairs of elements (8 bytes in f32, 16 in f64) where the
+//     array's runs of ghosts start at even offsets on both sides (cell
+//     arrays and the x2 and x3 face arrays of even rows), else single
+//     elements (the x1 face array's rows of n1 + 1);
+//   * stages the rows of the donor table its items need in shared memory
+//     once, then issues all kSlots loads of a thread before its stores.
 // Up to three arrays in one launch (the three face arrays, or one cell
-// array): blockIdx.y picks the array, blockIdx.x one plane (block, channel,
-// k) of it; the block's threads walk that plane's ghost elements only: the
-// whole plane when k is a ghost plane, else the ghost rows and the ghost
-// columns of the interior rows.  An inactive axis has ng 0 on it.
-//
-// What bounds it on the H100: memory, one read and one write of every
-// ghost element (some 26% of a 68^3 block), gathered with short rows.
+// array).  An inactive axis has ng 0 on it.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "pool_fill.cuh"
 
 namespace athenak {
 namespace {
 
-constexpr int kMaxArrays = 3;
+constexpr int kSlots = 8;                      // items a thread
+constexpr int kItemsPerBlock = kThreads * kSlots;
 
-struct PoolArray {
-  void* ptr;
-  int nc;                    // channels per block (1 for a face array)
-  int n3, n2, n1;
-  int nint3, nint2, nint1;   // wrap distance per axis
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
 };
 
-struct PoolArgs {
-  PoolArray arr[kMaxArrays];
-  int ng3, ng2, ng1;         // ghost width per axis (0 when inactive)
+struct PoolPtrs {
+  void* ptr[kPoolMaxArrays];
 };
 
-__device__ __forceinline__ int side(int p, int n, int ng) {
-  return p < ng ? -1 : (p >= n - ng ? 1 : 0);
+// Rows of the donor table a block's items can touch: blocks
+// m_lo .. m_lo + span - 1 of the pool.
+inline int table_span(const PoolCall& p) {
+  const int span = (kItemsPerBlock - 1) / p.per_block + 2;
+  return span < p.nmb ? span : p.nmb;
 }
 
 template <typename T>
-__global__ void pool_fill_kernel(PoolArgs args, const int* __restrict__ nbr27,
-                                 int nmb) {
-  const PoolArray a = args.arr[blockIdx.y];
-  const long long nplane = static_cast<long long>(nmb) * a.nc * a.n3;
-  const long long plane = blockIdx.x;
-  if (plane >= nplane) return;
-  const int ng3 = args.ng3, ng2 = args.ng2, ng1 = args.ng1;
-  const int k = plane % a.n3;
-  const int m = plane / (static_cast<long long>(a.n3) * a.nc);
-  const int c = (plane / a.n3) % a.nc;
-  const int d3 = side(k, a.n3, ng3);
-  const long long plane_sz = static_cast<long long>(a.n2) * a.n1;
-  const int rows = 2 * ng2 * a.n1;
-  const int count = d3 != 0 ? a.n2 * a.n1 : rows + (a.n2 - 2 * ng2) * 2 * ng1;
-  T* base = static_cast<T*>(a.ptr);
-  const int sk = k - d3 * a.nint3;
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    int j, i;
-    if (d3 != 0) {
-      j = t / a.n1;
-      i = t % a.n1;
-    } else if (t < rows) {
-      const int r = t / a.n1;
-      j = r < ng2 ? r : a.n2 - 2 * ng2 + r;
-      i = t % a.n1;
-    } else {
-      const int e = t - rows;
-      const int col = e % (2 * ng1);
-      j = ng2 + e / (2 * ng1);
-      i = col < ng1 ? col : a.n1 - 2 * ng1 + col;
+__global__ void __launch_bounds__(kThreads)
+    pool_fill_kernel(PoolCall call, PoolPtrs ptrs,
+                     const int* __restrict__ nbr27, int span) {
+  using P2 = typename Pair<T>::type;
+  // the call's description in shared memory: the items index its arrays
+  // at run time, which parameter space does not take without a copy to
+  // local memory
+  __shared__ PoolCall p;
+  __shared__ PoolPtrs s_ptr;
+  extern __shared__ int s_nbr[];
+  if (threadIdx.x == 0) {
+    p = call;
+    s_ptr = ptrs;
+  }
+  __syncthreads();
+  // a chunk of kItemsPerBlock items at a time, the grid striding over
+  // the chunks (one wave of blocks: no tail of half-empty SMs)
+  const int nchunks =
+      static_cast<int>((p.total + kItemsPerBlock - 1) / kItemsPerBlock);
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+    const int first = chunk * kItemsPerBlock;
+    const int m_lo = first / p.per_block;
+    const int rows = min(span, p.nmb - m_lo);
+    __syncthreads();  // the last chunk's readers of s_nbr are done
+    for (int e = threadIdx.x; e < rows * 27; e += blockDim.x)
+      s_nbr[e] = nbr27[m_lo * 27 + e];
+    __syncthreads();
+
+    long long dst[kSlots], src[kSlots];
+    int q[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int t = first + s * kThreads + threadIdx.x;
+      q[s] = -1;
+      if (t < p.total) {
+        const GhostItem g = pool_locate(p, t);
+        pool_offsets(p, g, s_nbr[(g.m - m_lo) * 27 + pool_dir(g)], dst[s],
+                     src[s]);
+        q[s] = g.q;
+      }
     }
-    const int d2 = side(j, a.n2, ng2);
-    const int d1 = side(i, a.n1, ng1);
-    const int donor = nbr27[m * 27 + 9 * (d3 + 1) + 3 * (d2 + 1) + (d1 + 1)];
-    const int sj = j - d2 * a.nint2;
-    const int si = i - d1 * a.nint1;
-    const long long src = ((static_cast<long long>(donor) * a.nc + c) * a.n3 +
-                           sk) * plane_sz +
-                          static_cast<long long>(sj) * a.n1 + si;
-    base[plane * plane_sz + static_cast<long long>(j) * a.n1 + i] = base[src];
+    P2 v[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (q[s] < 0) continue;
+      const T* base = static_cast<const T*>(s_ptr.ptr[q[s]]);
+      if (p.arr[q[s]].vec == 2)
+        v[s] = *reinterpret_cast<const P2*>(base + src[s]);
+      else
+        v[s].x = base[src[s]];
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (q[s] < 0) continue;
+      T* base = static_cast<T*>(s_ptr.ptr[q[s]]);
+      if (p.arr[q[s]].vec == 2)
+        *reinterpret_cast<P2*>(base + dst[s]) = v[s];
+      else
+        base[dst[s]] = v[s].x;
+    }
   }
 }
 
 template <typename T>
-int launch(const PoolArgs& args, int narr, const int* nbr27, int nmb,
+int launch(PoolCall& p, const PoolPtrs& ptrs, const int* nbr27,
            cudaStream_t s) {
-  long long most = 0;
-  for (int q = 0; q < narr; ++q) {
-    const long long p =
-        static_cast<long long>(nmb) * args.arr[q].nc * args.arr[q].n3;
-    most = p > most ? p : most;
-  }
-  const dim3 grid(static_cast<unsigned int>(most), narr);
-  pool_fill_kernel<T><<<grid, kThreads, 0, s>>>(args, nbr27, nmb);
+  pool_finish(p);
+  if (p.total == 0) return 0;
+  if (p.total >= (1LL << 31) - kItemsPerBlock) return cudaErrorInvalidValue;
+  const int span = table_span(p);
+  const size_t smem = static_cast<size_t>(span) * 27 * sizeof(int);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const long long nchunks = (p.total + kItemsPerBlock - 1) / kItemsPerBlock;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pool_fill_kernel<T>, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long slots =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned int grid =
+      static_cast<unsigned int>(nchunks < slots ? nchunks : slots);
+  pool_fill_kernel<T><<<grid, kThreads, smem, s>>>(p, ptrs, nbr27, span);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -118,18 +167,29 @@ int launch(const PoolArgs& args, int narr, const int* nbr27, int nmb,
                       const int* dims, const void* nbr27, int nmb, int ng3, \
                       int ng2, int ng1, void* stream) {                     \
     using namespace athenak;                                                 \
-    if (narr < 1 || narr > kMaxArrays) return cudaErrorInvalidValue;        \
-    PoolArgs args{};                                                         \
-    void* ptrs[kMaxArrays] = {a0, a1, a2};                                   \
+    if (narr < 1 || narr > kPoolMaxArrays) return cudaErrorInvalidValue;    \
+    PoolCall p{};                                                            \
+    PoolPtrs ptrs{{a0, a1, a2}};                                             \
+    p.narr = narr;                                                           \
+    p.nmb = nmb;                                                             \
+    p.ng3 = ng3;                                                             \
+    p.ng2 = ng2;                                                             \
+    p.ng1 = ng1;                                                             \
     for (int q = 0; q < narr; ++q) {                                         \
       const int* d = dims + 8 * q;                                           \
-      args.arr[q] = PoolArray{ptrs[q], d[0], d[1], d[2], d[3], d[4], d[5],   \
-                              d[6]};                                         \
+      PoolArray& a = p.arr[q];                                               \
+      a.nc = d[0];                                                           \
+      a.n3 = d[1];                                                           \
+      a.n2 = d[2];                                                           \
+      a.n1 = d[3];                                                           \
+      a.nint3 = d[4];                                                        \
+      a.nint2 = d[5];                                                        \
+      a.nint1 = d[6];                                                        \
+      a.vec = pool_vec(a.n1, ng1, a.nint1,                                   \
+                       reinterpret_cast<unsigned long long>(ptrs.ptr[q]),    \
+                       static_cast<int>(sizeof(T)));                         \
     }                                                                        \
-    args.ng3 = ng3;                                                          \
-    args.ng2 = ng2;                                                          \
-    args.ng1 = ng1;                                                          \
-    return launch<T>(args, narr, static_cast<const int*>(nbr27), nmb,        \
+    return launch<T>(p, ptrs, static_cast<const int*>(nbr27),                \
                      static_cast<cudaStream_t>(stream));                     \
   }
 

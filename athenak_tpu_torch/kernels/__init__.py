@@ -45,7 +45,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     "athenak_periodic_fill": [_P, ctypes.c_longlong] + [_I] * 7 + [_P],
-    "athenak_mega_stage_v2": [_P] * 18 + [_I] * 5 + [_D] * 12 + [_P],
+    "athenak_mega_stage_v2": [_P] * 13 + [_I] * 5 + [_D] * 12 + [_P],
     "athenak_fused_stage": [_P] * 11 + [_I] * 5 + [_D] * 9 + [_P],
     "athenak_fused_ct": [_P] * 21 + [_I] * 5 + [_D] * 6 + [_P],
     "athenak_mega_stage_v1": [_P] * 17 + [_I] * 6 + [_D] * 12 + [_P],
@@ -142,6 +142,7 @@ def library() -> ctypes.CDLL:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"{name} ({rc}):\n{log}" for name, rc, log in failed))
         logs = [log for _, log, _ in runs]
+        BUILD_INFO["logs"] = {c.name: log for c, log in zip(cus, logs)}
         BUILD_INFO["source_seconds"] = {
             c.name: round(sec, 1) for c, (_, _, sec) in zip(cus, runs)}
         tmp = out_dir / f"libathenak_kernels.{tag}.so"

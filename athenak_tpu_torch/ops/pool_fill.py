@@ -8,8 +8,9 @@ element of the block ``neighbor27`` names, so the fill is pure data
 movement.  ``pool_fill_plain`` makes the ordered x3 -> x2 -> x1 slab
 copies of the Pallas sweeps with tensor slicing; ``pool_fill`` launches
 the CUDA kernel (``csrc/pool_fill.cu``), one gather of every ghost element
-from its donor, for tensors on the card, raises on anything the kernel
-does not take, and runs the plain version for CPU tensors.  Both fill
+from its donor over a flat numbering of the call's ghosts
+(``csrc/pool_fill.cuh``), for tensors on the card, raises on anything the
+kernel does not take, and runs the plain version for CPU tensors.  Both fill
 IN PLACE and return what they were given; the two are bitwise equal.
 
 Gate (``supports_pool_fill``): same-level uniform mesh, nmb > 1, every
@@ -20,6 +21,7 @@ gate live in ``bvals.BoundaryValues.pool_fill_active``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 
 import numpy as np
@@ -117,6 +119,42 @@ def pool_fill_plain(arrs, kinds, nbr27, mesh):
     return arrs
 
 
+def call_dims(shapes, kinds, mesh):
+    """(dims, ngs): the C entry's description of one fill of arrays of
+    ``shapes`` and ``kinds``: dims[8 q .. 8 q + 7] = nc, n3, n2, n1,
+    nint3, nint2, nint1, 0 for array q (nint the wrap distance along
+    each axis) and the ghost width along x3, x2, x1 (0 on an inactive
+    axis).  Raises on an array the kernel does not take."""
+    return _call_dims(tuple(map(tuple, shapes)), tuple(kinds),
+                      mesh.nmb_total, mesh.mb_indcs.ng,
+                      frozenset(_active_axes(mesh)))[:2]
+
+
+@functools.lru_cache(maxsize=64)
+def _call_dims(shapes, kinds, nmb, ng, active):
+    """(dims, ngs, dims as a ctypes array): made once for each set of
+    shapes, since a fill runs twice a stage."""
+    name = "pool_fill"
+    dims = []
+    for shape, kind in zip(shapes, kinds):
+        if kind not in _KINDS:
+            raise ValueError(f"{name}: unknown kind {kind!r}")
+        if shape[0] != nmb or len(shape) != (5 if kind == "cc" else 4):
+            raise ValueError(f"{name}: {kind} array of shape "
+                             f"{tuple(shape)} for {nmb} blocks")
+        nint = []
+        for ax in ("x3", "x2", "x1"):
+            n = shape[_AXIS[ax]]
+            if ax in active and n < 3 * ng:
+                raise ValueError(f"{name}: {kind} extent {n} too small")
+            hi_d, hi_s, _, _ = _ghost_cols(kind, ax, n, ng)
+            nint.append(hi_d - hi_s)
+        nc = shape[1] if kind == "cc" else 1
+        dims += [nc, *shape[-3:], *nint, 0]
+    ngs = tuple(ng if ax in active else 0 for ax in ("x3", "x2", "x1"))
+    return tuple(dims), ngs, (ctypes.c_int * len(dims))(*dims)
+
+
 def _launch(arrs, kinds, table, mesh) -> None:
     """One launch of kernel G over up to three arrays; ``table`` is the
     [nmb, 27] int32 donor table on the arrays' device."""
@@ -130,12 +168,7 @@ def _launch(arrs, kinds, table, mesh) -> None:
             and tuple(table.shape) == (nmb, 27)):
         raise ValueError(f"{name}: the donor table must be a contiguous "
                          f"[{nmb}, 27] int32 tensor on {first.device}")
-    ng = mesh.mb_indcs.ng
-    active = _active_axes(mesh)
-    dims = []
-    for a, kind in zip(arrs, kinds):
-        if kind not in _KINDS:
-            raise ValueError(f"{name}: unknown kind {kind!r}")
+    for a in arrs:
         if not a.is_cuda or a.device != first.device:
             raise ValueError(f"{name}: every array must lie on "
                              f"{first.device}")
@@ -143,21 +176,10 @@ def _launch(arrs, kinds, table, mesh) -> None:
             raise TypeError(f"{name}: arrays of mixed dtypes")
         if not a.is_contiguous():
             raise ValueError(f"{name}: the arrays must be contiguous")
-        if a.shape[0] != nmb or a.dim() != (5 if kind == "cc" else 4):
-            raise ValueError(f"{name}: {kind} array of shape "
-                             f"{tuple(a.shape)} for {nmb} blocks")
-        nint = []
-        for ax in ("x3", "x2", "x1"):
-            n = a.shape[_AXIS[ax]]
-            if ax in active and n < 3 * ng:
-                raise ValueError(f"{name}: {kind} extent {n} too small")
-            hi_d, hi_s, _, _ = _ghost_cols(kind, ax, n, ng)
-            nint.append(hi_d - hi_s)
-        nc = a.shape[1] if kind == "cc" else 1
-        dims += [nc, *a.shape[-3:], *nint, 0]
-    cdims = (ctypes.c_int * len(dims))(*dims)
+    _, ngs, cdims = _call_dims(tuple(tuple(a.shape) for a in arrs),
+                               tuple(kinds), nmb, mesh.mb_indcs.ng,
+                               frozenset(_active_axes(mesh)))
     ptrs = [a.data_ptr() for a in arrs] + [0] * (3 - len(arrs))
-    ngs = [ng if ax in active else 0 for ax in ("x3", "x2", "x1")]
     fn = _k.POOL_FILL.entry(first.dtype)
     rc = fn(*ptrs, len(arrs), ctypes.addressof(cdims), table.data_ptr(),
             nmb, *ngs, _k.stream_ptr(first.device))

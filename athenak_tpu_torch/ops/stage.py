@@ -11,8 +11,11 @@ transport, and the bcc + c2p of the new state, whose floored ``u'`` it
 returns with the new face field and the counters.  Ghosts of the outputs
 are stale; the caller fills them.
 
-``mega_stage_v2`` launches the CUDA kernel (``csrc/mega_stage_v2.cu``)
-for tensors on the card and raises on anything the kernel does not take;
+``mega_stage_v2`` launches the CUDA kernel (``csrc/mega_stage_v2.cu``:
+one launch that marches tiles of columns through the planes with w, bcc,
+the fluxes and the EMFs in shared memory, so the wrapper allocates only
+the outputs and the 6-word reduction buffer) for tensors on the card and
+raises on anything the kernel does not take;
 for CPU tensors it runs ``mega_stage_v2_plain``, a composition of the
 port's plain tensor functions.
 
@@ -147,16 +150,8 @@ def mega_stage_v2(u, bfc, u1, bfc_old, eos: EOSData, gam0, gam1, beta_dt,
         check_tensor(name, f"bfc[{c}]", bfc[c], s, u)
         check_tensor(name, f"bfc_old[{c}]", bfc_old[c], s, u)
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=u.dtype, device=u.device)
-
     uo = torch.empty_like(u)
     bn = {c: torch.empty_like(bfc[c]) for c in fshape}
-    w = empty(nmb, 5, n3, n2, n1)
-    bcc = empty(nmb, 3, n3, n2, n1)
-    flx = empty(3, nmb, 5, n3, n2, n1)
-    femf = empty(3, nmb, 2, n3, n2, n1)
-    edge = empty(nmb, 3, n3, n2, n1)
     red = torch.empty(6, dtype=torch.int64, device=u.device)
     fn = _k.MEGA_STAGE_V2.entry(u.dtype)
     rc = fn(u.data_ptr(), bfc["x1f"].data_ptr(), bfc["x2f"].data_ptr(),
@@ -164,9 +159,7 @@ def mega_stage_v2(u, bfc, u1, bfc_old, eos: EOSData, gam0, gam1, beta_dt,
             bfc_old["x1f"].data_ptr(), bfc_old["x2f"].data_ptr(),
             bfc_old["x3f"].data_ptr(), uo.data_ptr(),
             bn["x1f"].data_ptr(), bn["x2f"].data_ptr(),
-            bn["x3f"].data_ptr(), w.data_ptr(), bcc.data_ptr(),
-            flx.data_ptr(), femf.data_ptr(), edge.data_ptr(),
-            red.data_ptr(), nmb, n3, n2, n1, NG,
+            bn["x3f"].data_ptr(), red.data_ptr(), nmb, n3, n2, n1, NG,
             float(gam0), float(gam1), float(beta_dt),
             float(dxs["x1"]), float(dxs["x2"]), float(dxs["x3"]),
             eos.gamma, eos.dfloor, eos.pfloor, eos.tfloor, eos.sfloor,

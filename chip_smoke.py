@@ -15,7 +15,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      8 x 62^3 blocks (``POOL_DECK``): float32 within the two-tier
      bound (> 95% of interior cells within 3e-5 of the field scale, all
      within 5e-3), dtmin within rtol 1e-4, floor counts equal; float64
-     within 1e-10 of the field scale;
+     within 1e-10 of the field scale; it prints the kernel's registers,
+     shared memory and spills (ptxas);
   4. drives the main path through the CLI (``athenak_tpu_torch.main``) on
      ``inputs/mhd/blast.athinput`` for 20 cycles, with the launch counts
      set to 0 just before: the stage kernel must launch twice a cycle and
@@ -49,8 +50,9 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      It times both kernels and their plain versions;
   8. holds the pool fill (kernel G) against its plain version, bitwise,
      float32 and float64, cell and face arrays, on the 8-block pools of
-     ``turb8`` (8 x 64^3) and ``pool`` (8 x 62^3), and times it beside
-     one ``torch.take`` of every ghost cell's donor;
+     ``turb8`` (8 x 64^3) and ``pool`` (8 x 62^3), prints its ptxas
+     report, and times it beside one ``torch.take`` of every ghost
+     cell's donor;
   9. drives three more decks through the CLI for 10 cycles each, with the
      launch counts set to 0 just before, each count checked exactly:
      ``turb1`` (``TURB_DECK``: driven MHD turbulence at 128^3 on one
@@ -357,29 +359,79 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_summary(log: str):
-    """nvcc's -Xptxas -v report, short: one line for each kernel that
-    spills (its mangled name, registers, stack and spills), one line for
-    the rest."""
+def ptxas_records(log: str):
+    """[(name, registers, static smem bytes, stack and spill text)] from
+    nvcc's -Xptxas -v report, one per entry function; the name without
+    namespace and argument list."""
     import re
-    out, name, spill, rest = [], None, "", []
+    out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
+            name = short_name(m.group(1))
         elif "spill stores" in line and name:
-            spill = line.strip()
+            spill = line.split(":", 1)[-1].strip()
         elif "Used" in line and "registers" in line and name:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
-            if spill.startswith("0 bytes stack"):
-                rest.append(regs)
-            else:
-                out.append(f"{name[:64]}: {regs} registers, {spill}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, regs, int(smem.group(1)) if smem else 0,
+                        spill))
             name, spill = None, ""
+    return out
+
+
+def ptxas_summary(log: str):
+    """The report, short: one line for each kernel that spills, one line
+    for the rest."""
+    out, rest = [], []
+    for name, regs, _, spill in ptxas_records(log):
+        if spill.startswith("0 bytes stack"):
+            rest.append(regs)
+        else:
+            out.append(f"{name}: {regs} registers, {spill}")
     if rest:
         out.append(f"{len(rest)} other kernels: no stack, no spills, at "
                    f"most {max(rest)} registers")
     return out
+
+
+def ptxas_lines(log: str):
+    """The report, one line per entry function."""
+    return [f"{name}: {regs} registers, {smem} bytes static smem, {spill}"
+            for name, regs, smem, spill in ptxas_records(log)]
+
+
+def short_name(mangled: str) -> str:
+    """'_ZN7athenak<n>_GLOBAL__N_...11flux_kernelIfLi0EEEv...' ->
+    'flux_kernel<f,0>' (enough to tell the launches apart)."""
+    import re
+    pos, name = mangled.find("N") + 1, None
+    while pos and pos < len(mangled) and mangled[pos].isdigit():
+        m = re.match(r"\d+", mangled[pos:])
+        n = int(m.group(0))
+        pos += len(m.group(0))
+        name = mangled[pos:pos + n]
+        pos += n
+    if not pos or name is None:
+        return mangled[:60]
+    targs = re.match(r"I([fd])((?:Li\d+E)*)", mangled[pos:])
+    if not targs:
+        return name
+    args = [targs.group(1)] + re.findall(r"Li(\d+)E", targs.group(2))
+    return f"{name}<{','.join(args)}>"
+
+
+def print_ptxas(phase: str, source: str) -> None:
+    """The ptxas lines of one source's kernels, from this process's
+    build of the library."""
+    from athenak_tpu_torch import kernels
+    log = kernels.BUILD_INFO.get("logs", {}).get(source)
+    if log is None:
+        print(f"phase {phase}: {source} was built by an earlier process; "
+              "no ptxas report")
+        return
+    for line in ptxas_lines(log):
+        print(f"phase {phase}: ptxas {source}: {line}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -605,6 +657,7 @@ def phase_stage(torch, card, pool_deck):
         print(f"phase 3: mega_stage_v2 agrees with its plain version on "
               f"both RK2 stages ({label0}, {prec})")
     result["max_abs_err"] = maxerr
+    print_ptxas("3", "mega_stage_v2.cu")
     print(f"phase 3: [{card}] mega_stage_v2 {result['ms']:.3f} ms/stage, "
           f"plain {result['plain_ms']:.3f} ms/stage (f32, 124^3); "
           f"{result['pool_ms']:.3f} ms/stage on 8 x 62^3")
@@ -1098,6 +1151,7 @@ def phase_pool_fill(torch, card, turb_deck, pool_deck):
                     "ghosts": dst.numel()}
         print(f"phase 8: pool_fill bitwise equal to its plain version on "
               f"{label} ({nmb} x {n - 4}^3; f32, f64; cell and face arrays)")
+    print_ptxas("8", "pool_fill.cu")
     print(f"phase 8: [{card}] pool_fill of u on turb8 {res['ms']:.4f} ms "
           f"({res['ghosts']} ghosts), of the face field "
           f"{res['fc_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "

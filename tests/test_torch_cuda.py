@@ -77,6 +77,73 @@ def test_stage_kernel_f64(card):
         assert int(ck[k]) == int(cp[k])
 
 
+def _random_stage(gen, nmb, shape, dtype, card):
+    """A random conserved state and face field of nmb blocks of ``shape``
+    cells (ghosts included) on the card: density and pressure in [0.2,
+    0.4] or [0.6, 1.5], so floors at 0.5 bind on a share of the cells and
+    no value lies within rounding of them."""
+    from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
+    from athenak_tpu_torch.physics.mhd import compute_bcc
+    n3, n2, n1 = shape
+
+    def r(lo, hi, *sh):
+        return lo + (hi - lo) * torch.rand(sh, generator=gen,
+                                           dtype=torch.float64)
+
+    def pos(*sh):
+        low = torch.rand(sh, generator=gen, dtype=torch.float64) < 0.3
+        return torch.where(low, r(0.2, 0.4, *sh), r(0.6, 1.5, *sh))
+
+    cell = (nmb, n3, n2, n1)
+    w = torch.stack([pos(*cell), r(-0.5, 0.5, *cell), r(-0.5, 0.5, *cell),
+                     r(-0.5, 0.5, *cell), pos(*cell)], dim=1).to(card, dtype)
+    bfc = {"x1f": r(-0.5, 0.5, nmb, n3, n2, n1 + 1),
+           "x2f": r(-0.5, 0.5, nmb, n3, n2 + 1, n1),
+           "x3f": r(-0.5, 0.5, nmb, n3 + 1, n2, n1)}
+    bfc = {k: v.to(card, dtype) for k, v in bfc.items()}
+    return prim_to_cons_mhd(w, compute_bcc(bfc), EOSData()), bfc
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("gam0,gam1", [(0.0, 1.0), (0.5, 0.5)])
+@pytest.mark.parametrize("nmb,shape", [(1, (24, 24, 24)), (4, (15, 21, 17))])
+def test_stage_kernel_ragged_tiles(card, dtype, gam0, gam1, nmb, shape):
+    """Kernel A against its plain version where the interior is no
+    multiple of the kernel's tiles (one block of 20^3 interior cells, and
+    four blocks of 13 x 17 x 11), on random states whose density and
+    energy floors bind: float64 within 1e-10 of the field scale, float32
+    within the two-tier bound; the floor counts equal; dtmin within
+    1e-10 (float64) or 1e-4 (float32)."""
+    from athenak_tpu_torch.ops.eos import EOSData
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(11)
+    u, bfc = _random_stage(gen, nmb, shape, dt, card)
+    u1, bfc1 = _random_stage(gen, nmb, shape, dt, card)
+    eos = EOSData(dfloor=0.5, pfloor=0.5 * (5.0 / 3.0 - 1.0))
+    dxs = {"x1": 1 / 13, "x2": 1 / 17, "x3": 1 / 11}
+    args = (u, bfc, u1, bfc1, eos, gam0, gam1, 0.01, dxs)
+    n0 = kernels.MEGA_STAGE_V2.launches
+    uk, bk, ck = stage.mega_stage_v2(*args)
+    assert kernels.MEGA_STAGE_V2.launches == n0 + 1
+    up, bp, cp = stage.mega_stage_v2_plain(*args)
+    scale = float(up[INT].abs().max())
+    bscale = max(float(v[INT].abs().max()) for v in bp.values())
+    for got, ref, sc in [(uk, up, scale)] + [(bk[c], bp[c], bscale)
+                                             for c in bp]:
+        err = (got[INT] - ref[INT]).abs().double() / sc
+        if dtype == "float64":
+            assert float(err.max()) <= 1e-10
+        else:
+            assert float((err < 3e-5).double().mean()) > 0.95
+            assert float(err.max()) < 5e-3
+    for k in ("neos_dfloor", "neos_efloor", "neos_tfloor"):
+        assert int(ck[k]) == int(cp[k]), k
+    assert int(cp["neos_dfloor"]) > 0 and int(cp["neos_efloor"]) > 0
+    tol = 1e-10 if dtype == "float64" else 1e-4
+    assert abs(float(ck["dtmin"]) - float(cp["dtmin"])) \
+        <= tol * float(cp["dtmin"])
+
+
 def test_stage_kernel_rejects_bad_input(card):
     u = torch.zeros((1, 5, 12, 12, 12), device=card, dtype=torch.float16)
     with pytest.raises(ValueError):
@@ -266,6 +333,29 @@ def test_pool_fill_kernel_bitwise(card, dtype, layout):
     pool_fill.pool_fill_fc({k: got[k] for k in ("x1f", "x2f", "x3f")}, nbr,
                            mesh)
     assert kernels.POOL_FILL.launches == n0 + 2
+    ref = {k: v.clone() for k, v in arrs.items()}
+    pool_fill.pool_fill_plain(list(ref.values()), list(ref), nbr, mesh)
+    for k in arrs:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pool_fill_kernel_bitwise_odd_interior(card, dtype):
+    """Kernel G on blocks of 7^3 interior cells (11^3 with ghosts): odd
+    rows, so every array takes the single-element path; bitwise."""
+    dt = getattr(torch, dtype)
+    mesh = _pool_mesh((2, 1, 2), nx=7)
+    nbr = torch.as_tensor(pool_fill.neighbor27(mesh), device=card)
+    nmb, n = mesh.nmb_total, 11
+    gen = torch.Generator().manual_seed(8)
+    shapes = {"cc": (nmb, 5, n, n, n), "x1f": (nmb, n, n, n + 1),
+              "x2f": (nmb, n, n + 1, n), "x3f": (nmb, n + 1, n, n)}
+    arrs = {k: torch.rand(s, generator=gen, dtype=dt).to(card)
+            for k, s in shapes.items()}
+    got = {k: v.clone() for k, v in arrs.items()}
+    pool_fill.pool_fill_cc(got["cc"], nbr, mesh)
+    pool_fill.pool_fill_fc({k: got[k] for k in ("x1f", "x2f", "x3f")}, nbr,
+                           mesh)
     ref = {k: v.clone() for k, v in arrs.items()}
     pool_fill.pool_fill_plain(list(ref.values()), list(ref), nbr, mesh)
     for k in arrs:
