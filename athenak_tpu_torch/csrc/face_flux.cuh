@@ -1,6 +1,7 @@
 // The flux through one face from PLM face states, the face-state floors
-// and a Riemann solver, and the per-direction flux kernel built on it:
-// what kernel C (fused_stage.cu) and kernel J (flux_dir.cu) share.
+// and a Riemann solver, and the per-direction flux kernel built on it,
+// which kernel C (fused_stage.cu) launches.  Kernel J (flux_dir.cu) runs
+// the same arithmetic on staged tiles of its own.
 #pragma once
 
 #include "common.cuh"

@@ -48,38 +48,19 @@
 // merge of A into D, took it from 1.06 to 0.95 ms at 124^3 on an H100
 // 80GB HBM3 at 700 W (PERF.md).
 // The numerics are those of the first design, term by term and in the
-// same order (hlld.cuh, c2p, gs07, the order of rk_ct_cell), so in f32
+// same order (hlld.cuh, c2p, gs07, the update and CT terms), so in f32
 // the result is bitwise equal to it.
 //
 // Ghost cells and faces of the outputs are left as they are; the fill
 // kernel (periodic_fill.cu, pool_fill.cu) or the general sweep fill
 // writes them.
 
+#include "async_copy.cuh"
 #include "mhd_stage.cuh"
 #include "stage_tile.cuh"
 
 namespace athenak {
 namespace {
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned int s =
-      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(gmem), "n"(BYTES));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most N groups (the newest) are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ int clampi(int p, int lo, int hi) {
-  return p < lo ? lo : (p > hi ? hi : p);
-}
 
 // Adds the block's floor counts fl[0..2] (sums over each thread's cells)
 // to red[0..2] and raises red[3..5] to the bit pattern of the block's max

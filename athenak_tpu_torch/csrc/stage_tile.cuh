@@ -1,8 +1,9 @@
-// Tile geometry of the fused Newtonian stage kernel (kernel A,
-// mega_stage_v2.cu): how the interior cells of a pool are cut into CUDA
-// blocks, what each block computes around its cells, and its shared
-// memory.  Plain C++ apart from the __host__ __device__ qualifiers, so
-// that the CPU tests build it with g++ (tests/test_torch_stage_tiles.py).
+// Tile geometry of the fused Newtonian stage kernels (kernel A,
+// mega_stage_v2.cu, and kernel E, mega_stage_v1.cu): how the interior
+// cells of a pool are cut into CUDA blocks, what each block computes
+// around its cells, and its shared memory.  Plain C++ apart from the
+// __host__ __device__ qualifiers, so that the CPU tests build it with
+// g++ (tests/test_torch_stage_tiles.py).
 //
 // A CUDA block owns a tile of interior columns, tj x ti cells in (j, i),
 // of one MeshBlock and a segment of interior planes [k0, k1) along k, and
@@ -116,6 +117,49 @@ __host__ __device__ constexpr StageSmem stage_smem(int tj, int ti) {
   s.rk = s.stage + 3 * s.stage_slot;
   s.total = s.rk + 5 * tj * ti +
             2 * (tj * (ti + 1) + (tj + 1) * ti + 2 * tj * ti);
+  return s;
+}
+
+// Shared-memory layout of one CUDA block of kernel E, which reads the
+// primitives and bcc instead of computing them, in elements of the
+// working type:
+//   prim  [5 planes][8: w 0-4, bcc 5-7][prim_range]   copied with
+//                                     cp.async three planes ahead of use
+//   nf    [3 planes][b1 flux_range(0), b2 flux_range(1),
+//                    b3 flux_range(2)]  the normal field of each face
+//   f1, f2, f3, e1, e2, e3              as in stage_smem
+//   u0    [2 planes][5][tj * ti]        the RK base u0, then the update
+//   u1    [5][tj * ti]                  the RK register u1
+//   rk    [b1, b1o tj * (ti + 1), b2, b2o (tj + 1) * ti,
+//          b3, b3o 2 * tj * ti]         b and b_old of the tile's faces
+// and, in static shared memory, `tables` ints: the offsets in a plane of
+// what the copies read (the prim range, the normal field, the tile's
+// cells, the rk slot's faces).
+struct StageV1Smem {
+  int prim, nf, nf_slot, f1, f2, f3, e1, e2, e3, u0, u1, rk, total, tables;
+};
+
+__host__ __device__ constexpr StageV1Smem stage_v1_smem(int tj, int ti) {
+  const int hc = range_size(prim_range(tj, ti));
+  const int n1f = range_size(flux_range(0, tj, ti));
+  const int n2f = range_size(flux_range(1, tj, ti));
+  const int n3f = range_size(flux_range(2, tj, ti));
+  StageV1Smem s{};
+  s.prim = 0;
+  s.nf = s.prim + 5 * 8 * hc;
+  s.nf_slot = n1f + n2f + n3f;
+  s.f1 = s.nf + 3 * s.nf_slot;
+  s.f2 = s.f1 + 2 * 7 * n1f;
+  s.f3 = s.f2 + 2 * 7 * n2f;
+  s.e1 = s.f3 + 2 * 7 * n3f;
+  s.e2 = s.e1 + 2 * range_size(edge_range(0, tj, ti));
+  s.e3 = s.e2 + 2 * range_size(edge_range(1, tj, ti));
+  s.u0 = s.e3 + range_size(edge_range(2, tj, ti));
+  s.u1 = s.u0 + 2 * 5 * tj * ti;
+  s.rk = s.u1 + 5 * tj * ti;
+  s.total = s.rk + 2 * (tj * (ti + 1) + (tj + 1) * ti + 2 * tj * ti);
+  s.tables = hc + s.nf_slot + tj * ti +
+             (tj * (ti + 1) + (tj + 1) * ti + 2 * tj * ti);
   return s;
 }
 

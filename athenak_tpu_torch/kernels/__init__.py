@@ -48,7 +48,7 @@ _SIGNATURES = {
     "athenak_mega_stage_v2": [_P] * 13 + [_I] * 5 + [_D] * 12 + [_P],
     "athenak_fused_stage": [_P] * 11 + [_I] * 5 + [_D] * 9 + [_P],
     "athenak_fused_ct": [_P] * 21 + [_I] * 5 + [_D] * 6 + [_P],
-    "athenak_mega_stage_v1": [_P] * 17 + [_I] * 6 + [_D] * 12 + [_P],
+    "athenak_mega_stage_v1": [_P] * 14 + [_I] * 6 + [_D] * 12 + [_P],
     "athenak_fused_aux": [_P] * 8 + [_I] * 6 + [_D] * 6 + [_P],
     "athenak_pool_fill": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P],
     "athenak_z4c_stage": [_P] * 4 + [_I] * 5 + [_P] * 2,

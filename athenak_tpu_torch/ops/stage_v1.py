@@ -77,25 +77,19 @@ def fused_mega_stage3d(w, bcc, bfc, u0, u1, bfc_old, eos: EOSData, gam0,
         if not skip_old:
             check_tensor(name, f"bfc_old[{c}]", bfc_old[c], s, w)
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=w.dtype, device=w.device)
-
     old = [0] * 4 if skip_old else [
         t.data_ptr() for t in (u1, bfc_old["x1f"], bfc_old["x2f"],
                                bfc_old["x3f"])]
     uo = torch.empty_like(u0)
     bn = {c: torch.empty_like(bfc[c]) for c in fshape}
-    flx = empty(3, nmb, 5, n3, n2, n1)
-    femf = empty(3, nmb, 2, n3, n2, n1)
-    edge = empty(nmb, 3, n3, n2, n1)
     fn = _k.MEGA_STAGE_V1.entry(w.dtype)
     rc = fn(w.data_ptr(), bcc.data_ptr(), bfc["x1f"].data_ptr(),
             bfc["x2f"].data_ptr(), bfc["x3f"].data_ptr(), u0.data_ptr(),
             *old, uo.data_ptr(),
             bn["x1f"].data_ptr(), bn["x2f"].data_ptr(), bn["x3f"].data_ptr(),
-            flx.data_ptr(), femf.data_ptr(), edge.data_ptr(), nmb, n3, n2,
-            n1, NG, int(skip_old), float(gam0), float(gam1), float(beta_dt),
-            float(dxs["x1"]), float(dxs["x2"]), float(dxs["x3"]),
+            nmb, n3, n2, n1, NG, int(skip_old), float(gam0), float(gam1),
+            float(beta_dt), float(dxs["x1"]), float(dxs["x2"]),
+            float(dxs["x3"]),
             eos.gamma, eos.dfloor, eos.pfloor, eos.tfloor, eos.sfloor,
             eos.sigma_max, _k.stream_ptr(w.device))
     _k.check(rc, name)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Kernels A (``mega_stage_v2``) and G (``pool_fill``) on one NVIDIA GPU:
-their launches under the profiler, their times and their ptxas report.
+"""Kernels A (``mega_stage_v2``), G (``pool_fill``), E (``mega_stage_v1``)
+and J (``fused_flux_dir``) on one NVIDIA GPU: their launches under the
+profiler, their times and their ptxas report.
 
     python3 chip_profile.py [--root DIR] [--label NAME] [--trace]
+                            [--kernels AGEJ] [--no-e2e]
     python3 chip_profile.py --compare NAME1 NAME2
-    python3 chip_profile.py --turns PARENT_DIR
+    python3 chip_profile.py --turns PARENT_DIR [--kernels AGEJ]
 
 ``--root`` names the checkout whose ``athenak_tpu_torch`` is measured
 (default: the directory of this script); the decks and helpers come from
@@ -12,33 +14,50 @@ the ``chip_smoke.py`` beside this script.  ``--turns`` measures another
 checkout (say the parent commit, unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists) and this one in turns on one card,
 each run in its own process: parent (traced), change (traced), change,
-parent; then it compares the outputs of each pair.
+parent; then it compares the outputs of each pair.  ``--kernels`` picks
+which of A, G, E and J a run measures (all by default); ``--no-e2e``
+skips the zone-cycles/s of the decks.
 
 A run
 
   * prints the card's name and power limit;
-  * compiles ``csrc/mega_stage_v2.cu`` and ``csrc/pool_fill.cu`` of the
-    measured tree with the build's flags and prints each kernel's
-    registers, spills and shared memory (nvcc ``-Xptxas -v``);
+  * compiles ``csrc/mega_stage_v2.cu``, ``csrc/pool_fill.cu``,
+    ``csrc/mega_stage_v1.cu`` and ``csrc/flux_dir.cu`` of the measured
+    tree with the build's flags and prints each kernel's registers,
+    spills and shared memory (nvcc ``-Xptxas -v``);
   * with ``--trace``, runs ``torch.profiler`` (CPU and CUDA) over 10
-    calls of A at 124^3 and at 8 x 62^3 and over 50 calls of G on
-    turb8's u, and prints every device launch: name, calls, mean us;
+    calls of A at 124^3 and at 8 x 62^3, over 50 calls of G on turb8's
+    u, over 10 calls of each RK2 stage of E at 128^3 and at 8 x 64^3
+    (``chip_smoke.py`` phase 7's random states) and over 10 calls of J
+    for each direction on the smr deck (``SMR_FULL``: 120 blocks of
+    36^3) and on ot (1024^2) as initialised, and prints every device
+    launch: name, calls, mean us;
   * times, with CUDA events, A on the 124^3 blast and on the 8 x 62^3
     pool (f32, as initialised, RK2 stage 1), G on turb8's u (8 x 5 x
-    68^3) and face field, ``torch.take`` of every ghost of u, and the
-    blast's and the pool's zone-cycles/s (20 and 10 cycles after a
-    warm-up cycle);
+    68^3) and face field, ``torch.take`` of every ghost of u, E on both
+    RK2 stages at both shapes (f32), J for each direction on smr and ot
+    (f32, as initialised), and the zone-cycles/s of blast (20 cycles),
+    pool, turb1, turb8, smr and ot (10 cycles; each after a warm-up
+    cycle);
   * saves A's outputs on both decks (stage 1 and stage 2) and G's
-    result to ``.scratch/profile_<label>.pt`` under this script's
-    directory, and prints one JSON line with every number.
+    result, and digests of E's interior u' and faces (both stages and
+    gam1 = 0, both shapes, f32 and f64) and of J's whole flux, ey and ez
+    (each direction; smr as initialised and after 5 cycles, ot; f32 and
+    f64) to ``.scratch/profile_<label>.pt`` under this script's
+    directory, and prints one JSON line with every number.  A digest is the SHA-256
+    of the tensor's bytes and the float64 sums of its planes along the
+    last two axes.
 
-``--compare`` loads two such files and prints, for every output,
-whether the two runs are bitwise equal and the largest difference.
+``--compare`` loads two such files and prints every output in which the
+two runs differ, with the largest difference (of the values, or of the
+plane sums for a digest), and the count of outputs that are bitwise
+equal.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -48,12 +67,13 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("mega_stage_v2.cu", "pool_fill.cu")
+SOURCES = ("mega_stage_v2.cu", "pool_fill.cu", "mega_stage_v1.cu",
+           "flux_dir.cu")
 
 
 def ptxas_report(cs, kernels, csrc):
     """{source: [line, ...]}: nvcc's -Xptxas -v for each entry function
-    of the two sources, one line each."""
+    of the sources, one line each."""
     from concurrent.futures import ThreadPoolExecutor
     nvcc = kernels._nvcc()
 
@@ -91,12 +111,20 @@ def device_split(torch, fn, calls: int):
         if dev <= 0 or e.key.startswith(("aten::", "cuda", "Profiler")):
             continue
         name = e.key
-        m = re.search(r"athenak::\(anonymous namespace\)::(\w+<[^>]*>|\w+)",
-                      name)
+        m = re.search(
+            r"athenak::(?:\(anonymous namespace\)::)?(\w+<[^>]*>|\w+)", name)
         if m:
             name = m.group(1)
         rows.append((name[:70], e.count, dev / e.count))
     return rows or None
+
+
+def digest(t):
+    """(SHA-256 of the bytes, float64 sums of the planes along the last
+    two axes) of a tensor on the card."""
+    sums = t.double().sum(dim=(-2, -1)).flatten().cpu()
+    host = t.contiguous().cpu().numpy()
+    return {"sha256": hashlib.sha256(host.data).hexdigest(), "sums": sums}
 
 
 def main() -> int:
@@ -104,11 +132,13 @@ def main() -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="run")
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--kernels", default="AGEJ")
+    ap.add_argument("--no-e2e", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar="NAME")
     ap.add_argument("--turns", metavar="PARENT_DIR")
     args = ap.parse_args()
     if args.turns:
-        return turns(os.path.abspath(args.turns))
+        return turns(os.path.abspath(args.turns), args.kernels, args.no_e2e)
     import torch
     if args.compare:
         return compare(torch, *args.compare)
@@ -121,8 +151,6 @@ def main() -> int:
     import chip_smoke as cs
     sys.path.insert(0, root)
     from athenak_tpu_torch import kernels
-    from athenak_tpu_torch.main import build
-    from athenak_tpu_torch.ops import pool_fill, stage
 
     card = cs.smi()
     print(f"[{args.label}] {card}; tree {root}; package "
@@ -144,92 +172,195 @@ def main() -> int:
             decks[name] = os.path.join(tmp, f"{name}.athinput")
             with open(decks[name], "w") as f:
                 f.write(text)
-
-        # kernel A: both decks as initialised, stage 1 timed
-        for label, deck in (("124^3", cs.DECK), ("8x62^3", decks["pool"])):
-            mesh, phys, _, driver, st = build(
-                cs.pin_for(["job/precision=single"], deck), device="cuda")
-            st = phys.unpack_state(driver.initialize(st))
-            u0, b0, dt = st["u"], st["bfc"], mesh.dt
-            a1 = (u0, b0, u0, b0, phys.eos, 0.0, 1.0, dt, phys.dxs)
-            uk, bk, ck = stage.mega_stage_v2(*a1)
-            ui, bi = cs.fill_plain(phys, uk.clone(),
-                                   {c: v.clone() for c, v in bk.items()})
-            a2 = (ui, bi, u0, b0, phys.eos, 0.5, 0.5, 0.5 * dt, phys.dxs)
-            uk2, bk2, ck2 = stage.mega_stage_v2(*a2)
-            torch.cuda.synchronize()
-            for s, (uo, bo, co) in enumerate(((uk, bk, ck),
-                                              (uk2, bk2, ck2))):
-                saved[f"A {label} stage {s + 1} u"] = cs.interior(uo).cpu()
-                for c, v in bo.items():
-                    saved[f"A {label} stage {s + 1} {c}"] = \
-                        cs.interior(v).cpu()
-                saved[f"A {label} stage {s + 1} counters"] = torch.stack(
-                    [co["neos_dfloor"].double().cpu(),
-                     co["neos_efloor"].double().cpu(),
-                     co["neos_tfloor"].double().cpu(),
-                     co["dtmin"].double().cpu()])
-            out[f"A_ms {label}"] = cs.cuda_ms(
-                lambda: stage.mega_stage_v2(*a1), 20)
-            print(f"[{args.label}] A {label}: "
-                  f"{out[f'A_ms {label}']:.4f} ms")
-            if args.trace:
-                split = device_split(torch, lambda: stage.mega_stage_v2(*a1),
-                                     10)
-                out[f"A_split {label}"] = split
-                print_split(args.label, f"A {label}", split, 10)
-            del mesh, phys, driver, st, u0, b0, uk, bk, uk2, bk2, ui, bi
+        steps = {"A": profile_a, "G": profile_g, "E": profile_e,
+                 "J": profile_j}
+        for key in args.kernels:
+            steps[key](torch, cs, args, decks, out, saved)
             torch.cuda.empty_cache()
-
-        # kernel G on turb8
-        mesh = cs.pool_mesh(decks["turb"], cs.TURB8)
-        nbr = torch.as_tensor(pool_fill.neighbor27(mesh), device="cuda")
-        nmb, n = mesh.nmb_total, mesh.mb_indcs.ncells1
-        gen = torch.Generator().manual_seed(13)
-        u = torch.rand((nmb, 5, n, n, n), generator=gen).cuda()
-        fcs = {"x1f": torch.rand((nmb, n, n, n + 1), generator=gen).cuda(),
-               "x2f": torch.rand((nmb, n, n + 1, n), generator=gen).cuda(),
-               "x3f": torch.rand((nmb, n + 1, n, n), generator=gen).cuda()}
-        pool_fill.pool_fill_cc(u, nbr, mesh)
-        pool_fill.pool_fill_fc(fcs, nbr, mesh)
-        torch.cuda.synchronize()
-        saved["G turb8 u"] = u.cpu()
-        for c, v in fcs.items():
-            saved[f"G turb8 {c}"] = v.cpu()
-        dst, src = cs.ghost_donors(torch, pool_fill, tuple(u.shape), "cc",
-                                   nbr.cpu(), mesh)
-        dst, src = dst.cuda(), src.cuda()
-        out["G_ghosts"] = dst.numel()
-        for _ in range(3):      # in turns: kernel, take, kernel, ...
-            out.setdefault("G_ms", []).append(cs.cuda_ms(
-                lambda: pool_fill.pool_fill_cc(u, nbr, mesh), 200))
-            out.setdefault("take_ms", []).append(cs.cuda_ms(
-                lambda: torch.take(u, src), 200))
-        out["G_fc_ms"] = cs.cuda_ms(
-            lambda: pool_fill.pool_fill_fc(fcs, nbr, mesh), 200)
-        out["G_bound_ms"] = cs.bound(2 * dst.numel() * 4, 0)[0]
-        print(f"[{args.label}] G turb8 u {out['G_ms']} ms, torch.take "
-              f"{out['take_ms']} ms, faces {out['G_fc_ms']:.4f} ms, bound "
-              f"{out['G_bound_ms']:.5f} ms ({out['G_ghosts']} ghosts)")
-        if args.trace:
-            split = device_split(
-                torch, lambda: pool_fill.pool_fill_cc(u, nbr, mesh), 50)
-            out["G_split"] = split
-            print_split(args.label, "G turb8 u", split, 50)
-        del u, fcs, src, dst
-        torch.cuda.empty_cache()
-
-        # end to end
-        out["blast_zcps"] = cs.timed_cycles(torch, "true", cs.DECK, cs.NCYC)
-        out["pool_zcps"] = cs.timed_cycles(torch, "true", decks["pool"],
-                                           cs.NCYC_TURB)
-        print(f"[{args.label}] zone-cycles/s blast {out['blast_zcps']:.6e}, "
-              f"pool {out['pool_zcps']:.6e}")
+        if not args.no_e2e:
+            end_to_end(torch, cs, args, decks, out)
     os.makedirs(os.path.join(HERE, ".scratch"), exist_ok=True)
     torch.save(saved, os.path.join(HERE, ".scratch",
                                    f"profile_{args.label}.pt"))
     print(json.dumps(out))
     return 0
+
+
+def profile_a(torch, cs, args, decks, out, saved):
+    """Kernel A: both decks as initialised, stage 1 timed."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import stage
+    for label, deck in (("124^3", cs.DECK), ("8x62^3", decks["pool"])):
+        mesh, phys, _, driver, st = build(
+            cs.pin_for(["job/precision=single"], deck), device="cuda")
+        st = phys.unpack_state(driver.initialize(st))
+        u0, b0, dt = st["u"], st["bfc"], mesh.dt
+        a1 = (u0, b0, u0, b0, phys.eos, 0.0, 1.0, dt, phys.dxs)
+        uk, bk, ck = stage.mega_stage_v2(*a1)
+        ui, bi = cs.fill_plain(phys, uk.clone(),
+                               {c: v.clone() for c, v in bk.items()})
+        a2 = (ui, bi, u0, b0, phys.eos, 0.5, 0.5, 0.5 * dt, phys.dxs)
+        uk2, bk2, ck2 = stage.mega_stage_v2(*a2)
+        torch.cuda.synchronize()
+        for s, (uo, bo, co) in enumerate(((uk, bk, ck), (uk2, bk2, ck2))):
+            saved[f"A {label} stage {s + 1} u"] = cs.interior(uo).cpu()
+            for c, v in bo.items():
+                saved[f"A {label} stage {s + 1} {c}"] = \
+                    cs.interior(v).cpu()
+            saved[f"A {label} stage {s + 1} counters"] = torch.stack(
+                [co["neos_dfloor"].double().cpu(),
+                 co["neos_efloor"].double().cpu(),
+                 co["neos_tfloor"].double().cpu(),
+                 co["dtmin"].double().cpu()])
+        out[f"A_ms {label}"] = cs.cuda_ms(
+            lambda: stage.mega_stage_v2(*a1), 20)
+        print(f"[{args.label}] A {label}: {out[f'A_ms {label}']:.4f} ms")
+        if args.trace:
+            split = device_split(torch, lambda: stage.mega_stage_v2(*a1), 10)
+            out[f"A_split {label}"] = split
+            print_split(args.label, f"A {label}", split, 10)
+        del mesh, phys, driver, st, u0, b0, uk, bk, uk2, bk2, ui, bi
+        torch.cuda.empty_cache()
+
+
+def profile_g(torch, cs, args, decks, out, saved):
+    """Kernel G on turb8's u and faces, beside torch.take."""
+    from athenak_tpu_torch.ops import pool_fill
+    mesh = cs.pool_mesh(decks["turb"], cs.TURB8)
+    nbr = torch.as_tensor(pool_fill.neighbor27(mesh), device="cuda")
+    nmb, n = mesh.nmb_total, mesh.mb_indcs.ncells1
+    gen = torch.Generator().manual_seed(13)
+    u = torch.rand((nmb, 5, n, n, n), generator=gen).cuda()
+    fcs = {"x1f": torch.rand((nmb, n, n, n + 1), generator=gen).cuda(),
+           "x2f": torch.rand((nmb, n, n + 1, n), generator=gen).cuda(),
+           "x3f": torch.rand((nmb, n + 1, n, n), generator=gen).cuda()}
+    pool_fill.pool_fill_cc(u, nbr, mesh)
+    pool_fill.pool_fill_fc(fcs, nbr, mesh)
+    torch.cuda.synchronize()
+    saved["G turb8 u"] = u.cpu()
+    for c, v in fcs.items():
+        saved[f"G turb8 {c}"] = v.cpu()
+    dst, src = cs.ghost_donors(torch, pool_fill, tuple(u.shape), "cc",
+                               nbr.cpu(), mesh)
+    dst, src = dst.cuda(), src.cuda()
+    out["G_ghosts"] = dst.numel()
+    for _ in range(3):      # in turns: kernel, take, kernel, ...
+        out.setdefault("G_ms", []).append(cs.cuda_ms(
+            lambda: pool_fill.pool_fill_cc(u, nbr, mesh), 200))
+        out.setdefault("take_ms", []).append(cs.cuda_ms(
+            lambda: torch.take(u, src), 200))
+    out["G_fc_ms"] = cs.cuda_ms(
+        lambda: pool_fill.pool_fill_fc(fcs, nbr, mesh), 200)
+    out["G_bound_ms"] = cs.bound(2 * dst.numel() * 4, 0)[0]
+    print(f"[{args.label}] G turb8 u {out['G_ms']} ms, torch.take "
+          f"{out['take_ms']} ms, faces {out['G_fc_ms']:.4f} ms, bound "
+          f"{out['G_bound_ms']:.5f} ms ({out['G_ghosts']} ghosts)")
+    if args.trace:
+        split = device_split(
+            torch, lambda: pool_fill.pool_fill_cc(u, nbr, mesh), 50)
+        out["G_split"] = split
+        print_split(args.label, "G turb8 u", split, 50)
+
+
+def profile_e(torch, cs, args, decks, out, saved):
+    """Kernel E on chip_smoke.py phase 7's random states: one block of
+    128^3 and 8 blocks of 64^3 (interiors), both RK2 stages; f64 and
+    f32 digests, f32 times and traces."""
+    from athenak_tpu_torch.ops import stage_v1
+    from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
+    eos = EOSData()
+    for dtype in (torch.float64, torch.float32):
+        for nmb, n in ((1, 132), (8, 68)):
+            nx = n - 4
+            label = f"{nmb}x{nx}^3" if nmb > 1 else f"{nx}^3"
+            dxs = {"x1": 1 / nx, "x2": 1 / nx, "x3": 1 / nx}
+            gen = torch.Generator().manual_seed(11)
+            w, bfc, bcc = cs.random_mhd(torch, gen, nmb, n, dtype)
+            w1, bfc1, bcc1 = cs.random_mhd(torch, gen, nmb, n, dtype)
+            u0 = prim_to_cons_mhd(w, bcc, eos)
+            u1 = prim_to_cons_mhd(w1, bcc1, eos)
+            tag = "f32" if dtype == torch.float32 else "f64"
+            # both RK2 stages, and gam1 = 0 (the register not read)
+            for s, (g0, g1, beta) in enumerate(cs.RK2 + ((1.0, 0.0, 1.0),)):
+                old = (u1, bfc1) if g1 else (None, None)
+                a = (w, bcc, bfc, u0, *old, eos, g0, g1, beta * 0.1 / nx,
+                     dxs)
+                uk, bk = stage_v1.fused_mega_stage3d(*a)
+                torch.cuda.synchronize()
+                key = (f"E {label} {tag} stage {s + 1}" if g1 else
+                       f"E {label} {tag} gam1 0")
+                saved[f"{key} u"] = digest(cs.interior(uk))
+                for c, v in bk.items():
+                    saved[f"{key} {c}"] = digest(cs.interior(v))
+                del uk, bk
+                if tag == "f64" or not g1:
+                    continue
+                ms = cs.cuda_ms(lambda: stage_v1.fused_mega_stage3d(*a), 20)
+                out[f"E_ms {label} stage {s + 1}"] = ms
+                print(f"[{args.label}] E {label} stage {s + 1}: {ms:.4f} ms")
+                if args.trace:
+                    split = device_split(
+                        torch, lambda: stage_v1.fused_mega_stage3d(*a), 10)
+                    out[f"E_split {label} stage {s + 1}"] = split
+                    print_split(args.label, f"E {label} stage {s + 1}",
+                                split, 10)
+            del w, bfc, bcc, w1, bfc1, bcc1, u0, u1
+            torch.cuda.empty_cache()
+
+
+def profile_j(torch, cs, args, decks, out, saved):
+    """Kernel J on the smr deck (as initialised and after 5 cycles) and
+    on ot: f64 and f32 digests of the whole outputs; f32 times and
+    traces of the initial states."""
+    from athenak_tpu_torch.ops import flux
+    cases = (("smr", cs.SMR_FULL, cs.SMR_DECK, 0),
+             ("smr 5 cycles", cs.SMR_FULL, cs.SMR_DECK, 5),
+             ("ot", cs.OT_FULL, cs.OT_DECK, 0))
+    for label, extra, deck, ncyc in cases:
+        for prec in ("double", "single"):
+            state, phys = cs.deck_state(torch, deck, extra, prec, ncyc)
+            w, bcc, bfc = state["w"], state["bcc"], state["bfc"]
+            del state
+            tag = "f32" if prec == "single" else "f64"
+            for name, _axis, ivx, _dx in phys.dirs:
+                a = (w, bcc, bfc[f"{name}f"], phys.eos, name, ivx)
+                got = flux.fused_flux_dir(*a)
+                torch.cuda.synchronize()
+                key = f"J {label} {tag} {name}"
+                for what, v in zip(("flux", "ey", "ez"), got):
+                    saved[f"{key} {what}"] = digest(v)
+                del got
+                if prec == "double" or ncyc:
+                    continue
+                for _ in range(10):  # clocks up after host-bound work
+                    flux.fused_flux_dir(*a)
+                ms = cs.cuda_ms(lambda: flux.fused_flux_dir(*a), 20)
+                out[f"J_ms {label} {name}"] = ms
+                print(f"[{args.label}] J {label} {name}: {ms:.4f} ms")
+                if args.trace:
+                    split = device_split(
+                        torch, lambda: flux.fused_flux_dir(*a), 10)
+                    out[f"J_split {label} {name}"] = split
+                    print_split(args.label, f"J {label} {name}", split, 10)
+            del w, bcc, bfc
+            torch.cuda.empty_cache()
+
+
+def end_to_end(torch, cs, args, decks, out):
+    """zone-cycles/s of the kernel path of every deck A, E and J run on."""
+    single = ["job/precision=single"]
+    runs = (("blast", cs.DECK, cs.NCYC, ()),
+            ("pool", decks["pool"], cs.NCYC_TURB, ()),
+            ("turb1", decks["turb"], cs.NCYC_TURB, ()),
+            ("turb8", decks["turb"], cs.NCYC_TURB, cs.TURB8),
+            ("smr", cs.SMR_DECK, cs.NCYC_SMR, single + cs.SMR_FULL),
+            ("ot", cs.OT_DECK, cs.NCYC_SMR, single + cs.OT_FULL))
+    for name, deck, ncyc, extra in runs:
+        out[f"{name}_zcps"] = cs.timed_cycles(torch, "true", deck, ncyc,
+                                              extra)
+        torch.cuda.empty_cache()
+    print(f"[{args.label}] zone-cycles/s " + ", ".join(
+        f"{name} {out[f'{name}_zcps']:.6e}" for name, *_ in runs))
 
 
 def print_split(label, what, split, calls):
@@ -244,14 +375,15 @@ def print_split(label, what, split, calls):
         print(f"[{label}]   {name}: {c} launches, {us:.2f} us each")
 
 
-def turns(parent: str) -> int:
+def turns(parent: str, kernels: str, no_e2e: bool) -> int:
     """parent, change, change, parent, then the two comparisons."""
     runs = ((parent, "parent1", True), (HERE, "change1", True),
             (HERE, "change2", False), (parent, "parent2", False))
     for root, label, trace in runs:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--root",
-                        root, "--label", label] + (["--trace"] if trace
-                                                   else []), check=True)
+                        root, "--label", label, "--kernels", kernels]
+                       + (["--trace"] if trace else [])
+                       + (["--no-e2e"] if no_e2e else []), check=True)
     for a, b in (("parent1", "change1"), ("parent2", "change2")):
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--compare", a, b], check=True)
@@ -261,15 +393,23 @@ def turns(parent: str) -> int:
 def compare(torch, a: str, b: str) -> int:
     ra = torch.load(os.path.join(HERE, ".scratch", f"profile_{a}.pt"))
     rb = torch.load(os.path.join(HERE, ".scratch", f"profile_{b}.pt"))
-    same = True
+    equal = []
     for key in ra:
         x, y = ra[key], rb[key]
-        eq = torch.equal(x, y)
-        same &= eq
+        if isinstance(x, dict):     # a digest
+            eq = x["sha256"] == y["sha256"]
+            x, y = x["sums"], y["sums"]
+        else:
+            eq = torch.equal(x, y)
+        if eq:
+            equal.append(key)
+            continue
         diff = float((x.double() - y.double()).abs().max())
-        print(f"compare {a} / {b}: {key}: "
-              f"{'bitwise equal' if eq else f'differs, max {diff:g}'}")
-    print(f"compare {a} / {b}: {'all bitwise equal' if same else 'differ'}")
+        print(f"compare {a} / {b}: {key}: differs, max {diff:g}")
+    groups = sorted({" ".join(k.split()[:2]) for k in equal})
+    print(f"compare {a} / {b}: {len(equal)} of {len(ra)} outputs bitwise "
+          f"equal ({', '.join(groups)}): "
+          f"{'all bitwise equal' if len(equal) == len(ra) else 'differ'}")
     return 0
 
 

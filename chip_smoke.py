@@ -47,7 +47,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      128^3 block and without it on 8 blocks of 64^3, with floors that
      fire: every value within 1e-6 (float32) or 1e-10 (float64) of the
      field scale, F's floor counts equal and its dtmin within rtol 1e-4.
-     It times both kernels and their plain versions;
+     It times both kernels and their plain versions and prints E's ptxas
+     report;
   8. holds the pool fill (kernel G) against its plain version, bitwise,
      float32 and float64, cell and face arrays, on the 8-block pools of
      ``turb8`` (8 x 64^3) and ``pool`` (8 x 62^3), prints its ptxas
@@ -96,7 +97,7 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      ``inputs/mhd/orszag_tang.athinput`` at 1024^2: float32 within the
      two-tier bound of each channel's scale on the faces the update
      reads, float64 within 1e-10; it times each direction and its plain
-     version;
+     version and prints the kernel's ptxas report;
  13. drives both decks through the CLI in float32 for 10 cycles, kernel
      path and plain path (``mhd/use_kernels=false``), with the launch
      counts set to 0 just before each run: kernel J must launch exactly
@@ -1022,6 +1023,7 @@ def phase_mega_v1(torch, card):
               f"(f32, 128^3)")
     print(f"phase 7: [{card}] fused_mega_stage3d stage 2 {pool_ms:.4f} ms "
           f"(f32, 8 x 64^3)")
+    print_ptxas("7", "mega_stage_v1.cu")
     # the entry reports the second stage, which reads the RK register
     return dict(res[1], max_abs_err=err, stage1_ms=res[0]["ms"],
                 pool_ms=pool_ms)
@@ -1577,6 +1579,7 @@ def phase_flux_dir(torch, card):
                   f"{d} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
                   f"{r['bound'][0]:.4f} by {r['bound'][1]})"
                   for d, r in dirs.items()))
+    print_ptxas("12", "flux_dir.cu")
     smr = res["smr"]
     return {"max_abs_err": maxerr, "by_deck": res,
             "ms": sum(r["ms"] for r in smr.values()) / len(smr),

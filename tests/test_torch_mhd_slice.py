@@ -148,14 +148,18 @@ def test_cli_bin_output_parity(jax_run, monkeypatch, tmp_path):
             assert np.abs(a - b).max() <= 1e-10 * scale, v
 
 
+def _package_files():
+    return sorted(Path(ROOT, "athenak_tpu_torch").rglob("*.py"))
+
+
 def _port_files():
-    return sorted(Path(ROOT, "athenak_tpu_torch").rglob("*.py")) + [
-        Path(ROOT, "chip_smoke.py")]
+    return _package_files() + [Path(ROOT, "chip_smoke.py"),
+                               Path(ROOT, "chip_profile.py")]
 
 
 def _port_modules():
     names = []
-    for path in _port_files()[:-1]:
+    for path in _package_files():
         parts = list(path.relative_to(ROOT).with_suffix("").parts)
         if parts[-1] == "__init__":
             parts.pop()
@@ -169,9 +173,9 @@ def _jax_side(name: str) -> bool:
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, and chip_smoke as a module (its main not
-    run), in a fresh interpreter: neither jax nor anything of the JAX
-    package is imported."""
+    """Every module of the port, and chip_smoke and chip_profile as
+    modules (their mains not run), in a fresh interpreter: neither jax
+    nor anything of the JAX package is imported."""
     mods = _port_modules()
     for m in ("ops.stage_split", "ops.stage_v1", "ops.aux", "ops.pool_fill",
               "turb_driver", "pgen.turb", "z4c.fd", "z4c.z4c",
@@ -183,6 +187,7 @@ def test_port_never_imports_jax():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n"
+            "import chip_profile\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'athenak_tpu'))\n"
             "assert not bad, bad\n")
@@ -194,7 +199,7 @@ def test_port_never_imports_jax():
 
 def test_port_sources_import_nothing_of_jax():
     """The same, read from the sources with ast: no import statement of
-    the port or of chip_smoke names jax or the JAX package."""
+    the port, chip_smoke or chip_profile names jax or the JAX package."""
     found = []
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -1,5 +1,5 @@
-"""The tile geometry of kernel A (``csrc/stage_tile.cuh``), built for the
-host with g++.
+"""The tile geometry of kernels A and E (``csrc/stage_tile.cuh``), built
+for the host with g++.
 
 Kernel A (``csrc/mega_stage_v2.cu``) cuts the interior cells of a pool
 into CUDA blocks of tj x ti columns and a segment of planes, and computes
@@ -8,7 +8,10 @@ around each tile the primitives, fluxes and corner EMFs its updates read
 header is plain C++ apart from CUDA's function qualifiers; this file
 compiles it with g++ and checks, at the 124^3 blast (128^3 with ghosts),
 the 8 x 62^3 pool (66^3), and the card tests' small shapes, with the
-float32 and float64 tiles and for several numbers of resident blocks:
+float32 and float64 tiles and for several numbers of resident blocks;
+and the same for kernel E (``csrc/mega_stage_v1.cu``), which takes the
+same cut and ranges, at turb1 (132^3), turb8 (8 x 68^3) and its card
+tests' shapes, with its own shared memory (``stage_v1_smem``):
 
   * every interior cell is updated by exactly one CUDA block;
   * every face flux and corner EMF that a cell's update reads, and every
@@ -20,8 +23,8 @@ float32 and float64 tiles and for several numbers of resident blocks:
     an H100, and a float32 block leaves room for two on one SM.
 
 The reads are listed here from the stage's stencils (PLM over four cells,
-the GS07 corners of ``mhd_stage.cuh`` and the update and CT of
-``rk_ct_cell``), not from the header.  The test skips where no g++ is
+the GS07 corners and the update and CT of ``mega_stage_v2.cu``'s
+phases C and D), not from the header.  The test skips where no g++ is
 installed.
 """
 
@@ -57,6 +60,8 @@ void run(int nmb, int n3, int n2, int n1, long long slots) {
   const TileGeom g = tile_geom(nmb, n3, n2, n1, 2, S::TJ, S::TI, slots);
   printf("tile %d %d %d %d\n", S::TJ, S::TI, S::NT, S::MINB);
   printf("smem %zu\n", stage_smem(S::TJ, S::TI).total * sizeof(T));
+  printf("smem_v1 %zu\n", stage_v1_smem(S::TJ, S::TI).total * sizeof(T) +
+                           stage_v1_smem(S::TJ, S::TI).tables * sizeof(int));
   const TileRange rs[] = {prim_range(S::TJ, S::TI),
                           flux_range(0, S::TJ, S::TI),
                           flux_range(1, S::TJ, S::TI),
@@ -157,13 +162,13 @@ def _check_block(rec, b, shape):
     _, k0, k1, j0, j1, i0, i1 = b
     cells = Box((k0, k1 - 1), (j0, j1 - 1), (i0, i1 - 1))
     # what the updates read (a face or edge carries the index of the cell
-    # above it): rk_ct_cell's fluxes and the CT's corner EMFs
+    # above it): the RK update's fluxes and the CT's corner EMFs
     need = {"x1": cells.shift(di=(0, 1)), "x2": cells.shift(dj=(0, 1)),
             "x3": cells.shift(dk=(0, 1)),
             "e1": cells.shift(dk=(0, 1), dj=(0, 1)),
             "e2": cells.shift(dk=(0, 1), di=(0, 1)),
             "e3": cells.shift(dj=(0, 1), di=(0, 1))}
-    # what the corner EMFs read (mhd_stage.cuh edge_kernel's gs07 calls)
+    # what the corner EMFs read (the gs07 calls of phase C)
     e1, e2, e3 = need["e1"], need["e2"], need["e3"]
     extra = {"x2": [e1.shift(dk=(-1, 0)), e3.shift(di=(-1, 0))],
              "x3": [e1.shift(dj=(-1, 0)), e2.shift(di=(-1, 0))],
@@ -186,9 +191,7 @@ def _check_block(rec, b, shape):
         assert box.within(array), ("array", b)
 
 
-@pytest.mark.parametrize("dtype", ["f32", "f64"])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_every_interior_cell_once(harness, dtype, shape):
+def _cells_once(harness, dtype, shape):
     nmb, n3, n2, n1 = shape
     for slots in SLOTS:
         rec = _run(harness, dtype, shape, slots)
@@ -202,20 +205,58 @@ def test_every_interior_cell_once(harness, dtype, shape):
         assert blocks == len(rec["box"]) and nseg * seg >= n3 - 4
 
 
-@pytest.mark.parametrize("dtype", ["f32", "f64"])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_reads_lie_inside_the_halo(harness, dtype, shape):
+def _reads_inside(harness, dtype, shape):
     rec = _run(harness, dtype, shape, SLOTS[0])
     for b in rec["box"]:
         _check_block(rec, b, shape)
 
 
-@pytest.mark.parametrize("dtype", ["f32", "f64"])
-def test_shared_memory_fits(harness, dtype):
+def _smem_fits(harness, dtype, key):
     rec = _run(harness, dtype, SHAPES[0], SLOTS[0])
     tj, ti, nt, minb = rec["tile"]
-    smem = rec["smem"][0] + STATIC_SMEM
+    smem = rec[key][0] + STATIC_SMEM
     assert smem <= SMEM_BLOCK
     assert minb * (smem + SMEM_RESERVED) <= SMEM_SM
     if dtype == "f32":
         assert minb >= 2
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_every_interior_cell_once(harness, dtype, shape):
+    _cells_once(harness, dtype, shape)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_reads_lie_inside_the_halo(harness, dtype, shape):
+    _reads_inside(harness, dtype, shape)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_shared_memory_fits(harness, dtype):
+    _smem_fits(harness, dtype, "smem")
+
+
+# Kernel E (csrc/mega_stage_v1.cu) takes the same cut, ranges and k
+# ranges: at turb1 (128^3, 132^3 with ghosts), turb8 (8 x 68^3) and
+# tests/test_torch_cuda.py's kernel E shapes
+SHAPES_V1 = [(1, 132, 132, 132), (8, 68, 68, 68), (2, 16, 16, 16),
+             (3, 15, 21, 17), (2, 13, 22, 19)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("shape", SHAPES_V1)
+def test_v1_every_interior_cell_once(harness, dtype, shape):
+    _cells_once(harness, dtype, shape)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("shape", SHAPES_V1)
+def test_v1_reads_lie_inside_the_halo(harness, dtype, shape):
+    _reads_inside(harness, dtype, shape)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_v1_shared_memory_fits(harness, dtype):
+    _smem_fits(harness, dtype, "smem_v1")
