@@ -1,7 +1,7 @@
 // Asynchronous copies from device memory into shared memory (cp.async)
 // and the index clamp, shared by the kernels that stage their inputs
-// ahead of use: A (mega_stage_v2.cu), E (mega_stage_v1.cu) and J
-// (flux_dir.cu).
+// ahead of use: A (mega_stage_v2.cu), E (mega_stage_v1.cu), J
+// (flux_dir.cu), H (z4c_rhs.cuh) and C (fused_stage.cu).
 #pragma once
 
 #include <cuda_runtime.h>

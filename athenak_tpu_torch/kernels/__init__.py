@@ -46,7 +46,7 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "athenak_periodic_fill": [_P, ctypes.c_longlong] + [_I] * 7 + [_P],
     "athenak_mega_stage_v2": [_P] * 13 + [_I] * 5 + [_D] * 12 + [_P],
-    "athenak_fused_stage": [_P] * 11 + [_I] * 5 + [_D] * 9 + [_P],
+    "athenak_fused_stage": [_P] * 10 + [_I] * 5 + [_D] * 9 + [_P],
     "athenak_fused_ct": [_P] * 21 + [_I] * 5 + [_D] * 6 + [_P],
     "athenak_mega_stage_v1": [_P] * 14 + [_I] * 6 + [_D] * 12 + [_P],
     "athenak_fused_aux": [_P] * 8 + [_I] * 6 + [_D] * 6 + [_P],

@@ -127,14 +127,13 @@ def fused_stage3d(w, bcc, bfc, u0, u1, eos: EOSData, gam0, gam1, beta_dt,
         return torch.empty(shape, dtype=w.dtype, device=w.device)
 
     acc = torch.empty_like(w)
-    flx = empty(3, nmb, 5, n3, n2, n1)
     fden = empty(3, nmb, n3, n2, n1)
     femf = empty(3, 2, nmb, n3, n2, n1)
     rc = _k.FUSED_STAGE3D.entry(w.dtype)(
         w.data_ptr(), bcc.data_ptr(), bfc["x1f"].data_ptr(),
         bfc["x2f"].data_ptr(), bfc["x3f"].data_ptr(), u0.data_ptr(),
-        u1.data_ptr(), acc.data_ptr(), flx.data_ptr(), fden.data_ptr(),
-        femf.data_ptr(), nmb, n3, n2, n1, SOLVERS[solver][0],
+        u1.data_ptr(), acc.data_ptr(), fden.data_ptr(), femf.data_ptr(),
+        nmb, n3, n2, n1, SOLVERS[solver][0],
         float(gam0), float(gam1), float(beta_dt), float(dxs["x1"]),
         float(dxs["x2"]), float(dxs["x3"]), eos.gamma, eos.dfloor,
         eos.pfloor, _k.stream_ptr(w.device))

@@ -558,8 +558,8 @@ class MHD:
         if self.use_mega_stage and on_card:
             return self._stage_v1(state, saved, gam0, gam1, beta_dt)
         if self.use_fused_stage and on_card:
-            # kernel C: the 5-channel fluxes never leave the kernel's
-            # scratch; only the mass flux and the face EMFs come back
+            # kernel C: the 5-channel fluxes stay in the kernel's shared
+            # memory; only the mass flux and the face EMFs come back
             from ..ops.stage_split import fused_stage3d
             u, fden, emf = fused_stage3d(
                 w, bcc, bfc, u, saved["u1"], self.eos, gam0, gam1,

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Kernels A (``mega_stage_v2``), G (``pool_fill``), E (``mega_stage_v1``)
-and J (``fused_flux_dir``) on one NVIDIA GPU: their launches under the
-profiler, their times and their ptxas report.
+"""Kernels A (``mega_stage_v2``), G (``pool_fill``), E (``mega_stage_v1``),
+J (``fused_flux_dir``), H (``z4c_stage``) and C (``fused_stage3d``) on
+one NVIDIA GPU: their launches under the profiler, their times and their
+ptxas report.
 
     python3 chip_profile.py [--root DIR] [--label NAME] [--trace]
-                            [--kernels AGEJ] [--no-e2e]
+                            [--kernels AGEJHC] [--no-e2e]
     python3 chip_profile.py --compare NAME1 NAME2
-    python3 chip_profile.py --turns PARENT_DIR [--kernels AGEJ]
+    python3 chip_profile.py --turns PARENT_DIR [--kernels AGEJHC]
 
 ``--root`` names the checkout whose ``athenak_tpu_torch`` is measured
 (default: the directory of this script); the decks and helpers come from
@@ -15,38 +16,51 @@ checkout (say the parent commit, unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists) and this one in turns on one card,
 each run in its own process: parent (traced), change (traced), change,
 parent; then it compares the outputs of each pair.  ``--kernels`` picks
-which of A, G, E and J a run measures (all by default); ``--no-e2e``
-skips the zone-cycles/s of the decks.
+which of A, G, E, J, H and C a run measures (all by default);
+``--no-e2e`` skips the zone-cycles/s of the decks.
 
 A run
 
   * prints the card's name and power limit;
-  * compiles ``csrc/mega_stage_v2.cu``, ``csrc/pool_fill.cu``,
-    ``csrc/mega_stage_v1.cu`` and ``csrc/flux_dir.cu`` of the measured
-    tree with the build's flags and prints each kernel's registers,
-    spills and shared memory (nvcc ``-Xptxas -v``);
+  * prints the registers, spills and shared memory (nvcc ``-Xptxas
+    -v``) of each picked kernel's sources in the measured tree:
+    ``csrc/mega_stage_v2.cu`` (A), ``pool_fill.cu`` (G),
+    ``mega_stage_v1.cu`` (E), ``flux_dir.cu`` (J), the eight
+    ``z4c_stage_ng*_f*.cu`` instances (H) and ``fused_stage.cu`` (C),
+    from the library build's own log where this process built it;
   * with ``--trace``, runs ``torch.profiler`` (CPU and CUDA) over 10
     calls of A at 124^3 and at 8 x 62^3, over 50 calls of G on turb8's
     u, over 10 calls of each RK2 stage of E at 128^3 and at 8 x 64^3
-    (``chip_smoke.py`` phase 7's random states) and over 10 calls of J
+    (``chip_smoke.py`` phase 7's random states), over 10 calls of J
     for each direction on the smr deck (``SMR_FULL``: 120 blocks of
-    36^3) and on ot (1024^2) as initialised, and prints every device
-    launch: name, calls, mean us;
+    36^3) and on ot (1024^2) as initialised, over 10 calls of each of
+    H's four RK4 stages at 60^3 ng 2 (``Z4C_DECK``) and 64^3 ng 3
+    (``one_puncture.athinput``) in float32 (phase 10's inputs), and
+    over 10 calls of C on the first RK2 stage of the SR blast (SR HLLE)
+    and of the Newtonian blast (HLLD) in float32 (phase 5's inputs),
+    and prints every device launch: name, calls, mean us;
   * times, with CUDA events, A on the 124^3 blast and on the 8 x 62^3
     pool (f32, as initialised, RK2 stage 1), G on turb8's u (8 x 5 x
     68^3) and face field, ``torch.take`` of every ghost of u, E on both
     RK2 stages at both shapes (f32), J for each direction on smr and ot
-    (f32, as initialised), and the zone-cycles/s of blast (20 cycles),
-    pool, turb1, turb8, smr and ot (10 cycles; each after a warm-up
-    cycle);
+    (f32, as initialised), H on each RK4 stage at both shapes (f32), C
+    on the first and second RK2 stage of the SR blast and the blast
+    (f32), and the zone-cycles/s of blast (20 cycles), pool, turb1,
+    turb8, smr and ot (10 cycles; with A, G, E or J), of z4c and
+    puncture (with H) and of the SR blast (with C; 10 cycles each
+    after a warm-up cycle);
   * saves A's outputs on both decks (stage 1 and stage 2) and G's
     result, and digests of E's interior u' and faces (both stages and
     gam1 = 0, both shapes, f32 and f64) and of J's whole flux, ey and ez
     (each direction; smr as initialised and after 5 cycles, ot; f32 and
-    f64) to ``.scratch/profile_<label>.pt`` under this script's
-    directory, and prints one JSON line with every number.  A digest is the SHA-256
-    of the tensor's bytes and the float64 sums of its planes along the
-    last two axes.
+    f64), of H's interior output (the four RK4 stages at 60^3 ng 2, 64^3
+    ng 3, 2 x 32^3 ng 4 and a ragged 46 x 38 x 42 ng 5 block, with and
+    without the Sommerfeld geometry, f32 and f64) and of C's whole acc,
+    mass fluxes and face EMFs (HLLD, SR HLLE, SR LLF; both RK2 stages;
+    f32 and f64) to ``.scratch/profile_<label>.pt`` under this script's
+    directory, and prints one JSON line with every number.  A digest is
+    the SHA-256 of the tensor's bytes and the float64 sums of its planes
+    along the last two axes.
 
 ``--compare`` loads two such files and prints every output in which the
 two runs differ, with the largest difference (of the values, or of the
@@ -67,17 +81,29 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("mega_stage_v2.cu", "pool_fill.cu", "mega_stage_v1.cu",
-           "flux_dir.cu")
+Z4C_INSTANCES = tuple(f"z4c_stage_ng{ng}_f{b}.cu" for ng in (2, 3, 4, 5)
+                      for b in (32, 64))
+SOURCES = {"A": ("mega_stage_v2.cu",), "G": ("pool_fill.cu",),
+           "E": ("mega_stage_v1.cu",), "J": ("flux_dir.cu",),
+           "H": Z4C_INSTANCES, "C": ("fused_stage.cu",)}
+# H's shapes: phase 10's three and a ragged single block at nghost 5
+Z4C_NG5 = ["mesh/nghost=5", "mesh/nx1=46", "mesh/nx2=38", "mesh/nx3=42"]
 
 
-def ptxas_report(cs, kernels, csrc):
+def ptxas_report(cs, kernels, csrc, picked):
     """{source: [line, ...]}: nvcc's -Xptxas -v for each entry function
-    of the sources, one line each."""
+    of the picked kernels' sources, one line each; from the library
+    build's log where this process built the library, else compiled
+    anew."""
     from concurrent.futures import ThreadPoolExecutor
     nvcc = kernels._nvcc()
+    logs = kernels.BUILD_INFO.get("logs") or {}
+    sources = [s for k in picked for s in SOURCES[k]
+               if os.path.exists(os.path.join(csrc, s))]
 
     def one(src):
+        if src in logs:
+            return cs.ptxas_lines(logs[src])
         with tempfile.TemporaryDirectory() as tmp:
             run = subprocess.run(
                 [nvcc] + kernels.NVCC_FLAGS
@@ -88,8 +114,8 @@ def ptxas_report(cs, kernels, csrc):
             raise RuntimeError(f"nvcc {src} failed:\n{run.stdout}")
         return cs.ptxas_lines(run.stdout)
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        return dict(zip(SOURCES, pool.map(one, SOURCES)))
+    with ThreadPoolExecutor(max(len(sources), 1)) as pool:
+        return dict(zip(sources, pool.map(one, sources)))
 
 
 def device_split(torch, fn, calls: int):
@@ -132,7 +158,7 @@ def main() -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="run")
     ap.add_argument("--trace", action="store_true")
-    ap.add_argument("--kernels", default="AGEJ")
+    ap.add_argument("--kernels", default="AGEJHC")
     ap.add_argument("--no-e2e", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar="NAME")
     ap.add_argument("--turns", metavar="PARENT_DIR")
@@ -159,7 +185,7 @@ def main() -> int:
     kernels.library()
     print(f"[{args.label}] kernels loaded in "
           f"{time.perf_counter() - t0:.1f} s ({kernels.BUILD_INFO['path']})")
-    report = ptxas_report(cs, kernels, str(kernels.CSRC))
+    report = ptxas_report(cs, kernels, str(kernels.CSRC), args.kernels)
     for src, lines in report.items():
         for line in lines:
             print(f"[{args.label}] ptxas {src}: {line}")
@@ -168,12 +194,13 @@ def main() -> int:
     saved = {}
     with tempfile.TemporaryDirectory() as tmp:
         decks = {}
-        for name, text in (("pool", cs.POOL_DECK), ("turb", cs.TURB_DECK)):
+        for name, text in (("pool", cs.POOL_DECK), ("turb", cs.TURB_DECK),
+                           ("z4c", cs.Z4C_DECK), ("sr", cs.SR_DECK)):
             decks[name] = os.path.join(tmp, f"{name}.athinput")
             with open(decks[name], "w") as f:
                 f.write(text)
         steps = {"A": profile_a, "G": profile_g, "E": profile_e,
-                 "J": profile_j}
+                 "J": profile_j, "H": profile_h, "C": profile_c}
         for key in args.kernels:
             steps[key](torch, cs, args, decks, out, saved)
             torch.cuda.empty_cache()
@@ -346,18 +373,123 @@ def profile_j(torch, cs, args, decks, out, saved):
             torch.cuda.empty_cache()
 
 
+def profile_h(torch, cs, args, decks, out, saved):
+    """Kernel H on phase 10's inputs (the state after initialisation,
+    perturbed, and a perturbed register) at 60^3 ng 2, 64^3 ng 3, 2 x
+    32^3 ng 4 and a ragged ng 5 block: digests of the interior output of
+    the four RK4 stages with and without the Sommerfeld geometry, f64
+    and f32; f32 times and traces of each stage at the first two."""
+    import copy
+    from athenak_tpu_torch.ops import z4c_stage as zs
+    shapes = (("60^3 ng 2", decks["z4c"], []),
+              ("64^3 ng 3", cs.PUNCTURE, []),
+              ("2x32^3 ng 4", cs.PUNCTURE, cs.Z4C_POOL),
+              ("46x38x42 ng 5", cs.PUNCTURE, Z4C_NG5))
+    for label, deck, extra in shapes:
+        for prec in ("double", "single"):
+            phys, u, u1, dt = cs.z4c_inputs(torch, deck, extra, prec)
+            plain_bc = copy.copy(phys)
+            plain_bc.sbc_mask = None
+            tag = "f32" if prec == "single" else "f64"
+            sets = cs.rk4_sets(torch, u.dtype, dt)
+            for s, (g0, g1, bdt) in enumerate(sets):
+                for somm, z in (("sbc", phys), ("no sbc", plain_bc)):
+                    got = zs.fused_z4c_stage(u, u1, z, g0, g1, bdt)
+                    torch.cuda.synchronize()
+                    saved[f"H {label} {tag} stage {s + 1} {somm}"] = \
+                        digest(cs.interior(got, phys.ng))
+                    del got
+                if tag == "f64" or label not in ("60^3 ng 2", "64^3 ng 3"):
+                    continue
+                a = (u, u1, phys, g0, g1, bdt)
+                ms = cs.cuda_ms(lambda: zs.fused_z4c_stage(*a), 20)
+                out[f"H_ms {label} stage {s + 1}"] = ms
+                print(f"[{args.label}] H {label} stage {s + 1}: {ms:.4f} ms")
+                if args.trace:
+                    split = device_split(
+                        torch, lambda: zs.fused_z4c_stage(*a), 10)
+                    out[f"H_split {label} stage {s + 1}"] = split
+                    print_split(args.label, f"H {label} stage {s + 1}",
+                                split, 10)
+            del phys, plain_bc, u, u1
+            torch.cuda.empty_cache()
+
+
+def profile_c(torch, cs, args, decks, out, saved):
+    """Kernel C on phase 5's inputs (the decks' states after
+    initialisation): HLLD on the blast, SR HLLE and SR LLF on the SR
+    blast, both RK2 stages (the second with u0 read), digests of the
+    whole acc, mass fluxes and face EMFs in f64 and f32; f32 times and
+    traces of HLLD and SR HLLE, the path's instance."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import stage_split
+    cases = (("sr_hlle", decks["sr"], []),
+             ("sr_llf", decks["sr"], ["mhd/rsolver=llf"]),
+             ("hlld", cs.DECK, []))
+    for solver, deck, extra in cases:
+        for prec in ("double", "single"):
+            mesh, phys, _, driver, state = build(
+                cs.pin_for(extra + [f"job/precision={prec}"], deck),
+                device="cuda")
+            state = phys.unpack_state(driver.initialize(state))
+            if phys.stage_solver != solver:
+                raise AssertionError(f"{solver}: the deck gives "
+                                     f"{phys.stage_solver}")
+            tag = "f32" if prec == "single" else "f64"
+            w, bcc, bfc, u = state["w"], state["bcc"], state["bfc"], \
+                state["u"]
+            u1 = u * 0.999
+            for s, (g0, g1, beta) in enumerate(cs.RK2):
+                a = (w, bcc, bfc, u, u1, phys.eos, g0, g1, beta * mesh.dt,
+                     phys.dxs, solver)
+                acc, fden, emf = stage_split.fused_stage3d(*a)
+                torch.cuda.synchronize()
+                key = f"C {solver} {tag} stage {s + 1}"
+                saved[f"{key} acc"] = digest(acc)
+                for d, v in fden.items():
+                    saved[f"{key} fden {d}"] = digest(v)
+                for e, v in emf.items():
+                    saved[f"{key} emf {e}"] = digest(v)
+                del acc, fden, emf
+                if tag == "f64" or solver == "sr_llf":
+                    continue
+                ms = cs.cuda_ms(lambda: stage_split.fused_stage3d(*a), 20)
+                out[f"C_ms {solver} stage {s + 1}"] = ms
+                print(f"[{args.label}] C {solver} stage {s + 1}: "
+                      f"{ms:.4f} ms")
+                if args.trace and s == 0:
+                    split = device_split(
+                        torch, lambda: stage_split.fused_stage3d(*a), 10)
+                    out[f"C_split {solver} stage 1"] = split
+                    print_split(args.label, f"C {solver} stage 1", split,
+                                10)
+            del mesh, phys, driver, state, w, bcc, bfc, u, u1
+            torch.cuda.empty_cache()
+
+
 def end_to_end(torch, cs, args, decks, out):
-    """zone-cycles/s of the kernel path of every deck A, E and J run on."""
+    """zone-cycles/s of the kernel path of every deck the picked kernels
+    run on: blast, pool, turb1, turb8, smr and ot with A, G, E or J;
+    z4c and puncture with H; the SR blast with C."""
     single = ["job/precision=single"]
-    runs = (("blast", cs.DECK, cs.NCYC, ()),
-            ("pool", decks["pool"], cs.NCYC_TURB, ()),
-            ("turb1", decks["turb"], cs.NCYC_TURB, ()),
-            ("turb8", decks["turb"], cs.NCYC_TURB, cs.TURB8),
-            ("smr", cs.SMR_DECK, cs.NCYC_SMR, single + cs.SMR_FULL),
-            ("ot", cs.OT_DECK, cs.NCYC_SMR, single + cs.OT_FULL))
-    for name, deck, ncyc, extra in runs:
+    runs = []
+    if set(args.kernels) & set("AGEJ"):
+        runs += [("blast", cs.DECK, cs.NCYC, (), "mhd"),
+                 ("pool", decks["pool"], cs.NCYC_TURB, (), "mhd"),
+                 ("turb1", decks["turb"], cs.NCYC_TURB, (), "mhd"),
+                 ("turb8", decks["turb"], cs.NCYC_TURB, cs.TURB8, "mhd"),
+                 ("smr", cs.SMR_DECK, cs.NCYC_SMR, single + cs.SMR_FULL,
+                  "mhd"),
+                 ("ot", cs.OT_DECK, cs.NCYC_SMR, single + cs.OT_FULL,
+                  "mhd")]
+    if "H" in args.kernels:
+        runs += [("z4c", decks["z4c"], cs.NCYC_Z4C, (), "z4c"),
+                 ("puncture", cs.PUNCTURE, cs.NCYC_Z4C, single, "z4c")]
+    if "C" in args.kernels:
+        runs += [("sr", decks["sr"], cs.NCYC_SR, (), "mhd")]
+    for name, deck, ncyc, extra, block in runs:
         out[f"{name}_zcps"] = cs.timed_cycles(torch, "true", deck, ncyc,
-                                              extra)
+                                              extra, block=block)
         torch.cuda.empty_cache()
     print(f"[{args.label}] zone-cycles/s " + ", ".join(
         f"{name} {out[f'{name}_zcps']:.6e}" for name, *_ in runs))

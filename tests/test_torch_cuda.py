@@ -194,6 +194,44 @@ def test_split_stage_kernels_f64(card, solver):
                 <= 1e-10 * bscale
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("gam0,gam1", [(0.0, 1.0), (0.5, 0.5)])
+@pytest.mark.parametrize("solver", ["sr_hlle", "sr_llf", "hlld"])
+def test_split_stage_kernel_ragged_tiles(card, dtype, gam0, gam1, solver):
+    """Kernel C against its plain version on two blocks of 14 x 21 x 37
+    cells (full and ragged tiles, wrapped stencils on every side), random
+    states, with u0 not read (gam0 = 0) and read: one launch a call, every
+    entry of acc, the mass fluxes and the face EMFs, ghosts included;
+    float64 within 1e-10 of the field scale, float32 within the two-tier
+    bound (> 95% within 3e-5, all within 5e-3)."""
+    from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(13)
+    w, bfc, bcc = _random_prims(gen, 2, (14, 21, 37), dt, card)
+    w1, _, bcc1 = _random_prims(gen, 2, (14, 21, 37), dt, card)
+    eos = EOSData()
+    u0 = prim_to_cons_mhd(w, bcc, eos)
+    u1 = prim_to_cons_mhd(w1, bcc1, eos)
+    dxs = {"x1": 1 / 33, "x2": 1 / 17, "x3": 1 / 10}
+    args = (w, bcc, bfc, u0, u1, eos, gam0, gam1, 0.01, dxs, solver)
+    n0 = kernels.FUSED_STAGE3D.launches
+    ka, kf, ke = stage_split.fused_stage3d(*args)
+    assert kernels.FUSED_STAGE3D.launches == n0 + 1
+    pa, pf, pe = stage_split.fused_stage3d_plain(*args)
+    fscale = max(float(v.abs().max()) for v in pf.values())
+    escale = max(float(v.abs().max()) for v in pe.values())
+    pairs = ([(ka, pa, pa.abs().amax(dim=(-3, -2, -1), keepdim=True))]
+             + [(kf[d], pf[d], fscale) for d in pf]
+             + [(ke[e], pe[e], escale) for e in pe])
+    for got, ref, sc in pairs:
+        err = (got - ref).abs().double() / sc
+        if dtype == "float64":
+            assert float(err.max()) <= 1e-10
+        else:
+            assert float((err < 3e-5).double().mean()) > 0.95
+            assert float(err.max()) < 5e-3
+
+
 def test_split_stage_kernels_reject_bad_input(card):
     w = torch.zeros((1, 5, 12, 12, 12), device=card)
     bcc = torch.zeros((1, 3, 12, 12, 12), device=card)
@@ -465,6 +503,41 @@ def test_z4c_stage_kernel(card, dtype, ng):
         assert kernels.Z4C_STAGE.launches == n0 + 1
         want = z4c_stage.fused_z4c_stage_plain(*args)
         assert kernels.Z4C_STAGE.launches == n0 + 1
+        err = ((got[core] - want[core]).abs()
+               / want[core].abs().clamp(min=1.0)).max()
+        assert float(err) <= tol, (s, float(err))
+
+
+# two blocks of 12^3 (a pool) and one block of 18 x 10 x 14 (ragged boxes
+# along every axis)
+Z4C_LAYOUTS = {
+    "pool": ["mesh/nx1=24", "mesh/nx2=12", "mesh/nx3=12",
+             "meshblock/nx1=12", "meshblock/nx2=12", "meshblock/nx3=12"],
+    "ragged": ["mesh/nx1=18", "mesh/nx2=10", "mesh/nx3=14"]}
+
+
+@pytest.mark.parametrize("dtype", ["single", "double"])
+@pytest.mark.parametrize("layout", ["pool", "ragged"])
+@pytest.mark.parametrize("ng", [2, 3, 4, 5])
+def test_z4c_stage_kernel_pool_and_ragged(card, dtype, layout, ng):
+    """Kernel H against its plain version on interior cells, for the four
+    RK4 coefficient sets, on a pool of two blocks and on a ragged
+    interior: one launch a call, float32 to 2e-5 and float64 to 1e-10 of
+    max(|value|, 1)."""
+    from athenak_tpu_torch.driver import make_integrator
+    from athenak_tpu_torch.ops import z4c_stage
+    phys, u, u1 = _z4c([f"mesh/nghost={ng}"] + Z4C_LAYOUTS[layout], dtype)
+    assert u.shape[0] == (2 if layout == "pool" else 1)
+    rk4 = make_integrator("rk4")
+    core = (slice(None), slice(None), slice(ng, -ng), slice(ng, -ng),
+            slice(ng, -ng))
+    tol = 2e-5 if dtype == "single" else 1e-10
+    for s in range(4):
+        args = (u, u1, phys, rk4.gam0[s], rk4.gam1[s], rk4.beta[s] * 0.1)
+        n0 = kernels.Z4C_STAGE.launches
+        got = z4c_stage.fused_z4c_stage(*args)
+        assert kernels.Z4C_STAGE.launches == n0 + 1
+        want = z4c_stage.fused_z4c_stage_plain(*args)
         err = ((got[core] - want[core]).abs()
                / want[core].abs().clamp(min=1.0)).max()
         assert float(err) <= tol, (s, float(err))

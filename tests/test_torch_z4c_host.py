@@ -1,9 +1,13 @@
 """The CUDA stage kernel's arithmetic, built for the host with g++.
 
 ``csrc/z4c_rhs.cuh`` is plain C++ apart from CUDA's function qualifiers,
-``__ldg`` and the launch (which it keeps behind ``__CUDACC__``).  Through
-a small shim header standing for ``cuda_runtime.h`` this file compiles
-the kernel for the CPU, runs it cell by cell and holds it against the
+``__ldg`` and the kernel with its launch (which it keeps behind
+``__CUDACC__``).  Through a small shim header standing for
+``cuda_runtime.h`` this file compiles the kernel's per-thread functions
+for the CPU and replays the kernel block by block (``run_tiles``: each
+channel's window copied, the inner pass of the mixed derivatives, every
+thread's derivatives, then every thread's algebra; float and double on
+the kernel's boxes, ``csrc/z4c_tile.cuh``), and holds it against the
 plain torch stage (``ops/z4c_stage.py``) on the 16^3 single-puncture
 deck:
 
@@ -15,12 +19,13 @@ deck:
     root (``cbrt`` in the kernel, ``x ** (1/3)`` in torch), and with
     chi_psi_power != -4 the conformal factor through ``pow``.
 
-With a counting number type in place of the float it also counts the
-kernel's operations a cell (add, subtract, multiply, divide, negate; pow
-and cbrt count one), the numbers ``chip_smoke.py`` takes for the
-kernel's bound.  The test skips where no g++ is installed.  This checks
-the source's arithmetic, not the CUDA build: the card runs the same
-checks in ``tests/test_torch_cuda.py``.
+With a counting number type in place of the float, on boxes of one cell
+(so that a block's operations are one cell's, its inner derivatives
+included), it also counts the kernel's operations a cell (add, subtract,
+multiply, divide, negate; pow and cbrt count one), the numbers
+``chip_smoke.py`` takes for the kernel's bound.  The test skips where no
+g++ is installed.  This checks the source's arithmetic, not the CUDA
+build: the card runs the same checks in ``tests/test_torch_cuda.py``.
 """
 
 import os
@@ -64,13 +69,13 @@ using std::sqrt;
 #define __launch_bounds__(x)
 typedef void* cudaStream_t;
 template <class T> inline T __ldg(const T* p) { return *p; }
-struct HostDim3 { unsigned x, y, z; };
-static HostDim3 blockIdx, threadIdx, blockDim;
 """
 
 HARNESS = r"""
+#include <algorithm>
 #include <cstdio>
 #include <cstdlib>
+#include <type_traits>
 #include <vector>
 #include "z4c_rhs.cuh"
 
@@ -115,7 +120,84 @@ double val(T x) { return static_cast<double>(x); }
 template <>
 double val(cnt::Op x) { return x.v; }
 
-// the whole grid, thread by thread; returns the operations of the last
+// The whole grid, CUDA block by CUDA block, as z4c_tile_kernel runs it:
+// for each channel the window (a plain copy for cp.async), the inner pass
+// and every thread's derivatives, then every thread's update; returns
+// the operations of the last block.
+template <class T, class Sh>
+long long run_tiles(const std::vector<T>& u, const std::vector<T>& u1,
+                    const std::vector<T>& sbc, std::vector<T>& out,
+                    const int* h, const Z4cPrm<T>& P) {
+  const int nmb = h[2], n3 = h[3], n2 = h[4], n1 = h[5], has_sbc = h[6];
+  const long long cs = (long long)n3 * n2 * n1;
+  const Z4cGeom geo = z4c_geom(nmb, n3, n2, n1, Sh::NG, Sh::TX, Sh::TY,
+                               Sh::TZ);
+  std::vector<T> buf((size_t)kZ4cSlots * Sh::NC), win(Sh::WIN),
+      d1x(Sh::NXD), d1y(Sh::NYD);
+  std::vector<Z4cSomm<T>> sb(Sh::NC);
+  std::vector<T> beta(3 * Sh::NC), gu(9 * Sh::NC);
+  std::vector<long long> cell(Sh::NC);
+  long long ops = 0;
+  for (long long blk = 0; blk < geo.blocks; ++blk) {
+    cnt::n = 0;
+    const Z4cBox box = z4c_box(geo, blk);
+    const long long mb = (long long)box.m * kNZ4C * cs;
+    for (int t = 0; t < Sh::NC; ++t) {
+      const Z4cCellPos q = z4c_cell_pos<Sh>(t);
+      const int k = std::min(box.k0 + q.z, n3 - 1);
+      const int j = std::min(box.j0 + q.y, n2 - 1);
+      const int i = std::min(box.i0 + q.x, n1 - 1);
+      cell[t] = ((long long)k * n2 + j) * n1 + i;
+      for (int d = 0; d < 3; ++d)
+        beta[3 * t + d] = u[mb + (I_BETAX + d) * cs + cell[t]];
+      T g[3][3];
+      for (int a = 0; a < 3; ++a)
+        for (int d = 0; d < 3; ++d)
+          g[a][d] = u[mb + (I_GXX + S(a, d)) * cs + cell[t]];
+      z4c_inverse_metric(g, reinterpret_cast<T(*)[3]>(&gu[9 * t]));
+      sb[t].on = false;
+      if (has_sbc) {
+        const long long s = (long long)box.m * 5 * cs + cell[t];
+        sb[t].on = val(sbc[s]) != 0.0;
+        if (sb[t].on) {
+          sb[t].rad = sbc[s + cs];
+          for (int d = 0; d < 3; ++d) sb[t].s_u[d] = sbc[s + (2 + d) * cs];
+        }
+      }
+    }
+    for (int c = 0; c < kNZ4C; ++c) {
+      for (int w = 0; w < Sh::WIN; ++w)
+        win[w] = u[mb + c * cs + z4c_src<Sh>(geo, box, w)];
+      if (z4c_mixed(c))
+        for (int p = 0; p < Sh::NP; ++p)
+          z4c_inner<T, Sh>(p, (const T*)win.data(), d1x.data(), d1y.data(),
+                           P);
+      for (int t = 0; t < Sh::NC; ++t) {
+        const Z4cCellPos q = z4c_cell_pos<Sh>(t);
+        z4c_derivs<T, Sh>(c, (const T*)win.data() + q.win,
+                          d1x.data() + q.dx, d1y.data() + q.dy, P,
+                          &beta[3 * t],
+                          reinterpret_cast<const T(*)[3]>(&gu[9 * t]), sb[t],
+                          buf.data() + t);
+      }
+    }
+    for (int t = 0; t < Sh::NC; ++t) {
+      const Z4cCellPos q = z4c_cell_pos<Sh>(t);
+      if (box.k0 + q.z >= box.k1 || box.j0 + q.y >= box.j1 ||
+          box.i0 + q.x >= box.i1)
+        continue;
+      z4c_update<T>(Z4cCell<T, Sh::NC>{buf.data() + t, u.data() + mb + cell[t],
+                                       cs, sb[t].on},
+                    P, reinterpret_cast<const T(*)[3]>(&gu[9 * t]),
+                    u1.data() + mb + cell[t], cs, out.data() + mb + cell[t]);
+    }
+    ops = cnt::n;
+  }
+  return ops;
+}
+
+// float and double on the kernel's boxes; the counting type on boxes of
+// one cell, so that a block's operations are those of one cell
 template <class T, int NG>
 long long run(FILE* f, FILE* o, const int* h, const double* prm) {
   const int nmb = h[2], n3 = h[3], n2 = h[4], n1 = h[5], has_sbc = h[6];
@@ -125,19 +207,11 @@ long long run(FILE* f, FILE* o, const int* h, const double* prm) {
   if (has_sbc) sbc = rd<T>(f, ns);
   std::vector<T> out(n, T(0.0));
   const Z4cPrm<T> P = make_z4c_prm<T>(prm);
-  const long long total =
-      (long long)nmb * (n3 - 2 * NG) * (n2 - 2 * NG) * (n1 - 2 * NG);
-  blockDim.x = 128;
-  long long ops = 0;
-  for (long long t = 0; t < total; ++t) {
-    blockIdx.x = t / 128;
-    threadIdx.x = t % 128;
-    cnt::n = 0;
-    z4c_stage_kernel<T, NG>(u.data(), u1.data(),
-                            has_sbc ? sbc.data() : nullptr, out.data(), nmb,
-                            n3, n2, n1, P);
-    ops = cnt::n;
-  }
+  long long ops;
+  if constexpr (std::is_same<T, cnt::Op>::value)
+    ops = run_tiles<T, Z4cShape<1, 1, 1, NG, 2>>(u, u1, sbc, out, h, P);
+  else
+    ops = run_tiles<T, Z4cTile<T, NG>>(u, u1, sbc, out, h, P);
   std::vector<double> d(n);
   for (size_t i = 0; i < n; ++i) d[i] = val(out[i]);
   fwrite(d.data(), 8, n, o);
