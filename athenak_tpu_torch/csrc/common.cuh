@@ -17,6 +17,43 @@ inline unsigned int grid_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
+#ifdef __CUDACC__  // the host tests build this header through a shim
+
+// One wave of `kernel` for `need` blocks of work: as many CUDA blocks as
+// fit on the card at once (`threads` threads and `smem` bytes of dynamic
+// shared memory each), or `need` where that is fewer; the blocks stride
+// over the work.
+template <typename K>
+cudaError_t wave_grid(K kernel, int threads, size_t smem, long long need,
+                      unsigned int& grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long wave = static_cast<long long>(sms) * per_sm;
+  grid = static_cast<unsigned int>(need < wave ? need : wave);
+  return cudaSuccess;
+}
+
+// Two elements as one access: 8 bytes in float32, 16 in float64.
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
+#endif  // __CUDACC__
+
 __device__ __forceinline__ float tpow(float a, float b) { return powf(a, b); }
 __device__ __forceinline__ double tpow(double a, double b) { return pow(a, b); }
 

@@ -45,21 +45,6 @@ namespace {
 constexpr int kSlots = 8;                      // items a thread
 constexpr int kItemsPerBlock = kThreads * kSlots;
 
-template <typename T>
-struct Pair;
-template <>
-struct Pair<float> {
-  using type = float2;
-};
-template <>
-struct Pair<double> {
-  using type = double2;
-};
-
-struct PoolPtrs {
-  void* ptr[kPoolMaxArrays];
-};
-
 // Rows of the donor table a block's items can touch: blocks
 // m_lo .. m_lo + span - 1 of the pool.
 inline int table_span(const PoolCall& p) {
@@ -132,27 +117,18 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch(PoolCall& p, const PoolPtrs& ptrs, const int* nbr27,
+int launch(const PoolCall& p, const PoolPtrs& ptrs, const int* nbr27,
            cudaStream_t s) {
-  pool_finish(p);
   if (p.total == 0) return 0;
   if (p.total >= (1LL << 31) - kItemsPerBlock) return cudaErrorInvalidValue;
   const int span = table_span(p);
   const size_t smem = static_cast<size_t>(span) * 27 * sizeof(int);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   const long long nchunks = (p.total + kItemsPerBlock - 1) / kItemsPerBlock;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pool_fill_kernel<T>, kThreads, smem);
+  unsigned int grid = 0;
+  const cudaError_t err =
+      wave_grid(pool_fill_kernel<T>, kThreads, smem, nchunks, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long slots =
-      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const unsigned int grid =
-      static_cast<unsigned int>(nchunks < slots ? nchunks : slots);
   pool_fill_kernel<T><<<grid, kThreads, smem, s>>>(p, ptrs, nbr27, span);
   return static_cast<int>(cudaGetLastError());
 }
@@ -168,28 +144,10 @@ int launch(PoolCall& p, const PoolPtrs& ptrs, const int* nbr27,
                       int ng2, int ng1, void* stream) {                     \
     using namespace athenak;                                                 \
     if (narr < 1 || narr > kPoolMaxArrays) return cudaErrorInvalidValue;    \
-    PoolCall p{};                                                            \
-    PoolPtrs ptrs{{a0, a1, a2}};                                             \
-    p.narr = narr;                                                           \
-    p.nmb = nmb;                                                             \
-    p.ng3 = ng3;                                                             \
-    p.ng2 = ng2;                                                             \
-    p.ng1 = ng1;                                                             \
-    for (int q = 0; q < narr; ++q) {                                         \
-      const int* d = dims + 8 * q;                                           \
-      PoolArray& a = p.arr[q];                                               \
-      a.nc = d[0];                                                           \
-      a.n3 = d[1];                                                           \
-      a.n2 = d[2];                                                           \
-      a.n1 = d[3];                                                           \
-      a.nint3 = d[4];                                                        \
-      a.nint2 = d[5];                                                        \
-      a.nint1 = d[6];                                                        \
-      a.vec = pool_vec(a.n1, ng1, a.nint1,                                   \
-                       reinterpret_cast<unsigned long long>(ptrs.ptr[q]),    \
-                       static_cast<int>(sizeof(T)));                         \
-    }                                                                        \
-    return launch<T>(p, ptrs, static_cast<const int*>(nbr27),                \
+    const PoolPtrs ptrs{{a0, a1, a2}};                                       \
+    return launch<T>(pool_call(narr, dims, nmb, ng3, ng2, ng1, ptrs,        \
+                               static_cast<int>(sizeof(T))),                 \
+                     ptrs, static_cast<const int*>(nbr27),                   \
                      static_cast<cudaStream_t>(stream));                     \
   }
 

@@ -1,8 +1,11 @@
-// Kernel G's flat enumeration of the ghost copies of one pool fill.
+// Kernel G's flat enumeration of the ghost copies of one pool fill, and
+// kernel B's (periodic_fill.cu), in which every block is its own
+// neighbour on every side (pool_self_item).
 //
 // Plain C++ apart from the __host__ __device__ qualifiers, so that the
-// CPU tests build it with g++ (tests/test_torch_pool_fill.py) and hold it
-// against a numpy mirror and the plain fill.
+// CPU tests build it with g++ (tests/test_torch_pool_fill.py,
+// tests/test_torch_aux_fill_tiles.py) and hold it against a numpy mirror
+// and the plain fill.
 //
 // One call fills up to three arrays of nmb blocks (the three face arrays,
 // or one cell array).  Its ghost elements are cut into items of vec
@@ -129,6 +132,43 @@ __host__ __device__ inline void pool_finish(PoolCall& p) {
   p.by_per_block = div_by(p.per_block > 0 ? p.per_block : 1);
 }
 
+// The arrays of a call, as the C entry points take them.
+struct PoolPtrs {
+  void* ptr[kPoolMaxArrays];
+};
+
+// The description of one fill of narr arrays of nmb blocks, with ghost
+// widths ng3, ng2, ng1: array q at ptrs.ptr[q], dims[8 q .. 8 q + 7] =
+// nc, n3, n2, n1, nint3, nint2, nint1, unused (nint the wrap distance
+// along each axis: the interior extent, or nx on the normal axis of a
+// face array).
+inline PoolCall pool_call(int narr, const int* dims, int nmb, int ng3,
+                          int ng2, int ng1, const PoolPtrs& ptrs,
+                          int elem_bytes) {
+  PoolCall p{};
+  p.narr = narr;
+  p.nmb = nmb;
+  p.ng3 = ng3;
+  p.ng2 = ng2;
+  p.ng1 = ng1;
+  for (int q = 0; q < narr; ++q) {
+    const int* d = dims + 8 * q;
+    PoolArray& a = p.arr[q];
+    a.nc = d[0];
+    a.n3 = d[1];
+    a.n2 = d[2];
+    a.n1 = d[3];
+    a.nint3 = d[4];
+    a.nint2 = d[5];
+    a.nint1 = d[6];
+    a.vec = pool_vec(a.n1, ng1, a.nint1,
+                     reinterpret_cast<unsigned long long>(ptrs.ptr[q]),
+                     elem_bytes);
+  }
+  pool_finish(p);
+  return p;
+}
+
 __host__ __device__ inline GhostItem pool_locate(const PoolCall& p,
                                                  int t) {
   GhostItem g;
@@ -190,6 +230,18 @@ __host__ __device__ inline void pool_offsets(const PoolCall& p,
          (g.k - g.d3 * a.nint3)) * plane +
         static_cast<long long>(g.j - g.d2 * a.nint2) * a.n1 +
         (g.i - g.d1 * a.nint1);
+}
+
+// Item t of a fill in which every block is its own neighbour on every
+// side (kernel B: single fully periodic blocks): its array, and the
+// element offsets of its destination and of the interior element it
+// copies.
+__host__ __device__ inline int pool_self_item(const PoolCall& p, int t,
+                                              long long& dst,
+                                              long long& src) {
+  const GhostItem g = pool_locate(p, t);
+  pool_offsets(p, g, g.m, dst, src);
+  return g.q;
 }
 
 }  // namespace athenak

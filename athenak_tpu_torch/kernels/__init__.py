@@ -44,12 +44,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    "athenak_periodic_fill": [_P, ctypes.c_longlong] + [_I] * 7 + [_P],
+    "athenak_periodic_fill": [_P] * 3 + [_I] + [_P] + [_I] * 2 + [_P],
     "athenak_mega_stage_v2": [_P] * 13 + [_I] * 5 + [_D] * 12 + [_P],
     "athenak_fused_stage": [_P] * 10 + [_I] * 5 + [_D] * 9 + [_P],
     "athenak_fused_ct": [_P] * 21 + [_I] * 5 + [_D] * 6 + [_P],
     "athenak_mega_stage_v1": [_P] * 14 + [_I] * 6 + [_D] * 12 + [_P],
-    "athenak_fused_aux": [_P] * 8 + [_I] * 6 + [_D] * 6 + [_P],
+    "athenak_fused_aux": [_P] * 10 + [_I] * 7 + [_D] * 9 + [_P],
     "athenak_pool_fill": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P],
     "athenak_z4c_stage": [_P] * 4 + [_I] * 5 + [_P] * 2,
     "athenak_z4c_outflow_fill": [_P, ctypes.c_longlong] + [_I] * 4 + [_P],
@@ -183,7 +183,12 @@ def suffix(dtype) -> str:
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as an integer: torch's raw
+    stream, one C call (some 0.3 us on the host), not the 4.5 us of
+    building a ``torch.cuda.Stream`` (``torch.cuda.current_stream``)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def reset_counts() -> None:

@@ -19,8 +19,10 @@ filled ghosts.  ``wrap=False`` (a pool, whose u the pool fill has
 filled): pointwise, no fill.
 
 ``fused_aux3d`` launches the CUDA kernel (``csrc/fused_aux.cu``) for
-tensors on the card and raises on anything the kernel does not take; for
-CPU tensors it runs ``fused_aux3d_plain``.
+tensors on the card, once a call: the kernel's last block writes the
+counts and ``dtmin`` (as ``_dtmin`` computes it, bitwise) into the call's
+fresh outputs.  It raises on anything the kernel does not take; for CPU tensors
+it runs ``fused_aux3d_plain``.
 """
 
 from __future__ import annotations
@@ -50,9 +52,23 @@ def fused_aux3d_plain(u, bfc, eos: EOSData, dxs=None, wrap: bool = True):
     return uf, w, bcc, counters
 
 
+# The kernel's accumulators, zero between calls, one set for each card
+# and stream (the last block of a launch zeroes them for the next one).
+_WORK = {}
+
+
+def _workspace(device):
+    key = (device, _k.stream_ptr(device))
+    work = _WORK.get(key)
+    if work is None:
+        work = _WORK[key] = torch.zeros(7, dtype=torch.int64, device=device)
+    return key, work
+
+
 def fused_aux3d(u, bfc, eos: EOSData, dxs=None, wrap: bool = True):
     """bcc + c2p + counters (+ dtmin): the CUDA kernel for tensors on the
-    card, the plain version for tensors on the CPU."""
+    card (one launch, nothing before or after it), the plain version for
+    tensors on the CPU."""
     if not u.is_cuda:
         return fused_aux3d_plain(u, bfc, eos, dxs, wrap)
     name = "fused_aux3d"
@@ -70,22 +86,24 @@ def fused_aux3d(u, bfc, eos: EOSData, dxs=None, wrap: bool = True):
     uo = torch.empty_like(u)
     w = torch.empty_like(u)
     bcc = torch.empty((nmb, 3, n3, n2, n1), dtype=u.dtype, device=u.device)
-    red = torch.empty(6, dtype=torch.int64, device=u.device)
-    fn = _k.FUSED_AUX3D.entry(u.dtype)
-    rc = fn(u.data_ptr(), bfc["x1f"].data_ptr(), bfc["x2f"].data_ptr(),
-            bfc["x3f"].data_ptr(), uo.data_ptr(), w.data_ptr(),
-            bcc.data_ptr(), red.data_ptr(), nmb, n3, n2, n1, NG, int(wrap),
-            eos.gamma, eos.dfloor, eos.pfloor, eos.tfloor, eos.sfloor,
-            eos.sigma_max, _k.stream_ptr(u.device))
+    counts = torch.empty(3, dtype=torch.int64, device=u.device)
+    dtmin = None if dxs is None else torch.empty((), dtype=u.dtype,
+                                                 device=u.device)
+    key, work = _workspace(u.device)
+    dx = [0.0] * 3 if dxs is None else [dxs[c] for c in ("x1", "x2", "x3")]
+    rc = _k.FUSED_AUX3D.entry(u.dtype)(
+        u.data_ptr(), bfc["x1f"].data_ptr(), bfc["x2f"].data_ptr(),
+        bfc["x3f"].data_ptr(), uo.data_ptr(), w.data_ptr(), bcc.data_ptr(),
+        work.data_ptr(), counts.data_ptr(),
+        None if dtmin is None else dtmin.data_ptr(), nmb, n3, n2, n1, NG,
+        int(wrap), int(dxs is not None), eos.gamma, eos.dfloor, eos.pfloor,
+        eos.tfloor, eos.sfloor, eos.sigma_max, *dx, key[1])
+    if rc != 0:
+        _WORK.pop(key, None)   # never reuse accumulators a failed call saw
     _k.check(rc, name)
     _k.FUSED_AUX3D.launches += 1
-    counters = {"neos_dfloor": red[0], "neos_efloor": red[1],
-                "neos_tfloor": red[2]}
-    if dxs is not None:
-        # red[3:6] hold the bit patterns of the positive maxima
-        if u.dtype == torch.float32:
-            vmax = red[3:6].to(torch.int32).view(torch.float32)
-        else:
-            vmax = red[3:6].view(torch.float64)
-        counters["dtmin"] = _dtmin(dxs, vmax)
+    counters = dict(zip(("neos_dfloor", "neos_efloor", "neos_tfloor"),
+                        counts.unbind()))
+    if dtmin is not None:
+        counters["dtmin"] = dtmin
     return uo, w, bcc, counters

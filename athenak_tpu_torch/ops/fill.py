@@ -2,13 +2,18 @@
 
 Counterpart of ``athenak_tpu/ops/pallas_fill.py``.  Both functions fill
 the ghosts of their arguments IN PLACE and return them; interior elements
-are never written.  A tensor on the card goes to the CUDA kernel
-(``csrc/periodic_fill.cu``), which raises on anything it does not take;
-a tensor on the CPU goes to the plain version, the sequential x1 -> x2 ->
-x3 sweep fill of a block that is its own neighbour on every side.
+are never written.  Tensors on the card go to the CUDA kernel
+(``csrc/periodic_fill.cu``), one launch a call, which raises on anything
+it does not take; tensors on the CPU go to the plain version, the
+sequential x1 -> x2 -> x3 sweep fill of a block that is its own
+neighbour on every side.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
 
 from .. import kernels as _k
 
@@ -41,43 +46,84 @@ def fill_plain(a, nint):
     return a
 
 
-def _launch(kernel, a, nint) -> None:
-    if not a.is_contiguous():
-        raise ValueError("periodic_fill: the tensor must be contiguous")
-    if any(n < 3 * NG for n in a.shape[-3:]):
-        raise ValueError(f"periodic_fill: shape {tuple(a.shape)} too small")
-    n3, n2, n1 = a.shape[-3:]
-    nouter = a.numel() // (n3 * n2 * n1)
-    fn = kernel.entry(a.dtype)
-    rc = fn(a.data_ptr(), nouter, n3, n2, n1, nint[-3], nint[-2], nint[-1],
-            NG, _k.stream_ptr(a.device))
+@functools.lru_cache(maxsize=64)
+def _call(kernel, shapes, comps, dtype):
+    """(C entry, dims, address of dims, nmb): all that one launch over
+    arrays of ``shapes`` and ``dtype`` needs besides its pointers and
+    stream, made once for each set of shapes (a fill runs after every
+    stage).  ``comps`` is (None,) for a cell array, else the face
+    components; dims[8 q .. 8 q + 7] = nc, n3, n2, n1, nint3, nint2,
+    nint1, 0 for array q (``pool_call`` in ``csrc/pool_fill.cuh``); the
+    ctypes array rides along so that its address stays valid.  Raises on
+    what the kernel does not take."""
+    dims = []
+    nmb = shapes[0][0]
+    for shape, comp in zip(shapes, comps):
+        if len(shape) != (5 if comp is None else 4) or (
+                comp is not None and comp not in _NORMAL_AXIS):
+            raise ValueError(f"periodic_fill: {comp} array of shape "
+                             f"{tuple(shape)}")
+        if any(n < 3 * NG for n in shape[-3:]):
+            raise ValueError(f"periodic_fill: shape {tuple(shape)} too small")
+        if shape[0] != nmb:
+            raise ValueError(f"periodic_fill: arrays of {nmb} and "
+                             f"{shape[0]} blocks in one call")
+        if math.prod(shape) >= 2 ** 31:
+            raise ValueError(f"periodic_fill: shape {tuple(shape)} too large")
+        nc = shape[1] if comp is None else 1
+        dims += [nc, *shape[-3:], *shifts(shape, comp), 0]
+    arr = (ctypes.c_int * len(dims))(*dims)
+    return kernel.entry(dtype), arr, ctypes.addressof(arr), nmb
+
+
+def _launch(kernel, arrays, comps) -> None:
+    """One launch of kernel B over ``arrays`` (all on one card, of one
+    dtype, contiguous)."""
+    first = arrays[0]
+    dev, dtype = first.device, first.dtype
+    for a in arrays:
+        if not a.is_cuda or a.device != dev:
+            raise ValueError(f"{kernel.name}: every array must lie on {dev}")
+        if a.dtype != dtype:
+            raise TypeError(f"{kernel.name}: {a.dtype} beside {dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{kernel.name}: the arrays must be contiguous")
+    fn, _, dims, nmb = _call(kernel, tuple([a.shape for a in arrays]),
+                             comps, dtype)
+    ptrs = [a.data_ptr() for a in arrays] + [None] * (3 - len(arrays))
+    rc = fn(*ptrs, len(arrays), dims, nmb, NG, _k.stream_ptr(dev))
     _k.check(rc, kernel.name)
     kernel.launches += 1
 
 
 def periodic_fill_cc(u):
     """Fill all ghosts of ``u [nmb, C, n3, n2, n1]`` of a fully periodic
-    single-block mesh, in place."""
+    single-block mesh, in place: one launch for every channel of every
+    block."""
+    if u.is_cuda:
+        _launch(_k.PERIODIC_FILL_CC, [u], (None,))
+        return u
     if u.dim() != 5:
         raise ValueError(f"periodic_fill_cc: expected 5-D, got {u.dim()}-D")
-    nint = shifts(u.shape)
-    if u.is_cuda:
-        _launch(_k.PERIODIC_FILL_CC, u, nint)
-        return u
-    return fill_plain(u, nint)
+    return fill_plain(u, shifts(u.shape))
 
 
 def periodic_fill_fc(bfc):
-    """Face-field fill of a fully periodic single-block mesh, in place.
-    On the normal axis the shared face is owned once, so the shift is nx
-    about the (nx + 2 ng + 1)-face extent; transverse axes wrap like cell
-    centres."""
+    """Face-field fill of a fully periodic single-block mesh, in place,
+    for every face array in ``bfc`` (any of x1f, x2f, x3f): one launch
+    for all of them.  On the normal axis the shared face is owned once,
+    so the shift is nx about the (nx + 2 ng + 1)-face extent; transverse
+    axes wrap like cell centres."""
+    arrays = list(bfc.values())
+    if arrays and arrays[0].is_cuda:
+        _launch(_k.PERIODIC_FILL_FC, arrays, tuple(bfc))
+        return bfc
     for comp, arr in bfc.items():
-        if arr.dim() != 4:
-            raise ValueError(f"periodic_fill_fc: {comp} must be 4-D")
-        nint = shifts(arr.shape, comp)
+        if comp not in _NORMAL_AXIS or arr.dim() != 4:
+            raise ValueError(f"periodic_fill_fc: {comp} must be a 4-D face "
+                             "array")
         if arr.is_cuda:
-            _launch(_k.PERIODIC_FILL_FC, arr, nint)
-        else:
-            fill_plain(arr, nint)
+            raise ValueError("periodic_fill_fc: face arrays on the CPU and "
+                             "on the card in one call")
+        fill_plain(arr, shifts(arr.shape, comp))
     return bfc

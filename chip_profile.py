@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Kernels A (``mega_stage_v2``), G (``pool_fill``), E (``mega_stage_v1``),
-J (``fused_flux_dir``), H (``z4c_stage``) and C (``fused_stage3d``) on
-one NVIDIA GPU: their launches under the profiler, their times and their
-ptxas report.
+J (``fused_flux_dir``), H (``z4c_stage``), C (``fused_stage3d``), F
+(``fused_aux3d``) and B (``periodic_fill_cc/fc``) on one NVIDIA GPU:
+their launches under the profiler, their times and their ptxas report.
 
     python3 chip_profile.py [--root DIR] [--label NAME] [--trace]
-                            [--kernels AGEJHC] [--no-e2e]
+                            [--kernels AGEJHCFBDI] [--no-e2e]
     python3 chip_profile.py --compare NAME1 NAME2
-    python3 chip_profile.py --turns PARENT_DIR [--kernels AGEJHC]
+    python3 chip_profile.py --turns PARENT_DIR [--kernels AGEJHCFBDI]
 
 ``--root`` names the checkout whose ``athenak_tpu_torch`` is measured
 (default: the directory of this script); the decks and helpers come from
@@ -16,7 +16,8 @@ checkout (say the parent commit, unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists) and this one in turns on one card,
 each run in its own process: parent (traced), change (traced), change,
 parent; then it compares the outputs of each pair.  ``--kernels`` picks
-which of A, G, E, J, H and C a run measures (all by default);
+which of A, G, E, J, H, C, F and B a run measures (all by default;
+D and I add their ptxas report alone);
 ``--no-e2e`` skips the zone-cycles/s of the decks.
 
 A run
@@ -26,8 +27,10 @@ A run
     -v``) of each picked kernel's sources in the measured tree:
     ``csrc/mega_stage_v2.cu`` (A), ``pool_fill.cu`` (G),
     ``mega_stage_v1.cu`` (E), ``flux_dir.cu`` (J), the eight
-    ``z4c_stage_ng*_f*.cu`` instances (H) and ``fused_stage.cu`` (C),
-    from the library build's own log where this process built it;
+    ``z4c_stage_ng*_f*.cu`` instances (H), ``fused_stage.cu`` (C),
+    ``fused_aux.cu`` (F), ``periodic_fill.cu`` (B), ``fused_ct.cu``
+    (D) and ``z4c_stage.cu`` (I), from the library build's own log where
+    this process built it;
   * with ``--trace``, runs ``torch.profiler`` (CPU and CUDA) over 10
     calls of A at 124^3 and at 8 x 62^3, over 50 calls of G on turb8's
     u, over 10 calls of each RK2 stage of E at 128^3 and at 8 x 64^3
@@ -38,17 +41,24 @@ A run
     (``one_puncture.athinput``) in float32 (phase 10's inputs), and
     over 10 calls of C on the first RK2 stage of the SR blast (SR HLLE)
     and of the Newtonian blast (HLLD) in float32 (phase 5's inputs),
-    and prints every device launch: name, calls, mean us;
+    over 20 calls of F with its wrap on one 128^3 block and without it
+    on 8 x 64^3 (phase 7's random states, f32), over 50 calls of B on
+    1 x 5 x 128^3, on the three face arrays of 128^3 in one call and on
+    each alone (phase 2's arrays, f32), and over 50 calls of G's fills
+    and of ``torch.take``, and prints every device launch: name, calls,
+    mean us;
   * times, with CUDA events, A on the 124^3 blast and on the 8 x 62^3
     pool (f32, as initialised, RK2 stage 1), G on turb8's u (8 x 5 x
     68^3) and face field, ``torch.take`` of every ghost of u, E on both
     RK2 stages at both shapes (f32), J for each direction on smr and ot
     (f32, as initialised), H on each RK4 stage at both shapes (f32), C
     on the first and second RK2 stage of the SR blast and the blast
-    (f32), and the zone-cycles/s of blast (20 cycles), pool, turb1,
-    turb8, smr and ot (10 cycles; with A, G, E or J), of z4c and
-    puncture (with H) and of the SR blast (with C; 10 cycles each
-    after a warm-up cycle);
+    (f32), F and B on the traced calls, each beside its host us (the
+    median of five rounds of calls issued without a synchronise), and
+    the zone-cycles/s of blast (20 cycles), pool, turb1 and turb8 (10
+    cycles; with A, G, E, J, F or B), smr and ot (with A, G, E or J), of
+    z4c and puncture (with H) and of the SR blast (with C or B; 10
+    cycles each after a warm-up cycle);
   * saves A's outputs on both decks (stage 1 and stage 2) and G's
     result, and digests of E's interior u' and faces (both stages and
     gam1 = 0, both shapes, f32 and f64) and of J's whole flux, ey and ez
@@ -57,7 +67,12 @@ A run
     ng 3, 2 x 32^3 ng 4 and a ragged 46 x 38 x 42 ng 5 block, with and
     without the Sommerfeld geometry, f32 and f64) and of C's whole acc,
     mass fluxes and face EMFs (HLLD, SR HLLE, SR LLF; both RK2 stages;
-    f32 and f64) to ``.scratch/profile_<label>.pt`` under this script's
+    f32 and f64), of F's u, w and bcc with its counts and dtmin (with and
+    without dxs, on the random states, at 16^3 and on the turb1 and
+    turb8 decks' states; f32 and f64) and of B's every output (128^3,
+    ragged, the blast after one stage; f32 and f64), and which of F's
+    outputs equal the plain version's bitwise, to
+    ``.scratch/profile_<label>.pt`` under this script's
     directory, and prints one JSON line with every number.  A digest is
     the SHA-256 of the tensor's bytes and the float64 sums of its planes
     along the last two axes.
@@ -74,7 +89,6 @@ import argparse
 import hashlib
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -85,7 +99,10 @@ Z4C_INSTANCES = tuple(f"z4c_stage_ng{ng}_f{b}.cu" for ng in (2, 3, 4, 5)
                       for b in (32, 64))
 SOURCES = {"A": ("mega_stage_v2.cu",), "G": ("pool_fill.cu",),
            "E": ("mega_stage_v1.cu",), "J": ("flux_dir.cu",),
-           "H": Z4C_INSTANCES, "C": ("fused_stage.cu",)}
+           "H": Z4C_INSTANCES, "C": ("fused_stage.cu",),
+           "F": ("fused_aux.cu",), "B": ("periodic_fill.cu",),
+           # ptxas report only: D (fused_ct3d) and I (the outflow fill)
+           "D": ("fused_ct.cu",), "I": ("z4c_stage.cu",)}
 # H's shapes: phase 10's three and a ragged single block at nghost 5
 Z4C_NG5 = ["mesh/nghost=5", "mesh/nx1=46", "mesh/nx2=38", "mesh/nx3=42"]
 
@@ -118,33 +135,6 @@ def ptxas_report(cs, kernels, csrc, picked):
         return dict(zip(sources, pool.map(one, sources)))
 
 
-def device_split(torch, fn, calls: int):
-    """[(kernel name, calls, mean us)] of every device launch of
-    ``calls`` calls of fn under torch.profiler, or None if the profiler
-    recorded no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        dev = (getattr(e, "self_device_time_total", None)
-               or getattr(e, "self_cuda_time_total", 0) or 0)
-        if dev <= 0 or e.key.startswith(("aten::", "cuda", "Profiler")):
-            continue
-        name = e.key
-        m = re.search(
-            r"athenak::(?:\(anonymous namespace\)::)?(\w+<[^>]*>|\w+)", name)
-        if m:
-            name = m.group(1)
-        rows.append((name[:70], e.count, dev / e.count))
-    return rows or None
-
-
 def digest(t):
     """(SHA-256 of the bytes, float64 sums of the planes along the last
     two axes) of a tensor on the card."""
@@ -158,7 +148,7 @@ def main() -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="run")
     ap.add_argument("--trace", action="store_true")
-    ap.add_argument("--kernels", default="AGEJHC")
+    ap.add_argument("--kernels", default="AGEJHCFBDI")
     ap.add_argument("--no-e2e", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar="NAME")
     ap.add_argument("--turns", metavar="PARENT_DIR")
@@ -200,10 +190,12 @@ def main() -> int:
             with open(decks[name], "w") as f:
                 f.write(text)
         steps = {"A": profile_a, "G": profile_g, "E": profile_e,
-                 "J": profile_j, "H": profile_h, "C": profile_c}
+                 "J": profile_j, "H": profile_h, "C": profile_c,
+                 "F": profile_f, "B": profile_b}
         for key in args.kernels:
-            steps[key](torch, cs, args, decks, out, saved)
-            torch.cuda.empty_cache()
+            if key in steps:
+                steps[key](torch, cs, args, decks, out, saved)
+                torch.cuda.empty_cache()
         if not args.no_e2e:
             end_to_end(torch, cs, args, decks, out)
     os.makedirs(os.path.join(HERE, ".scratch"), exist_ok=True)
@@ -243,7 +235,8 @@ def profile_a(torch, cs, args, decks, out, saved):
             lambda: stage.mega_stage_v2(*a1), 20)
         print(f"[{args.label}] A {label}: {out[f'A_ms {label}']:.4f} ms")
         if args.trace:
-            split = device_split(torch, lambda: stage.mega_stage_v2(*a1), 10)
+            split = cs.device_split(
+                torch, lambda: stage.mega_stage_v2(*a1), 10)
             out[f"A_split {label}"] = split
             print_split(args.label, f"A {label}", split, 10)
         del mesh, phys, driver, st, u0, b0, uk, bk, uk2, bk2, ui, bi
@@ -282,11 +275,178 @@ def profile_g(torch, cs, args, decks, out, saved):
     print(f"[{args.label}] G turb8 u {out['G_ms']} ms, torch.take "
           f"{out['take_ms']} ms, faces {out['G_fc_ms']:.4f} ms, bound "
           f"{out['G_bound_ms']:.5f} ms ({out['G_ghosts']} ghosts)")
+    timed(torch, cs, args, out, "G", "turb8 u",
+          lambda: pool_fill.pool_fill_cc(u, nbr, mesh), 50)
+    timed(torch, cs, args, out, "take", "turb8 u",
+          lambda: torch.take(u, src), 50)
+    timed(torch, cs, args, out, "G", "turb8 faces",
+          lambda: pool_fill.pool_fill_fc(fcs, nbr, mesh), 50)
+
+
+def host_us(torch, fn, calls: int, rounds: int = 5) -> float:
+    """Host microseconds a call: the wall time of ``calls`` calls issued
+    without a synchronise, over ``calls``; the median of ``rounds``
+    rounds (the host's cores are shared, and single rounds spread)."""
+    fn()
+    per = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(per)[rounds // 2]
+
+
+def timed(torch, cs, args, out, kernel, label, fn, calls):
+    """A call's ms under CUDA events (as ``chip_smoke.cuda_ms`` times it),
+    its host us and, with --trace, its device us a call under the
+    profiler, into ``out`` under "<kernel>_ms <label>", "<kernel>_host_us
+    <label>", "<kernel>_device_us <label>" and "<kernel>_split <label>"."""
+    ms = cs.cuda_ms(fn, calls)
+    host = host_us(torch, fn, calls)
+    out[f"{kernel}_ms {label}"] = ms
+    out[f"{kernel}_host_us {label}"] = host
+    dev = "not traced"
     if args.trace:
-        split = device_split(
-            torch, lambda: pool_fill.pool_fill_cc(u, nbr, mesh), 50)
-        out["G_split"] = split
-        print_split(args.label, "G turb8 u", split, 50)
+        split = cs.device_split(torch, fn, calls)
+        out[f"{kernel}_split {label}"] = split
+        if split is not None:
+            dev = sum(c * us for _, c, us in split) / calls
+            out[f"{kernel}_device_us {label}"] = dev
+            dev = f"{dev:.2f} us"
+    print(f"[{args.label}] {kernel} {label}: {ms:.4f} ms a call (events), "
+          f"host {host:.1f} us a call, device {dev} a call")
+    if args.trace:
+        print_split(args.label, f"{kernel} {label}", split, calls)
+
+
+def save_aux(torch, saved, key, got):
+    """Digests of kernel F's u, w and bcc, and its counts and dtmin."""
+    u, w, bcc, c = got
+    for name, t in (("u", u), ("w", w), ("bcc", bcc)):
+        saved[f"{key} {name}"] = digest(t)
+    saved[f"{key} counts"] = torch.stack(
+        [c[k].cpu() for k in ("neos_dfloor", "neos_efloor", "neos_tfloor")])
+    if "dtmin" in c:
+        saved[f"{key} dtmin"] = c["dtmin"].reshape(1).cpu()
+
+
+def profile_f(torch, cs, args, decks, out, saved):
+    """Kernel F on chip_smoke.py phase 7's random states (one 132^3 block
+    with its wrap, 8 blocks of 68^3 without; floors at 0.5) and on the
+    turb1 (wrap) and turb8 (no wrap) decks' states as initialised:
+    digests of u, w and bcc, the counts and dtmin, f64 and f32, with and
+    without dxs; f32 call ms, host us and traces; and which outputs equal
+    the plain version's bitwise, on the random states and at the card
+    tests' 16^3."""
+    from athenak_tpu_torch.ops import aux
+    from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
+    floors = EOSData(dfloor=0.5, pfloor=0.5)
+    same = {}
+    cases = ((True, 1, 132), (False, 8, 68), (True, 1, 16), (False, 2, 16))
+    for dtype in (torch.float64, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        for wrap, nmb, n in cases:
+            gen = torch.Generator().manual_seed(12)
+            w, bfc, bcc = cs.random_mhd(torch, gen, nmb, n, dtype,
+                                        bimodal=True)
+            u = prim_to_cons_mhd(w, bcc, EOSData())
+            dxs = {"x1": 1 / (n - 4), "x2": 0.9 / (n - 4),
+                   "x3": 1.1 / (n - 4)}
+            a = (u, bfc, floors, dxs, wrap)
+            label = (f"{nmb}x{n - 4}^3" if nmb > 1 else f"{n - 4}^3") + \
+                (" wrap" if wrap else "")
+            got = aux.fused_aux3d(*a)
+            ref = aux.fused_aux3d_plain(*a)
+            torch.cuda.synchronize()
+            save_aux(torch, saved, f"F {label} {tag}", got)
+            save_aux(torch, saved, f"F {label} {tag} no dxs",
+                     aux.fused_aux3d(u, bfc, floors, None, wrap))
+            same[f"{label} {tag}"] = {
+                **{k: torch.equal(x, y) for k, x, y in
+                   zip(("u", "w", "bcc"), got[:3], ref[:3])},
+                **{k: torch.equal(got[3][k], ref[3][k]) for k in ref[3]}}
+            del got, ref
+            if tag == "f32" and n > 16:
+                timed(torch, cs, args, out, "F", label,
+                      lambda: aux.fused_aux3d(*a), 20)
+            del w, bfc, bcc, u
+            torch.cuda.empty_cache()
+    out["F_plain_bitwise"] = same
+    print(f"[{args.label}] F outputs bitwise equal to the plain version's: "
+          f"{json.dumps(same)}")
+    for label, extra, wrap in (("turb1", [], True),
+                               ("turb8", cs.TURB8, False)):
+        for prec in ("double", "single"):
+            state, phys = cs.deck_state(torch, decks["turb"], extra, prec)
+            tag = "f32" if prec == "single" else "f64"
+            save_aux(torch, saved, f"F {label} deck {tag}", aux.fused_aux3d(
+                state["u"], state["bfc"], phys.eos, dxs=phys.dxs, wrap=wrap))
+            torch.cuda.synchronize()
+            del state, phys
+            torch.cuda.empty_cache()
+
+
+def profile_b(torch, cs, args, decks, out, saved):
+    """Kernel B on chip_smoke.py phase 2's random arrays (1 x 5 x 128^3
+    and the three face arrays of 128^3), on a ragged 2 x 3 x 9 x 14 x 23
+    and on the blast deck's u and faces after one kernel-A stage (stale
+    ghosts): digests of every output, f64 and f32, the faces in one call
+    and each alone; f32 call ms, host us and traces at 128^3 (cc, the
+    three faces in one call, each face array alone)."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import fill, stage
+    for dtype in (torch.float64, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        for label, nmb, nc, (n3, n2, n1) in (("128^3", 1, 5, (128,) * 3),
+                                             ("ragged", 2, 3, (9, 14, 23))):
+            gen = torch.Generator().manual_seed(1)
+
+            def rand(*shape):
+                return torch.rand(shape, generator=gen, dtype=dtype).cuda()
+
+            cc = rand(nmb, nc, n3, n2, n1)
+            fc = {"x1f": rand(nmb, n3, n2, n1 + 1),
+                  "x2f": rand(nmb, n3, n2 + 1, n1),
+                  "x3f": rand(nmb, n3 + 1, n2, n1)}
+            one = {c: v.clone() for c, v in fc.items()}
+            fill.periodic_fill_cc(cc)
+            fill.periodic_fill_fc(fc)
+            for c, v in one.items():
+                fill.periodic_fill_fc({c: v})
+            torch.cuda.synchronize()
+            key = f"B {label} {tag}"
+            saved[f"{key} cc"] = digest(cc)
+            for c in fc:
+                saved[f"{key} {c}"] = digest(fc[c])
+                saved[f"{key} {c} alone"] = digest(one[c])
+            if tag == "f32" and label == "128^3":
+                timed(torch, cs, args, out, "B", "cc 1x5x128^3",
+                      lambda: fill.periodic_fill_cc(cc), 50)
+                timed(torch, cs, args, out, "B", "fc 128^3",
+                      lambda: fill.periodic_fill_fc(fc), 50)
+                for c in fc:
+                    timed(torch, cs, args, out, "B", f"{c} 128^3",
+                          lambda: fill.periodic_fill_fc({c: fc[c]}), 50)
+            del cc, fc, one
+    for prec in ("double", "single"):
+        mesh, phys, _, driver, st = build(
+            cs.pin_for([f"job/precision={prec}"], cs.DECK), device="cuda")
+        st = phys.unpack_state(driver.initialize(st))
+        uk, bk, _ = stage.mega_stage_v2(st["u"], st["bfc"], st["u"],
+                                        st["bfc"], phys.eos, 0.0, 1.0,
+                                        mesh.dt, phys.dxs)
+        fill.periodic_fill_cc(uk)
+        fill.periodic_fill_fc(bk)
+        torch.cuda.synchronize()
+        tag = "f32" if prec == "single" else "f64"
+        saved[f"B blast {tag} u"] = digest(uk)
+        for c, v in bk.items():
+            saved[f"B blast {tag} {c}"] = digest(v)
+        del mesh, phys, driver, st, uk, bk
+        torch.cuda.empty_cache()
 
 
 def profile_e(torch, cs, args, decks, out, saved):
@@ -326,7 +486,7 @@ def profile_e(torch, cs, args, decks, out, saved):
                 out[f"E_ms {label} stage {s + 1}"] = ms
                 print(f"[{args.label}] E {label} stage {s + 1}: {ms:.4f} ms")
                 if args.trace:
-                    split = device_split(
+                    split = cs.device_split(
                         torch, lambda: stage_v1.fused_mega_stage3d(*a), 10)
                     out[f"E_split {label} stage {s + 1}"] = split
                     print_split(args.label, f"E {label} stage {s + 1}",
@@ -365,7 +525,7 @@ def profile_j(torch, cs, args, decks, out, saved):
                 out[f"J_ms {label} {name}"] = ms
                 print(f"[{args.label}] J {label} {name}: {ms:.4f} ms")
                 if args.trace:
-                    split = device_split(
+                    split = cs.device_split(
                         torch, lambda: flux.fused_flux_dir(*a), 10)
                     out[f"J_split {label} {name}"] = split
                     print_split(args.label, f"J {label} {name}", split, 10)
@@ -406,7 +566,7 @@ def profile_h(torch, cs, args, decks, out, saved):
                 out[f"H_ms {label} stage {s + 1}"] = ms
                 print(f"[{args.label}] H {label} stage {s + 1}: {ms:.4f} ms")
                 if args.trace:
-                    split = device_split(
+                    split = cs.device_split(
                         torch, lambda: zs.fused_z4c_stage(*a), 10)
                     out[f"H_split {label} stage {s + 1}"] = split
                     print_split(args.label, f"H {label} stage {s + 1}",
@@ -458,7 +618,7 @@ def profile_c(torch, cs, args, decks, out, saved):
                 print(f"[{args.label}] C {solver} stage {s + 1}: "
                       f"{ms:.4f} ms")
                 if args.trace and s == 0:
-                    split = device_split(
+                    split = cs.device_split(
                         torch, lambda: stage_split.fused_stage3d(*a), 10)
                     out[f"C_split {solver} stage 1"] = split
                     print_split(args.label, f"C {solver} stage 1", split,
@@ -469,23 +629,25 @@ def profile_c(torch, cs, args, decks, out, saved):
 
 def end_to_end(torch, cs, args, decks, out):
     """zone-cycles/s of the kernel path of every deck the picked kernels
-    run on: blast, pool, turb1, turb8, smr and ot with A, G, E or J;
-    z4c and puncture with H; the SR blast with C."""
+    run on: blast, pool, turb1 and turb8 with A, G, E, J, F or B; smr
+    and ot with A, G, E or J; z4c and puncture with H; the SR blast with
+    C or B."""
     single = ["job/precision=single"]
     runs = []
-    if set(args.kernels) & set("AGEJ"):
+    if set(args.kernels) & set("AGEJFB"):
         runs += [("blast", cs.DECK, cs.NCYC, (), "mhd"),
                  ("pool", decks["pool"], cs.NCYC_TURB, (), "mhd"),
                  ("turb1", decks["turb"], cs.NCYC_TURB, (), "mhd"),
-                 ("turb8", decks["turb"], cs.NCYC_TURB, cs.TURB8, "mhd"),
-                 ("smr", cs.SMR_DECK, cs.NCYC_SMR, single + cs.SMR_FULL,
+                 ("turb8", decks["turb"], cs.NCYC_TURB, cs.TURB8, "mhd")]
+    if set(args.kernels) & set("AGEJ"):
+        runs += [("smr", cs.SMR_DECK, cs.NCYC_SMR, single + cs.SMR_FULL,
                   "mhd"),
                  ("ot", cs.OT_DECK, cs.NCYC_SMR, single + cs.OT_FULL,
                   "mhd")]
     if "H" in args.kernels:
         runs += [("z4c", decks["z4c"], cs.NCYC_Z4C, (), "z4c"),
                  ("puncture", cs.PUNCTURE, cs.NCYC_Z4C, single, "z4c")]
-    if "C" in args.kernels:
+    if set(args.kernels) & set("CB"):
         runs += [("sr", decks["sr"], cs.NCYC_SR, (), "mhd")]
     for name, deck, ncyc, extra, block in runs:
         out[f"{name}_zcps"] = cs.timed_cycles(torch, "true", deck, ncyc,

@@ -55,6 +55,41 @@ def test_fill_kernel_bitwise(card, dtype):
         assert torch.equal(a, b), comp
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", [(2, 5, 16, 20, 24), (1, 3, 9, 14, 23),
+                                   (3, 2, 13, 17, 11)])
+def test_fill_kernel_one_launch_ragged(card, dtype, shape):
+    """Kernel B on ragged shapes and several blocks: one launch for the
+    cell array, for the three face arrays together and for each one
+    alone, every result bitwise the plain sweeps'."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(4)
+    nmb, _, n3, n2, n1 = shape
+    a = torch.rand(shape, generator=gen, dtype=dt).to(card)
+    b = a.clone()
+    n0 = kernels.PERIODIC_FILL_CC.launches
+    fill.periodic_fill_cc(a)
+    assert kernels.PERIODIC_FILL_CC.launches == n0 + 1
+    assert torch.equal(a, fill.fill_plain(b, fill.shifts(b.shape)))
+    fc = {"x1f": (nmb, n3, n2, n1 + 1), "x2f": (nmb, n3, n2 + 1, n1),
+          "x3f": (nmb, n3 + 1, n2, n1)}
+    fc = {c: torch.rand(s, generator=gen, dtype=dt).to(card)
+          for c, s in fc.items()}
+    ref = {c: fill.fill_plain(v.clone(), fill.shifts(v.shape, c))
+           for c, v in fc.items()}
+    whole = {c: v.clone() for c, v in fc.items()}
+    n0 = kernels.PERIODIC_FILL_FC.launches
+    fill.periodic_fill_fc(whole)
+    assert kernels.PERIODIC_FILL_FC.launches == n0 + 1
+    for c, v in fc.items():
+        one = {c: v.clone()}
+        n0 = kernels.PERIODIC_FILL_FC.launches
+        fill.periodic_fill_fc(one)
+        assert kernels.PERIODIC_FILL_FC.launches == n0 + 1
+        assert torch.equal(whole[c], ref[c]), c
+        assert torch.equal(one[c], ref[c]), c
+
+
 def test_stage_kernel_f64(card):
     pin = ParameterInput.from_file(DECK)
     pin.modify_from_cmdline(["job/precision=double", "mesh/nx1=20",
@@ -353,12 +388,26 @@ def test_mega_stage_v1_kernel_ragged_tiles(card, dtype, gam0, gam1, nmb,
             assert float(err.max()) < 5e-3
 
 
+def _aux_bitwise(got, ref, label):
+    """Kernel F's outputs equal the plain version's, bitwise: u, w, bcc,
+    the floor counts and dtmin (the kernel repeats the plain version's
+    operations in order, and its last block the torch ops of
+    ``_dtmin``)."""
+    for name, a, b in zip(("u", "w", "bcc"), got[:3], ref[:3]):
+        assert torch.equal(a, b), f"{label} {name}"
+    assert set(got[3]) == set(ref[3]), label
+    for k in ref[3]:
+        assert got[3][k].shape == () and got[3][k].is_cuda, f"{label} {k}"
+        assert torch.equal(got[3][k], ref[3][k]), f"{label} {k}"
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("wrap", [True, False])
 def test_fused_aux_kernel(card, dtype, wrap):
-    """Kernel F against its plain version: u, w and bcc on the whole
-    array (wrap) or pointwise, the floor counts equal, dtmin close.  A
-    raised pressure floor makes the energy floor fire."""
+    """Kernel F against its plain version, bitwise: u, w and bcc on the
+    whole array (wrap) or pointwise, the floor counts and dtmin; one
+    launch a call.  A raised pressure floor makes the energy floor
+    fire."""
     from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
     dt = getattr(torch, dtype)
     gen = torch.Generator().manual_seed(6)
@@ -368,18 +417,57 @@ def test_fused_aux_kernel(card, dtype, wrap):
     u = prim_to_cons_mhd(w, bcc, EOSData())
     dxs = {"x1": 0.1, "x2": 0.1, "x3": 0.1}
     n0 = kernels.FUSED_AUX3D.launches
-    uk, wk, bk, ck = aux.fused_aux3d(u, bfc, eos, dxs=dxs, wrap=wrap)
+    got = aux.fused_aux3d(u, bfc, eos, dxs=dxs, wrap=wrap)
     assert kernels.FUSED_AUX3D.launches == n0 + 1
-    up, wp, bp, cp = aux.fused_aux3d_plain(u, bfc, eos, dxs=dxs, wrap=wrap)
-    tol = 1e-12 if dtype == "float64" else 1e-5
-    for name, a, b in (("u", uk, up), ("w", wk, wp), ("bcc", bk, bp)):
-        scale = float(b.abs().max())
-        assert float((a - b).abs().max()) <= tol * scale, name
-    for k in ("neos_dfloor", "neos_efloor", "neos_tfloor"):
-        assert int(ck[k]) == int(cp[k]), k
-    assert int(cp["neos_efloor"]) > 0
-    assert abs(float(ck["dtmin"]) - float(cp["dtmin"])) \
-        <= tol * float(cp["dtmin"])
+    ref = aux.fused_aux3d_plain(u, bfc, eos, dxs=dxs, wrap=wrap)
+    _aux_bitwise(got, ref, f"wrap={wrap}")
+    assert int(ref[3]["neos_efloor"]) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fused_aux_kernel_calls_in_a_row(card, dtype):
+    """The kernel's accumulators are zeroed by each call's last block:
+    calls in a row (floors firing on most cells, then on few, without
+    dxs, then again) each give their own counts and dtmin, bitwise
+    the plain version's, one launch each."""
+    from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    calls = []
+    for pfloor, dfloor, dxs in ((5.0, 2.0, {"x1": 0.1, "x2": 0.2, "x3": 0.3}),
+                                (0.5, 0.0, {"x1": 0.3, "x2": 0.1, "x3": 0.2}),
+                                (0.7, 0.9, None)):
+        w, bfc, bcc = _random_prims(gen, 2, 18, dt, card)
+        u = prim_to_cons_mhd(w, bcc, EOSData())
+        calls.append((u, bfc, EOSData(pfloor=pfloor, dfloor=dfloor), dxs,
+                      False))
+    for args in calls + calls[:2]:
+        n0 = kernels.FUSED_AUX3D.launches
+        got = aux.fused_aux3d(*args)
+        assert kernels.FUSED_AUX3D.launches == n0 + 1
+        _aux_bitwise(got, aux.fused_aux3d_plain(*args),
+                     f"pfloor {args[2].pfloor}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_fused_aux_kernel_ragged(card, dtype, wrap):
+    """Kernel F where no row is a multiple of 32 cells and the extents
+    differ (three blocks of 17 x 23 x 29 with ghosts), with and without
+    the wrap: bitwise the plain version, one launch."""
+    from athenak_tpu_torch.ops.eos import EOSData, prim_to_cons_mhd
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(10)
+    w, bfc, bcc = _random_prims(gen, 3, (17, 23, 29), dt, card)
+    u = prim_to_cons_mhd(w, bcc, EOSData())
+    args = (u, bfc, EOSData(pfloor=0.9, dfloor=0.6),
+            {"x1": 1 / 25, "x2": 1 / 19, "x3": 1 / 13}, wrap)
+    n0 = kernels.FUSED_AUX3D.launches
+    got = aux.fused_aux3d(*args)
+    assert kernels.FUSED_AUX3D.launches == n0 + 1
+    ref = aux.fused_aux3d_plain(*args)
+    _aux_bitwise(got, ref, f"wrap={wrap}")
+    assert int(ref[3]["neos_dfloor"]) > 0 and int(ref[3]["neos_efloor"]) > 0
 
 
 def _pool_mesh(layout, nx=8):
