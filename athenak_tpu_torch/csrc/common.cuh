@@ -13,10 +13,6 @@ namespace athenak {
 
 constexpr int kThreads = 256;
 
-inline unsigned int grid_for(long long n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-}
-
 #ifdef __CUDACC__  // the host tests build this header through a shim
 
 // One wave of `kernel` for `need` blocks of work: as many CUDA blocks as

@@ -84,22 +84,20 @@ __host__ __device__ inline int flux_ceil(int a, int b) {
 // Chooses the number of k segments for `slots` blocks resident on the
 // card at once: the fewest waves of blocks, each as short as it can be,
 // by the cost model waves * (planes + h), where h counts the planes a
-// segment stages beyond its own (3 for x3) plus one for the first copy.
-__host__ __device__ inline FluxGeom flux_geom(int nmb, int n3, int n2,
-                                              int n1, int dir, int tj,
-                                              int ti, long long slots) {
+// segment stages or steps through beyond its own.
+__host__ __device__ inline FluxGeom flux_cut(int nmb, int n3, int n2, int n1,
+                                             int tj, int ti, int h,
+                                             long long slots) {
   FluxGeom g{};
   g.nmb = nmb;
   g.n3 = n3;
   g.n2 = n2;
   g.n1 = n1;
-  g.dir = dir;
   g.tj = tj;
   g.ti = ti;
   g.ntj = flux_ceil(n2, tj);
   g.nti = flux_ceil(n1, ti);
   const long long cols = static_cast<long long>(nmb) * g.ntj * g.nti;
-  const int h = dir == 2 ? 4 : 1;
   long long best = -1;
   for (int nseg = 1; nseg <= n3; ++nseg) {
     const int seg = flux_ceil(n3, nseg);
@@ -113,6 +111,16 @@ __host__ __device__ inline FluxGeom flux_geom(int nmb, int n3, int n2,
     }
   }
   g.blocks = cols * g.nseg;
+  return g;
+}
+
+// Kernel J's cut of direction dir: h is the planes a segment stages
+// beyond its own (3 for x3) plus one for the first copy.
+__host__ __device__ inline FluxGeom flux_geom(int nmb, int n3, int n2,
+                                              int n1, int dir, int tj,
+                                              int ti, long long slots) {
+  FluxGeom g = flux_cut(nmb, n3, n2, n1, tj, ti, dir == 2 ? 4 : 1, slots);
+  g.dir = dir;
   return g;
 }
 

@@ -11,9 +11,17 @@
 // only: every source is interior on all axes and is never written, so no
 // thread reads what another writes; the copy is bitwise the sweeps'.
 // What bounds it: the memory traffic of the ghost shell, one read and
-// one write a ghost element; one thread per element of the array, the
-// interior threads exit at once.
+// one write a ghost element (1.8 us at 60^3 nghost 2 for the 22 Z4c
+// channels in float32 at 3.35 TB/s), and in practice the launch.  The
+// first design ran one thread an element of the whole array (the
+// interior threads, 76-82% of them, left after 64-bit divisions).  This
+// design numbers the ghosts alone (outflow_fill.cuh) in 32-bit, one wave
+// of CUDA blocks striding over the items: a ghost row in items of up to
+// 16 bytes (one aligned vector access each, its clamped columns read
+// one by one), an interior row's ng ghost columns at either end as one
+// item of one donor value, written in pairs where aligned.
 
+#include "outflow_fill.cuh"
 #include "z4c_stage.cuh"
 
 namespace athenak {
@@ -33,37 +41,72 @@ int stage(const void* u, const void* u1, const void* sbc, void* out, int nmb,
   }
 }
 
-__device__ __forceinline__ int clampi(int p, int lo, int hi) {
-  return p < lo ? lo : (p > hi ? hi : p);
+// vec elements of T as one aligned access
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Run {
+  T e[V];
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    outflow_fill_kernel(T* __restrict__ a, OutflowCall p) {
+  const int stride = gridDim.x * kThreads;
+  const int lo = p.ng, hi = p.n1 - p.ng - 1;
+  for (int t = blockIdx.x * kThreads + threadIdx.x; t < p.total;
+       t += stride) {
+    const OutflowItem it = outflow_item(p, t);
+    if (it.side) {
+      // ng copies of one donor; pairs from an even element on where the
+      // array is aligned to pairs (V >= 2: rows of an even length)
+      const T v = a[it.row + (it.side == 1 ? lo : hi)];
+      int e = 0;
+      if constexpr (V >= 2) {
+        if (it.dst & 1) a[it.dst + e++] = v;
+        for (; e + 1 < p.ng; e += 2)
+          *reinterpret_cast<Run<T, 2>*>(a + it.dst + e) = Run<T, 2>{{v, v}};
+      }
+      for (; e < p.ng; ++e) a[it.dst + e] = v;
+    } else if (it.i >= lo && it.i + V - 1 <= hi) {
+      *reinterpret_cast<Run<T, V>*>(a + it.dst) =
+          *reinterpret_cast<const Run<T, V>*>(a + it.row + it.i);
+    } else {
+      Run<T, V> v;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        v.e[e] = a[it.row + outflow_clamp(it.i + e, lo, hi)];
+      *reinterpret_cast<Run<T, V>*>(a + it.dst) = v;
+    }
+  }
 }
 
-template <typename T>
-__global__ void outflow_fill_kernel(T* __restrict__ a, long long nouter,
-                                    int n3, int n2, int n1, int ng) {
-  const long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
-                        threadIdx.x;
-  const long long plane = static_cast<long long>(n2) * n1;
-  if (idx >= nouter * n3 * plane) return;
-  const int i = idx % n1;
-  const int j = (idx / n1) % n2;
-  const long long r = idx / plane;
-  const int k = r % n3;
-  const long long m = r / n3;
-  const int si = clampi(i, ng, n1 - ng - 1);
-  const int sj = clampi(j, ng, n2 - ng - 1);
-  const int sk = clampi(k, ng, n3 - ng - 1);
-  if (si == i && sj == j && sk == k) return;
-  a[idx] = a[(m * n3 + sk) * plane + static_cast<long long>(sj) * n1 + si];
+template <typename T, int V>
+int outflow_launch(T* a, const OutflowCall& p, cudaStream_t s) {
+  unsigned int grid = 0;
+  const cudaError_t err = wave_grid(outflow_fill_kernel<T, V>, kThreads, 0,
+                                    (p.total + kThreads - 1) / kThreads,
+                                    grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  outflow_fill_kernel<T, V><<<grid, kThreads, 0, s>>>(a, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int outflow_fill(void* a, long long nouter, int n3, int n2, int n1, int ng,
                  void* stream) {
-  const long long total = nouter * n3 * static_cast<long long>(n2) * n1;
-  outflow_fill_kernel<T><<<grid_for(total), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(a), nouter, n3, n2, n1, ng);
-  return static_cast<int>(cudaGetLastError());
+  if (ng < 1 || n3 < 2 * ng + 1 || n2 < 2 * ng + 1 || n1 < 2 * ng + 1 ||
+      nouter * n3 * n2 * n1 >= (1LL << 31) - (1LL << 24))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = outflow_vec(n1, reinterpret_cast<unsigned long long>(a),
+                              static_cast<int>(sizeof(T)));
+  const OutflowCall p = outflow_call(static_cast<int>(nouter), n3, n2, n1,
+                                     ng, vec);
+  T* const arr = static_cast<T*>(a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (sizeof(T) == 4) {
+    if (vec == 4) return outflow_launch<T, 4>(arr, p, s);
+  }
+  return vec == 2 ? outflow_launch<T, 2>(arr, p, s)
+                  : outflow_launch<T, 1>(arr, p, s);
 }
 
 }  // namespace

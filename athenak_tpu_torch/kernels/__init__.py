@@ -47,7 +47,7 @@ _SIGNATURES = {
     "athenak_periodic_fill": [_P] * 3 + [_I] + [_P] + [_I] * 2 + [_P],
     "athenak_mega_stage_v2": [_P] * 13 + [_I] * 5 + [_D] * 12 + [_P],
     "athenak_fused_stage": [_P] * 10 + [_I] * 5 + [_D] * 9 + [_P],
-    "athenak_fused_ct": [_P] * 21 + [_I] * 5 + [_D] * 6 + [_P],
+    "athenak_fused_ct": [_P] * 20 + [_I] * 5 + [_D] * 6 + [_P],
     "athenak_mega_stage_v1": [_P] * 14 + [_I] * 6 + [_D] * 12 + [_P],
     "athenak_fused_aux": [_P] * 10 + [_I] * 7 + [_D] * 9 + [_P],
     "athenak_pool_fill": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P],

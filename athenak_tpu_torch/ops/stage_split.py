@@ -169,14 +169,13 @@ def fused_ct3d(w, bcc, fden, emf, bfc, bfc_old, gam0, gam1, beta_dt, dxs,
         check_tensor(name, f"bfc[{c}]", bfc[c], s, w)
         check_tensor(name, f"bfc_old[{c}]", bfc_old[c], s, w)
     nb = {c: torch.empty_like(bfc[c]) for c in fshape}
-    edge = torch.empty((nmb, 3, n3, n2, n1), dtype=w.dtype, device=w.device)
     rc = _k.FUSED_CT3D.entry(w.dtype)(
         w.data_ptr(), bcc.data_ptr(),
         *[fden[d].data_ptr() for d in ("x1", "x2", "x3")],
         *[emf[e].data_ptr() for e in _EMF_NAMES],
         *[bfc[c].data_ptr() for c in fshape],
         *[bfc_old[c].data_ptr() for c in fshape],
-        *[nb[c].data_ptr() for c in fshape], edge.data_ptr(),
+        *[nb[c].data_ptr() for c in fshape],
         nmb, n3, n2, n1, int(is_sr), float(gam0), float(gam1),
         float(beta_dt), float(dxs["x1"]), float(dxs["x2"]),
         float(dxs["x3"]), _k.stream_ptr(w.device))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Kernels A (``mega_stage_v2``), G (``pool_fill``), E (``mega_stage_v1``),
 J (``fused_flux_dir``), H (``z4c_stage``), C (``fused_stage3d``), F
-(``fused_aux3d``) and B (``periodic_fill_cc/fc``) on one NVIDIA GPU:
-their launches under the profiler, their times and their ptxas report.
+(``fused_aux3d``), B (``periodic_fill_cc/fc``), D (``fused_ct3d``) and I
+(``z4c_outflow_fill``) on one NVIDIA GPU: their launches under the
+profiler, their times and their ptxas report.
 
     python3 chip_profile.py [--root DIR] [--label NAME] [--trace]
                             [--kernels AGEJHCFBDI] [--no-e2e]
@@ -16,8 +17,8 @@ checkout (say the parent commit, unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists) and this one in turns on one card,
 each run in its own process: parent (traced), change (traced), change,
 parent; then it compares the outputs of each pair.  ``--kernels`` picks
-which of A, G, E, J, H, C, F and B a run measures (all by default;
-D and I add their ptxas report alone);
+which of A, G, E, J, H, C, F, B, D and I a run measures (all by
+default);
 ``--no-e2e`` skips the zone-cycles/s of the decks.
 
 A run
@@ -44,21 +45,23 @@ A run
     over 20 calls of F with its wrap on one 128^3 block and without it
     on 8 x 64^3 (phase 7's random states, f32), over 50 calls of B on
     1 x 5 x 128^3, on the three face arrays of 128^3 in one call and on
-    each alone (phase 2's arrays, f32), and over 50 calls of G's fills
-    and of ``torch.take``, and prints every device launch: name, calls,
-    mean us;
+    each alone (phase 2's arrays, f32), over 50 calls of G's fills and
+    of ``torch.take``, over 20 calls of D on the first RK2 stage of the
+    SR blast and of the blast (1 x 128^3 with ghosts, f32) and over 50
+    calls of I at 60^3 ng 2 and 64^3 ng 3 (f32), and prints every device
+    launch: name, calls, mean us;
   * times, with CUDA events, A on the 124^3 blast and on the 8 x 62^3
     pool (f32, as initialised, RK2 stage 1), G on turb8's u (8 x 5 x
     68^3) and face field, ``torch.take`` of every ghost of u, E on both
     RK2 stages at both shapes (f32), J for each direction on smr and ot
     (f32, as initialised), H on each RK4 stage at both shapes (f32), C
     on the first and second RK2 stage of the SR blast and the blast
-    (f32), F and B on the traced calls, each beside its host us (the
-    median of five rounds of calls issued without a synchronise), and
+    (f32), F, B, D and I on the traced calls, each beside its host us
+    (the median of five rounds of calls issued without a synchronise), and
     the zone-cycles/s of blast (20 cycles), pool, turb1 and turb8 (10
     cycles; with A, G, E, J, F or B), smr and ot (with A, G, E or J), of
-    z4c and puncture (with H) and of the SR blast (with C or B; 10
-    cycles each after a warm-up cycle);
+    z4c and puncture (with H or I) and of the SR blast (with C, B or D;
+    10 cycles each after a warm-up cycle);
   * saves A's outputs on both decks (stage 1 and stage 2) and G's
     result, and digests of E's interior u' and faces (both stages and
     gam1 = 0, both shapes, f32 and f64) and of J's whole flux, ey and ez
@@ -70,8 +73,12 @@ A run
     f32 and f64), of F's u, w and bcc with its counts and dtmin (with and
     without dxs, on the random states, at 16^3 and on the turb1 and
     turb8 decks' states; f32 and f64) and of B's every output (128^3,
-    ragged, the blast after one stage; f32 and f64), and which of F's
-    outputs equal the plain version's bitwise, to
+    ragged, the blast after one stage; f32 and f64), of D's three new
+    face arrays (the SR blast and the blast with kernel C's fluxes, both
+    RK2 stages, and two ragged pools, SR and Newtonian; f32 and f64) and of
+    I's filled array (60^3 ng 2, 64^3 ng 3, a 40 x 34 x 36 ng 4 and the
+    ragged ng 5 block; f32 and f64), and which of F's outputs equal the
+    plain version's bitwise, to
     ``.scratch/profile_<label>.pt`` under this script's
     directory, and prints one JSON line with every number.  A digest is
     the SHA-256 of the tensor's bytes and the float64 sums of its planes
@@ -87,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import itertools
 import json
 import os
 import subprocess
@@ -101,10 +109,11 @@ SOURCES = {"A": ("mega_stage_v2.cu",), "G": ("pool_fill.cu",),
            "E": ("mega_stage_v1.cu",), "J": ("flux_dir.cu",),
            "H": Z4C_INSTANCES, "C": ("fused_stage.cu",),
            "F": ("fused_aux.cu",), "B": ("periodic_fill.cu",),
-           # ptxas report only: D (fused_ct3d) and I (the outflow fill)
            "D": ("fused_ct.cu",), "I": ("z4c_stage.cu",)}
-# H's shapes: phase 10's three and a ragged single block at nghost 5
+# H's shapes: phase 10's three and a ragged single block at nghost 5; I's
+# also a ragged single block at nghost 4
 Z4C_NG5 = ["mesh/nghost=5", "mesh/nx1=46", "mesh/nx2=38", "mesh/nx3=42"]
+Z4C_NG4 = ["mesh/nghost=4", "mesh/nx1=40", "mesh/nx2=34", "mesh/nx3=36"]
 
 
 def ptxas_report(cs, kernels, csrc, picked):
@@ -191,7 +200,8 @@ def main() -> int:
                 f.write(text)
         steps = {"A": profile_a, "G": profile_g, "E": profile_e,
                  "J": profile_j, "H": profile_h, "C": profile_c,
-                 "F": profile_f, "B": profile_b}
+                 "F": profile_f, "B": profile_b, "D": profile_d,
+                 "I": profile_i}
         for key in args.kernels:
             if key in steps:
                 steps[key](torch, cs, args, decks, out, saved)
@@ -313,7 +323,7 @@ def timed(torch, cs, args, out, kernel, label, fn, calls):
         split = cs.device_split(torch, fn, calls)
         out[f"{kernel}_split {label}"] = split
         if split is not None:
-            dev = sum(c * us for _, c, us in split) / calls
+            dev = cs.split_us(split, calls)
             out[f"{kernel}_device_us {label}"] = dev
             dev = f"{dev:.2f} us"
     print(f"[{args.label}] {kernel} {label}: {ms:.4f} ms a call (events), "
@@ -627,11 +637,115 @@ def profile_c(torch, cs, args, decks, out, saved):
             torch.cuda.empty_cache()
 
 
+def profile_d(torch, cs, args, decks, out, saved):
+    """Kernel D on phase 5's inputs (the SR blast's and the blast's state
+    after initialisation, 1 x 128^3 with ghosts, with kernel C's mass
+    fluxes and face EMFs of the first RK2 stage), both RK2 stages (the
+    second with bfc_old = 0.999 bfc), and on random inputs on ragged
+    pools of 2 x 14 x 21 x 37 and 2 x 10 x 13 x 44 cells, SR and
+    Newtonian: digests of the three new face arrays, whole, in f64 and
+    f32; f32 call ms, host us and traces of the first stage at 128^3,
+    with the bound."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import stage_split
+    cases = (("sr", decks["sr"], "sr_hlle"), ("newtonian", cs.DECK, "hlld"))
+    for label, deck, solver in cases:
+        for prec in ("double", "single"):
+            mesh, phys, _, driver, state = build(
+                cs.pin_for([f"job/precision={prec}"], deck), device="cuda")
+            state = phys.unpack_state(driver.initialize(state))
+            w, bcc, bfc, u = state["w"], state["bcc"], state["bfc"], \
+                state["u"]
+            _, fden, emf = stage_split.fused_stage3d(
+                w, bcc, bfc, u, u, phys.eos, 0.0, 1.0, mesh.dt, phys.dxs,
+                solver)
+            old = {c: v * 0.999 for c, v in bfc.items()}
+            tag = "f32" if prec == "single" else "f64"
+            for s, (g0, g1, beta) in enumerate(cs.RK2):
+                a = (w, bcc, fden, emf, bfc, old, g0, g1, beta * mesh.dt,
+                     phys.dxs, phys.is_sr)
+                nb = stage_split.fused_ct3d(*a)
+                torch.cuda.synchronize()
+                for c, v in nb.items():
+                    saved[f"D {label} {tag} stage {s + 1} {c}"] = digest(v)
+                if tag == "f32" and s == 0:
+                    moved = (cs.nbytes(w) * 3 // 5
+                             + cs.nbytes(bcc, *fden.values(), *emf.values())
+                             + 2 * cs.nbytes(*bfc.values())
+                             + cs.nbytes(*nb.values()))
+                    out[f"D_bound_ms {label} 128^3"] = cs.bound(
+                        moved, cs.OPS_CT * w[:, 0].numel())[0]
+                    timed(torch, cs, args, out, "D", f"{label} 128^3",
+                          lambda: stage_split.fused_ct3d(*a), 20)
+                del nb
+            del mesh, phys, driver, state, w, bcc, bfc, u, fden, emf, old
+            torch.cuda.empty_cache()
+    for shape, sr, dtype in itertools.product(
+            ((2, 14, 21, 37), (2, 10, 13, 44)), (True, False),
+            (torch.float64, torch.float32)):
+        gen = torch.Generator().manual_seed(23)
+
+        def rand(*s):
+            return torch.randn(s, generator=gen,
+                               dtype=torch.float64).to("cuda", dtype)
+
+        nmb, n3, n2, n1 = shape
+        fcs = {"x1f": (nmb, n3, n2, n1 + 1), "x2f": (nmb, n3, n2 + 1, n1),
+               "x3f": (nmb, n3 + 1, n2, n1)}
+        w, bcc = rand(nmb, 5, n3, n2, n1), rand(nmb, 3, n3, n2, n1)
+        fden = {d: rand(*shape) for d in ("x1", "x2", "x3")}
+        emf = {e: rand(*shape) for e in ("e3x1", "e2x1", "e1x2", "e3x2",
+                                         "e2x3", "e1x3")}
+        bfc = {c: rand(*s) for c, s in fcs.items()}
+        old = {c: rand(*s) for c, s in fcs.items()}
+        dxs = {"x1": 1 / 33, "x2": 1 / 17, "x3": 1 / 10}
+        nb = stage_split.fused_ct3d(w, bcc, fden, emf, bfc, old, 0.5, 0.5,
+                                    0.01, dxs, sr)
+        torch.cuda.synchronize()
+        key = (f"D {'x'.join(map(str, shape))} "
+               f"{'sr' if sr else 'newtonian'} "
+               f"{'f32' if dtype == torch.float32 else 'f64'}")
+        for c, v in nb.items():
+            saved[f"{key} {c}"] = digest(v)
+
+
+def profile_i(torch, cs, args, decks, out, saved):
+    """Kernel I on phase 10's inputs (the deck's state after
+    initialisation with every channel perturbed, ghosts included) at
+    60^3 ng 2 (``Z4C_DECK``), 64^3 ng 3 (``one_puncture.athinput``), a
+    40 x 34 x 36 ng 4 block and the ragged 46 x 38 x 42 ng 5 block:
+    digests of the filled array in f64 and f32; f32 call ms, host us and
+    traces at the first two, with the bound."""
+    from athenak_tpu_torch.ops import z4c_stage as zs
+    shapes = (("60^3 ng 2", decks["z4c"], []),
+              ("64^3 ng 3", cs.PUNCTURE, []),
+              ("40x34x36 ng 4", cs.PUNCTURE, Z4C_NG4),
+              ("46x38x42 ng 5", cs.PUNCTURE, Z4C_NG5))
+    for label, deck, extra in shapes:
+        for prec in ("double", "single"):
+            phys, u, _, _ = cs.z4c_inputs(torch, deck, extra, prec)
+            if not phys.fold_bc:
+                raise AssertionError(f"I {label}: the deck does not take "
+                                     "the outflow fill kernel")
+            tag = "f32" if prec == "single" else "f64"
+            got = zs.outflow_fill(u.clone(), phys.bvals)
+            torch.cuda.synchronize()
+            saved[f"I {label} {tag}"] = digest(got)
+            del got
+            if tag == "f32" and label in ("60^3 ng 2", "64^3 ng 3"):
+                out[f"I_bound_ms {label}"] = cs.outflow_fill_bound(phys,
+                                                                   u)[0]
+                timed(torch, cs, args, out, "I", label,
+                      lambda: zs.outflow_fill(u, phys.bvals), 50)
+            del phys, u
+            torch.cuda.empty_cache()
+
+
 def end_to_end(torch, cs, args, decks, out):
     """zone-cycles/s of the kernel path of every deck the picked kernels
     run on: blast, pool, turb1 and turb8 with A, G, E, J, F or B; smr
-    and ot with A, G, E or J; z4c and puncture with H; the SR blast with
-    C or B."""
+    and ot with A, G, E or J; z4c and puncture with H or I; the SR blast
+    with C, B or D."""
     single = ["job/precision=single"]
     runs = []
     if set(args.kernels) & set("AGEJFB"):
@@ -644,10 +758,10 @@ def end_to_end(torch, cs, args, decks, out):
                   "mhd"),
                  ("ot", cs.OT_DECK, cs.NCYC_SMR, single + cs.OT_FULL,
                   "mhd")]
-    if "H" in args.kernels:
+    if set(args.kernels) & set("HI"):
         runs += [("z4c", decks["z4c"], cs.NCYC_Z4C, (), "z4c"),
                  ("puncture", cs.PUNCTURE, cs.NCYC_Z4C, single, "z4c")]
-    if set(args.kernels) & set("CB"):
+    if set(args.kernels) & set("CBD"):
         runs += [("sr", decks["sr"], cs.NCYC_SR, (), "mhd")]
     for name, deck, ncyc, extra, block in runs:
         out[f"{name}_zcps"] = cs.timed_cycles(torch, "true", deck, ncyc,
@@ -662,9 +776,10 @@ def print_split(label, what, split, calls):
         print(f"[{label}] trace {what}: the profiler recorded no device "
               "time")
         return
-    total = sum(c * us for _, c, us in split)
-    print(f"[{label}] trace {what}: {total / calls:.2f} us of device time "
-          "a call")
+    # each kernel's mean time times its launches a call, rounded: late in
+    # a long process the profiler drops a few records
+    total = sum(us * round(c / calls) for _, c, us in split)
+    print(f"[{label}] trace {what}: {total:.2f} us of device time a call")
     for name, c, us in sorted(split, key=lambda r: -r[1] * r[2]):
         print(f"[{label}]   {name}: {c} launches, {us:.2f} us each")
 

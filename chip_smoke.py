@@ -33,7 +33,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      Newtonian blast (HLLD): float32 within the two-tier bound on acc,
      the mass fluxes, the face EMFs and the new face fields, float64
      within 1e-10 of the field scale; it times both kernels, their plain
-     versions and the SR c2p;
+     versions and the SR c2p, and prints ``fused_ct3d``'s device us
+     beside its call ms (one device launch a call);
   6. drives the SR main path through the CLI on ``SR_DECK`` (the ``sr``
      case of ``bench.py``, copied here as text) for 10 cycles, with the
      launch counts set to 0 just before: both split-stage kernels must
@@ -80,7 +81,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      (``z4c_outflow_fill``) bitwise equal to the plain sweeps and to the
      general fill, the pool's sweep fill after the stage within the same
      tolerances.  It times both kernels, their plain versions and, for
-     the fill, the replicate pad;
+     the fill, the replicate pad, and prints the fill's device us beside
+     its call ms (one device launch a call);
  11. drives both Z4c decks (``one_puncture.athinput`` in float32)
      through the CLI for 10 cycles, kernel path and plain path
      (``z4c/use_kernels=false``), with the launch counts set to 0 just
@@ -481,12 +483,27 @@ def device_split(torch, fn, calls: int):
     return rows or None
 
 
+def split_launches(split, calls: int):
+    """Device launches a call from ``device_split``'s rows, each kernel's
+    count over ``calls`` rounded (late in a long process the profiler
+    drops a few records: 19 of 20, 48 of 50), or None."""
+    return None if split is None else sum(round(c / calls)
+                                          for _, c, _ in split)
+
+
+def split_us(split, calls: int):
+    """Device microseconds a call from ``device_split``'s rows: each
+    kernel's mean time times its launches a call (as
+    ``split_launches``), or None."""
+    return None if split is None else sum(us * round(c / calls)
+                                          for _, c, us in split)
+
+
 def device_us(fn, calls: int):
     """Device microseconds a call of fn() (every launch it makes) under
     torch.profiler, or None where the profiler recorded no device time."""
     import torch
-    split = device_split(torch, fn, calls)
-    return None if split is None else sum(c * us for _, c, us in split) / calls
+    return split_us(device_split(torch, fn, calls), calls)
 
 
 def fmt_us(us) -> str:
@@ -907,9 +924,15 @@ def phase_split(torch, card, sr_deck):
                 res = time_split(torch, stage_split, phys, state, mesh.dt)
     res["fused_stage3d"]["max_abs_err"] = err["fused_stage3d"]
     res["fused_ct3d"]["max_abs_err"] = err["fused_ct3d"]
+    launched = res["fused_ct3d"]["device_launches"]
+    if launched not in (None, 1):
+        raise AssertionError(f"fused_ct3d: {launched} device launches a "
+                             "call")
     for name in ("fused_stage3d", "fused_ct3d"):
         r = res[name]
-        print(f"phase 5: [{card}] {name} {r['ms']:.4f} ms/stage, plain "
+        dev = (f", device {fmt_us(r['device_us'])} a call"
+               if "device_us" in r else "")
+        print(f"phase 5: [{card}] {name} {r['ms']:.4f} ms/stage{dev}, plain "
               f"{r['plain_ms']:.4f} ms/stage, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}) (f32, SR HLLE, 124^3)")
     print(f"phase 5: [{card}] SR c2p (cons_to_prim_sr_mhd, 25 + 25 "
@@ -936,6 +959,10 @@ def time_split(torch, stage_split, phys, state, dt):
     moved_d = (nbytes(w) * 3 // 5 + nbytes(bcc, *fden.values(),
                                            *emf.values())
                + 2 * nbytes(*bfc.values()) + nbytes(*nb.values()))
+    def ct():
+        return stage_split.fused_ct3d(*cargs, is_sr=True)
+
+    ct_split = device_split(torch, ct, 20)
     return {
         "fused_stage3d": {
             "ms": cuda_ms(lambda: stage_split.fused_stage3d(*sargs), 20),
@@ -943,11 +970,12 @@ def time_split(torch, stage_split, phys, state, dt):
                 lambda: stage_split.fused_stage3d_plain(*sargs), 3),
             "bound": bound(moved_c, ops_c)},
         "fused_ct3d": {
-            "ms": cuda_ms(lambda: stage_split.fused_ct3d(*cargs, is_sr=True),
-                          20),
+            "ms": cuda_ms(ct, 20),
             "plain_ms": cuda_ms(
                 lambda: stage_split.fused_ct3d_plain(*cargs, is_sr=True), 3),
-            "bound": bound(moved_d, OPS_CT * ncell)},
+            "bound": bound(moved_d, OPS_CT * ncell),
+            "device_us": split_us(ct_split, 20),
+            "device_launches": split_launches(ct_split, 20)},
         "c2p_ms": cuda_ms(lambda: phys.cons_to_prim(u, bcc), 3)}
 
 
@@ -1459,7 +1487,13 @@ def phase_z4c_stage(torch, card, z4c_deck):
                 if not torch.equal(pad(ai, (ng,) * 6, mode="replicate"), a):
                     raise AssertionError("replicate pad differs from the "
                                          "outflow fill")
+                fill_split = device_split(
+                    torch, lambda: zs.outflow_fill(a, phys.bvals), 50)
+                if split_launches(fill_split, 50) not in (None, 1):
+                    raise AssertionError("z4c_outflow_fill: not one device "
+                                         "launch a call")
                 r["fill"] = {
+                    "device_us": split_us(fill_split, 50),
                     "ms": cuda_ms(lambda: zs.outflow_fill(a, phys.bvals), 50),
                     "plain_ms": cuda_ms(
                         lambda: phys.bvals.fill_ghosts(a), 20),
@@ -1474,7 +1508,8 @@ def phase_z4c_stage(torch, card, z4c_deck):
         if "fill" in r:
             f = r["fill"]
             print(f"phase 10: [{card}] z4c_outflow_fill {label} "
-                  f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, "
+                  f"{f['ms']:.4f} ms, device {fmt_us(f['device_us'])}, "
+                  f"plain {f['plain_ms']:.4f} ms, "
                   f"replicate pad {f['library_ms']:.4f} ms, bound "
                   f"{f['bound'][0]:.5f} ms")
     return {"res": res, "max_abs_err": err, "fill_max_abs_err": fill_err}
@@ -1953,7 +1988,10 @@ def main() -> int:
             "periodic_fill_cc": ft["periodic_fill_cc"][4],
             "periodic_fill_fc": ft["periodic_fill_fc"][4],
             "fused_aux3d": aux_res["device_us"],
-            "fused_aux3d_nowrap": aux_res["nowrap_device_us"]},
+            "fused_aux3d_nowrap": aux_res["nowrap_device_us"],
+            "fused_ct3d": split_res["fused_ct3d"]["device_us"],
+            **{f"z4c_outflow_fill {k}": v["fill"]["device_us"]
+               for k, v in z4c_res["res"].items() if "fill" in v}},
         "pool_fill_fc_ms": pool_res["fc_ms"],
         "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
         "build_seconds": kernels.BUILD_INFO.get("source_seconds"),

@@ -267,6 +267,50 @@ def test_split_stage_kernel_ragged_tiles(card, dtype, gam0, gam1, solver):
             assert float(err.max()) < 5e-3
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("sr", [True, False])
+@pytest.mark.parametrize("shape", [(2, 14, 21, 37), (3, 9, 13, 37),
+                                   (1, 6, 6, 6), (2, 10, 13, 44)])
+def test_fused_ct_kernel_ragged_pool(card, dtype, sr, shape):
+    """Kernel D against its plain version on random inputs, on pools of
+    one to three blocks whose sides differ and are not multiples of the
+    tiles, SR and Newtonian, with b_old read: one launch a call, every
+    face of the three arrays (ghosts and the extra face of each normal
+    axis included); float64 within 1e-10 of the field scale, float32
+    within the two-tier bound (> 95% within 3e-5, all within 5e-3)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(23)
+
+    def rand(*s):
+        return torch.randn(s, generator=gen, dtype=torch.float64).to(
+            card, dt)
+
+    nmb, n3, n2, n1 = shape
+    w, bcc = rand(nmb, 5, n3, n2, n1), rand(nmb, 3, n3, n2, n1)
+    fden = {d: rand(*shape) for d in ("x1", "x2", "x3")}
+    emf = {e: rand(*shape) for e in ("e3x1", "e2x1", "e1x2", "e3x2", "e2x3",
+                                     "e1x3")}
+    fcs = {"x1f": (nmb, n3, n2, n1 + 1), "x2f": (nmb, n3, n2 + 1, n1),
+           "x3f": (nmb, n3 + 1, n2, n1)}
+    bfc = {c: rand(*s) for c, s in fcs.items()}
+    old = {c: rand(*s) for c, s in fcs.items()}
+    dxs = {"x1": 1 / 33, "x2": 1 / 17, "x3": 1 / 10}
+    args = (w, bcc, fden, emf, bfc, old, 0.5, 0.5, 0.01, dxs, sr)
+    n0 = kernels.FUSED_CT3D.launches
+    kb = stage_split.fused_ct3d(*args)
+    assert kernels.FUSED_CT3D.launches == n0 + 1
+    pb = stage_split.fused_ct3d_plain(*args)
+    scale = max(float(v.abs().max()) for v in pb.values())
+    for c in pb:
+        assert kb[c].shape == pb[c].shape
+        err = (kb[c] - pb[c]).abs().double() / scale
+        if dtype == "float64":
+            assert float(err.max()) <= 1e-10, c
+        else:
+            assert float((err < 3e-5).double().mean()) > 0.95, c
+            assert float(err.max()) < 5e-3, c
+
+
 def test_split_stage_kernels_reject_bad_input(card):
     w = torch.zeros((1, 5, 12, 12, 12), device=card)
     bcc = torch.zeros((1, 3, 12, 12, 12), device=card)
@@ -641,6 +685,29 @@ def test_z4c_outflow_fill_kernel_bitwise(card, dtype, ng):
     gen = torch.Generator().manual_seed(ng)
     a = torch.rand(u.shape, generator=gen,
                    dtype=getattr(torch, dtype)).to(card)
+    b = a.clone()
+    n0 = kernels.Z4C_OUTFLOW_FILL.launches
+    z4c_stage.outflow_fill(a, phys.bvals)
+    assert kernels.Z4C_OUTFLOW_FILL.launches == n0 + 1
+    phys.bvals.fill_ghosts(b)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ng", [2, 3, 4, 5])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_z4c_outflow_fill_kernel_ragged(card, dtype, ng, aligned):
+    """Kernel I against the outflow sweeps on the ragged 18 x 10 x 14 block
+    at nghost 2-5 (rows of 22-28 cells: items of 4, 2 and 1 elements),
+    and on an array one element off a 16-byte boundary (items of one
+    element): one launch a call, bitwise."""
+    from athenak_tpu_torch.ops import z4c_stage
+    phys, u, _ = _z4c([f"mesh/nghost={ng}"] + Z4C_LAYOUTS["ragged"],
+                      "single" if dtype == "float32" else "double")
+    gen = torch.Generator().manual_seed(ng)
+    buf = torch.rand(u.numel() + 1, generator=gen,
+                     dtype=getattr(torch, dtype)).to(card)
+    a = (buf[:-1] if aligned else buf[1:]).view(u.shape)
     b = a.clone()
     n0 = kernels.Z4C_OUTFLOW_FILL.launches
     z4c_stage.outflow_fill(a, phys.bvals)

@@ -43,6 +43,7 @@ SLOTS = [396, 132, 7]        # resident blocks: 3 an SM, 1 an SM, a few
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
+#include <string>
 #include "flux_tile.cuh"
 using namespace athenak;
 
@@ -80,7 +81,7 @@ int main(int argc, char** argv) {
   const int dir = atoi(argv[2]), nmb = atoi(argv[3]), n3 = atoi(argv[4]),
             n2 = atoi(argv[5]), n1 = atoi(argv[6]);
   const long long slots = atoll(argv[7]);
-  if (argv[1][0] == 'f')
+  if (std::string(argv[1]) == "f32")
     run<float>(dir, nmb, n3, n2, n1, slots);
   else
     run<double>(dir, nmb, n3, n2, n1, slots);

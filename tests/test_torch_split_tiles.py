@@ -45,6 +45,7 @@ SLOTS = [264, 132, 7]        # resident blocks: 2 an SM, 1 an SM, a few
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
+#include <string>
 #include <vector>
 #define __host__
 #define __device__
@@ -124,7 +125,7 @@ int main(int argc, char** argv) {
   const int nmb = atoi(argv[2]), n3 = atoi(argv[3]), n2 = atoi(argv[4]),
             n1 = atoi(argv[5]);
   const long long slots = atoll(argv[6]);
-  if (argv[1][0] == 'f') run<float>(nmb, n3, n2, n1, slots);
+  if (std::string(argv[1]) == "f32") run<float>(nmb, n3, n2, n1, slots);
   else run<double>(nmb, n3, n2, n1, slots);
   return 0;
 }

@@ -64,6 +64,7 @@ HARNESS = r"""
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
+#include <string>
 #include <vector>
 #include "z4c_rhs.cuh"
 using namespace athenak;
@@ -240,7 +241,7 @@ void dispatch(int ng, int nmb, int n3, int n2, int n1) {
 int main(int argc, char** argv) {
   const int ng = atoi(argv[2]), nmb = atoi(argv[3]), n3 = atoi(argv[4]),
             n2 = atoi(argv[5]), n1 = atoi(argv[6]);
-  if (argv[1][0] == 'f') dispatch<float>(ng, nmb, n3, n2, n1);
+  if (std::string(argv[1]) == "f32") dispatch<float>(ng, nmb, n3, n2, n1);
   else dispatch<double>(ng, nmb, n3, n2, n1);
   return 0;
 }
