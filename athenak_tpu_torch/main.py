@@ -79,8 +79,8 @@ def make_physics(pin, mesh, bvals, device, dtype):
         from .physics.mhd import MHD
         return MHD(pin, mesh, bvals, device=device, dtype=dtype)
     if pin.does_block_exist("hydro"):
-        raise NotImplementedError(
-            "hydro is not ported to athenak_tpu_torch yet")
+        from .physics.hydro import Hydro
+        return Hydro(pin, mesh, bvals, device=device, dtype=dtype)
     raise ValueError("no <hydro> or <mhd> block in input file")
 
 
@@ -104,13 +104,17 @@ def build(pin, device=None):
 
 
 def run(pin, verbose: bool = False, device=None):
-    """Full run; returns (mesh, phys, driver, state)."""
+    """Full run; returns (mesh, phys, driver, state).  A problem
+    generator with a ``final`` hook (the wave tests' error files) runs it
+    on the final state."""
     from .outputs import make_outputs
 
     mesh, phys, pgen, driver, state = build(pin, device=device)
     outputs = make_outputs(pin, mesh, phys)
     state = driver.initialize(state)
     state = driver.execute(state, outputs=outputs, verbose=verbose)
+    if hasattr(pgen, "final"):
+        pgen.final(pin, mesh, phys, state)
     return mesh, phys, driver, state
 
 

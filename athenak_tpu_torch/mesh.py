@@ -101,8 +101,17 @@ class Mesh:
         ms.dx3 = (ms.x3max - ms.x3min) / nx3
         self.mesh_size = ms
 
+        self.one_d = (nx2 == 1) and (nx3 == 1)
+        self.three_d = nx3 > 1
+        self.multi_d = not self.one_d
+
         if nx2 == 1 and nx3 > 1:
             raise ValueError("mesh with nx2=1 but nx3>1 is not supported")
+
+        # global active-cell index struct
+        self.mesh_indcs = RegionIndcs(
+            ng=ng, nx1=nx1, nx2=nx2, nx3=nx3,
+            is_=0, ie=nx1 - 1, js=0, je=nx2 - 1, ks=0, ke=nx3 - 1)
 
         # meshblock sizes (default: one block spans the mesh)
         mbnx1 = pin.get_or_add_integer("meshblock", "nx1", nx1)

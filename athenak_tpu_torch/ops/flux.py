@@ -27,7 +27,8 @@ from .. import kernels as _k
 from .eos import EOSData
 from .recon import plm
 from .rsolvers_mhd import hlld
-from .stage import check_tensor, face_shapes
+from .fluid import face_floors
+from .stage import check_tensor, face_shapes, pallas_physics
 
 # direction -> (cell axis of the stencil, the kernel's direction number)
 _DIRS = {"x1": (4, 0), "x2": (3, 1), "x3": (2, 2)}
@@ -36,19 +37,15 @@ _IVX = {"x1": 1, "x2": 2, "x3": 3}
 
 def supports_flux_dir(phys) -> bool:
     """Gate of kernel J: the JAX ``use_pallas`` conditions
-    (``physics/mhd.py:127-146``) restricted to the Newtonian solver: PLM,
-    HLLD, ideal gas, no scalars, not SR.  SR decks keep their SR solver
-    on the general path.  The float32-on-the-card condition is checked
-    at each call."""
-    return (not phys.is_sr and phys.recon_method == "plm"
-            and phys.rsolver == "hlld" and phys.eos.is_ideal
-            and phys.nscalars == 0)
+    (``stage.pallas_physics``) restricted to the Newtonian solver; SR
+    decks keep their SR solver on the general path.  The
+    float32-on-the-card condition is checked at each call."""
+    return not phys.is_sr and pallas_physics(phys)
 
 
 def flux_dir_plain(w, bcc, bnormal, eos: EOSData, name: str, ivx: int):
     """Kernel J's function as plain tensor operations (the general path's
     ``face_fluxes`` for one direction, with the face-state floors)."""
-    from ..physics.mhd import face_floors
     axis = _DIRS[name][0]
     bface = bnormal.narrow(axis - 1, 0, bnormal.shape[axis - 1] - 1)
     wl, wr = plm(w, axis)

@@ -44,14 +44,24 @@ from ..ops.eos import EOSData, cons_to_prim_mhd
 NG = 2
 
 
+def pallas_physics(phys) -> bool:
+    """The physics conditions of the JAX ``MHD.use_pallas``
+    (``athenak_tpu/physics/mhd.py:127-146``): PLM, Newtonian HLLD or SR
+    HLLE/LLF, the ideal gas, no passive scalars.  The JAX package takes
+    none of its MHD stage kernels (A, C, D, E, J) without them; every
+    kernel gate of the port's MHD stage starts from this one."""
+    ok_solver = ((not phys.is_sr and phys.rsolver == "hlld")
+                 or (phys.is_sr and phys.rsolver in ("hlle", "llf")))
+    return (phys.recon_method == "plm" and ok_solver
+            and phys.nscalars == 0 and phys.eos.is_ideal)
+
+
 def supports_mega_stage(phys, mesh) -> bool:
     """Gate of the Newtonian stage kernels (A here, E in
-    ``ops/stage_v1.py``): ideal PLM+HLLD, 3-D, one level, two ghost cells
-    (the JAX ``supports_mega_stage``; the physics the port has not ported
-    raises in the MHD constructor)."""
-    return (len(phys.dirs) == 3 and not phys.is_sr
-            and phys.recon_method == "plm" and phys.rsolver == "hlld"
-            and phys.nscalars == 0 and phys.eos.is_ideal
+    ``ops/stage_v1.py``): ``pallas_physics`` without SR, 3-D, one level,
+    two ghost cells (the JAX ``supports_mega_stage``; the physics the
+    port has not ported raises in the MHD constructor)."""
+    return (len(phys.dirs) == 3 and not phys.is_sr and pallas_physics(phys)
             and not getattr(mesh, "multilevel", False)
             and mesh.mb_indcs.ng == NG)
 

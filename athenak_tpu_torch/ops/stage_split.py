@@ -25,9 +25,10 @@ import torch
 
 from .. import kernels as _k
 from .eos import EOSData
+from .fluid import rk_update
 from .rsolvers_mhd import hlld
 from .rsolvers_srmhd import hlle_srmhd, llf_srmhd
-from .stage import NG, check_tensor, dirs3, face_shapes
+from .stage import NG, check_tensor, dirs3, face_shapes, pallas_physics
 
 # solver key -> (its number in csrc/fused_stage.cu, the plain solver)
 SOLVERS = {"hlld": (0, hlld), "sr_hlle": (1, hlle_srmhd),
@@ -41,33 +42,29 @@ def solver_for(phys) -> str:
 
 def supports_fused_stage(phys, mesh) -> bool:
     """Gate for kernel C: the physics conditions of the JAX
-    ``supports_fused_stage`` (3-D, PLM, SR HLLE/LLF or Newtonian HLLD,
-    ideal gas, no scalars, one level, two ghost cells).  The physics the
-    port has not ported (GR, FOFC, source terms, diffusion, gravity)
-    raises in the MHD constructor.  The TPU tile conditions
-    (``pallas_stage.py:183-187``) have no counterpart: the kernel takes
-    any block of at least 6 cells a side."""
-    ok_solver = ((not phys.is_sr and phys.rsolver == "hlld")
-                 or (phys.is_sr and phys.rsolver in ("hlle", "llf")))
-    return (len(phys.dirs) == 3
-            and phys.recon_method == "plm" and ok_solver
-            and phys.nscalars == 0 and phys.eos.is_ideal
+    ``supports_fused_stage`` (``pallas_physics``, 3-D, one level, two
+    ghost cells).  The physics the port has not ported (GR, FOFC, source
+    terms, diffusion, gravity) raises in the MHD constructor.  The TPU
+    tile conditions (``pallas_stage.py:183-187``) have no counterpart:
+    the kernel takes any block of at least 6 cells a side."""
+    return (len(phys.dirs) == 3 and pallas_physics(phys)
             and not mesh.multilevel and mesh.mb_indcs.ng == NG)
 
 
 def supports_fused_ct(phys, mesh) -> bool:
-    """Gate for kernel D (the JAX ``supports_fused_ct``): 3-D, one
-    level, two ghost cells; GR and resistivity raise in the
+    """Gate for kernel D: the JAX ``use_pallas and supports_fused_ct``
+    (``athenak_tpu/physics/mhd.py:230-232``), that is ``pallas_physics``,
+    3-D, one level and two ghost cells; GR and resistivity raise in the
     constructor."""
-    return (len(phys.dirs) == 3 and not mesh.multilevel
-            and mesh.mb_indcs.ng == NG)
+    return (len(phys.dirs) == 3 and pallas_physics(phys)
+            and not mesh.multilevel and mesh.mb_indcs.ng == NG)
 
 
 def fused_stage3d_plain(w, bcc, bfc, u0, u1, eos: EOSData, gam0, gam1,
                         beta_dt, dxs, solver: str = "hlld"):
     """Kernel C's function as plain tensor operations; returns
     (acc, fden, emf)."""
-    from ..physics.mhd import face_fluxes, rk_update
+    from ..physics.mhd import face_fluxes
     dirs = dirs3(dxs)
     flx, emf = face_fluxes(w, bcc, bfc, eos, SOLVERS[solver][1], dirs,
                            floors=True)

@@ -28,6 +28,7 @@ import torch
 
 from .. import kernels as _k
 from .eos import EOSData
+from .fluid import rk_update
 from .rsolvers_mhd import hlld
 from .stage import NG, check_tensor, dirs3, face_shapes
 
@@ -35,7 +36,7 @@ from .stage import NG, check_tensor, dirs3, face_shapes
 def fused_mega_stage3d_plain(w, bcc, bfc, u0, u1, bfc_old, eos: EOSData,
                              gam0, gam1, beta_dt, dxs):
     """The stage as plain tensor operations; returns (u', bfc')."""
-    from ..physics.mhd import corner_e, ct_update, face_fluxes, rk_update
+    from ..physics.mhd import corner_e, ct_update, face_fluxes
 
     if float(gam1) == 0.0:
         # the register is not read: 0 * u0 adds nothing to a finite sum

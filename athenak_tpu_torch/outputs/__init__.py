@@ -1,9 +1,9 @@
-"""Outputs: reference-format binary dumps.
+"""Outputs: reference-format binary dumps and formatted tables.
 
 Counterpart of ``athenak_tpu/outputs/__init__.py`` (reference:
 src/outputs/ — BaseTypeOutput and the <outputN> factory,
-src/outputs/outputs.cpp:224-260).  Only ``bin`` is ported so far; the
-other file types raise.
+src/outputs/outputs.cpp:224-260).  Only ``bin`` and ``tab`` are ported
+so far; the other file types raise.
 """
 
 from __future__ import annotations
@@ -22,8 +22,18 @@ class OutputParameters:
         self.variable = pin.get_or_add_string(block, "variable", "hydro_u")
         self.dt = pin.get_or_add_real(block, "dt", 0.0)
         self.dcycle = pin.get_or_add_integer(block, "dcycle", 0)
+        self.data_format = pin.get_or_add_string(block, "data_format",
+                                                 "%12.5e").strip()
+        self.slice_x2 = self._maybe_real(pin, block, "slice_x2")
+        self.slice_x3 = self._maybe_real(pin, block, "slice_x3")
         self.file_number = 0
         self.last_time = -1e300
+
+    @staticmethod
+    def _maybe_real(pin, block, key):
+        if pin.does_parameter_exist(block, key):
+            return pin.get_real(block, key)
+        return None
 
 
 class BaseOutput:
@@ -125,7 +135,85 @@ class BinaryOutput(BaseOutput):
                 f.write(np.ascontiguousarray(arr[gid]).tobytes())
 
 
-_TYPES = {"bin": BinaryOutput}
+class TabularOutput(BaseOutput):
+    """Formatted tables, one row a cell of the interior (reference:
+    src/outputs/formatted_table.cpp; the JAX package's
+    ``TabularOutput``): a degenerate axis, or one given by
+    ``slice_x2``/``slice_x3``, is cut at one cell."""
+
+    _VARIABLES = {
+        "hydro_u": ("u", ["dens", "mom1", "mom2", "mom3", "ener"]),
+        "hydro_w": ("w", ["dens", "velx", "vely", "velz", "eint"]),
+        "mhd_u": ("u", ["dens", "mom1", "mom2", "mom3", "ener"]),
+        "mhd_w": ("w", ["dens", "velx", "vely", "velz", "eint"]),
+    }
+
+    def write(self, mesh, state) -> None:
+        p = self.params
+        kind, labels = self._VARIABLES.get(
+            p.variable, ("w", ["dens", "velx", "vely", "velz", "eint"]))
+        arr = state[kind].to(device="cpu", dtype=torch.float64).numpy()
+        nvar = min(arr.shape[1], len(labels))
+        mbi = mesh.mb_indcs
+        fname = f"{self.basename}.{p.variable}.{p.file_number:05d}.tab"
+        with open(fname, "w") as f:
+            f.write(f"# Athena++ data at time={mesh.time:e}"
+                    f"  cycle={mesh.ncycle} \n")
+            slice2 = p.slice_x2 is not None or mbi.nx2 == 1
+            slice3 = p.slice_x3 is not None or mbi.nx3 == 1
+            f.write("# gid  ")
+            f.write(" i       x1v     ")
+            if not slice2:
+                f.write(" j       x2v     ")
+            if not slice3:
+                f.write(" k       x3v     ")
+            for lab in labels[:nvar]:
+                f.write(f"    {lab}     ")
+            f.write("\n")
+            fmt = p.data_format
+            for gid in range(mesh.nmb_total):
+                x1v, x2v, x3v = mesh.cell_centers(gid)
+                j_range = range(mbi.js, mbi.je + 1)
+                k_range = range(mbi.ks, mbi.ke + 1)
+                if slice2:
+                    jmid = self._slice_index(x2v, mbi.js, mbi.je,
+                                             p.slice_x2)
+                    if jmid is None:
+                        continue
+                    j_range = [jmid]
+                if slice3:
+                    kmid = self._slice_index(x3v, mbi.ks, mbi.ke,
+                                             p.slice_x3)
+                    if kmid is None:
+                        continue
+                    k_range = [kmid]
+                for k in k_range:
+                    for j in j_range:
+                        for i in range(mbi.is_, mbi.ie + 1):
+                            f.write(f"{gid:05d}")
+                            f.write(f"  {i - mbi.is_:04d}  " + fmt % x1v[i])
+                            if not slice2:
+                                f.write(f"  {j - mbi.js:04d}  "
+                                        + fmt % x2v[j])
+                            if not slice3:
+                                f.write(f"  {k - mbi.ks:04d}  "
+                                        + fmt % x3v[k])
+                            for n in range(nvar):
+                                f.write("  " + fmt % arr[gid, n, k, j, i])
+                            f.write("\n")
+
+    @staticmethod
+    def _slice_index(xv, lo, hi, slice_pos):
+        if slice_pos is None:
+            return lo  # degenerate axis
+        # does the block hold the slice position?
+        if xv[lo] - 1e-12 <= slice_pos <= xv[hi] + 1e-12 or lo == hi:
+            return int(np.argmin(np.abs(np.asarray(xv[lo:hi + 1])
+                                        - slice_pos))) + lo
+        return None
+
+
+_TYPES = {"bin": BinaryOutput, "tab": TabularOutput}
 
 
 def make_outputs(pin, mesh, phys) -> List[BaseOutput]:

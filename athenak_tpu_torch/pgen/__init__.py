@@ -5,9 +5,15 @@ src/pgen/pgen.hpp:27-93).  Each generator is a module with
 
     init(pin, mesh, phys) -> state      # tensors on phys.device
 
-selected by <problem>/pgen_name.  The blast wave, the Orszag-Tang vortex
-and driven turbulence (MHD) and the Z4c single puncture are ported so
-far.
+and optionally
+
+    final(pin, mesh, phys, state)       # after the run, e.g. error files
+
+selected by <problem>/pgen_name.  The blast wave and driven turbulence
+(hydro and MHD), the shock tubes, Kelvin-Helmholtz, Shu-Osher, the
+linear waves, the Orszag-Tang vortex, the circularly polarised Alfven
+wave, the field loop, the current sheet and the Z4c single puncture are
+ported so far.
 """
 
 from __future__ import annotations
@@ -18,10 +24,18 @@ import numpy as np
 import torch
 
 _REGISTRY = {
-    "blast": "athenak_tpu_torch.pgen.blast",
+    "linear_wave": "athenak_tpu_torch.pgen.linear_wave",
+    "shock_tube": "athenak_tpu_torch.pgen.shock_tube",
     "orszag_tang": "athenak_tpu_torch.pgen.orszag_tang",
+    "blast": "athenak_tpu_torch.pgen.blast",
+    "cpaw": "athenak_tpu_torch.pgen.cpaw",
+    "alfven_wave": "athenak_tpu_torch.pgen.cpaw",
+    "field_loop": "athenak_tpu_torch.pgen.field_loop",
     "turb": "athenak_tpu_torch.pgen.turb",
     "z4c_one_puncture": "athenak_tpu_torch.pgen.z4c_one_puncture",
+    "kh": "athenak_tpu_torch.pgen.kh",
+    "current_sheet": "athenak_tpu_torch.pgen.current_sheet",
+    "shu_osher": "athenak_tpu_torch.pgen.shu_osher",
 }
 
 
@@ -33,14 +47,19 @@ def get_pgen(name: str):
     return import_module(_REGISTRY[name])
 
 
-def state_from_prims(phys, w, bfc):
-    """Build the initial state from host primitive arrays: move (w, bfc)
-    to the device at the run's dtype, then bcc and prim -> cons there."""
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=phys.dtype,
-                               device=phys.device)
+def to_device(phys, a):
+    """A host array as a tensor on the run's device at its dtype."""
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=phys.dtype,
+                           device=phys.device)
 
-    wt = dev(w)
-    bfct = {k: dev(v) for k, v in bfc.items()}
+
+def state_from_prims(phys, w, bfc=None):
+    """Build the initial state from host primitive arrays: move (w, bfc)
+    to the device at the run's dtype, then (under MHD) bcc and
+    prim -> cons there."""
+    wt = to_device(phys, w)
+    if bfc is None:
+        return phys.make_state(phys.prim_to_cons(wt), wt)
+    bfct = {k: to_device(phys, v) for k, v in bfc.items()}
     bcc = phys.compute_bcc(bfct)
     return phys.make_state(phys.prim_to_cons(wt, bcc), wt, bfct, bcc=bcc)

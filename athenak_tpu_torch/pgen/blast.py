@@ -1,9 +1,11 @@
-"""Spherical blast wave (MHD, Newtonian or SR).
+"""Spherical blast wave (hydro, or MHD Newtonian or SR).
 
 Counterpart of ``athenak_tpu/pgen/blast.py`` (reference:
 src/pgen/fluids/blast.cpp, Cartesian branch): ambient state with a
 pressure/density ratio inside a sphere, a log-smooth ramp between the
-inner and outer radii, and a uniform Bx from A3 = b_amb * y.  The initial
+inner and outer radii, and under MHD a uniform Bx from A3 = b_amb * y
+(the ambient state is <problem>/pn_amb, dn_amb under hydro and pi_amb,
+di_amb under MHD).  The initial
 primitives are made in host numpy and moved to the device, where the
 physics module's p2c (the SR one under <coord>/special_rel) makes the
 conserved state.
@@ -19,13 +21,13 @@ from . import state_from_prims
 
 
 def init(pin, mesh, phys):
-    if not getattr(phys, "is_mhd", False):
-        raise NotImplementedError(
-            "the hydro blast is not ported to athenak_tpu_torch yet")
+    is_mhd = getattr(phys, "is_mhd", False)
     rout = pin.get_real("problem", "outer_radius")
     rin = rout - pin.get_real("problem", "inner_radius")
-    p_amb = pin.get_or_add_real("problem", "pi_amb", 1.0)
-    d_amb = pin.get_or_add_real("problem", "di_amb", 1.0)
+    p_amb = pin.get_or_add_real("problem",
+                                "pi_amb" if is_mhd else "pn_amb", 1.0)
+    d_amb = pin.get_or_add_real("problem",
+                                "di_amb" if is_mhd else "dn_amb", 1.0)
     prat = pin.get_real("problem", "prat")
     drat = pin.get_or_add_real("problem", "drat", 1.0)
     b_amb = pin.get_or_add_real("problem", "b_amb", 0.1)
@@ -52,6 +54,8 @@ def init(pin, mesh, phys):
         w[gid, IDN][act] = den
         w[gid, IEN][act] = pres / gm1
 
+    if not is_mhd:
+        return state_from_prims(phys, w)
     # uniform Bx = b_amb (A3 = b_amb * y)
     bfc = {k: np.zeros(s) for k, s in phys.fc_shapes.items()}
     bfc["x1f"][:] = b_amb

@@ -30,11 +30,15 @@ A stage runs one of four paths.  On the card in float32:
     the Newtonian decks its gate admits when kernel A's does not; the
     port has none yet;
   * every other deck takes the general path, the plain tensor functions
-    below; a 3-D single-level deck still runs its CT through kernel D
-    there, as the JAX package does, and a Newtonian PLM+HLLD deck (a
-    statically refined mesh, a 2-D deck) forms its fluxes with kernel J
+    below; a 3-D single-level deck whose physics the JAX ``use_pallas``
+    admits (PLM, Newtonian HLLD or SR HLLE/LLF, the ideal gas, no
+    scalars) still runs its CT through kernel D there, as the JAX
+    package does, and a Newtonian PLM+HLLD deck (a statically refined
+    mesh, a 1-D or 2-D deck) forms its fluxes with kernel J
     (``ops/flux.py``: PLM, face floors and HLLD, one launch per
     direction).  SR decks keep the SR solver there, never HLLD.
+    Isothermal, passive-scalar, LLF/HLLE/advect and PPM/WENO decks take
+    the general path throughout, with only the ghost fills' kernels.
 
 Everywhere else (the CPU, float64) the general path runs throughout.
 On a statically refined mesh the general path adds the JAX package's
@@ -61,9 +65,11 @@ from ..mesh import Mesh
 from ..ops import recon as recon_ops
 from ..ops import rsolvers_mhd
 from ..ops.eos import EOSData, cons_to_prim_mhd, prim_to_cons_mhd
+from ..ops.fluid import face_floors, rk_update, scalar_fluxes
 from ..ops.eos_sr import (cons_to_prim_sr_mhd, prim_to_cons_sr_mhd,
                           sr_mhd_fast_speeds)
 from ..ops.rsolvers_srmhd import SR_MHD_RSOLVER_FNS
+from ..utils import not_ported
 
 # axes of the 4-D [nmb, n3, n2, n1] EMF / face arrays
 KA, JA, IA = 1, 2, 3
@@ -85,19 +91,14 @@ def compute_bcc(bfc):
     return torch.stack([b1, b2, b3], dim=1)
 
 
-def face_floors(q, eos: EOSData):
-    """Density and internal-energy floors on reconstructed face states."""
-    return torch.cat([torch.clamp(q[:, :1], min=eos.dfloor), q[:, 1:4],
-                      torch.clamp(q[:, 4:5], min=eos.efloor)], dim=1)
-
-
 def face_fluxes(w, bcc, bfc, eos: EOSData, solve, dirs, rec=recon_ops.plm,
                 floors: bool = False):
     """Reconstruct (w, bcc) and solve per direction; returns (flx, emf)
     with the reference EMF names (reference:
     src/mhd/mhd_fluxes.cpp:120-250).  ``floors`` applies the density and
     internal-energy floors to the face states, as the stage kernels do;
-    ``dirs`` lists (name, axis, ivx, dx)."""
+    ``dirs`` lists (name, axis, ivx, dx).  Passive scalars take the
+    upwind flux on the mass flux."""
     bface = {"x1": bfc["x1f"][..., :-1],
              "x2": bfc["x2f"][..., :-1, :],
              "x3": bfc["x3f"][..., :-1, :, :]}
@@ -108,21 +109,10 @@ def face_fluxes(w, bcc, bfc, eos: EOSData, solve, dirs, rec=recon_ops.plm,
         if floors:
             wl, wr = face_floors(wl, eos), face_floors(wr, eos)
         f, ey, ez = solve(wl, wr, bl, br, bface[name], eos, ivx)
-        flx[name] = f
+        flx[name] = scalar_fluxes(f, wl, wr, eos.nfluid)
         emf[EY_NAME[name]] = ey
         emf[EZ_NAME[name]] = ez
     return flx, emf
-
-
-def rk_update(u0, u1, flx, gam0, gam1, beta_dt, dirs):
-    """gam0 * u0 + gam1 * u1 - beta_dt * div(F) (reference
-    mhd_update.cpp); ``dirs`` lists (name, axis, ivx, dx)."""
-    divf = None
-    for name, axis, _ivx, dx in dirs:
-        f = flx[name]
-        d = (_sh(f, 1, axis) - f) / dx
-        divf = d if divf is None else divf + d
-    return gam0 * u0 + gam1 * u1 - beta_dt * divf
 
 
 def _gs07(e_cc, e_a, e_b, f_a, f_b, axa, axb):
@@ -207,7 +197,7 @@ def ct_update(bfc, bfc_old, e1, e2, e3, gam0, gam1, beta_dt, dxs,
 def signal_speeds(eos: EOSData, w, bcc):
     """|v| + c_fast per direction (reference: src/mhd/mhd_newdt.cpp)."""
     d = w[:, IDN]
-    p = eos.pressure(w[:, IEN])
+    p = eos.pressure(w[:, IEN]) if eos.is_ideal else None
     b1, b2, b3 = bcc[:, 0], bcc[:, 1], bcc[:, 2]
     return (torch.abs(w[:, IVX]) + eos.mhd_fast_speed(d, p, b1, b2, b3),
             torch.abs(w[:, IVY]) + eos.mhd_fast_speed(d, p, b2, b3, b1),
@@ -235,11 +225,6 @@ def sr_signal_speeds(eos: EOSData, w, bcc):
     return tuple(out)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to athenak_tpu_torch "
-                               "yet")
-
-
 class MHD:
     """MHD configuration and the per-stage update on torch tensors."""
 
@@ -253,20 +238,18 @@ class MHD:
         self.dtype = dtype
         coord = Coordinates(pin)
         if coord.is_general_relativistic:
-            raise _not_ported("general-relativistic MHD")
+            raise not_ported("general-relativistic MHD")
         self.is_sr = coord.is_special_relativistic
         self.eos = EOSData.from_input(pin, "mhd")
-        if not self.eos.is_ideal:
-            raise _not_ported("isothermal MHD")
-        self.nmhd = 5
+        if self.is_sr and not self.eos.is_ideal:
+            raise ValueError("relativistic MHD requires the ideal-gas EOS")
+        self.nmhd = self.eos.nfluid
         self.nscalars = pin.get_or_add_integer("mhd", "nscalars", 0)
-        if self.nscalars:
-            raise _not_ported("passive scalars in MHD")
-        self.nvar = self.nmhd
+        self.nvar = self.nmhd + self.nscalars
         self.recon_method = pin.get_or_add_string("mhd", "reconstruct",
                                                   "plm")
         if self.recon_method not in recon_ops.RECON_FNS:
-            raise _not_ported(f"mhd/reconstruct={self.recon_method}")
+            raise ValueError(f"mhd/reconstruct={self.recon_method} unknown")
         self.rsolver = pin.get_or_add_string("mhd", "rsolver", "llf")
         if self.is_sr:
             # SR runs map the solver names onto the SR variants
@@ -277,7 +260,7 @@ class MHD:
             self._solve = SR_MHD_RSOLVER_FNS[self.rsolver]
         else:
             if self.rsolver not in rsolvers_mhd.MHD_RSOLVER_FNS:
-                raise _not_ported(f"mhd/rsolver={self.rsolver}")
+                raise ValueError(f"mhd/rsolver={self.rsolver} unknown")
             self._solve = rsolvers_mhd.MHD_RSOLVER_FNS[self.rsolver]
         ng_need = RECON_NGHOST[self.recon_method]
         if mesh.mb_indcs.ng < ng_need:
@@ -287,15 +270,15 @@ class MHD:
         for key in ("nu_iso", "nu_aniso", "eta_ohm", "eta_ad", "alpha_iso",
                     "alpha_aniso", "alpha_spitzer"):
             if pin.does_parameter_exist("mhd", key):
-                raise _not_ported(f"diffusion (mhd/{key})")
+                raise not_ported(f"diffusion (mhd/{key})")
         if pin.get_or_add_boolean("mhd", "fofc", False):
-            raise _not_ported("first-order flux correction")
+            raise not_ported("first-order flux correction")
         for block, what in (("mhd_srcterms", "MHD source terms"),
                             ("shearing_box", "the shearing box"),
                             ("particles", "particles"),
                             ("gravity", "self-gravity")):
             if pin.does_block_exist(block):
-                raise _not_ported(what)
+                raise not_ported(what)
 
         mbi = mesh.mb_indcs
         self.multilevel = mesh.multilevel
@@ -379,8 +362,8 @@ class MHD:
         """Per-direction fluxes and face EMFs with the deck's solver (the
         SR one under SR).  Kernel J forms them on the card in float32 where
         its gate admits the deck, with the face-state floors of the JAX
-        package's ``pallas_flux`` route; elsewhere no face-state floors
-        for PLM, as on the JAX package's general path."""
+        package's ``pallas_flux`` route; elsewhere face-state floors only
+        for ppmx, wenoz and teno, as on the JAX package's general path."""
         if self.use_flux_dir and kernel_dtype_ok(w):
             from ..ops.flux import fused_flux_dir
             flx, emf = {}, {}
@@ -391,8 +374,10 @@ class MHD:
                 emf[EY_NAME[name]] = ey
                 emf[EZ_NAME[name]] = ez
             return flx, emf
-        return face_fluxes(w, bcc, bfc, self.eos, self._solve, self.dirs,
-                           rec=recon_ops.RECON_FNS[self.recon_method])
+        return face_fluxes(
+            w, bcc, bfc, self.eos, self._solve, self.dirs,
+            rec=recon_ops.RECON_FNS[self.recon_method],
+            floors=self.recon_method in recon_ops.FLOORED_METHODS)
 
     def rk_update(self, u0, u1, flx, gam0, gam1, beta_dt):
         return rk_update(u0, u1, flx, gam0, gam1, beta_dt, self.dirs)

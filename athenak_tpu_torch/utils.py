@@ -1,4 +1,5 @@
-"""Runtime utilities: watchdog hang detector and walltime parsing.
+"""Runtime utilities: watchdog hang detector, walltime parsing and the
+error for what the port has not ported yet.
 
 Counterpart of ``athenak_tpu/utils.py`` (reference:
 src/utils/watchdog.cpp:7-40, a pthread that aborts the job if the main
@@ -14,6 +15,13 @@ import os
 import sys
 import threading
 import time
+
+
+def not_ported(what: str) -> NotImplementedError:
+    """The error raised for a feature of the JAX package that the port
+    does not have yet."""
+    return NotImplementedError(f"{what} is not ported to athenak_tpu_torch "
+                               "yet")
 
 
 def parse_walltime(s: str) -> float:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..bvals import kernel_dtype_ok
+from ..utils import not_ported
 from . import fd
 
 # evolved-variable channel indices (reference: z4c.hpp:46-56)
@@ -74,11 +75,6 @@ def spatial_inv(g, detg):
     return gu
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to athenak_tpu_torch "
-                               "yet")
-
-
 class Z4cOptions:
     def __init__(self, pin) -> None:
         gor = pin.get_or_add_real
@@ -112,7 +108,7 @@ class Z4c:
         self.dtype = dtype
         self.opt = Z4cOptions(pin)
         if getattr(mesh, "multilevel", False):
-            raise _not_ported("Z4c on refined meshes")
+            raise not_ported("Z4c on refined meshes")
         mbi = mesh.mb_indcs
         self.ng = mbi.ng
         if self.ng not in (2, 3, 4, 5):
@@ -127,7 +123,7 @@ class Z4c:
                       mbi.ncells3, mbi.ncells2, mbi.ncells1)
         self.nco = pin.get_or_add_integer("z4c", "nco", 0)
         if self.nco > 0:
-            raise _not_ported("the Z4c puncture trackers (z4c/nco > 0)")
+            raise not_ported("the Z4c puncture trackers (z4c/nco > 0)")
 
         # Sommerfeld boundary mask: outermost active layer of blocks whose
         # mesh face is outflow/diode/vacuum/user (reference:
@@ -277,7 +273,7 @@ class Z4c:
         the projection comes before the fill; it is pointwise, so the two
         orders agree on a uniform mesh."""
         if tmunu is not None:
-            raise _not_ported("the Z4c matter coupling (tmunu)")
+            raise not_ported("the Z4c matter coupling (tmunu)")
         u = state["u"]
         if self.kernel_path(u):
             from ..ops.z4c_stage import fused_z4c_stage, outflow_fill

@@ -110,7 +110,37 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      roundoff on every level and the volume-weighted mass to 1e-5, and
      the two paths within SMR_PATH_TOL of each other.  It reports each
      path's zone-cycles/s over all blocks of all levels (CUDA events, in
-     turns) and the split of one SMR stage into its parts.
+     turns) and the split of one SMR stage into its parts;
+ 14. drives Newtonian hydro through the CLI in float32 for 10 cycles,
+     kernel path and plain path (``hydro/use_kernels=false``), launch
+     counts set to 0 before each run and checked exactly: ``hturb1``
+     (``inputs/hydro/turb.athinput`` at 128^3 on one block; PLM + HLLC,
+     driven; kernel B on u at initialisation and once a stage, nothing
+     else), ``hturb8`` (the same as 8 x 64^3; kernel G likewise) and
+     ``hblast`` (``inputs/hydro/blast_hydro.athinput`` at 256^3; PPM4 +
+     HLLC, three ghost cells: no kernel).  The state must be finite and
+     keep its mass to 1e-5, one more forcing must leave a net momentum
+     below 1e-6 of |M|, and the two paths must be bitwise equal.  It
+     reports each path's zone-cycles/s (CUDA events, in turns) and the
+     parts of a cycle;
+ 15. holds kernel J against its plain version on the 1-D ``bw`` row
+     (``inputs/mhd/bw.athinput``, 260 cells with ghosts, with the
+     Brio-Wu field under the keys the shock tube reads; as initialised
+     and after 5 cycles; float32 two-tier, float64 1e-10) and times it,
+     holds kernel A against its plain version on both RK2 stages of the
+     ``field_loop3d`` and ``linear_wave_mhd`` states in float64 within
+     TAIL_STAGE_TOL of what the stage changed, then drives the
+     Newtonian MHD test decks at their shipped sizes through the CLI
+     in float32 for 10 cycles, kernel path and plain path, with exact
+     launch counts: ``bw``, ``kh2d-lecoanet-mhd``
+     (128^2) and ``current_sheet`` (128 x 64) take J once a direction a
+     stage; ``field_loop3d`` and ``linear_wave_mhd`` (64 x 32 x 32)
+     take kernel A twice a cycle and B; ``linear_wave_mhd`` with LLF,
+     the isothermal gas or a passive scalar take only B (no A, C, D, E
+     or J: the JAX package's ``use_pallas`` gate).  The state must be
+     finite, div(B) kept where the initial field put it, the mass to
+     1e-5, and the paths within SMR_PATH_TOL's tiers of what the plain
+     path changed from the initial state.
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -167,6 +197,36 @@ OT_SMR = ["mesh/nx1=32", "mesh/nx2=32", "meshblock/nx1=8",
 # floors) after NCYC_SMR cycles in float32, of each field's scale: more
 # than 95% of the interior cells within the first, all within the second
 SMR_PATH_TOL = (1e-4, 1e-2)
+# phase 14: the hydro decks in float32 at full width, 10 cycles a path
+HTURB_DECK = os.path.join(ROOT, "inputs", "hydro", "turb.athinput")
+HBLAST_DECK = os.path.join(ROOT, "inputs", "hydro", "blast_hydro.athinput")
+HTURB1 = ["job/precision=single", "mesh/nx1=128", "mesh/nx2=128",
+          "mesh/nx3=128"]
+HTURB8 = HTURB1 + ["meshblock/nx1=64", "meshblock/nx2=64",
+                   "meshblock/nx3=64"]
+HBLAST = ["job/precision=single", "mesh/nx1=256", "mesh/nx2=256",
+          "mesh/nx3=256"]
+NCYC_HYDRO = 10
+# phase 15: the Newtonian MHD test decks at their shipped sizes, float32
+TAIL_DECKS = {
+    "bw": os.path.join(ROOT, "inputs", "mhd", "bw.athinput"),
+    "kh2d-mhd": os.path.join(ROOT, "inputs", "mhd",
+                             "kh2d-lecoanet-mhd.athinput"),
+    "current_sheet": os.path.join(ROOT, "inputs", "mhd",
+                                  "current_sheet.athinput"),
+    "field_loop3d": os.path.join(ROOT, "inputs", "mhd",
+                                 "field_loop3d.athinput"),
+    "linear_wave_mhd": os.path.join(ROOT, "inputs", "tests",
+                                    "linear_wave_mhd.athinput"),
+}
+NCYC_TAIL = 10
+# the Brio-Wu field under the keys the shock tube reads (the shipped
+# bw.athinput spells them bx/by_l/by_r, which it does not read), for
+# kernel J's 1-D check: HLLD off its zero-field branch
+BW_FIELD = ["problem/bxl=0.75", "problem/byl=1.0", "problem/byr=-1.0"]
+# kernel A against its plain version on the 3-D test decks' states in
+# float64: |difference| over the plain stage's max|change|
+TAIL_STAGE_TOL = 1e-6
 PUNCTURE = os.path.join(ROOT, "inputs", "z4c", "one_puncture.athinput")
 NCYC_Z4C = 10
 # phase 10's pool: one_puncture.athinput as two blocks of 32^3, nghost 4
@@ -577,6 +637,17 @@ def phase_fill(torch, fill, card):
                                  "launches in one call")
 
     for dtype in (torch.float32, torch.float64):
+        # the hydro u of hturb1 (phase 14): one block of 128^3 cells
+        h = torch.rand((1, 5, 132, 132, 132), generator=gen,
+                       dtype=dtype).cuda()
+        a, b = h.clone(), h.clone()
+        once(kernels.PERIODIC_FILL_CC, fill.periodic_fill_cc, a)
+        fill.fill_plain(b, fill.shifts(b.shape))
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"periodic_fill_cc 132^3 {dtype}: not "
+                                 "bitwise")
+        del h, a, b
         cc = torch.rand((1, 5, n, n, n), generator=gen, dtype=dtype)
         fc = {"x1f": torch.rand((1, n, n, n + 1), generator=gen, dtype=dtype),
               "x2f": torch.rand((1, n, n + 1, n), generator=gen, dtype=dtype),
@@ -640,7 +711,9 @@ def phase_fill(torch, fill, card):
                 device_us(lambda: fill.periodic_fill_fc(fa), 50))
     tc, tf = times["periodic_fill_cc"], times["periodic_fill_fc"]
     print(f"phase 2: periodic fill kernels bitwise equal to the plain "
-          f"version (f32, f64), one launch a call; [{card}] cc {tc[0]:.4f} "
+          f"version (f32, f64; cells also at [1, 5, 132, 132, 132], the "
+          f"hydro hturb1 block), one launch a call; [{card}] cc "
+          f"{tc[0]:.4f} "
           f"ms a call, device {fmt_us(tc[4])} (plain {tc[1]:.4f} ms, "
           f"circular pad {tc[2]:.4f} ms, bound {tc[3][0]:.5f} ms), fc "
           f"{tf[0]:.4f} ms a call, device {fmt_us(tf[4])} (plain "
@@ -770,13 +843,16 @@ def timed_cycles(torch, use_kernels: str, deck=DECK, ncyc=NCYC,
 def run_cli(torch, kernels, deck, ncyc, extra=()):
     """Drive ``main.cli`` on ``deck`` for ncyc cycles with the launch
     counts set to 0 just before; returns the counts read just after, the
-    run, the relative change of the interior sum of u[IDN] and the names
-    of the bin files written."""
+    run, the relative change of the interior sum of u[IDN] (the deck's
+    ghost depth off every side) and the names of the bin files
+    written."""
     from athenak_tpu_torch import main as cli_main
     from athenak_tpu_torch.main import build
 
-    _, _, _, _, state0 = build(pin_for(list(extra), deck), device="cuda")
-    mass0 = float(interior(state0["u"][:, 0]).double().sum())
+    mesh0, _, _, _, state0 = build(pin_for(list(extra), deck),
+                                   device="cuda")
+    ng = mesh0.mb_indcs.ng
+    mass0 = float(interior(state0["u"][:, 0], ng).double().sum())
     del state0
     os.environ["ATHENAK_DEVICE"] = "cuda"
     cwd = os.getcwd()
@@ -791,7 +867,7 @@ def run_cli(torch, kernels, deck, ncyc, extra=()):
         bins = sorted(f for f in os.listdir(tmp) if f.endswith(".bin"))
     if mesh.ncycle != ncyc:
         raise AssertionError(f"{mesh.ncycle} cycles run, {ncyc} asked")
-    mass = float(interior(state["u"][:, 0]).double().sum())
+    mass = float(interior(state["u"][:, 0], ng).double().sum())
     return (launches, mesh, phys, driver, state, abs(mass - mass0) / mass0,
             bins)
 
@@ -1203,7 +1279,8 @@ def phase_pool_fill(torch, card, turb_deck, pool_deck):
 
     res, maxerr = {}, 0.0
     for label, deck, extra in (("turb8", turb_deck, TURB8),
-                               ("pool", pool_deck, [])):
+                               ("pool", pool_deck, []),
+                               ("hturb8", HTURB_DECK, HTURB8)):
         mesh = pool_mesh(deck, extra)
         nbr = torch.as_tensor(pool_fill.neighbor27(mesh), device="cuda")
         nmb, n = mesh.nmb_total, mesh.mb_indcs.ncells1
@@ -1828,6 +1905,292 @@ def phase_smr_main(torch, kernels, card):
     return out
 
 
+def hydro_parts(torch, phys, state, mesh) -> dict:
+    """ms per call of each piece of a hydro cycle on the deck's own
+    state: the forcing, the fluxes (reconstruction and Riemann solver
+    of every direction), the RK update, the fill of u and the c2p."""
+    u, w, dt = state["u"], state["w"], mesh.dt
+    flx = phys.fluxes(w)
+    uc = u.clone()
+    parts = {"fluxes": cuda_ms(lambda: phys.fluxes(w), 5),
+             "rk_update": cuda_ms(lambda: phys.rk_update(
+                 u, u, flx, 0.5, 0.5, 0.5 * dt), 5),
+             "fill_cc": cuda_ms(lambda: phys.bvals.fill_ghosts(uc), 20),
+             "c2p": cuda_ms(lambda: phys.cons_to_prim(u), 5)}
+    if phys.pturb is not None:
+        parts["forcing"] = cuda_ms(
+            lambda: phys.pturb.apply(state, dt, phys), 5)
+    return parts
+
+
+def phase_hydro_main(torch, kernels, card):
+    """hturb1, hturb8 and hblast through the CLI in float32, kernel path
+    and plain path (``hydro/use_kernels=false``), with the launch counts
+    set to 0 before each run and checked exactly: the fill kernels only
+    (B on hturb1, G on hturb8, once at initialisation and once a stage;
+    nothing on hblast, whose three ghost cells no fill kernel takes).
+    Finite state, mass to 1e-5, the net momentum after one more forcing
+    below 1e-6 of |M|, the two paths bitwise equal; zone-cycles/s of
+    each path in turns and the parts of a cycle."""
+    out = {}
+    runs = (("hturb1", HTURB_DECK, HTURB1, "periodic_fill_cc"),
+            ("hturb8", HTURB_DECK, HTURB8, "pool_fill"),
+            ("hblast", HBLAST_DECK, HBLAST, None))
+    for label, deck, extra, fill_kernel in runs:
+        states, launches = {}, {}
+        for use in ("true", "false"):
+            got, mesh, phys, driver, state, dmass, _ = run_cli(
+                torch, kernels, deck, NCYC_HYDRO,
+                extra + [f"hydro/use_kernels={use}"])
+            n = mesh.ncycle
+            expect = {fill_kernel: 2 * n + 1} \
+                if use == "true" and fill_kernel else {}
+            if {k: v for k, v in got.items() if v} != expect:
+                raise AssertionError(f"{label} use_kernels={use}: launches "
+                                     f"{got}, expected {expect}")
+            if not all(bool(torch.isfinite(state[k]).all())
+                       for k in ("u", "w")):
+                raise AssertionError(f"{label} {use}: non-finite state")
+            if dmass > 1e-5:
+                raise AssertionError(f"{label} {use}: mass drift {dmass:g}")
+            mom = check_forcing(torch, phys, state, mesh, label) \
+                if phys.pturb is not None else None
+            states[use], launches[use] = state, got
+            if use == "true":
+                kphys, kmesh = phys, mesh
+            print(f"phase 14: {label} use_kernels={use}: {n} cycles on "
+                  f"{mesh.nmb_total} block(s) of "
+                  f"{mesh.mb_indcs.nx1}^3, launches "
+                  f"{ {k: v for k, v in got.items() if v} }, mass drift "
+                  f"{dmass:.3e}, net momentum after forcing {mom}, "
+                  f"counters {driver.ecounters}; [{card}] CLI zone-cycles/s "
+                  f"{driver.zcps:.6e} (wall clock, first cycle included)")
+        k, p = states["true"], states["false"]
+        for key in ("u", "w"):
+            if not torch.equal(k[key], p[key]):
+                raise AssertionError(f"{label}: kernel and plain path not "
+                                     f"bitwise equal in {key}")
+        parts = hydro_parts(torch, kphys, k, kmesh)
+        del states, k, p, state, kphys
+        rates = {}
+        for use in ("true", "false", "true", "false"):
+            rates.setdefault(use, []).append(timed_cycles(
+                torch, use, deck, NCYC_HYDRO, extra, block="hydro"))
+        mbi = mesh.mb_indcs
+        zones = mesh.nmb_total * mbi.nx1 * mbi.nx2 * mbi.nx3
+        cycle_ms = [zones / r * 1e3 for r in rates["true"]]
+        print(f"phase 14: [{card}] {label} kernel and plain path bitwise "
+              f"equal after {NCYC_HYDRO} cycles; zone-cycles/s over "
+              f"{NCYC_HYDRO} cycles after a warm-up, kernel path "
+              f"{rates['true']}, plain path {rates['false']} (CUDA "
+              f"events); kernel-path cycle {cycle_ms} ms; ms per call on "
+              f"the deck's state {parts}")
+        out[label] = {"launches": launches["true"], "rates": rates,
+                      "parts": parts, "cycle_ms": cycle_ms}
+    return out
+
+
+def div_b(torch, phys, bfc):
+    """max|div B| dx / max(max|B|, 1e-30) over the interior, and the div
+    B array itself, of a face field of a 1-D, 2-D or 3-D block."""
+    b1, b2, b3 = bfc["x1f"], bfc["x2f"], bfc["x3f"]
+    div = (b1[..., 1:] - b1[..., :-1]) / phys.dxs["x1"]
+    if len(phys.dirs) > 1:
+        div = div + (b2[..., 1:, :] - b2[..., :-1, :]) / phys.dxs["x2"]
+    if len(phys.dirs) > 2:
+        div = div + (b3[:, 1:] - b3[:, :-1]) / phys.dxs["x3"]
+    bmax = max(max(float(v.abs().max()) for v in bfc.values()), 1e-30)
+    div = interior(div)
+    return float(div.abs().max()) * phys.dxs["x1"] / bmax, div, bmax
+
+
+def change_diff(got, ref, init):
+    """(share of interior cells within SMR_PATH_TOL[0], max) of
+    |got - ref| over the reference's max|ref - init|: how far two runs
+    from the same ``init`` are apart, on the scale of what they
+    changed."""
+    got, ref, init = interior(got), interior(ref), interior(init)
+    scale = max(float((ref - init).abs().max()), 1e-30)
+    rel = ((got - ref).abs() / scale).double()
+    return (float((rel < SMR_PATH_TOL[0]).double().mean()),
+            float(rel.max()))
+
+
+def tail_flux_check(torch, card):
+    """Kernel J against its plain version on the 1-D bw row with the
+    Brio-Wu field (x1, as initialised and after 5 cycles): float32
+    two-tier, float64 1e-10, and its time on the initial state."""
+    from athenak_tpu_torch.ops import flux
+    maxerr, res = 0.0, None
+    for ncyc in (0, 5):
+        for prec in ("single", "double"):
+            state, phys = deck_state(torch, TAIL_DECKS["bw"], BW_FIELD, prec,
+                                     ncyc)
+            w, bcc, bfc = state["w"], state["bcc"], state["bfc"]
+            args = (w, bcc, bfc["x1f"], phys.eos, "x1", 1)
+            got = flux.fused_flux_dir(*args)
+            ref = flux.flux_dir_plain(*args)
+            torch.cuda.synchronize()
+            if not float(faces(ref[1]).abs().max()) > 0.0:
+                raise AssertionError("bw: the plain ey is zero; the field "
+                                     "did not reach the row")
+            pairs = [(got[0][:, c], ref[0][:, c], f"flux {c}")
+                     for c in range(5)]
+            pairs += [(got[1], ref[1], "ey"), (got[2], ref[2], "ez")]
+            for g, r, what in pairs:
+                g, r = faces(g), faces(r)
+                scale = float(r.abs().max()) or 1.0
+                tag = f"bw {ncyc} cycles {prec} {what}"
+                if prec == "single":
+                    maxerr = max(maxerr, two_tier(g, r, scale, tag))
+                elif float((g - r).abs().max()) / scale > 1e-10:
+                    raise AssertionError(f"{tag}: "
+                                         f"{float((g - r).abs().max())}")
+            if prec == "single" and ncyc == 0:
+                cells = w[:, 0].numel()
+                res = {"ms": cuda_ms(lambda: flux.fused_flux_dir(*args), 50),
+                       "plain_ms": cuda_ms(lambda: flux.flux_dir_plain(
+                           *args), 20),
+                       "bound": bound(15 * cells * w.element_size(),
+                                      OPS_FACE["hlld"] * cells),
+                       "cells": cells}
+    print(f"phase 15: fused_flux_dir agrees with its plain version on the "
+          f"1-D bw row with the Brio-Wu field (x1; as initialised and after "
+          f"5 cycles; f32 two-tier, f64 1e-10); [{card}] {res['ms']:.4f} ms "
+          f"a call on {res['cells']} cells (plain {res['plain_ms']:.4f} ms, "
+          f"bound {res['bound'][0]:.6f} by {res['bound'][1]})")
+    res["max_abs_err"] = maxerr
+    return res
+
+
+def tail_stage_check(torch, card):
+    """Kernel A against its plain version on both RK2 stages of the
+    field_loop3d and linear_wave_mhd states (64 x 32 x 32, 68 x 36 x 36
+    with ghosts) in float64, on the scale of what the stage changed:
+    the linear wave moves 1e-6 of its background, below what float32
+    resolves, so only float64 holds A to the wave itself."""
+    from athenak_tpu_torch.ops import stage
+    out = {}
+    for label in ("field_loop3d", "linear_wave_mhd"):
+        state, phys = deck_state(torch, TAIL_DECKS[label], [], "double")
+        u0, b0, dt = state["u"], state["bfc"], phys.mesh.dt
+        inp_u, inp_b = u0, b0
+        for s, (g0, g1, beta) in enumerate(((0.0, 1.0, 1.0),
+                                            (0.5, 0.5, 0.5))):
+            args = (inp_u, inp_b, u0, b0, phys.eos, g0, g1, beta * dt,
+                    phys.dxs)
+            uk, bk, _ = stage.mega_stage_v2(*args)
+            up, bp, _ = stage.mega_stage_v2_plain(*args)
+            torch.cuda.synchronize()
+            diff = {"u": change_diff(uk, up, inp_u)}
+            bscale = max(float((interior(bp[c]) - interior(inp_b[c]))
+                               .abs().max()) for c in bp)
+            for c in bp:
+                err = (interior(bk[c]) - interior(bp[c])).abs().max()
+                diff[c] = (None, float(err) / max(bscale, 1e-30))
+            worst = max(v[1] for v in diff.values())
+            tag = f"{label} stage {s + 1}"
+            if not worst <= TAIL_STAGE_TOL:
+                raise AssertionError(f"{tag}: kernel A and its plain version "
+                                     f"apart by {diff} of the change")
+            out[tag] = worst
+            inp_u, inp_b = fill_plain(phys, up, bp)
+        del state, u0, b0, inp_u, inp_b, uk, bk, up, bp
+    print(f"phase 15: mega_stage_v2 agrees with its plain version on "
+          f"field_loop3d and linear_wave_mhd (64 x 32 x 32, both RK2 "
+          f"stages, f64), max |difference| over the stage's max|change| "
+          f"{out} (limit {TAIL_STAGE_TOL})")
+    return out
+
+
+def phase_tail_main(torch, kernels, card):
+    """The Newtonian MHD test decks through the CLI in float32 at their
+    shipped sizes, kernel path and plain path, NCYC_TAIL cycles, exact
+    launch counts: J once a direction a stage on bw, kh2d-mhd and
+    current_sheet; A twice a cycle and B on field_loop3d and
+    linear_wave_mhd; on linear_wave_mhd with LLF, the isothermal gas or
+    a passive scalar only B.  Finite state, div B kept where the initial
+    field put it (at round-off but for the current sheet, whose initial
+    field is not discretely solenoidal), mass to 1e-5, the two paths
+    within SMR_PATH_TOL's tiers of what the plain path changed (each
+    field's change from the initial state); zone-cycles/s of each
+    path."""
+    flux_res = tail_flux_check(torch, card)
+    flux_res["stage_check"] = tail_stage_check(torch, card)
+    out = {}
+    runs = [(name, deck, []) for name, deck in TAIL_DECKS.items()]
+    runs += [(f"linear_wave_mhd {tag}", TAIL_DECKS["linear_wave_mhd"], [ov])
+             for tag, ov in (("llf", "mhd/rsolver=llf"),
+                             ("isothermal", "mhd/eos=isothermal"),
+                             ("scalar", "mhd/nscalars=1"))]
+    from athenak_tpu_torch.main import build
+    for label, deck, extra in runs:
+        extra = ["job/precision=single", *extra]
+        _, phys0, _, _, state0 = build(pin_for(extra, deck), device="cuda")
+        div0 = div_b(torch, phys0, state0["bfc"])[1]
+        init = {"u": state0["u"], **state0["bfc"]}
+        del state0, phys0
+        states, launches = {}, {}
+        for use in ("true", "false"):
+            # the wave tests write their error files in the run directory
+            got, mesh, phys, driver, state, dmass, _ = run_cli(
+                torch, kernels, deck, NCYC_TAIL,
+                extra + [f"mhd/use_kernels={use}"])
+            n = mesh.ncycle
+            ndir = len(phys.dirs)
+            if use == "false":
+                expect = {}
+            elif label in ("field_loop3d", "linear_wave_mhd"):
+                expect = {"mega_stage_v2": 2 * n,
+                          "periodic_fill_cc": 2 * n + 3,
+                          "periodic_fill_fc": 2 * n + 3}
+            elif ndir == 3:
+                expect = {"periodic_fill_cc": 2 * n + 1,
+                          "periodic_fill_fc": 2 * n + 1}
+            else:
+                expect = {"fused_flux_dir": 2 * ndir * n}
+            got = {k: v for k, v in got.items() if v}
+            if got != expect:
+                raise AssertionError(f"{label} use_kernels={use}: launches "
+                                     f"{got}, expected {expect}")
+            if not all(bool(torch.isfinite(v).all()) for v in
+                       [state["u"], *state["bfc"].values()]):
+                raise AssertionError(f"{label} {use}: non-finite state")
+            divb, div, bmax = div_b(torch, phys, state["bfc"])
+            ddiv = float((div - div0).abs().max()) * phys.dxs["x1"] / bmax
+            if ddiv > 1e-5 or (label != "current_sheet" and divb > 1e-5):
+                raise AssertionError(f"{label} {use}: div B {divb:g}, "
+                                     f"changed by {ddiv:g}")
+            if dmass > 1e-5:
+                raise AssertionError(f"{label} {use}: mass drift {dmass:g}")
+            states[use], launches[use] = state, got
+            print(f"phase 15: {label} use_kernels={use}: {n} cycles, "
+                  f"launches {got}, max|div B| dx / max|B| {divb:.3e} "
+                  f"(change {ddiv:.3e}), mass drift {dmass:.3e}, counters "
+                  f"{driver.ecounters}; [{card}] CLI zone-cycles/s "
+                  f"{driver.zcps:.6e} (wall clock, first cycle included)")
+        k, p = states["true"], states["false"]
+        diff = {}
+        for key, a, b in [("u", k["u"], p["u"])] + [
+                (c, k["bfc"][c], p["bfc"][c]) for c in k["bfc"]]:
+            diff[key] = change_diff(a, b, init[key])
+            if not (diff[key][0] > 0.95 and diff[key][1] < SMR_PATH_TOL[1]):
+                raise AssertionError(f"{label}: kernel and plain path apart "
+                                     f"in {key}: {diff[key]}")
+        del states, k, p, state, init
+        rates = {use: [timed_cycles(torch, use, deck, NCYC_TAIL, extra)]
+                 for use in ("true", "false")}
+        print(f"phase 15: [{card}] {label} kernel vs plain path after "
+              f"{NCYC_TAIL} cycles (share within {SMR_PATH_TOL[0]}, max; "
+              f"of the plain path's max|change|) {diff}; zone-cycles/s over "
+              f"{NCYC_TAIL} "
+              f"cycles after a warm-up, kernel path {rates['true']}, plain "
+              f"path {rates['false']} (CUDA events)")
+        out[label] = {"launches": launches["true"], "rates": rates,
+                      "path_diff": diff}
+    return out, flux_res
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
     return {"name": name, "route": "cuda",
@@ -1892,13 +2255,17 @@ def main() -> int:
         z4c = phase("11", phase_z4c_main, torch, kernels, card, z4c_deck)
         flux_res = phase("12", phase_flux_dir, torch, card)
         smr = phase("13", phase_smr_main, torch, kernels, card)
+        hydro = phase("14", phase_hydro_main, torch, kernels, card)
+        tail, tail_flux = phase("15", phase_tail_main, torch, kernels, card)
     print(f"seconds a phase: {seconds}")
 
     def runs(name):
         return {"blast": launches[name], "sr_blast": sr_launches[name],
                 **{k: v["launches"][name] for k, v in turb.items()},
                 **{k: v["launches"][name] for k, v in z4c.items()},
-                **{k: v["launches"][name] for k, v in smr.items()}}
+                **{k: v["launches"][name] for k, v in smr.items()},
+                **{k: v["launches"].get(name, 0) for k, v in hydro.items()},
+                **{k: v["launches"].get(name, 0) for k, v in tail.items()}}
 
     ft, fe = fill_times, fill_errs
     zr = z4c_res["res"]["60^3 ng 2"]
@@ -1965,9 +2332,20 @@ def main() -> int:
                              **{f"{k}_kernel": v["rates"]["true"]
                                 for k, v in smr.items()},
                              **{f"{k}_plain": v["rates"]["false"]
-                                for k, v in smr.items()}},
+                                for k, v in smr.items()},
+                             **{f"{k}_{p}": v["rates"][u]
+                                for k, v in {**hydro, **tail}.items()
+                                for p, u in (("kernel", "true"),
+                                             ("plain", "false"))}},
         "cycle_parts_ms": {k: v["parts"]
-                           for k, v in {**turb, **z4c, **smr}.items()},
+                           for k, v in {**turb, **z4c, **smr,
+                                        **hydro}.items()},
+        "tail_path_diff": {k: v["path_diff"] for k, v in tail.items()},
+        "tail_stage_check": tail_flux["stage_check"],
+        "flux_dir_bw": {"ms": tail_flux["ms"],
+                        "plain_ms": tail_flux["plain_ms"],
+                        "bound_ms": tail_flux["bound"][0],
+                        "max_abs_err": tail_flux["max_abs_err"]},
         "flux_dir_ms": {deck: {d: r["ms"] for d, r in dirs.items()}
                         for deck, dirs in flux_res["by_deck"].items()},
         "flux_dir_plain_ms": {

@@ -12,6 +12,7 @@ these tests do not need).
 """
 
 import os
+import tempfile
 
 import pytest
 
@@ -835,6 +836,93 @@ def test_flux_dir_kernel_ragged_tiles(card, dtype, shape):
                 <= tol * scale, (name, c)
         for g, r in zip(got[1:], ref[1:]):
             assert float((g - r).abs().max()) <= tol * float(r.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 260), (2, 1, 1, 37)])
+def test_flux_dir_kernel_1d(card, dtype, shape):
+    """Kernel J on 1-D rows (n3 = n2 = 1; the bw deck's 260 cells with
+    ghosts, and a ragged pair of rows) along x1: one launch a call,
+    every face within 1e-10 (float64) or 1e-5 (float32) of the channel's
+    scale, wrapped faces included."""
+    from athenak_tpu_torch.ops import flux
+    from athenak_tpu_torch.ops.eos import EOSData
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(9)
+    w, bcc, bfc = _flux_inputs(gen, shape, dt, card)
+    eos = EOSData(dfloor=0.6, pfloor=0.5)
+    tol = 1e-10 if dtype == "float64" else 1e-5
+    n0 = kernels.FLUX_DIR.launches
+    got = flux.fused_flux_dir(w, bcc, bfc["x1"], eos, "x1", 1)
+    assert kernels.FLUX_DIR.launches == n0 + 1
+    ref = flux.flux_dir_plain(w, bcc, bfc["x1"], eos, "x1", 1)
+    for c in range(5):
+        scale = float(ref[0][:, c].abs().max())
+        assert float((got[0][:, c] - ref[0][:, c]).abs().max()) \
+            <= tol * scale, c
+    for g, r in zip(got[1:], ref[1:]):
+        assert float((g - r).abs().max()) <= tol * float(r.abs().max())
+
+
+@pytest.mark.parametrize("extra,expect", [
+    ([], {"mega_stage_v2": 4, "periodic_fill_cc": 7,
+          "periodic_fill_fc": 7}),
+    (["mhd/eos=isothermal"], {"periodic_fill_cc": 5, "periodic_fill_fc": 5}),
+    (["mhd/nscalars=1"], {"periodic_fill_cc": 5, "periodic_fill_fc": 5}),
+    (["mhd/rsolver=llf"], {"periodic_fill_cc": 5, "periodic_fill_fc": 5}),
+    (["mhd/reconstruct=dc"], {"periodic_fill_cc": 5,
+                              "periodic_fill_fc": 5}),
+    (["mesh/nx3=1"], {"fused_flux_dir": 8})])
+def test_mhd_tail_routes(card, extra, expect):
+    """Two float32 cycles of the 3-D MHD linear wave at 16 x 8 x 8 (one
+    periodic block) on the card: kernel A and B on the ideal PLM + HLLD
+    deck; isothermal, scalar, LLF and DC decks take the general path
+    with no A, C, D, E or J launch (kernel D's gate is the JAX
+    package's ``use_pallas``), B filling u and the faces; the 2-D deck
+    takes J twice a stage.  Exact launch counts."""
+    from athenak_tpu_torch.athinput import ParameterInput as Pin
+    from athenak_tpu_torch.main import run
+    path = os.path.join(os.path.dirname(DECK), "..", "tests",
+                        "linear_wave_mhd.athinput")
+    pin = Pin.from_file(path)
+    pin.modify_from_cmdline(["mesh/nx1=16", "mesh/nx2=8", "mesh/nx3=8",
+                             "job/precision=single", "time/nlim=2", *extra])
+    kernels.reset_counts()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            _, _, _, st = run(pin, device="cuda")
+        finally:
+            os.chdir(cwd)
+    got = {k.name: k.launches for k in kernels.ALL if k.launches}
+    assert got == expect
+    assert bool(torch.isfinite(st["u"]).all())
+
+
+@pytest.mark.parametrize("extra,expect", [
+    ([], {"periodic_fill_cc": 5}),
+    (["meshblock/nx1=8", "meshblock/nx2=8", "meshblock/nx3=8"],
+     {"pool_fill": 5}),
+    (["hydro/use_kernels=false"], {}),
+    (["hydro/reconstruct=ppm4", "mesh/nghost=3"], {})])
+def test_hydro_routes(card, extra, expect):
+    """Two float32 cycles of the driven hydro deck at 16^3 on the card:
+    the only kernels are the fills, B on a single block and G on a
+    pool, once at initialisation and once a stage; none with
+    ``hydro/use_kernels=false`` or three ghost cells."""
+    from athenak_tpu_torch.athinput import ParameterInput as Pin
+    from athenak_tpu_torch.main import run
+    path = os.path.join(os.path.dirname(DECK), "..", "hydro",
+                        "turb.athinput")
+    pin = Pin.from_file(path)
+    pin.modify_from_cmdline(["mesh/nx1=16", "mesh/nx2=16", "mesh/nx3=16",
+                             "job/precision=single", "time/nlim=2", *extra])
+    kernels.reset_counts()
+    _, _, _, st = run(pin, device="cuda")
+    got = {k.name: k.launches for k in kernels.ALL if k.launches}
+    assert got == expect
+    assert bool(torch.isfinite(st["u"]).all())
 
 
 def test_flux_dir_kernel_rejects_bad_input(card):

@@ -7,7 +7,9 @@ and stages for each plane the stencil window of its faces along the
 direction (``flux_window``; its cells by ``flux_cell``).  This file
 compiles the header with g++ and checks, for the three directions, at
 the smr deck's 120 blocks of 36^3, the Orszag-Tang deck's 1028^2 plane
-(n3 = 1: x1 and x2 only) and ragged shapes, for several numbers of
+(n3 = 1: x1 and x2 only), the 2-D MHD decks (``kh2d-lecoanet-mhd``
+132^2, ``current_sheet`` 68 x 132), the 1-D ``bw`` row (260 cells with
+ghosts, n3 = n2 = 1: x1 only) and ragged shapes, for several numbers of
 resident blocks:
 
   * every output face (every entry of flux, ey and ez) is computed by
@@ -33,9 +35,11 @@ CSRC = Path(__file__).resolve().parent.parent / "athenak_tpu_torch" / "csrc"
 SMEM_SM = 233472             # bytes of shared memory an SM holds
 SMEM_RESERVED = 1024         # bytes the runtime keeps for each block
 
-# (nmb, n3, n2, n1): the smr deck, the 1028^2 Orszag-Tang block, and
-# ragged shapes (tests/test_torch_cuda.py's among them)
-SHAPES = [(120, 36, 36, 36), (1, 1, 1028, 1028), (2, 12, 10, 14),
+# (nmb, n3, n2, n1): the smr deck, the 1028^2 Orszag-Tang block, the
+# 2-D MHD decks, the 1-D bw row, and ragged shapes
+# (tests/test_torch_cuda.py's among them, its 1-D rows too)
+SHAPES = [(120, 36, 36, 36), (1, 1, 1028, 1028), (1, 1, 132, 132),
+          (1, 1, 68, 132), (1, 1, 1, 260), (2, 1, 1, 37), (2, 12, 10, 14),
           (2, 1, 12, 16), (3, 9, 7, 5), (1, 4, 4, 4), (2, 1, 30, 27),
           (2, 40, 14, 38)]
 SLOTS = [396, 132, 7]        # resident blocks: 3 an SM, 1 an SM, a few
@@ -122,7 +126,9 @@ def _run(exe, dtype, d, shape, slots):
 
 
 def _dirs(shape):
-    return [0, 1, 2] if shape[1] >= 4 else [0, 1]
+    """The directions a block of this shape runs: x2 and x3 only where
+    the axis has cells beyond its ghosts."""
+    return [0] + [1] * (shape[2] >= 4) + [2] * (shape[1] >= 4)
 
 
 CASES = [(dt, d, s) for dt in ("f32", "f64") for s in SHAPES

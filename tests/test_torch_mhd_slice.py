@@ -181,7 +181,11 @@ def test_port_never_imports_jax():
               "turb_driver", "pgen.turb", "z4c.fd", "z4c.z4c",
               "z4c.rhs_core", "ops.z4c_stage", "pgen.z4c_one_puncture",
               "refinement", "physics.mhd_smr", "ops.flux", "prng",
-              "pgen.orszag_tang"):
+              "pgen.orszag_tang", "physics.hydro", "ops.rsolvers",
+              "pgen.shock_tube", "pgen.kh", "pgen.shu_osher",
+              "pgen.errors", "pgen.linear_wave", "pgen.linear_wave_mhd",
+              "pgen.cpaw", "pgen.field_loop", "pgen.current_sheet",
+              "ops.fluid"):
         assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -7,7 +7,9 @@ around each tile the primitives, fluxes and corner EMFs its updates read
 (``prim_range``, ``flux_range``, ``edge_range`` and their k ranges).  The
 header is plain C++ apart from CUDA's function qualifiers; this file
 compiles it with g++ and checks, at the 124^3 blast (128^3 with ghosts),
-the 8 x 62^3 pool (66^3), and the card tests' small shapes, with the
+the 8 x 62^3 pool (66^3), the 64 x 32 x 32 MHD test decks
+(``linear_wave_mhd``, ``cpaw3d``, ``field_loop3d``: 68 x 36 x 36 with
+ghosts) and the card tests' small shapes, with the
 float32 and float64 tiles and for several numbers of resident blocks;
 and the same for kernel E (``csrc/mega_stage_v1.cu``), which takes the
 same cut and ranges, at turb1 (132^3), turb8 (8 x 68^3) and its card
@@ -41,11 +43,11 @@ SMEM_SM = 233472             # bytes of shared memory an SM holds
 SMEM_RESERVED = 1024         # bytes the runtime keeps for each block
 STATIC_SMEM = 256            # bytes of static shared memory, at most
 
-# (nmb, n3, n2, n1) with ghosts: the 124^3 blast, the 8 x 62^3 pool, and
-# tests/test_torch_cuda.py's 20^3 block, 2 x 2 x 1 pool of 13 x 17 x 11
-# interior cells and 12^3 block
-SHAPES = [(1, 128, 128, 128), (8, 66, 66, 66), (1, 24, 24, 24),
-          (4, 15, 21, 17), (1, 12, 12, 12)]
+# (nmb, n3, n2, n1) with ghosts: the 124^3 blast, the 8 x 62^3 pool, the
+# 64 x 32 x 32 MHD test decks, and tests/test_torch_cuda.py's 20^3 block,
+# 2 x 2 x 1 pool of 13 x 17 x 11 interior cells and 12^3 block
+SHAPES = [(1, 128, 128, 128), (8, 66, 66, 66), (1, 36, 36, 68),
+          (1, 24, 24, 24), (4, 15, 21, 17), (1, 12, 12, 12)]
 SLOTS = [264, 132, 7]        # resident blocks: 2 an SM, 1 an SM, a few
 
 HARNESS = r"""

@@ -1,0 +1,180 @@
+"""Shared harness of the deck parity tests of the port (not a test file).
+
+``DeckPair`` runs one athinput deck through both packages on the CPU in
+float64 (JAX runs in float64 in this suite, tests/conftest.py):
+
+  * the JAX package builds the deck, its problem generator makes the
+    initial state, and its ``init_ghosts``, ``dt_from_state``, turbulence
+    forcing and stage run under ``jax.jit`` at XLA's backend
+    optimisation level 0 (the stage compiled once, with the RK
+    coefficients traced), driven by the port driver's dt rule (2x
+    growth, CFL, the stop at tlim) for ``ncyc`` cycles;
+  * the port runs the same deck through ``athenak_tpu_torch.main.run``
+    with ``time/nlim=ncyc`` in a directory of its own.
+
+Each result is kept: the JAX package's initial state, its state after
+initialisation and after the cycles, its time, and the port's objects.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from athenak_tpu import main as jax_main
+from athenak_tpu.athinput import ParameterInput as JaxInput
+from athenak_tpu_torch import main as torch_main
+from athenak_tpu_torch.athinput import ParameterInput
+from athenak_tpu_torch.state import state_to_numpy
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_EXTRA = ["mesh/coalesce=false", "mesh/pencil_pack=false"]
+_HUGE = float(np.finfo(np.float32).max)
+
+
+def deck_text(path: str) -> str:
+    """The text of a deck of ``inputs/`` (path relative to the repo)."""
+    with open(os.path.join(ROOT, path)) as f:
+        return f.read()
+
+
+def jit_o0(fn):
+    """``jax.jit`` at backend optimisation level 0."""
+    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0})
+
+
+def interior(a, ng: int = 2):
+    """The interior cells (faces: the interior and its upper face) of a
+    cell [nmb, nvar, n3, n2, n1] or face [nmb, n3, n2, n1] array; an axis
+    of extent 1 (or 2 for a face axis of a degenerate dimension) is
+    kept whole."""
+    sl = [slice(None)] * a.ndim
+    for ax in range(a.ndim - 3, a.ndim):
+        if a.shape[ax] > 2:
+            sl[ax] = slice(ng, -ng)
+    return a[tuple(sl)]
+
+
+def assert_close(got, ref, tol, label, scale=None):
+    """max |got - ref| <= tol * scale, the scale max |ref| unless given
+    (exact equality for a zero reference)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape, f"{label}: {got.shape} vs {ref.shape}"
+    if scale is None:
+        scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max()) if ref.size else 0.0
+    assert err <= tol * scale, f"{label}: {err:g} of scale {scale:g}"
+
+
+def assert_states_close(got, ref, tol, ng=2, keys=("u", "w")):
+    """u and w (where both have them) and the face field on the
+    interior, each to ``tol`` of its own scale (the face field's: the
+    largest of its three components)."""
+    for k in keys:
+        if k in got and k in ref:
+            assert_close(interior(got[k], ng), interior(ref[k], ng), tol, k)
+    if "bfc" in ref:
+        bmax = max(float(np.abs(v).max()) for v in ref["bfc"].values())
+        for c, v in ref["bfc"].items():
+            assert_close(interior(got["bfc"][c], ng), interior(v, ng), tol,
+                         c, scale=bmax)
+
+
+class DeckPair:
+    """One deck through both packages (see the module docstring)."""
+
+    def __init__(self, text: str, overrides=(), ncyc: int = 3,
+                 rundir=None) -> None:
+        self.text, self.overrides, self.ncyc = text, list(overrides), ncyc
+        self._jax()
+        self._port(rundir)
+
+    def _pins(self):
+        pj, pt = JaxInput.from_string(self.text), \
+            ParameterInput.from_string(self.text)
+        pj.modify_from_cmdline(JAX_EXTRA + self.overrides)
+        pt.modify_from_cmdline(self.overrides)
+        return pj, pt
+
+    def _jax(self) -> None:
+        pj, _ = self._pins()
+        mesh, phys, pgen, driver, st = jax_main.build(pj)
+        self.jax_mesh, self.jax_phys, self.jax_pgen = mesh, phys, pgen
+        self.jax_pin = pj
+        self.jax_init = jax.tree_util.tree_map(np.asarray, st)
+        st = jit_o0(phys.init_ghosts)(st)
+        self.jax_ready = jax.tree_util.tree_map(np.asarray, st)
+        dt_of = jit_o0(phys.dt_from_state)
+        stage = jit_o0(lambda s, sv, g0, g1, bdt: phys.stage_update(
+            s, sv, g0, g1, bdt)[0])
+        force = jit_o0(lambda s, d: phys.pturb.apply(s, d, phys)) \
+            if phys.pturb is not None else None
+        integ, dtype = driver.integrator, st["u"].dtype
+        tlim, cfl = driver.tlim, driver.cfl_no
+        dt = min(cfl * float(dt_of(st)), _HUGE)
+        if dt > tlim:
+            dt = tlim
+        t = 0.0
+        self.jax_dts = [dt]
+        for _ in range(self.ncyc):
+            if force is not None:
+                st = force(st, jnp.asarray(dt, dtype))
+            saved = phys.save_state(st)
+            for s in range(integ.nexp_stages):
+                st = stage(st, saved, *(jnp.asarray(v, dtype) for v in (
+                    integ.gam0[s], integ.gam1[s],
+                    integ.beta[s] * jnp.asarray(dt, dtype))))
+            t += dt
+            dt = min(2.0 * dt, cfl * float(dt_of(st)))
+            if t < tlim and t + dt > tlim:
+                dt = tlim - t
+            self.jax_dts.append(dt)
+        self.jax_time = t
+        self.jax_state = jax.tree_util.tree_map(np.asarray, st)
+
+    def _port(self, rundir) -> None:
+        _, pt = self._pins()
+        pt.modify_from_cmdline([f"time/nlim={self.ncyc}"])
+        self.port_pin = pt
+        cwd = os.getcwd()
+        if rundir is not None:
+            os.makedirs(rundir, exist_ok=True)
+            os.chdir(rundir)
+        try:
+            mesh, phys, pgen, _, st0 = torch_main.build(
+                ParameterInput.from_string(pt.dump()), device="cpu")
+            self.port_init = state_to_numpy(st0)
+            self.port_ready = state_to_numpy(phys.init_ghosts(st0))
+            self.mesh, self.phys, self.driver, st = torch_main.run(
+                pt, device="cpu")
+        finally:
+            os.chdir(cwd)
+        self.state = state_to_numpy(st)
+
+    def jax_final(self, tmpdir):
+        """Run the JAX problem generator's ``final`` on the JAX state in
+        ``tmpdir`` (after the same number of cycles)."""
+        cwd = os.getcwd()
+        os.chdir(tmpdir)
+        try:
+            self.jax_mesh.ncycle = self.ncyc
+            st = jax.tree_util.tree_map(jnp.asarray, self.jax_state)
+            return self.jax_pgen.final(self.jax_pin, self.jax_mesh,
+                                       self.jax_phys, st)
+        finally:
+            os.chdir(cwd)
+
+
+def check_pair(pair: DeckPair, tol=1e-10, ng=2):
+    """The checks every deck takes: the initial state (the problem
+    generator and p2c) to 1e-12, the initialised state (fills and c2p)
+    to 1e-12, the cycles' state and time to ``tol``, the cycle count."""
+    assert pair.mesh.ncycle == pair.ncyc
+    assert_states_close(pair.port_init, pair.jax_init, 1e-12, ng)
+    assert_states_close(pair.port_ready, pair.jax_ready, 1e-12, ng)
+    assert_states_close(pair.state, pair.jax_state, tol, ng)
+    np.testing.assert_allclose(pair.mesh.time, pair.jax_time, rtol=tol)
+    assert np.isfinite(pair.state["u"]).all()
+    assert pair.state["u"].dtype == np.float64
+    return pair
