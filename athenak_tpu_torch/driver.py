@@ -115,6 +115,10 @@ class Driver:
     # walltime + utils/watchdog.cpp)
     wall_limit: Optional[float] = None
     watchdog = None
+    # a run resumed from a restart file keeps the stored dt and skips the
+    # initial-condition outputs (reference: Driver::Initialize res_flag,
+    # driver.cpp:341)
+    res_flag: bool = False
 
     def __init__(self, pin, mesh, phys) -> None:
         self.pin = pin
@@ -183,10 +187,10 @@ class Driver:
 
     # ------------------------------------------------------------------
     def initialize(self, state):
-        """Ghost-zone init + first dt (reference: Driver::Initialize,
-        src/driver/driver.cpp:314-372)."""
+        """Ghost-zone init + first dt, the stored dt kept on a restart
+        (reference: Driver::Initialize, src/driver/driver.cpp:314-372)."""
         state = self.phys.init_ghosts(state)
-        if self.time_evolution != "static":
+        if self.time_evolution != "static" and not self.res_flag:
             dtnew = float(self.phys.dt_from_state(state))
             self.mesh.dt = min(self.cfl_no * dtnew, _HUGE)
             if self.mesh.time < self.tlim and \
@@ -207,7 +211,7 @@ class Driver:
         outputs = outputs or []
         wall0 = _time.perf_counter()
 
-        if outputs:
+        if outputs and not self.res_flag:
             sv = phys.unpack_state(state)
             for out in outputs:
                 out.maybe_write(mesh, sv, force=True)

@@ -10,8 +10,10 @@ Counterpart of ``athenak_tpu/main.py`` (reference: src/main.cpp:61-420):
   -v          validate the input deck and quit
   -t hh:mm:ss wall-time limit
   -w seconds  watchdog hang-abort window
-plus block/par=value overrides.  ``-r`` (restart) and ``-p`` (profile)
-are not ported yet.
+  -r <file>   resume from a restart (.rst) file, the port's or the JAX
+              package's
+plus block/par=value overrides (applied on top of the restart file's
+parameters under ``-r``).  ``-p`` (profile) is not ported yet.
 
 The device comes from ``ATHENAK_DEVICE`` (default ``cuda``) for the CLI,
 or from the ``device=`` argument of ``build``/``run``.  Asking for CUDA
@@ -21,6 +23,7 @@ where there is none raises; the port never falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 
@@ -118,13 +121,47 @@ def run(pin, verbose: bool = False, device=None):
     return mesh, phys, driver, state
 
 
+def run_restart(restart_file, overrides=(), verbose: bool = False,
+                device=None):
+    """Resume a run from a ``.rst`` file (reference restart path:
+    src/main.cpp:250-277; the JAX package's ``run_restart``): rebuild
+    from the stored parameter dump with ``overrides`` on top, replace
+    the problem generator's state with the stored one, keep the stored
+    time, dt and cycle, skip the output intervals already passed and the
+    initial-condition outputs, and run on.  Returns (mesh, phys, driver,
+    state)."""
+    from .athinput import ParameterInput
+    from .outputs import load_restart, make_outputs
+    from .state import state_from_numpy
+
+    params, time, dt, ncycle, rstate = load_restart(restart_file)
+    pin = ParameterInput.from_string(params)
+    pin.modify_from_cmdline(list(overrides))
+    mesh, phys, pgen, driver, _ = build(pin, device=device)
+    state = state_from_numpy(rstate, phys.device, phys.dtype)
+    mesh.time, mesh.dt, mesh.ncycle = time, dt, ncycle
+    driver.res_flag = True
+    outputs = make_outputs(pin, mesh, phys)
+    for out in outputs:
+        p = out.params
+        if p.dt > 0.0:
+            nskip = int(math.floor((time + 1e-12) / p.dt)) + 1
+            p.file_number = nskip
+            p.last_time = nskip * p.dt - p.dt
+    state = driver.initialize(state)
+    state = driver.execute(state, outputs=outputs, verbose=verbose)
+    if hasattr(pgen, "final"):
+        pgen.final(pin, mesh, phys, state)
+    return mesh, phys, driver, state
+
+
 def cli(argv=None):
     """Parse the command line and do what it asks.  Returns the run's
     (mesh, phys, driver, state), or None for the flags that quit early."""
     ap = argparse.ArgumentParser(prog="athenak_tpu_torch")
     ap.add_argument("-i", dest="input", help="input athinput file")
     ap.add_argument("-r", dest="restart", default=None,
-                    help="restart (.rst) file (not ported yet)")
+                    help="restart (.rst) file")
     ap.add_argument("-d", dest="rundir", default=None, help="run directory")
     ap.add_argument("-n", dest="dump_params", action="store_true",
                     help="dump parameters and quit")
@@ -144,9 +181,9 @@ def cli(argv=None):
                     help="block/par=value parameter overrides")
     args = ap.parse_args(argv)
 
-    if args.restart or args.profile_dir:
+    if args.profile_dir:
         raise NotImplementedError(
-            "-r and -p are not ported to athenak_tpu_torch yet")
+            "-p is not ported to athenak_tpu_torch yet")
     if args.show_config:
         dev = resolve_device()
         name = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
@@ -154,32 +191,45 @@ def cli(argv=None):
         print(f"athenak_tpu_torch on torch {torch.__version__}, "
               f"device: {dev} ({name})")
         return None
-    if not args.input:
-        ap.error("an input file is required (-i)")
-    pin = read_deck(args.input, args.overrides)
-    if args.rundir:
-        os.makedirs(args.rundir, exist_ok=True)
-        os.chdir(args.rundir)
-    if args.dump_params:
-        pin.dump(sys.stdout)
-        return None
-    if args.show_mesh or args.validate:
-        from .mesh import Mesh
-        mesh = Mesh(pin)
-        if args.show_mesh:
-            print(f"nmb_total={mesh.nmb_total} "
-                  f"({mesh.nmb_x1}x{mesh.nmb_x2}x{mesh.nmb_x3} root blocks)")
-            for gid in range(mesh.nmb_total):
-                loc = mesh.lloc_eachmb[gid]
-                print(f"  gid={gid} lloc=({loc[0]},{loc[1]},{loc[2]}) "
-                      f"level={int(mesh.mb_lev[gid])}")
-        if args.validate:
-            from .outputs import make_outputs
-            _, phys, _, _, _ = build(pin)
-            make_outputs(pin, mesh, phys)
-            pin.check_unused_parameters()
-            print("validation complete")
-        return None
+    if args.restart:
+        # resolve the file before -d changes the directory
+        restart_path = os.path.abspath(args.restart)
+        if args.rundir:
+            os.makedirs(args.rundir, exist_ok=True)
+            os.chdir(args.rundir)
+
+        def runner():
+            return run_restart(restart_path, args.overrides, verbose=True)
+    else:
+        if not args.input:
+            ap.error("an input file is required (-i)")
+        pin = read_deck(args.input, args.overrides)
+        if args.rundir:
+            os.makedirs(args.rundir, exist_ok=True)
+            os.chdir(args.rundir)
+        if args.dump_params:
+            pin.dump(sys.stdout)
+            return None
+        if args.show_mesh or args.validate:
+            from .mesh import Mesh
+            mesh = Mesh(pin)
+            if args.show_mesh:
+                print(f"nmb_total={mesh.nmb_total} ({mesh.nmb_x1}x"
+                      f"{mesh.nmb_x2}x{mesh.nmb_x3} root blocks)")
+                for gid in range(mesh.nmb_total):
+                    loc = mesh.lloc_eachmb[gid]
+                    print(f"  gid={gid} lloc=({loc[0]},{loc[1]},{loc[2]}) "
+                          f"level={int(mesh.mb_lev[gid])}")
+            if args.validate:
+                from .outputs import make_outputs
+                _, phys, _, _, _ = build(pin)
+                make_outputs(pin, mesh, phys)
+                pin.check_unused_parameters()
+                print("validation complete")
+            return None
+
+        def runner():
+            return run(pin, verbose=True)
 
     from .driver import Driver
     if args.walltime:
@@ -194,7 +244,7 @@ def cli(argv=None):
         wd = WatchDog(args.watchdog)
         Driver.watchdog = wd
     try:
-        result = run(pin, verbose=True)
+        result = runner()
     finally:
         if wd is not None:
             wd.stop()

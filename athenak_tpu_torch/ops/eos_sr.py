@@ -1,18 +1,21 @@
-"""Special-relativistic ideal-gas MHD EOS: c2p, p2c and wave speeds.
+"""Special-relativistic ideal-gas EOS, hydro and MHD: c2p, p2c and wave
+speeds.
 
-Counterpart of the SR MHD parts of ``athenak_tpu/ops/eos_sr.py``
-(reference: src/eos/ideal_c2p_mhd.hpp SR parts, eos.hpp:97-111), on torch
-tensors laid out ``[..., nvar, n3, n2, n1]``.  Conventions:
+Counterpart of ``athenak_tpu/ops/eos_sr.py`` (reference:
+src/eos/ideal_c2p_hyd.hpp:91-243, src/eos/ideal_c2p_mhd.hpp SR parts,
+eos.hpp:81-111), on torch tensors laid out ``[..., nvar, n3, n2, n1]``.
+Conventions:
 
   primitives  w = (rho, u^i, e)   u^i = gamma v^i spatial 4-velocity,
                                   e = internal energy density (fluid frame)
   conserved   u = (D, M_i, tau)   D = rho gamma, tau = E - D
 
-The c2p is the Kastaun, Kalinani & Ciolfi (2021) two-stage bracketed
-root find on mu = 1/(h W), run as a fixed 25-trip Illinois loop with
-masked updates, as in the JAX package.  It has no kernel: the JAX
-package has none for it either.  The SR hydro functions are not ported
-yet.
+The hydro c2p is the Galeazzi et al. (2013) bracketed root find on
+z = gamma v (their eqs. C2-C26), the MHD c2p the Kastaun, Kalinani &
+Ciolfi (2021) two-stage bracketed root find on mu = 1/(h W); each runs
+as a fixed 25-trip Illinois loop with masked updates and frozen
+converged lanes, as in the JAX package.  Neither has a kernel: the JAX
+package has none for them either.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from .eos import EOSData
 
 _MAX_ITER = 25
 _TOL = 1.0e-12
+_VMAX = 0.9999999999995
 
 
 def _tol_for(dtype) -> float:
@@ -31,6 +35,17 @@ def _tol_for(dtype) -> float:
     reference's 1e-12 (ideal_c2p_mhd.hpp) in float64, about 8 ulp in
     float32, where 1e-12 is below machine epsilon."""
     return max(_TOL, float(torch.finfo(dtype).eps) * 8.0)
+
+
+def sr_hydro_sound_speeds(eos: EOSData, d, p, ux, lor):
+    """lambda_+/- for SR hydro (reference: eos.hpp:81-91, DZB eq. 73)."""
+    cs2 = eos.gamma * p / (d + eos.gamma * p / (eos.gamma - 1.0))
+    v2 = 1.0 - 1.0 / (lor * lor)
+    p1 = (ux / lor) * (1.0 - cs2)
+    tmp = torch.sqrt(torch.clamp(
+        cs2 * ((1.0 - v2 * cs2) - p1 * (ux / lor)), min=0.0)) / lor
+    invden = 1.0 / (1.0 - v2 * cs2)
+    return (p1 + tmp) * invden, (p1 - tmp) * invden
 
 
 def sr_mhd_fast_speeds(eos: EOSData, d, p, ux, lor, b_sq):
@@ -46,6 +61,20 @@ def sr_mhd_fast_speeds(eos: EOSData, d, p, ux, lor, b_sq):
         cms * ((1.0 - v2 * cms) - p1 * (ux / lor)), min=0.0)) / lor
     invden = 1.0 / (1.0 - v2 * cms)
     return (p1 + tmp) * invden, (p1 - tmp) * invden
+
+
+def _eq_c22(z, ud, q, r, eos: EOSData):
+    """Master function f(z) of the hydro c2p (reference: EquationC22,
+    ideal_c2p_hyd.hpp:91-101)."""
+    gm1 = eos.gamma - 1.0
+    w = torch.sqrt(1.0 + z * z)
+    wd = ud / w
+    eps = w * q - z * r + (z * z) / (1.0 + w)
+    epsmin = torch.maximum(eos.pfloor / (wd * gm1),
+                           eos.sfloor * wd ** gm1 / gm1)
+    eps = torch.maximum(eps, epsmin)
+    h = 1.0 + eos.gamma * eps
+    return z - r / h
 
 
 def _eq49(mu, b2, rp, r):
@@ -98,6 +127,96 @@ def _illinois(f, zm, zp, fm, fp):
         z = where(done, z, znew)
         done = done | newly
     return z, done
+
+
+def cons_to_prim_sr_hydro(u, eos: EOSData):
+    """SR hydro c2p (reference: SingleC2P_IdealSRHyd,
+    ideal_c2p_hyd.hpp:108-223).  Returns ``(w, u_fixed, counters)``:
+    ``u_fixed`` is ``u`` but where a floor fired or the root find failed,
+    there the conserved state of the floored primitives; the counts cover
+    the whole array, as in the JAX package."""
+    gm1 = eos.gamma - 1.0
+    where = torch.where
+    kmax = 2.0 * _VMAX / (1.0 + _VMAX * _VMAX)
+
+    d = u[..., IDN, :, :, :]
+    mx = u[..., IM1, :, :, :]
+    my = u[..., IM2, :, :, :]
+    mz = u[..., IM3, :, :, :]
+    tau = u[..., IEN, :, :, :]
+
+    dfloor_used = d < eos.dfloor
+    d = torch.clamp(d, min=eos.dfloor)
+    efloor_used0 = tau < eos.pfloor / gm1
+    tau = torch.clamp(tau, min=eos.pfloor / gm1)
+
+    s2 = mx * mx + my * my + mz * mz
+    q = tau / d
+    r = torch.sqrt(s2) / d
+    kk = torch.clamp(r / (1.0 + q), max=kmax)
+
+    zm = 0.5 * kk / torch.sqrt(1.0 - 0.25 * kk * kk)
+    zp = kk / torch.sqrt(torch.clamp(1.0 - kk * kk, min=1.0e-30))
+
+    def f22(z):
+        return _eq_c22(z, d, q, r, eos)
+
+    z, done = _illinois(f22, zm, zp, f22(zm), f22(zp))
+    c2p_failure = ~done
+
+    lor = torch.sqrt(1.0 + z * z)
+    dens = torch.clamp(d / lor, min=eos.dfloor)
+    eps = lor * q - z * r + (z * z) / (1.0 + lor)
+    epsmin = torch.maximum(eos.pfloor / (dens * gm1),
+                           eos.sfloor * dens ** gm1 / gm1)
+    efloor_used = eps <= epsmin
+    eps = torch.maximum(eps, epsmin)
+    h = 1.0 + eos.gamma * eps
+    conv = 1.0 / h
+
+    zero = torch.zeros_like(d)
+    wd = where(c2p_failure, torch.full_like(d, eos.dfloor), dens)
+    we = where(c2p_failure, torch.full_like(d, eos.pfloor / gm1),
+               dens * eps)
+    chans = [wd, where(c2p_failure, zero, conv * (mx / d)),
+             where(c2p_failure, zero, conv * (my / d)),
+             where(c2p_failure, zero, conv * (mz / d)), we]
+    w = torch.stack(chans, dim=-4)
+    if u.shape[-4] > 5:
+        # scalars: concentration = (rho s gamma) / (rho gamma) = u_s / D
+        w = torch.cat([w, u[..., 5:, :, :, :] / d.unsqueeze(-4)], dim=-4)
+
+    # the conserved state of the floored primitives where a floor fired
+    # or the root find failed
+    u_fail = prim_to_cons_sr_hydro(w, eos)
+    fail_b = (c2p_failure | dfloor_used | efloor_used0).unsqueeze(-4)
+    u_fixed = where(fail_b, u_fail, u)
+
+    counters = {
+        "neos_dfloor": dfloor_used.sum(),
+        "neos_efloor": (efloor_used | efloor_used0).sum(),
+        "nc2p_fail": c2p_failure.sum(),
+    }
+    return w, u_fixed, counters
+
+
+def prim_to_cons_sr_hydro(w, eos: EOSData):
+    """SR hydro p2c (reference: SingleP2C_IdealSRHyd,
+    ideal_c2p_hyd.hpp:230-243)."""
+    gam = eos.gamma
+    d = w[..., IDN, :, :, :]
+    ux = w[..., IVX, :, :, :]
+    uy = w[..., IVY, :, :, :]
+    uz = w[..., IVZ, :, :, :]
+    e = w[..., IEN, :, :, :]
+    u0 = torch.sqrt(1.0 + ux * ux + uy * uy + uz * uz)
+    wgas_u0 = (d + gam * e) * u0
+    u = torch.stack([d * u0, wgas_u0 * ux, wgas_u0 * uy, wgas_u0 * uz,
+                     wgas_u0 * u0 - (gam - 1.0) * e - d * u0], dim=-4)
+    if w.shape[-4] > 5:
+        u = torch.cat([u, w[..., 5:, :, :, :] * (d * u0).unsqueeze(-4)],
+                      dim=-4)
+    return u
 
 
 def cons_to_prim_sr_mhd(u, bcc, eos: EOSData):

@@ -1,11 +1,12 @@
 """Stage pieces that the hydro and the MHD stage share.
 
 The face-state floors of the reconstructed primitives, the passive
-scalars' upwind flux and the RK register update
-``gam0*u0 + gam1*u1 - beta_dt*div(F)``, on torch tensors
-``[nmb, nvar, n3, n2, n1]`` (reference: src/hydro/hydro_fluxes.cpp,
-hydro_update.cpp, src/mhd/mhd_fluxes.cpp, mhd_update.cpp and the scalar
-blocks at the end of each Riemann solver).
+scalars' upwind flux, the RK register update
+``gam0*u0 + gam1*u1 - beta_dt*div(F)`` and the faces that first-order
+flux correction replaces, on torch tensors ``[nmb, nvar, n3, n2, n1]``
+(reference: src/hydro/hydro_fluxes.cpp, hydro_update.cpp,
+hydro_fofc.cpp, src/mhd/mhd_fluxes.cpp, mhd_update.cpp, mhd_fofc.cpp
+and the scalar blocks at the end of each Riemann solver).
 """
 
 from __future__ import annotations
@@ -49,3 +50,16 @@ def rk_update(u0, u1, flx, gam0, gam1, beta_dt, dirs):
         d = (torch.roll(f, -1, dims=axis) - f) / dx
         divf = d if divf is None else divf + d
     return gam0 * u0 + gam1 * u1 - beta_dt * divf
+
+
+def fofc_faces(c2p, u0, u1, flx, gam0, gam1, beta_dt, dirs):
+    """The faces of first-order flux correction: a trial RK update, and
+    a cell flagged where ``c2p`` (trial state -> its fixed state) changed
+    it, i.e. a floor fired or the root find failed; a face is corrected
+    where the cell on either side is flagged.  Returns ({direction: face
+    mask [nmb, n3, n2, n1]}, the number of flagged cells)."""
+    utest = rk_update(u0, u1, flx, gam0, gam1, beta_dt, dirs)
+    flag = (c2p(utest) != utest).any(dim=1)
+    masks = {name: flag | torch.roll(flag, 1, dims=axis - 1)
+             for name, axis, _ivx, _dx in dirs}
+    return masks, flag.sum()

@@ -56,12 +56,21 @@ def pallas_physics(phys) -> bool:
             and phys.nscalars == 0 and phys.eos.is_ideal)
 
 
+def no_stage_extras(phys) -> bool:
+    """None of the physics that the JAX stage-kernel gates exclude
+    (``pallas_stage.py:176-181, 564-573``): first-order flux correction
+    and ``<*_srcterms>``; the rest of that list (GR excision, gravity,
+    diffusion) raises in the MHD constructor."""
+    return not phys.use_fofc and phys.srcterms is None
+
+
 def supports_mega_stage(phys, mesh) -> bool:
     """Gate of the Newtonian stage kernels (A here, E in
     ``ops/stage_v1.py``): ``pallas_physics`` without SR, 3-D, one level,
-    two ghost cells (the JAX ``supports_mega_stage``; the physics the
-    port has not ported raises in the MHD constructor)."""
+    two ghost cells, no FOFC and no source terms (the JAX
+    ``supports_mega_stage``)."""
     return (len(phys.dirs) == 3 and not phys.is_sr and pallas_physics(phys)
+            and no_stage_extras(phys)
             and not getattr(mesh, "multilevel", False)
             and mesh.mb_indcs.ng == NG)
 
@@ -69,7 +78,9 @@ def supports_mega_stage(phys, mesh) -> bool:
 def supports_mega_v2(phys, mesh) -> bool:
     """Gate of kernel A: the stage-kernel gate and no turbulence driving,
     whose forcing reads the state's primitives between cycles (the JAX
-    ``supports_mega_v2``)."""
+    ``supports_mega_v2``; the port has neither the problem generators'
+    source-term hook nor user boundary functions, which it also
+    excludes)."""
     return (getattr(phys, "pturb", None) is None
             and supports_mega_stage(phys, mesh))
 

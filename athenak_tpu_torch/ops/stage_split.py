@@ -28,7 +28,8 @@ from .eos import EOSData
 from .fluid import rk_update
 from .rsolvers_mhd import hlld
 from .rsolvers_srmhd import hlle_srmhd, llf_srmhd
-from .stage import NG, check_tensor, dirs3, face_shapes, pallas_physics
+from .stage import (NG, check_tensor, dirs3, face_shapes, no_stage_extras,
+                    pallas_physics)
 
 # solver key -> (its number in csrc/fused_stage.cu, the plain solver)
 SOLVERS = {"hlld": (0, hlld), "sr_hlle": (1, hlle_srmhd),
@@ -43,18 +44,20 @@ def solver_for(phys) -> str:
 def supports_fused_stage(phys, mesh) -> bool:
     """Gate for kernel C: the physics conditions of the JAX
     ``supports_fused_stage`` (``pallas_physics``, 3-D, one level, two
-    ghost cells).  The physics the port has not ported (GR, FOFC, source
-    terms, diffusion, gravity) raises in the MHD constructor.  The TPU
-    tile conditions (``pallas_stage.py:183-187``) have no counterpart:
-    the kernel takes any block of at least 6 cells a side."""
+    ghost cells, no FOFC and no source terms: ``no_stage_extras``).  The
+    TPU tile conditions (``pallas_stage.py:183-187``) have no
+    counterpart: the kernel takes any block of at least 6 cells a side."""
     return (len(phys.dirs) == 3 and pallas_physics(phys)
+            and no_stage_extras(phys)
             and not mesh.multilevel and mesh.mb_indcs.ng == NG)
 
 
 def supports_fused_ct(phys, mesh) -> bool:
     """Gate for kernel D: the JAX ``use_pallas and supports_fused_ct``
     (``athenak_tpu/physics/mhd.py:230-232``), that is ``pallas_physics``,
-    3-D, one level and two ghost cells; GR and resistivity raise in the
+    3-D, one level and two ghost cells.  Like the JAX gate it admits
+    FOFC and source terms: D runs after them on the general path and
+    reads the corrected mass flux.  GR and resistivity raise in the
     constructor."""
     return (len(phys.dirs) == 3 and pallas_physics(phys)
             and not mesh.multilevel and mesh.mb_indcs.ng == NG)

@@ -1,18 +1,27 @@
-"""Outputs: reference-format binary dumps and formatted tables.
+"""Outputs: history sums, reference-format binary dumps, formatted
+tables, restart files and legacy VTK.
 
 Counterpart of ``athenak_tpu/outputs/__init__.py`` (reference:
 src/outputs/ — BaseTypeOutput and the <outputN> factory,
-src/outputs/outputs.cpp:224-260).  Only ``bin`` and ``tab`` are ported
-so far; the other file types raise.
+src/outputs/outputs.cpp:224-260).  ``hst``, ``bin``, ``tab``, ``rst``
+and ``vtk`` are ported; the other file types raise.  Every writer reads
+the state the driver hands it (``phys.unpack_state``: u, w, under MHD
+bfc and bcc, and the turbulence driver's entries) and moves what it
+writes to the host.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
 from typing import List
 
 import numpy as np
 import torch
+
+from ..indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
+from ..state import state_to_numpy
 
 
 class OutputParameters:
@@ -63,6 +72,73 @@ class BaseOutput:
 
     def write(self, mesh, state) -> None:
         raise NotImplementedError
+
+
+class HistoryOutput(BaseOutput):
+    """Volume-weighted history sums, one row a write (reference:
+    src/outputs/history.cpp; the JAX package's ``HistoryOutput``): the
+    header and columns of Athena++ history data, the sums taken in
+    float64 on the host over the interior, each row in
+    ``data_format``.  A problem generator may enroll
+    ``phys.user_hist_func(mesh, state) -> (labels, values)`` for extra
+    columns (reference: pgen user_hist_func, src/pgen/pgen.hpp:55);
+    ``<outputN>/user_hist_only = true`` writes only those, into a
+    ``.user.hst`` file."""
+
+    def __init__(self, pin, mesh, phys, block: str) -> None:
+        super().__init__(pin, mesh, phys, block)
+        self.user_only = pin.get_or_add_boolean(block, "user_hist_only",
+                                                False)
+
+    def write(self, mesh, state) -> None:
+        mbi = mesh.mb_indcs
+        sl = (slice(None), slice(None), slice(mbi.ks, mbi.ke + 1),
+              slice(mbi.js, mbi.je + 1), slice(mbi.is_, mbi.ie + 1))
+        user_fn = getattr(self.phys, "user_hist_func", None)
+        labels, data = [], []
+        if not (self.user_only and user_fn is not None):
+            ua, wa = (state[k][sl].to(device="cpu",
+                                      dtype=torch.float64).numpy()
+                      for k in ("u", "w"))
+            # per-block cell volume (level-dependent on a refined mesh)
+            vol = (np.asarray(mesh.mb_size["dx1"], dtype=np.float64)
+                   * np.asarray(mesh.mb_size["dx2"])
+                   * np.asarray(mesh.mb_size["dx3"]))
+
+            def vsum(q):
+                return float((q.sum(axis=(1, 2, 3)) * vol).sum())
+
+            labels += ["mass", "1-mom", "2-mom", "3-mom"]
+            data += [vsum(ua[:, IDN]), vsum(ua[:, IM1]), vsum(ua[:, IM2]),
+                     vsum(ua[:, IM3])]
+            if self.phys.eos.is_ideal:
+                labels.append("tot-E")
+                data.append(vsum(ua[:, IEN]))
+            for n, lab in ((IVX, "1-KE"), (IVY, "2-KE"), (IVZ, "3-KE")):
+                labels.append(lab)
+                data.append(vsum(0.5 * wa[:, IDN] * wa[:, n] ** 2))
+        if user_fn is not None:
+            ulabels, uvals = user_fn(mesh, state)
+            labels += list(ulabels)
+            data += [float(v) for v in uvals]
+
+        suffix = ".user.hst" if (self.user_only and user_fn is not None) \
+            else ".hst"
+        fname = self.basename + suffix
+        new = not os.path.exists(fname)
+        fmt = self.params.data_format + " "
+        with open(fname, "a") as f:
+            if new:
+                f.write("# Athena++ history data\n")
+                cols = "#  [1]=time      [2]=dt       "
+                for i, lab in enumerate(labels):
+                    cols += f"[{i + 3}]={lab[:10]}    "
+                f.write(cols + "\n")
+            f.write(fmt % mesh.time)
+            f.write(fmt % mesh.dt)
+            for v in data:
+                f.write(fmt % v)
+            f.write("\n")
 
 
 class BinaryOutput(BaseOutput):
@@ -213,7 +289,144 @@ class TabularOutput(BaseOutput):
         return None
 
 
-_TYPES = {"bin": BinaryOutput, "tab": TabularOutput}
+class RestartOutput(BaseOutput):
+    """Checkpoints for ``-r`` (reference: src/outputs/restart.cpp:207-310;
+    the JAX package's ``RestartOutput``): the parameter dump, the time,
+    dt and cycle, and every entry of the state, in the JAX package's npz
+    container under its key names (``params``, ``time``, ``dt``,
+    ``ncycle``, ``tree_leaves`` on a refined mesh, ``treedef``,
+    ``leaf{i}``), so that either package reads the other's files.  The
+    turbulence driver's threefry key is stored as the JAX package's two
+    uint32 words (``state.state_to_numpy``)."""
+
+    def __init__(self, pin, mesh, phys, block: str) -> None:
+        super().__init__(pin, mesh, phys, block)
+        self.pin = pin
+
+    def write(self, mesh, state) -> None:
+        fname = f"{self.basename}.{self.params.file_number:05d}.rst"
+        payload = {
+            "params": np.frombuffer(self.pin.dump().encode(),
+                                    dtype=np.uint8),
+            "time": np.float64(mesh.time),
+            "dt": np.float64(mesh.dt),
+            "ncycle": np.int64(mesh.ncycle),
+        }
+        leaves = getattr(mesh, "leaves", None)
+        if leaves is not None:
+            payload["tree_leaves"] = np.array(
+                [list(leaf) for leaf in leaves], dtype=np.int64)
+        keys, flat = _flatten_state(state_to_numpy(state))
+        payload["treedef"] = np.frombuffer(json.dumps(keys).encode(),
+                                           dtype=np.uint8)
+        payload.update({f"leaf{i}": leaf for i, leaf in enumerate(flat)})
+        with open(fname, "wb") as f:   # the .rst name, no .npz suffix
+            np.savez(f, **payload)
+
+
+def _flatten_state(state):
+    """(keys, leaves) of the state in sorted key order, one level of
+    nesting (bfc) named "bfc/x1f" and so on."""
+    keys, flat = [], []
+    for k in sorted(state):
+        v = state[k]
+        if isinstance(v, dict):
+            for k2 in sorted(v):
+                keys.append(f"{k}/{k2}")
+                flat.append(v[k2])
+        else:
+            keys.append(k)
+            flat.append(v)
+    return keys, flat
+
+
+def unflatten_state(keys, leaves):
+    """Inverse of ``_flatten_state``."""
+    out = {}
+    for k, leaf in zip(keys, leaves):
+        if "/" in k:
+            k1, k2 = k.split("/")
+            out.setdefault(k1, {})[k2] = leaf
+        else:
+            out[k] = leaf
+    return out
+
+
+def load_restart(fname):
+    """A ``.rst`` file (the port's or the JAX package's) ->
+    (params_text, time, dt, ncycle, state of host numpy arrays); the
+    caller moves the state to its device and dtype."""
+    z = np.load(fname)
+    leaves = []
+    while f"leaf{len(leaves)}" in z:
+        leaves.append(np.asarray(z[f"leaf{len(leaves)}"]))
+    state = unflatten_state(json.loads(bytes(z["treedef"]).decode()),
+                            leaves)
+    return (bytes(z["params"]).decode(), float(z["time"]), float(z["dt"]),
+            int(z["ncycle"]), state)
+
+
+class VtkOutput(BaseOutput):
+    """Legacy VTK dumps (STRUCTURED_POINTS, BINARY, big-endian float32)
+    of the whole mesh, readable by VisIt and ParaView (reference:
+    src/outputs/vtk_mesh.cpp:56-160; the JAX package's ``VtkOutput``).
+    Uniform meshes only, like the reference."""
+
+    def __init__(self, pin, mesh, phys, block: str) -> None:
+        super().__init__(pin, mesh, phys, block)
+        if mesh.multilevel:
+            raise NotImplementedError(
+                "vtk output requires a uniform mesh (use bin on SMR)")
+
+    def write(self, mesh, state) -> None:
+        p = self.params
+        kind, labels = BinaryOutput._VARIABLES.get(
+            p.variable, ("w", ["dens", "velx", "vely", "velz", "eint"]))
+        arr = state[kind[0]][:, :5]
+        if kind.endswith("_bcc"):
+            arr = torch.cat([arr, state["bcc"].to(arr.dtype)], dim=1)
+        else:
+            labels = labels[:arr.shape[1]]
+        mbi = mesh.mb_indcs
+        act = arr[:, :, mbi.ks:mbi.ke + 1, mbi.js:mbi.je + 1,
+                  mbi.is_:mbi.ie + 1].to(device="cpu",
+                                         dtype=torch.float32).numpy()
+        # the global grid from the blocks' logical locations
+        n1 = mesh.nmb_x1 * mbi.nx1
+        n2 = mesh.nmb_x2 * mbi.nx2
+        n3 = mesh.nmb_x3 * mbi.nx3
+        g = np.empty((act.shape[1], n3, n2, n1), dtype=np.float32)
+        for gid in range(mesh.nmb_total):
+            l1, l2, l3 = mesh.lloc_eachmb[gid][:3]
+            g[:, l3 * mbi.nx3:(l3 + 1) * mbi.nx3,
+              l2 * mbi.nx2:(l2 + 1) * mbi.nx2,
+              l1 * mbi.nx1:(l1 + 1) * mbi.nx1] = act[gid]
+
+        ms = mesh.mesh_size
+        nc1 = n1 + 1 if n1 > 1 else n1
+        nc2 = n2 + 1 if n2 > 1 else n2
+        nc3 = n3 + 1 if n3 > 1 else n3
+        fname = f"{self.basename}.{p.variable}.{p.file_number:05d}.vtk"
+        with open(fname, "wb") as f:
+            f.write(b"# vtk DataFile Version 2.0\n")
+            f.write((f"# Athena++ data at time= {mesh.time:.15e}"
+                     f"  level= 0  nranks= 1  cycle={mesh.ncycle}"
+                     f"  variables={p.variable}\n").encode())
+            f.write(b"BINARY\nDATASET STRUCTURED_POINTS\n")
+            f.write(f"DIMENSIONS {nc1} {nc2} {nc3}\n".encode())
+            f.write((f"ORIGIN {ms.x1min:.15e} {ms.x2min:.15e} "
+                     f"{ms.x3min:.15e} \n").encode())
+            f.write((f"SPACING {ms.dx1:.15e} {ms.dx2:.15e} "
+                     f"{ms.dx3:.15e} \n").encode())
+            f.write(f"\nCELL_DATA {n1 * n2 * n3}\n".encode())
+            for v, label in enumerate(labels):
+                f.write(f"\nSCALARS {label} float\n".encode())
+                f.write(b"LOOKUP_TABLE default\n")
+                f.write(g[v].astype(">f4").tobytes())
+
+
+_TYPES = {"hst": HistoryOutput, "bin": BinaryOutput, "tab": TabularOutput,
+          "rst": RestartOutput, "vtk": VtkOutput}
 
 
 def make_outputs(pin, mesh, phys) -> List[BaseOutput]:

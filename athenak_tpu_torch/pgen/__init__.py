@@ -12,8 +12,9 @@ and optionally
 selected by <problem>/pgen_name.  The blast wave and driven turbulence
 (hydro and MHD), the shock tubes, Kelvin-Helmholtz, Shu-Osher, the
 linear waves, the Orszag-Tang vortex, the circularly polarised Alfven
-wave, the field loop, the current sheet and the Z4c single puncture are
-ported so far.
+wave, the field loop, the current sheet, Rayleigh-Taylor, the
+Liska-Wendroff implosion, the slotted cylinder, the advection test and
+the Z4c single puncture are ported so far.
 """
 
 from __future__ import annotations
@@ -36,6 +37,12 @@ _REGISTRY = {
     "kh": "athenak_tpu_torch.pgen.kh",
     "current_sheet": "athenak_tpu_torch.pgen.current_sheet",
     "shu_osher": "athenak_tpu_torch.pgen.shu_osher",
+    "rt": "athenak_tpu_torch.pgen.rt",
+    "implode": "athenak_tpu_torch.pgen.lw_implode",
+    "lw_implode": "athenak_tpu_torch.pgen.lw_implode",
+    "slotted_cyl": "athenak_tpu_torch.pgen.slotted_cyl",
+    "slotted_cylinder": "athenak_tpu_torch.pgen.slotted_cyl",
+    "advection": "athenak_tpu_torch.pgen.advection",
 }
 
 

@@ -1,13 +1,13 @@
-"""Newtonian hydrodynamics.
+"""Hydrodynamics, Newtonian or special-relativistic.
 
 Counterpart of ``athenak_tpu/physics/hydro.py`` (reference:
 src/hydro/hydro.hpp:67-158, hydro_tasks.cpp:48-80, hydro_fluxes.cpp,
-hydro_update.cpp, hydro_newdt.cpp).  The task list (copyu -> flux ->
-rkupdate -> sendu/recvu -> bcs -> c2p -> newdt) collapses into
-``stage_update``, one function per RK stage on torch tensors.  The
-conserved ``u`` and the primitive ``w`` are
+hydro_fofc.cpp, hydro_update.cpp, hydro_newdt.cpp).  The task list
+(copyu -> flux -> fofc -> rkupdate -> srcterms -> sendu/recvu -> bcs ->
+c2p -> newdt) collapses into ``stage_update``, one function per RK stage
+on torch tensors.  The conserved ``u`` and the primitive ``w`` are
 ``[nmb, nvar, n3, n2, n1]`` (ghosts included); the primitives store the
-internal energy in the IEN slot.
+internal energy in the IEN slot (under SR: rho, u^i = gamma v^i, e).
 
 The JAX package has no stage kernel for hydro, so the stage runs in
 torch ops on every device.  Only the ghost fills take kernels on the
@@ -18,9 +18,12 @@ sweep fills, for comparison.  On a statically refined mesh the stage
 adds the flux correction after the fluxes (``refinement.flux_correct_cc``)
 and the fills take the mixed-level paths.  Driven turbulence
 (``<turb_driving>``) carries ``turb_force`` in the state; the driver
-applies the forcing once a cycle before the stages.  SR and GR hydro,
-diffusion, first-order flux correction, ``<hydro_srcterms>``, gravity,
-particles and the shearing box are not ported yet and raise.
+applies the forcing once a cycle before the stages.  First-order flux
+correction (``<hydro>/fofc``) replaces the fluxes on the faces of cells
+whose trial update would floor with first-order LLF fluxes, and
+``<hydro_srcterms>`` adds its source terms after the RK update.  GR
+hydro, diffusion, gravity, particles and the shearing box are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -34,8 +37,12 @@ from ..mesh import Mesh
 from ..ops import recon as recon_ops
 from ..ops import rsolvers
 from ..ops.eos import EOSData, cons_to_prim_hydro, prim_to_cons_hydro
-from ..ops.fluid import face_floors, rk_update, scalar_fluxes
+from ..ops.eos_sr import (cons_to_prim_sr_hydro, prim_to_cons_sr_hydro,
+                          sr_hydro_sound_speeds)
+from ..ops.fluid import face_floors, fofc_faces, rk_update, scalar_fluxes
+from ..ops.rsolvers_sr import SR_HYDRO_RSOLVER_FNS, llf_sr
 from ..refinement import flux_correct_cc
+from ..srcterms import SourceTerms
 from ..utils import not_ported
 
 
@@ -53,9 +60,10 @@ class Hydro:
         coord = Coordinates(pin)
         if coord.is_general_relativistic:
             raise not_ported("general-relativistic hydro")
-        if coord.is_special_relativistic:
-            raise not_ported("special-relativistic hydro")
+        self.is_sr = coord.is_special_relativistic
         self.eos = EOSData.from_input(pin, "hydro")
+        if self.is_sr and not self.eos.is_ideal:
+            raise ValueError("relativistic hydro requires the ideal-gas EOS")
         self.nhydro = self.eos.nfluid
         self.nscalars = pin.get_or_add_integer("hydro", "nscalars", 0)
         self.nvar = self.nhydro + self.nscalars
@@ -66,9 +74,17 @@ class Hydro:
             raise ValueError(
                 f"hydro/reconstruct={self.recon_method} unknown")
         self.rsolver = pin.get_or_add_string("hydro", "rsolver", "llf")
-        if self.rsolver not in rsolvers.HYDRO_RSOLVER_FNS:
-            raise ValueError(f"hydro/rsolver={self.rsolver} unknown")
-        self._solve = rsolvers.HYDRO_RSOLVER_FNS[self.rsolver]
+        if self.is_sr:
+            # SR runs map the solver names onto their SR variants
+            # (reference: src/hydro/hydro.cpp:207-230)
+            if self.rsolver not in SR_HYDRO_RSOLVER_FNS:
+                raise ValueError(
+                    f"hydro/rsolver={self.rsolver} not available in SR")
+            self._solve = SR_HYDRO_RSOLVER_FNS[self.rsolver]
+        else:
+            if self.rsolver not in rsolvers.HYDRO_RSOLVER_FNS:
+                raise ValueError(f"hydro/rsolver={self.rsolver} unknown")
+            self._solve = rsolvers.HYDRO_RSOLVER_FNS[self.rsolver]
         ng_need = RECON_NGHOST[self.recon_method]
         if mesh.mb_indcs.ng < ng_need:
             raise ValueError(
@@ -78,10 +94,13 @@ class Hydro:
                     "alpha_spitzer"):
             if pin.does_parameter_exist("hydro", key):
                 raise not_ported(f"diffusion (hydro/{key})")
-        if pin.get_or_add_boolean("hydro", "fofc", False):
-            raise not_ported("first-order flux correction")
-        for block, what in (("hydro_srcterms", "hydro source terms"),
-                            ("shearing_box", "the shearing box"),
+        # first-order flux correction (reference: src/hydro/hydro_fofc.cpp)
+        self.use_fofc = pin.get_or_add_boolean("hydro", "fofc", False)
+        # source terms of the <hydro_srcterms> block (reference:
+        # src/srcterms/srcterms.cpp:37-80)
+        self.srcterms = SourceTerms("hydro_srcterms", pin, mesh, self.eos) \
+            if pin.does_block_exist("hydro_srcterms") else None
+        for block, what in (("shearing_box", "the shearing box"),
                             ("particles", "particles"),
                             ("gravity", "self-gravity")):
             if pin.does_block_exist(block):
@@ -128,9 +147,13 @@ class Hydro:
 
     # ------------------------------------------------------------------ eos
     def cons_to_prim(self, u):
+        if self.is_sr:
+            return cons_to_prim_sr_hydro(u, self.eos)
         return cons_to_prim_hydro(u, self.eos)
 
     def prim_to_cons(self, w):
+        if self.is_sr:
+            return prim_to_cons_sr_hydro(w, self.eos)
         return prim_to_cons_hydro(w, self.eos)
 
     # --------------------------------------------------------------- fluxes
@@ -157,6 +180,25 @@ class Hydro:
         refilled right after."""
         return rk_update(u0, u1, flx, gam0, gam1, beta_dt, self.dirs)
 
+    # ----------------------------------------------------------------- FOFC
+    def _apply_fofc(self, u, u1, w, flx, gam0, gam1, beta_dt):
+        """First-order flux correction (reference: Hydro::FOFC,
+        src/hydro/hydro_fofc.cpp:30-200): a trial update and c2p flag the
+        cells where a floor fired or the root find failed (``u_fixed``
+        differs from the trial state), and the faces on either side of a
+        flagged cell take first-order LLF fluxes from the cell-centred
+        primitives.  Returns (flx, nfofc)."""
+        masks, nfofc = fofc_faces(lambda ut: self.cons_to_prim(ut)[1], u,
+                                  u1, flx, gam0, gam1, beta_dt, self.dirs)
+        first_order = llf_sr if self.is_sr else rsolvers.llf
+        out = dict(flx)
+        for name, axis, ivx, _dx in self.dirs:
+            wl = torch.roll(w, 1, dims=axis)   # cell i-1 at face i
+            f1 = scalar_fluxes(first_order(wl, w, self.eos, ivx), wl, w,
+                               self.nhydro)
+            out[name] = torch.where(masks[name].unsqueeze(1), f1, out[name])
+        return out, nfofc
+
     # ---------------------------------------------------------------- newdt
     def new_dt(self, w):
         """min over the interior of dx / (|v| + c_s) per direction
@@ -169,6 +211,14 @@ class Hydro:
         vx, vy, vz = wa[:, IVX], wa[:, IVY], wa[:, IVZ]
         if self.time_evolution == "kinematic":
             dv = (torch.abs(vx), torch.abs(vy), torch.abs(vz))
+        elif self.is_sr:
+            lor = torch.sqrt(1.0 + vx * vx + vy * vy + vz * vz)
+            p = self.eos.pressure(wa[:, IEN])
+            dv = []
+            for vel in (vx, vy, vz):
+                lp, lm = sr_hydro_sound_speeds(self.eos, wa[:, IDN], p, vel,
+                                               lor)
+                dv.append(torch.maximum(torch.abs(lm), lp))
         else:
             if self.eos.is_ideal:
                 p = self.eos.pressure(wa[:, IEN])
@@ -209,16 +259,28 @@ class Hydro:
         return dict(state, u=u, w=w)
 
     def stage_update(self, state, saved, gam0, gam1, beta_dt):
-        """One RK stage: fluxes -> (flux correction) -> update -> fill ->
-        c2p (reference task chain hydro_tasks.cpp:54-70)."""
-        flx = self.fluxes(state["w"])
+        """One RK stage: fluxes -> (FOFC) -> (flux correction) -> update
+        -> (source terms) -> fill -> c2p (reference task chain
+        hydro_tasks.cpp:54-70); with FOFC the counters carry ``nfofc``."""
+        u, w = state["u"], state["w"]
+        flx = self.fluxes(w)
+        nfofc = None
+        if self.use_fofc:
+            flx, nfofc = self._apply_fofc(u, saved["u1"], w, flx, gam0,
+                                          gam1, beta_dt)
         if self.multilevel:
             flx = flux_correct_cc(flx, self.mesh, [d[0] for d in self.dirs])
-        u = self.rk_update(state["u"], saved["u1"], flx, gam0, gam1,
-                           beta_dt)
+        u = self.rk_update(u, saved["u1"], flx, gam0, gam1, beta_dt)
+        if self.srcterms is not None and self.srcterms.any_enabled:
+            u = self.srcterms.apply(u, w, beta_dt)
         u = self.bvals.fill_ghosts(u)
         w, u, counters = self.cons_to_prim(u)
+        if nfofc is not None:
+            counters = dict(counters, nfofc=nfofc)
         return dict(state, u=u, w=w), counters
 
     def dt_from_state(self, state):
-        return self.new_dt(state["w"])
+        dt = self.new_dt(state["w"])
+        if self.srcterms is not None and self.srcterms.any_enabled:
+            dt = torch.minimum(dt, self.srcterms.new_dt(state["w"]))
+        return dt

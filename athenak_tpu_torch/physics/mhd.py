@@ -39,6 +39,12 @@ A stage runs one of four paths.  On the card in float32:
     direction).  SR decks keep the SR solver there, never HLLD.
     Isothermal, passive-scalar, LLF/HLLE/advect and PPM/WENO decks take
     the general path throughout, with only the ghost fills' kernels.
+    First-order flux correction (``<mhd>/fofc``) and ``<mhd_srcterms>``
+    close the stage kernels A, C and E, as in the JAX package: such a
+    deck takes the general path, with kernel J's fluxes and kernel D's
+    CT where their gates admit it.  FOFC replaces the fluxes and face
+    EMFs of the faces of flagged cells before the corner EMFs, so D
+    reads the corrected mass flux.
 
 Everywhere else (the CPU, float64) the general path runs throughout.
 On a statically refined mesh the general path adds the JAX package's
@@ -47,7 +53,8 @@ three multilevel steps: the flux correction after the fluxes
 EMFs (``mhd_smr.emf_correct``) and the mixed-level fills; the cell sizes
 are per block, [nmb, 1, 1, 1(, 1)] tensors on the run's device.
 The deck option ``<mhd>/use_kernels = false`` keeps a run on the general
-path and the sweep fills, for comparison.  GR MHD is not ported yet.
+path and the sweep fills, for comparison.  GR MHD, diffusion, gravity,
+particles and the shearing box are not ported yet and raise.
 A driven run (``<turb_driving>``) carries ``turb_force`` in its state;
 the driver applies the forcing once a cycle before the stages.
 """
@@ -65,10 +72,11 @@ from ..mesh import Mesh
 from ..ops import recon as recon_ops
 from ..ops import rsolvers_mhd
 from ..ops.eos import EOSData, cons_to_prim_mhd, prim_to_cons_mhd
-from ..ops.fluid import face_floors, rk_update, scalar_fluxes
+from ..ops.fluid import face_floors, fofc_faces, rk_update, scalar_fluxes
 from ..ops.eos_sr import (cons_to_prim_sr_mhd, prim_to_cons_sr_mhd,
                           sr_mhd_fast_speeds)
-from ..ops.rsolvers_srmhd import SR_MHD_RSOLVER_FNS
+from ..ops.rsolvers_srmhd import SR_MHD_RSOLVER_FNS, llf_srmhd
+from ..srcterms import SourceTerms
 from ..utils import not_ported
 
 # axes of the 4-D [nmb, n3, n2, n1] EMF / face arrays
@@ -271,10 +279,12 @@ class MHD:
                     "alpha_aniso", "alpha_spitzer"):
             if pin.does_parameter_exist("mhd", key):
                 raise not_ported(f"diffusion (mhd/{key})")
-        if pin.get_or_add_boolean("mhd", "fofc", False):
-            raise not_ported("first-order flux correction")
-        for block, what in (("mhd_srcterms", "MHD source terms"),
-                            ("shearing_box", "the shearing box"),
+        # first-order flux correction (reference: src/mhd/mhd_fofc.cpp)
+        self.use_fofc = pin.get_or_add_boolean("mhd", "fofc", False)
+        # source terms of the <mhd_srcterms> block
+        self.srcterms = SourceTerms("mhd_srcterms", pin, mesh, self.eos) \
+            if pin.does_block_exist("mhd_srcterms") else None
+        for block, what in (("shearing_box", "the shearing box"),
                             ("particles", "particles"),
                             ("gravity", "self-gravity")):
             if pin.does_block_exist(block):
@@ -381,6 +391,33 @@ class MHD:
 
     def rk_update(self, u0, u1, flx, gam0, gam1, beta_dt):
         return rk_update(u0, u1, flx, gam0, gam1, beta_dt, self.dirs)
+
+    def _apply_fofc(self, u, u1, w, bcc, bfc, flx, emf, gam0, gam1,
+                    beta_dt):
+        """First-order flux correction (reference: MHD::FOFC,
+        src/mhd/mhd_fofc.cpp): the cells whose trial update floors or
+        fails in c2p are flagged as in ``Hydro._apply_fofc``, and the
+        faces on either side of a flagged cell take first-order LLF
+        fluxes and face EMFs (the SR LLF under SR).  Returns
+        (flx, emf, nfofc)."""
+        masks, nfofc = fofc_faces(lambda ut: self.cons_to_prim(ut, bcc)[1],
+                                  u, u1, flx, gam0, gam1, beta_dt, self.dirs)
+        first_order = llf_srmhd if self.is_sr else rsolvers_mhd.llf
+        bface = {"x1": bfc["x1f"][..., :-1],
+                 "x2": bfc["x2f"][..., :-1, :],
+                 "x3": bfc["x3f"][..., :-1, :, :]}
+        out_f, out_e = dict(flx), dict(emf)
+        for name, axis, ivx, _dx in self.dirs:
+            wl = torch.roll(w, 1, dims=axis)   # cell i-1 at face i
+            bl = torch.roll(bcc, 1, dims=axis)
+            f1, ey1, ez1 = first_order(wl, w, bl, bcc, bface[name],
+                                       self.eos, ivx)
+            f1 = scalar_fluxes(f1, wl, w, self.nmhd)
+            fmask = masks[name]
+            out_f[name] = torch.where(fmask.unsqueeze(1), f1, out_f[name])
+            for key, e1 in ((EY_NAME[name], ey1), (EZ_NAME[name], ez1)):
+                out_e[key] = torch.where(fmask, e1, out_e[key])
+        return out_f, out_e, nfofc
 
     def corner_e(self, w, bcc, fden, emf):
         return corner_e(w, bcc, fden, emf, len(self.dirs), is_sr=self.is_sr)
@@ -551,10 +588,17 @@ class MHD:
                 beta_dt, self.dxs, self.stage_solver)
         else:
             flx, emf = self.fluxes(w, bcc, bfc)
+            if self.use_fofc:
+                flx, emf, nfofc = self._apply_fofc(
+                    u, saved["u1"], w, bcc, bfc, flx, emf, gam0, gam1,
+                    beta_dt)
             if self.multilevel:
                 flx = flux_correct_cc(flx, self.mesh,
                                       [d[0] for d in self.dirs])
             u = self.rk_update(u, saved["u1"], flx, gam0, gam1, beta_dt)
+            if self.srcterms is not None and self.srcterms.any_enabled:
+                u = self.srcterms.apply(u, w, beta_dt)
+            # kernel D and corner_e read the corrected mass flux
             fden = {n: flx[n][:, IDN] for n in flx}
         if self.use_fused_ct and on_card:
             # kernel D: corner EMFs + CT (reference: mhd.py:1638-1642,
@@ -576,6 +620,8 @@ class MHD:
         bfc = self.fill_ghosts_fc(bfc)
         bcc = compute_bcc(bfc)
         w, u, counters = self.cons_to_prim(u, bcc)
+        if self.use_fofc:
+            counters = dict(counters, nfofc=nfofc)
         return dict(state, u=u, w=w, bfc=bfc, bcc=bcc), counters
 
     def _stage_v1(self, state, saved, gam0, gam1, beta_dt):
@@ -607,4 +653,7 @@ class MHD:
     def dt_from_state(self, state):
         if "w" not in state:
             state = self.unpack_state(state)
-        return self.new_dt(state["w"], state["bcc"])
+        dt = self.new_dt(state["w"], state["bcc"])
+        if self.srcterms is not None and self.srcterms.any_enabled:
+            dt = torch.minimum(dt, self.srcterms.new_dt(state["w"]))
+        return dt

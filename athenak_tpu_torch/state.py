@@ -17,8 +17,18 @@ import torch
 _KEYS = ("u", "w", "bcc", "turb_force")
 
 
+def _check_keys(d) -> None:
+    extra = set(d) - set(_KEYS) - {"turb_key", "bfc"}
+    if extra:
+        raise KeyError(f"state entries the port does not carry: "
+                       f"{sorted(extra)}")
+
+
 def state_from_numpy(d, device, dtype):
-    """numpy state dict -> tensors on ``device`` at ``dtype``."""
+    """numpy state dict -> tensors on ``device`` at ``dtype``; an entry
+    the port does not carry raises."""
+    _check_keys(d)
+
     def t(a):
         return torch.tensor(np.asarray(a), device=device, dtype=dtype)
 
@@ -32,7 +42,10 @@ def state_from_numpy(d, device, dtype):
 
 
 def state_to_numpy(state):
-    """Tensor state dict -> numpy arrays on the host."""
+    """Tensor state dict -> numpy arrays on the host; an entry the port
+    does not carry raises."""
+    _check_keys(state)
+
     def a(x):
         return x.detach().cpu().numpy()
 

@@ -141,6 +141,36 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      finite, div(B) kept where the initial field put it, the mass to
      1e-5, and the paths within SMR_PATH_TOL's tiers of what the plain
      path changed from the initial state.
+ 16. drives this slice's decks: ``inputs/turb/turb.athinput`` (hydro
+     PLM + HLLC with first-order flux correction, driven, one ``hst``
+     output) as shipped (60^3, float32) and at 128^3 through the CLI for
+     10 cycles, kernel path and plain path (``hydro/use_kernels``): B
+     exactly once at initialisation and once a stage, the two paths
+     bitwise equal in the state and the history file, ``nfofc``
+     printed, zone-cycles/s in turns, and the host ms of the FOFC step,
+     one ``hst`` row and one ``rst`` file; turb60 again with three
+     cells' energy scaled by 1e-12 after initialisation
+     (``TURB_POKES``), both paths: B exactly, ``nfofc`` > 0 and equal,
+     the paths bitwise equal; the 124^3 blast with
+     ``mhd/fofc=true`` and three cells' energy scaled by 1e-12 after
+     initialisation (``FOFC_POKES``): J three times a stage, D once, A
+     never, exact, ``nfofc`` > 0, the paths within SMR_PATH_TOL's tiers
+     of what the plain path changed, zone-cycles/s against the same deck
+     without FOFC (kernel A); restart through ``-r`` on the blast
+     (kernel A) and the turbulence deck (B, forcing, FOFC): 20 cycles
+     straight and 10 + ``-r`` 10 bitwise equal in u (and the face
+     field), the history rows after the restart point equal; kernel J
+     against its plain version on ``rt2d-mhd`` (68 x 196 with ghosts,
+     reflecting x2 walls) in both directions, as initialised and after 5
+     cycles, float32 two-tier and float64 1e-10; and the SR hydro decks
+     (``inputs/srhydro/mb1``-``mb4``, ``blast_srhyd``, ``kh_srhyd1``),
+     ``rt2d``, ``rt2d-mhd`` (also in float32, kernel path, where J runs
+     twice a stage, and plain path, within SMR_PATH_TOL's tiers of what
+     the plain path changed), ``lw_implode`` (``hst`` + ``vtk``),
+     ``slotted_cyl`` and ``advect_hyd`` at their shipped sizes through
+     the CLI for 10 cycles: finite, no c2p failure, exact launches,
+     wall-clock zone-cycles/s, the host ms of the source terms and of
+     one ``vtk`` dump.
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -227,6 +257,34 @@ BW_FIELD = ["problem/bxl=0.75", "problem/byl=1.0", "problem/byr=-1.0"]
 # kernel A against its plain version on the 3-D test decks' states in
 # float64: |difference| over the plain stage's max|change|
 TAIL_STAGE_TOL = 1e-6
+# phase 16: AthenaK's own turbulence deck (hydro, FOFC, one hst output;
+# 60^3 in float32 as shipped, and at 128^3), the 124^3 blast with FOFC
+# and a few cells' energy scaled by 1e-12, restarts, and the SR hydro
+# and source-term decks at their shipped sizes
+TURB60_DECK = os.path.join(ROOT, "inputs", "turb", "turb.athinput")
+TURB128 = ["mesh/nx1=128", "mesh/nx2=128", "mesh/nx3=128"]
+NCYC_SLICE = 10
+FOFC_POKES = ((64, 64, 64), (40, 70, 90), (100, 30, 50))
+# turb60's cells (64^3 with ghosts) whose total energy is scaled by 1e-12
+TURB_POKES = ((32, 32, 32), (20, 35, 45), (50, 15, 25))
+# kernel J against its plain version on rt2d-mhd: a channel's scale is its
+# own max|flux| but at least this share of the direction's largest, so a
+# channel that is zero up to rounding (the x1 mass flux of the seed) is
+# held on the flux values around it
+RT_FLUX_FLOOR = 1e-2
+SLICE_DECKS = {
+    **{name: os.path.join(ROOT, "inputs", "srhydro", f"{name}.athinput")
+       for name in ("mb1", "mb2", "mb3", "mb4", "blast_srhyd",
+                    "kh_srhyd1")},
+    "rt2d": os.path.join(ROOT, "inputs", "hydro", "rt2d.athinput"),
+    "rt2d-mhd": os.path.join(ROOT, "inputs", "mhd", "rt2d-mhd.athinput"),
+    "lw_implode": os.path.join(ROOT, "inputs", "hydro",
+                               "lw_implode.athinput"),
+    "slotted_cyl": os.path.join(ROOT, "inputs", "hydro",
+                                "slotted_cyl.athinput"),
+    "advect_hyd": os.path.join(ROOT, "inputs", "tests",
+                               "advect_hyd.athinput"),
+}
 PUNCTURE = os.path.join(ROOT, "inputs", "z4c", "one_puncture.athinput")
 NCYC_Z4C = 10
 # phase 10's pool: one_puncture.athinput as two blocks of 32^3, nghost 4
@@ -844,8 +902,8 @@ def run_cli(torch, kernels, deck, ncyc, extra=()):
     """Drive ``main.cli`` on ``deck`` for ncyc cycles with the launch
     counts set to 0 just before; returns the counts read just after, the
     run, the relative change of the interior sum of u[IDN] (the deck's
-    ghost depth off every side) and the names of the bin files
-    written."""
+    ghost depth off every side) and the files written (name -> the text
+    of a history file, None for the others)."""
     from athenak_tpu_torch import main as cli_main
     from athenak_tpu_torch.main import build
 
@@ -864,12 +922,17 @@ def run_cli(torch, kernels, deck, ncyc, extra=()):
         finally:
             os.chdir(cwd)
         launches = {k.name: k.launches for k in kernels.ALL}
-        bins = sorted(f for f in os.listdir(tmp) if f.endswith(".bin"))
+        written = {}
+        for f in sorted(os.listdir(tmp)):
+            written[f] = None
+            if f.endswith(".hst"):
+                with open(os.path.join(tmp, f)) as fh:
+                    written[f] = fh.read()
     if mesh.ncycle != ncyc:
         raise AssertionError(f"{mesh.ncycle} cycles run, {ncyc} asked")
     mass = float(interior(state["u"][:, 0], ng).double().sum())
     return (launches, mesh, phys, driver, state, abs(mass - mass0) / mass0,
-            bins)
+            written)
 
 
 def check_state(torch, phys, state, dmass, label) -> float:
@@ -896,8 +959,9 @@ def check_state(torch, phys, state, dmass, label) -> float:
 
 def phase_main(torch, kernels, card):
     """The main path through the CLI, with its checks and timings."""
-    launches, mesh, phys, driver, state, dmass, bins = run_cli(
+    launches, mesh, phys, driver, state, dmass, written = run_cli(
         torch, kernels, DECK, NCYC)
+    bins = [f for f in written if f.endswith(".bin")]
     ncyc = mesh.ncycle
     if launches["mega_stage_v2"] != 2 * ncyc:
         raise AssertionError(f"mega_stage_v2 launched "
@@ -2191,6 +2255,430 @@ def phase_tail_main(torch, kernels, card):
     return out, flux_res
 
 
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """Mean milliseconds per call of fn() on the host clock, the card
+    synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def output_ms(torch, kind, pin, mesh, phys, state, block="output9"):
+    """Host ms of one write of an output of ``kind`` (hst, rst or vtk)
+    of ``state``, into a temporary directory."""
+    from athenak_tpu_torch import outputs
+    pin.set_value(block, "file_type", kind)
+    if kind == "vtk":
+        pin.set_value(block, "variable", "hydro_w")
+    out = outputs.make_outputs(pin, mesh, phys)[-1]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            return host_ms(torch, lambda: out.write(mesh, state))
+        finally:
+            os.chdir(cwd)
+
+
+def slice_turb(torch, kernels, card):
+    """inputs/turb/turb.athinput as shipped (60^3, float32) and at 128^3
+    through the CLI, kernel path and plain path: B on u at
+    initialisation and once a stage exactly, nothing on the plain path,
+    the two paths (state and history file) bitwise equal, nfofc
+    counted; zone-cycles/s of each path in turns; the host ms of the
+    FOFC step, one hst row and one rst file on the 60^3 state."""
+    out, parts = {}, {}
+    for label, extra in (("turb60", []), ("turb128", TURB128)):
+        states, launches, hst = {}, {}, {}
+        for use in ("true", "false"):
+            got, mesh, phys, driver, state, dmass, written = run_cli(
+                torch, kernels, TURB60_DECK, NCYC_SLICE,
+                extra + [f"hydro/use_kernels={use}"])
+            n = mesh.ncycle
+            expect = {"periodic_fill_cc": 2 * n + 1} if use == "true" else {}
+            got = {k: v for k, v in got.items() if v}
+            if got != expect:
+                raise AssertionError(f"{label} use_kernels={use}: launches "
+                                     f"{got}, expected {expect}")
+            if not (phys.use_fofc and "nfofc" in driver.ecounters):
+                raise AssertionError(f"{label}: FOFC did not run")
+            if not all(bool(torch.isfinite(state[k]).all())
+                       for k in ("u", "w")) or dmass > 1e-5:
+                raise AssertionError(f"{label} {use}: non-finite state or "
+                                     f"mass drift {dmass:g}")
+            hst[use] = written.get("Turb.hst")
+            if not hst[use] or len(hst[use].splitlines()) < 4:
+                raise AssertionError(f"{label} {use}: no history rows")
+            mom = check_forcing(torch, phys, state, mesh, label)
+            states[use], launches[use] = state, got
+            print(f"phase 16: {label} use_kernels={use}: {n} cycles, "
+                  f"launches {got}, counters {driver.ecounters} (nfofc "
+                  f"{driver.ecounters['nfofc']}), mass drift {dmass:.3e}, "
+                  f"net momentum after forcing {mom:.3e}, history rows "
+                  f"{len(hst[use].splitlines()) - 2}; [{card}] CLI "
+                  f"zone-cycles/s {driver.zcps:.6e} (wall clock)")
+            if use == "true" and label == "turb60":
+                saved = phys.save_state(state)
+                flx = phys.fluxes(state["w"])
+                parts = {
+                    "fofc_ms": cuda_ms(lambda: phys._apply_fofc(
+                        state["u"], saved["u1"], state["w"], flx, 0.5, 0.5,
+                        0.5 * mesh.dt), 5),
+                    "stage_ms": cuda_ms(lambda: phys.stage_update(
+                        state, saved, 0.5, 0.5, 0.5 * mesh.dt), 5),
+                    "hst_ms": output_ms(torch, "hst", pin_for(
+                        extra, TURB60_DECK), mesh, phys, state),
+                    "rst_ms": output_ms(torch, "rst", pin_for(
+                        extra, TURB60_DECK), mesh, phys, state)}
+        k, p = states["true"], states["false"]
+        for key in ("u", "w"):
+            if not torch.equal(k[key], p[key]):
+                raise AssertionError(f"{label}: kernel and plain path not "
+                                     f"bitwise equal in {key}")
+        if hst["true"] != hst["false"]:
+            raise AssertionError(f"{label}: the paths' history files differ")
+        del states, k, p, state
+        rates = {}
+        for use in ("true", "false", "true", "false"):
+            rates.setdefault(use, []).append(timed_cycles(
+                torch, use, TURB60_DECK, NCYC_SLICE, extra, block="hydro"))
+        print(f"phase 16: [{card}] {label} kernel and plain path bitwise "
+              f"equal (state and hst) after {NCYC_SLICE} cycles; "
+              f"zone-cycles/s kernel path {rates['true']}, plain path "
+              f"{rates['false']} (CUDA events)")
+        out[label] = {"launches": launches["true"], "rates": rates}
+    print(f"phase 16: [{card}] turb60 host ms a call: FOFC step "
+          f"{parts['fofc_ms']:.3f} within a stage of "
+          f"{parts['stage_ms']:.3f}, one hst row {parts['hst_ms']:.3f}, "
+          f"one rst file {parts['rst_ms']:.3f}")
+    return out, parts
+
+
+def poked_run(torch, kernels, use, deck=DECK, block="mhd",
+              pokes=FOFC_POKES, extra=()):
+    """A deck with ``<block>/fofc=true`` (the 124^3 blast unless given),
+    the total energy of the ``pokes`` cells scaled by 1e-12 after
+    initialisation with the primitives left as initialised (the first
+    stage's trial update of those cells then falls below their kinetic
+    or magnetic energy, and the energy floor fires), run NCYC_SLICE
+    cycles with the launch counts set to 0 just before; returns
+    (launches, the poked state, the final state, driver, phys)."""
+    from athenak_tpu_torch.main import build
+    mesh, phys, _, driver, state = build(pin_for(
+        [f"{block}/fofc=true", f"{block}/use_kernels={use}", f"time/nlim="
+         f"{NCYC_SLICE}", *extra], deck), device="cuda")
+    state = driver.initialize(state)
+    u = state["u"].clone()
+    for k, j, i in pokes:
+        u[0, 4, k, j, i] *= 1e-12
+    state = dict(state, u=u)
+    init = {"u": u, **{c: v.clone() for c, v in state.get("bfc",
+                                                           {}).items()}}
+    kernels.reset_counts()
+    state = driver.execute(state)
+    launches = {k.name: k.launches for k in kernels.ALL if k.launches}
+    return launches, init, state, driver, phys
+
+
+def poked_turb(torch, kernels, card):
+    """turb60 with TURB_POKES poked, kernel path and plain path: B once
+    a stage exactly, nfofc > 0 on both, the two paths bitwise equal in
+    u and w; returns (launches, nfofc) of the kernel path."""
+    states, res = {}, {}
+    for use in ("true", "false"):
+        got, _, state, driver, _ = poked_run(
+            torch, kernels, use, TURB60_DECK, "hydro", TURB_POKES)
+        n = driver.mesh.ncycle
+        expect = {"periodic_fill_cc": 2 * n} if use == "true" else {}
+        if got != expect:
+            raise AssertionError(f"poked turb60 use_kernels={use}: launches "
+                                 f"{got}, expected {expect}")
+        nfofc = driver.ecounters.get("nfofc", 0)
+        if not nfofc > 0 or not bool(torch.isfinite(state["u"]).all()):
+            raise AssertionError(f"poked turb60 {use}: nfofc {nfofc}, or a "
+                                 "non-finite state")
+        states[use], res[use] = state, (got, nfofc)
+        print(f"phase 16: poked turb60 use_kernels={use}: {n} cycles, "
+              f"launches {got}, counters {driver.ecounters}")
+    for key in ("u", "w"):
+        if not torch.equal(states["true"][key], states["false"][key]):
+            raise AssertionError(f"poked turb60: kernel and plain path not "
+                                 f"bitwise equal in {key}")
+    if res["true"][1] != res["false"][1]:
+        raise AssertionError(f"poked turb60: nfofc {res['true'][1]} on the "
+                             f"kernel path, {res['false'][1]} on the plain")
+    print(f"phase 16: [{card}] poked turb60: nfofc {res['true'][1]}, kernel "
+          f"and plain path bitwise equal in u and w")
+    return res["true"]
+
+
+def slice_fofc_blast(torch, kernels, card):
+    """The poked FOFC blast, kernel path and plain path: J three times a
+    stage, D once, A never (the FOFC gate), B on u and the faces once a
+    stage, exact; nfofc > 0; finite, div B at round-off, the paths
+    within SMR_PATH_TOL's tiers of what the plain path changed;
+    zone-cycles/s against the same deck without FOFC (kernel A), in
+    turns; the host ms of the FOFC step of a stage."""
+    states, res = {}, {}
+    for use in ("true", "false"):
+        got, init, state, driver, phys = poked_run(torch, kernels, use)
+        n = driver.mesh.ncycle
+        expect = {"fused_flux_dir": 6 * n, "fused_ct3d": 2 * n,
+                  "periodic_fill_cc": 2 * n, "periodic_fill_fc": 2 * n} \
+            if use == "true" else {}
+        if got != expect:
+            raise AssertionError(f"fofc blast use_kernels={use}: launches "
+                                 f"{got}, expected {expect}")
+        if not driver.ecounters.get("nfofc", 0) > 0:
+            raise AssertionError(f"fofc blast {use}: FOFC never fired")
+        divb = check_state(torch, phys, state, 0.0, f"fofc blast {use}")
+        states[use] = state
+        res[use] = {"launches": got, "nfofc": driver.ecounters["nfofc"],
+                    "counters": dict(driver.ecounters),
+                    "zcps_wall": driver.zcps}
+        print(f"phase 16: fofc blast use_kernels={use}: {n} cycles, "
+              f"launches {got}, counters {driver.ecounters}, div(B) "
+              f"{divb:.3e}; [{card}] zone-cycles/s {driver.zcps:.6e} "
+              f"(wall clock)")
+        if use == "true":
+            saved = phys.save_state(state)
+            flx, emf = phys.fluxes(state["w"], state["bcc"], state["bfc"])
+            res["fofc_ms"] = cuda_ms(lambda: phys._apply_fofc(
+                state["u"], saved["u1"], state["w"], state["bcc"],
+                state["bfc"], flx, emf, 0.5, 0.5, 0.5 * driver.mesh.dt), 5)
+    k, p = states["true"], states["false"]
+    diff = {}
+    for key, a, b in [("u", k["u"], p["u"])] + [
+            (c, k["bfc"][c], p["bfc"][c]) for c in k["bfc"]]:
+        diff[key] = change_diff(a, b, init[key])
+        if not (diff[key][0] > 0.95 and diff[key][1] < SMR_PATH_TOL[1]):
+            raise AssertionError(f"fofc blast: kernel and plain path apart "
+                                 f"in {key}: {diff[key]}")
+    del states, k, p, state, init
+    rates = {}
+    for label, extra in (("fofc", ["mhd/fofc=true"]), ("no fofc", []),
+                         ("fofc", ["mhd/fofc=true"]), ("no fofc", [])):
+        rates.setdefault(label, []).append(
+            timed_cycles(torch, "true", DECK, NCYC_SLICE, extra))
+    print(f"phase 16: [{card}] fofc blast kernel vs plain path (share "
+          f"within {SMR_PATH_TOL[0]}, max; of the plain path's max|change|) "
+          f"{diff}; zone-cycles/s with FOFC (J + D) {rates['fofc']}, "
+          f"without (A) {rates['no fofc']} (CUDA events); FOFC step "
+          f"{res['fofc_ms']:.3f} ms")
+    res.update(path_diff=diff, rates=rates)
+    return res
+
+
+def slice_restart(torch, kernels, card):
+    """Restart through -r on the card: the blast (kernel A) and the
+    turbulence deck (B, forcing, FOFC), 2 x NCYC_SLICE cycles straight
+    and as NCYC_SLICE cycles, a .rst, then -r and NCYC_SLICE more: u
+    (and under MHD the face field) bitwise equal, the history rows after
+    the restart point equal."""
+    from athenak_tpu_torch import main as cli_main
+    from athenak_tpu_torch.outputs import load_restart
+    n = NCYC_SLICE
+    out = {}
+    os.environ["ATHENAK_DEVICE"] = "cuda"
+    # a history row every cycle, printed to the last bit of the time
+    rows = ["output1/dcycle=1", "output1/data_format=%.17e"]
+    runs = (("blast", DECK, "Blast", ["output1/file_type=hst", *rows]),
+            ("turb60", TURB60_DECK, "Turb", rows))
+    cwd = os.getcwd()
+    for label, deck, base, extra in runs:
+        common = [*extra, "output9/file_type=rst", f"output9/dcycle={n}"]
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                kernels.reset_counts()
+                *_, s1 = cli_main.cli([
+                    "-i", deck, "-d", os.path.join(tmp, "straight"),
+                    *common, f"time/nlim={2 * n}"])
+                straight_launches = {k.name: k.launches
+                                     for k in kernels.ALL if k.launches}
+                os.chdir(cwd)
+                cli_main.cli(["-i", deck, "-d", os.path.join(tmp, "first"),
+                              *common, f"time/nlim={n}"])
+                os.chdir(cwd)
+                rst = os.path.join(tmp, "first", f"{base}.00001.rst")
+                t_rst = load_restart(rst)[1]
+                kernels.reset_counts()
+                mesh, phys, _, s2 = cli_main.cli([
+                    "-r", rst, "-d", os.path.join(tmp, "first"),
+                    f"time/nlim={2 * n}"])
+                resumed_launches = {k.name: k.launches
+                                    for k in kernels.ALL if k.launches}
+            finally:
+                os.chdir(cwd)
+            rows = []
+            for run in ("straight", "first"):
+                with open(os.path.join(tmp, run, f"{base}.hst")) as f:
+                    rows.append([r for r in f.read().splitlines()[2:]
+                                 if float(r.split()[0]) > t_rst])
+        keys = ["u"] + ([f"bfc/{c}" for c in s1["bfc"]] if "bfc" in s1
+                        else [])
+        for key in keys:
+            a = s1[key] if "/" not in key else s1["bfc"][key[4:]]
+            b = s2[key] if "/" not in key else s2["bfc"][key[4:]]
+            if not torch.equal(a, b):
+                raise AssertionError(f"restart {label}: {key} not bitwise "
+                                     "equal to the straight run")
+        if mesh.ncycle != 2 * n or not rows[0] or rows[0] != rows[1]:
+            raise AssertionError(f"restart {label}: {mesh.ncycle} cycles; "
+                                 f"history rows after the restart differ: "
+                                 f"{rows}")
+        out[label] = {"straight": straight_launches,
+                      "resumed": resumed_launches, "rows": len(rows[0])}
+        print(f"phase 16: restart {label}: {2 * n} cycles straight and "
+              f"{n} + -r {n} bitwise equal in {keys}; {len(rows[0])} "
+              f"history rows after t = {t_rst:.6e} equal; launches "
+              f"straight {straight_launches}, resumed {resumed_launches}")
+    return out
+
+
+def rt2d_flux_check(torch, card):
+    """Kernel J against its plain version on rt2d-mhd (64 x 192, 68 x 196
+    with ghosts; reflecting x2 walls, constant gravity), as initialised
+    and after 5 cycles, in both directions: float32 two-tier of each
+    channel's scale (RT_FLUX_FLOOR), float64 within 1e-10 of it; f32
+    times of the initial state."""
+    from athenak_tpu_torch.ops import flux
+    maxerr, res = 0.0, {}
+    for ncyc in (0, 5):
+        for prec in ("single", "double"):
+            state, phys = deck_state(torch, SLICE_DECKS["rt2d-mhd"], [],
+                                     prec, ncyc)
+            w, bcc, bfc = state["w"], state["bcc"], state["bfc"]
+            for name, _axis, ivx, _dx in phys.dirs:
+                args = (w, bcc, bfc[f"{name}f"], phys.eos, name, ivx)
+                got = flux.fused_flux_dir(*args)
+                ref = flux.flux_dir_plain(*args)
+                torch.cuda.synchronize()
+                pairs = [(got[0][:, c], ref[0][:, c], f"flux {c}")
+                         for c in range(5)]
+                pairs += [(got[1], ref[1], "ey"), (got[2], ref[2], "ez")]
+                top = max(float(faces(r).abs().max()) for _, r, _ in pairs)
+                for g, r, what in pairs:
+                    g, r = faces(g), faces(r)
+                    scale = max(float(r.abs().max()), RT_FLUX_FLOOR * top)
+                    tag = f"rt2d-mhd {ncyc} cycles {prec} {name} {what}"
+                    if prec == "single":
+                        maxerr = max(maxerr, two_tier(g, r, scale, tag))
+                    elif float((g - r).abs().max()) / scale > 1e-10:
+                        raise AssertionError(
+                            f"{tag}: {float((g - r).abs().max())}")
+                if prec == "single" and ncyc == 0:
+                    cells = w[:, 0].numel()
+                    res[name] = {
+                        "ms": cuda_ms(lambda: flux.fused_flux_dir(*args), 50),
+                        "plain_ms": cuda_ms(
+                            lambda: flux.flux_dir_plain(*args), 20),
+                        "bound": bound(15 * cells * w.element_size(),
+                                       OPS_FACE["hlld"] * cells)}
+            del state, w, bcc, bfc, got, ref
+    print(f"phase 16: fused_flux_dir agrees with its plain version on "
+          f"rt2d-mhd (68 x 196 with ghosts; x1 and x2, as initialised and "
+          f"after 5 cycles; f32 two-tier, f64 1e-10); [{card}] " + "; ".join(
+              f"{d} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound'][0]:.6f} by {r['bound'][1]})"
+              for d, r in res.items()))
+    return {"max_abs_err": maxerr, "by_dir": res}
+
+
+def slice_decks(torch, kernels, card):
+    """The SR hydro and source-term decks at their shipped sizes through
+    the CLI for NCYC_SLICE cycles, rt2d-mhd also in float32 on the kernel
+    path and the plain path: finite state, no c2p failure, exact
+    launches (J twice a stage on rt2d-mhd in float32, nothing
+    elsewhere), rt2d-mhd's two float32 paths within SMR_PATH_TOL's tiers
+    of what the plain path changed; wall-clock zone-cycles/s; the host
+    ms of the source terms (rt2d) and of one vtk dump (lw_implode)."""
+    from athenak_tpu_torch.main import build
+    out, parts, f32 = {}, {}, {}
+    runs = [(name, deck, []) for name, deck in SLICE_DECKS.items()]
+    runs += [(f"rt2d-mhd f32 {tag}", SLICE_DECKS["rt2d-mhd"],
+              ["job/precision=single", f"mhd/use_kernels={use}"])
+             for tag, use in (("kernel", "true"), ("plain", "false"))]
+    for label, deck, extra in runs:
+        got, mesh, phys, driver, state, dmass, written = run_cli(
+            torch, kernels, deck, NCYC_SLICE, extra)
+        n = mesh.ncycle
+        expect = {"fused_flux_dir": 4 * n} \
+            if label == "rt2d-mhd f32 kernel" else {}
+        got = {k: v for k, v in got.items() if v}
+        if got != expect:
+            raise AssertionError(f"{label}: launches {got}, expected "
+                                 f"{expect}")
+        if not bool(torch.isfinite(state["u"]).all()) or \
+                driver.ecounters.get("nc2p_fail", 0):
+            raise AssertionError(f"{label}: non-finite state or c2p "
+                                 f"failures {driver.ecounters}")
+        mbi = mesh.mb_indcs
+        out[label] = {"launches": got, "zcps": driver.zcps,
+                      "cells": mesh.nmb_total * mbi.nx1 * mbi.nx2 * mbi.nx3,
+                      "files": sorted(written)}
+        print(f"phase 16: {label} ({mbi.nx1}x{mbi.nx2}x{mbi.nx3}, "
+              f"{state['u'].dtype}): {n} cycles, launches {got}, counters "
+              f"{driver.ecounters}, mass drift {dmass:.3e}, files "
+              f"{sorted(written)}; [{card}] CLI zone-cycles/s "
+              f"{driver.zcps:.6e} (wall clock, first cycle included)")
+        if label.startswith("rt2d-mhd f32"):
+            f32[label] = state
+        if label == "rt2d":
+            w = state["w"]
+            parts["srcterms_ms"] = cuda_ms(lambda: phys.srcterms.apply(
+                state["u"], w, 0.5 * mesh.dt), 20)
+        if label == "lw_implode":
+            parts["vtk_ms"] = output_ms(torch, "vtk", pin_for(
+                extra, deck), mesh, phys, state)
+    state0 = build(pin_for(["job/precision=single"],
+                           SLICE_DECKS["rt2d-mhd"]), device="cuda")[-1]
+    k, p = f32["rt2d-mhd f32 kernel"], f32["rt2d-mhd f32 plain"]
+    diff = {}
+    for key, a, b, a0 in [("u", k["u"], p["u"], state0["u"])] + [
+            (c, k["bfc"][c], p["bfc"][c], state0["bfc"][c])
+            for c in ("x1f", "x2f")]:
+        diff[key] = change_diff(a, b, a0)
+        if not (diff[key][0] > 0.95 and diff[key][1] < SMR_PATH_TOL[1]):
+            raise AssertionError(f"rt2d-mhd f32: kernel and plain path apart "
+                                 f"in {key}: {diff[key]}")
+    parts["rt2d_mhd_path_diff"] = diff
+    print(f"phase 16: [{card}] rt2d-mhd f32 kernel vs plain path after "
+          f"{NCYC_SLICE} cycles (share within {SMR_PATH_TOL[0]}, max; of the "
+          f"plain path's max|change|) {diff}")
+    print(f"phase 16: [{card}] host ms a call: rt2d source terms "
+          f"{parts['srcterms_ms']:.4f}, lw_implode vtk dump "
+          f"{parts['vtk_ms']:.3f}")
+    return out, parts
+
+
+def phase_slice(torch, kernels, card):
+    """Phase 16: this slice's decks (see the module docstring)."""
+    turb, turb_parts = slice_turb(torch, kernels, card)
+    poked, nfofc = poked_turb(torch, kernels, card)
+    fofc = slice_fofc_blast(torch, kernels, card)
+    restart = slice_restart(torch, kernels, card)
+    rt_flux = rt2d_flux_check(torch, card)
+    decks, deck_parts = slice_decks(torch, kernels, card)
+    launches = {**{k: v["launches"] for k, v in turb.items()},
+                "poked turb60": poked,
+                "fofc_blast": fofc["true"]["launches"],
+                **{f"restart {k} {r}": v[r] for k, v in restart.items()
+                   for r in ("straight", "resumed")},
+                **{k: v["launches"] for k, v in decks.items()}}
+    return {"launches": launches,
+            "turb_rates": {k: v["rates"] for k, v in turb.items()},
+            "fofc": {k: fofc[k] for k in ("true", "false", "rates",
+                                          "path_diff", "fofc_ms")},
+            "restart": restart, "turb60_poked_nfofc": nfofc,
+            "flux_dir_rt2d_mhd": rt_flux,
+            "deck_zcps": {k: v["zcps"] for k, v in decks.items()},
+            "parts_ms": {**turb_parts, "fofc_blast_ms": fofc["fofc_ms"],
+                         **deck_parts}}
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
     return {"name": name, "route": "cuda",
@@ -2257,6 +2745,7 @@ def main() -> int:
         smr = phase("13", phase_smr_main, torch, kernels, card)
         hydro = phase("14", phase_hydro_main, torch, kernels, card)
         tail, tail_flux = phase("15", phase_tail_main, torch, kernels, card)
+        slice_ = phase("16", phase_slice, torch, kernels, card)
     print(f"seconds a phase: {seconds}")
 
     def runs(name):
@@ -2265,7 +2754,9 @@ def main() -> int:
                 **{k: v["launches"][name] for k, v in z4c.items()},
                 **{k: v["launches"][name] for k, v in smr.items()},
                 **{k: v["launches"].get(name, 0) for k, v in hydro.items()},
-                **{k: v["launches"].get(name, 0) for k, v in tail.items()}}
+                **{k: v["launches"].get(name, 0) for k, v in tail.items()},
+                **{k: v.get(name, 0)
+                   for k, v in slice_["launches"].items()}}
 
     ft, fe = fill_times, fill_errs
     zr = z4c_res["res"]["60^3 ng 2"]
@@ -2341,6 +2832,10 @@ def main() -> int:
                            for k, v in {**turb, **z4c, **smr,
                                         **hydro}.items()},
         "tail_path_diff": {k: v["path_diff"] for k, v in tail.items()},
+        "slice": {k: slice_[k] for k in ("turb_rates", "fofc", "restart",
+                                         "turb60_poked_nfofc",
+                                         "flux_dir_rt2d_mhd", "deck_zcps",
+                                         "parts_ms")},
         "tail_stage_check": tail_flux["stage_check"],
         "flux_dir_bw": {"ms": tail_flux["ms"],
                         "plain_ms": tail_flux["plain_ms"],

@@ -964,3 +964,67 @@ def test_smr_main_path_kernel_vs_plain(card):
            .clamp(min=1e-30)).double()
     assert float((err < 3e-5).double().mean()) > 0.95
     assert float(err.max()) < 5e-3
+
+
+@pytest.mark.parametrize("extra,expect", [
+    (["mhd/fofc=true"], {"fused_flux_dir": 12, "fused_ct3d": 4,
+                         "periodic_fill_cc": 5, "periodic_fill_fc": 5}),
+    (["mhd_srcterms/const_accel=true", "mhd_srcterms/const_accel_val=-0.1",
+      "mhd_srcterms/const_accel_dir=2"],
+     {"fused_flux_dir": 12, "fused_ct3d": 4, "periodic_fill_cc": 5,
+      "periodic_fill_fc": 5}),
+    (["mhd/fofc=true", "mesh/nx3=1"], {"fused_flux_dir": 8})])
+def test_fofc_and_srcterms_routes(card, extra, expect):
+    """Two float32 cycles of the MHD linear wave at 16 x 8 x 8 on the
+    card with FOFC or a constant acceleration: the stage kernels A, C and
+    E are closed (as in the JAX gates), the general path takes kernel J
+    once a direction a stage and kernel D once a stage, B fills u and
+    the faces; the 2-D deck takes J alone.  Exact launch counts; with
+    a poked cell FOFC fires and D still runs."""
+    from athenak_tpu_torch.athinput import ParameterInput as Pin
+    from athenak_tpu_torch.main import build
+    path = os.path.join(os.path.dirname(DECK), "..", "tests",
+                        "linear_wave_mhd.athinput")
+    pin = Pin.from_file(path)
+    pin.modify_from_cmdline(["mesh/nx1=16", "mesh/nx2=8", "mesh/nx3=8",
+                             "job/precision=single", "time/nlim=2", *extra])
+    kernels.reset_counts()
+    mesh, phys, _, driver, st = build(pin, device="cuda")
+    st = driver.initialize(st)
+    if phys.use_fofc:
+        # one cell's total energy scaled by 1e-12, the primitives left as
+        # initialised: the trial update of that cell falls below its
+        # magnetic energy, and the energy floor fires
+        u = st["u"].clone()
+        u[0, 4, mesh.mb_indcs.ks, 6, 8] *= 1e-12
+        st = dict(st, u=u)
+    st = driver.execute(st)
+    got = {k.name: k.launches for k in kernels.ALL if k.launches}
+    assert got == expect
+    if phys.use_fofc:
+        assert driver.ecounters["nfofc"] > 0
+    assert bool(torch.isfinite(st["u"]).all())
+
+
+def test_turb_deck_launches(card):
+    """``inputs/turb/turb.athinput`` (hydro, FOFC, driven, float32) at
+    16^3 for two cycles: kernel B on u at initialisation and once a
+    stage, nothing else; the history file written."""
+    from athenak_tpu_torch.main import read_deck, run
+    path = os.path.join(os.path.dirname(DECK), "..", "turb",
+                        "turb.athinput")
+    pin = read_deck(path, ["mesh/nx1=16", "mesh/nx2=16", "mesh/nx3=16",
+                           "time/nlim=2"])
+    kernels.reset_counts()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            _, phys, driver, st = run(pin, device="cuda")
+            rows = open("Turb.hst").read().splitlines()
+        finally:
+            os.chdir(cwd)
+    got = {k.name: k.launches for k in kernels.ALL if k.launches}
+    assert got == {"periodic_fill_cc": 5}
+    assert phys.use_fofc and "nfofc" in driver.ecounters and len(rows) == 4
+    assert bool(torch.isfinite(st["u"]).all())

@@ -185,7 +185,9 @@ def test_port_never_imports_jax():
               "pgen.shock_tube", "pgen.kh", "pgen.shu_osher",
               "pgen.errors", "pgen.linear_wave", "pgen.linear_wave_mhd",
               "pgen.cpaw", "pgen.field_loop", "pgen.current_sheet",
-              "ops.fluid"):
+              "ops.fluid", "ops.rsolvers_sr", "srcterms", "units",
+              "pgen.rt", "pgen.lw_implode", "pgen.slotted_cyl",
+              "pgen.advection"):
         assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
