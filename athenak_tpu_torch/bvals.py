@@ -15,8 +15,11 @@ filled) and a face whose neighbour sits on another level takes its
 ghosts by restriction from the finer donors or min-mod prolongation
 from the coarser one (``_ml_override``); a last pass fills the edge and
 corner patches straight from diagonal donors (``_fill_corners``).
-Prolongation in primitive variables
-(``<mesh_refinement>/prolong_primitives``) is not ported yet and raises.
+The prolongation is min-mod, or 4th-order Lagrange where the physics
+sets ``prolong_order = 4`` (Z4c).  With
+``<mesh_refinement>/prolong_primitives`` the physics refills the
+primitives' ghosts after c2p and rebuilds the conserved ghosts from
+them (``prolong_prims_fixup``).
 
 A single fully periodic block takes the fill kernel
 (``ops/fill.py``, kernel B) and a same-level periodic pool of blocks the
@@ -32,8 +35,9 @@ import torch
 
 from .indices import IVX, IVY, IVZ
 from .mesh import Mesh
-from .refinement import (box, donor_columns, mixed_level,
-                         pair_merge, parity, prolong_cc, restrict_cc)
+from .refinement import (box, donor_columns, mixed_level, pair_merge,
+                         parity, prolong_cc_order, prolong_guard,
+                         restrict_cc)
 
 # cell-axis position of each mesh axis in [nmb, nvar, x3, x2, x1] arrays
 _AXIS_OF = {"x1": 4, "x2": 3, "x3": 2}
@@ -63,11 +67,13 @@ class BoundaryValues:
                             (("x1", mbi.nx1), ("x2", mbi.nx2),
                              ("x3", mbi.nx3)) if nx > 1]
         self.multilevel = mesh.multilevel
-        if self.multilevel and mesh.pin.get_or_add_boolean(
-                "mesh_refinement", "prolong_primitives", False):
-            raise NotImplementedError(
-                "mesh_refinement/prolong_primitives is not ported to "
-                "athenak_tpu_torch yet")
+        # mixed-level prolongation order: 2 (min-mod) or 4 (Lagrange, set
+        # by Z4c; reference: prolongation.hpp HighOrderProlongCC)
+        self.prolong_order = 2
+        # <mesh_refinement>/prolong_primitives, set by the physics
+        # constructors (reference: mesh_refinement.cpp:52-69)
+        self.prolong_prims = False
+        self._ghost_mask = {}
         self.nbr = {k: np.asarray(v) for k, v in mesh.nbr_gid.items()}
         self.mask = {k: np.asarray(v) for k, v in mesh.phys_bc_mask.items()}
         self.any_phys = {k: bool(v.any())
@@ -136,6 +142,35 @@ class BoundaryValues:
             self._fill_corners(u)
         return u
 
+    # ------------------------------------------------------------------
+    def ghost_mask(self, device):
+        """[1, 1, n3, n2, n1] bool on ``device``, True in the ghost cells
+        (made once a device)."""
+        key = str(device)
+        if key not in self._ghost_mask:
+            mbi = self.mesh.mb_indcs
+            m = torch.ones((mbi.ncells3, mbi.ncells2, mbi.ncells1),
+                           dtype=torch.bool)
+            sl = [slice(None)] * 3
+            if mbi.nx3 > 1:
+                sl[0] = slice(mbi.ks, mbi.ke + 1)
+            if mbi.nx2 > 1:
+                sl[1] = slice(mbi.js, mbi.je + 1)
+            sl[2] = slice(mbi.is_, mbi.ie + 1)
+            m[tuple(sl)] = False
+            self._ghost_mask[key] = m[None, None].to(device)
+        return self._ghost_mask[key]
+
+    def prolong_prims_fixup(self, u, w, p2c):
+        """Prolongation in primitive variables: refill w's ghosts (so the
+        mixed-level strips are prolonged from donor primitives) and
+        overwrite u's ghost cells with p2c(w) (reference:
+        prolong_prims.cpp ConsToPrimCoarseBndry/PrimToConsFineBndry).
+        Returns (u, w)."""
+        w = self.fill_ghosts(w)
+        return torch.where(self.ghost_mask(u.device), p2c(w), u), w
+
+    # ------------------------------------------------------------------
     def _sweep_axis(self, u, ax: str) -> None:
         ng = self.ng
         axis = _AXIS_OF[ax]
@@ -200,10 +235,11 @@ class BoundaryValues:
             fmask = tables.mask(t["fine_mask"], 5, dev)
             region.copy_(torch.where(fmask, parts[0], region))
 
-        # ---- coarser donor: min-mod prolongation over a per-block
-        # parity-selected window of the donor face
+        # ---- coarser donor: min-mod (or 4th-order Lagrange)
+        # prolongation over a per-block parity-selected window of the
+        # donor face
         if t["any_coarse"]:
-            g = 1  # guard cells of the min-mod stencil
+            g = prolong_guard(self.prolong_order)
             slab = u[_slc(axis, n - ng - h - g, n - ng + g)] if side == "m" \
                 else u[_slc(axis, ng - g, ng + h + g)]
             d = tables.gather(slab, t["coarse"])
@@ -215,7 +251,7 @@ class BoundaryValues:
                 sel = tables.mask(parity(t, a2), 5, dev)
                 d = torch.where(sel, d.narrow(t_axis, s0 + half, ln),
                                 d.narrow(t_axis, s0, ln))
-            pro = prolong_cc(d, cell_axes)
+            pro = prolong_cc_order(d, cell_axes, self.prolong_order)
             wmask = tables.mask(t["coarse_mask"], 5, dev)
             # guard the transverse corner strips: where the diagonal
             # neighbour is same-level or finer, the sweeps already placed

@@ -11,7 +11,11 @@ cycle windows, block coalescing and pencil packing are not ported:
 coalescing repacks a pool into one superblock for the TPU's lane layout,
 so a multi-block deck runs here as a pool of blocks whatever
 ``mesh/coalesce`` says, with the same answer.  A driven run applies its
-turbulence forcing once a cycle, before the stages.
+turbulence forcing once a cycle, before the stages.  On an adaptive mesh
+the AMR step (``amr.AMR``) runs after every cycle; a tree update
+replaces the mesh and the physics, drops the cycle function and takes
+dt on the new tree at once (the finer CFL), and the zone-cycles count
+the blocks each cycle updated.
 """
 
 from __future__ import annotations
@@ -142,6 +146,15 @@ class Driver:
         self.ecounters: Dict[str, int] = {}
         self.nmb_updated = 0
         self._cycle_fn = None
+        # adaptive mesh refinement (reference: MeshRefinement is attached
+        # to the mesh after the physics is built, main.cpp:363-366)
+        self.pamr = None
+        if getattr(mesh, "adaptive", False):
+            from .amr import AMR
+            self.pamr = AMR(pin, mesh)
+            # a pgen-enrolled criterion (reference: pgen user_ref_func)
+            self.pamr.user_ref_func = getattr(phys, "user_refine_func",
+                                              None)
 
     # ------------------------------------------------------------------
     def make_cycle_fn(self) -> Callable:
@@ -243,6 +256,18 @@ class Driver:
                 dt = self.tlim - mesh.time
             mesh.dt = dt
 
+            # adaptive refinement after the cycle (reference:
+            # Driver::Execute, driver.cpp:448)
+            if self.pamr is not None:
+                state, changed = self.pamr.step(self, state, outputs)
+                if changed:
+                    mesh, phys = self.mesh, self.phys
+                    self._cycle_fn = self.make_cycle_fn()
+                    # the finer CFL at once (reference: NewTimeStep after
+                    # RedistAndRefine)
+                    dtnew = float(phys.dt_from_state(state))
+                    mesh.dt = min(mesh.dt, self.cfl_no * dtnew)
+
             if outputs and any(out.due(mesh) for out in outputs):
                 sv = phys.unpack_state(state)
                 for out in outputs:
@@ -252,6 +277,7 @@ class Driver:
             torch.cuda.synchronize(state["u"].device)
         self.wall_seconds = _time.perf_counter() - wall0
         mbi = mesh.mb_indcs
+        # blocks updated x zones a block (nmb_total varies under AMR)
         self.zone_cycles = self.nmb_updated * (mbi.nx1 * mbi.nx2 * mbi.nx3)
         self.zcps = self.zone_cycles / max(self.wall_seconds, 1e-12)
 

@@ -27,6 +27,7 @@ import math
 import os
 import sys
 
+import numpy as np
 import torch
 
 
@@ -87,9 +88,11 @@ def make_physics(pin, mesh, bvals, device, dtype):
     raise ValueError("no <hydro> or <mhd> block in input file")
 
 
-def build(pin, device=None):
+def build(pin, device=None, leaves=None):
     """Mesh -> boundary values -> physics -> pgen -> driver (reference
-    main.cpp order).  Returns (mesh, phys, pgen, driver, state)."""
+    main.cpp order).  ``leaves`` gives the tree of a refined mesh (a
+    restart's evolved tree).  Returns (mesh, phys, pgen, driver,
+    state)."""
     from .bvals import BoundaryValues
     from .driver import Driver
     from .mesh import Mesh
@@ -97,7 +100,7 @@ def build(pin, device=None):
 
     dtype = setup_precision(pin)
     dev = resolve_device(device)
-    mesh = Mesh(pin)
+    mesh = Mesh(pin, leaves=leaves)
     bvals = BoundaryValues(mesh)
     phys = make_physics(pin, mesh, bvals, dev, dtype)
     pgen = get_pgen(pin.get_string("problem", "pgen_name"))
@@ -107,15 +110,16 @@ def build(pin, device=None):
 
 
 def run(pin, verbose: bool = False, device=None):
-    """Full run; returns (mesh, phys, driver, state).  A problem
-    generator with a ``final`` hook (the wave tests' error files) runs it
-    on the final state."""
+    """Full run; returns (mesh, phys, driver, state), the mesh and physics
+    of the final tree under AMR.  A problem generator with a ``final``
+    hook (the wave tests' error files) runs it on the final state."""
     from .outputs import make_outputs
 
     mesh, phys, pgen, driver, state = build(pin, device=device)
-    outputs = make_outputs(pin, mesh, phys)
+    outputs = make_outputs(pin, mesh, phys, driver)
     state = driver.initialize(state)
     state = driver.execute(state, outputs=outputs, verbose=verbose)
+    mesh, phys = driver.mesh, driver.phys
     if hasattr(pgen, "final"):
         pgen.final(pin, mesh, phys, state)
     return mesh, phys, driver, state
@@ -128,20 +132,27 @@ def run_restart(restart_file, overrides=(), verbose: bool = False,
     from the stored parameter dump with ``overrides`` on top, replace
     the problem generator's state with the stored one, keep the stored
     time, dt and cycle, skip the output intervals already passed and the
-    initial-condition outputs, and run on.  Returns (mesh, phys, driver,
-    state)."""
+    initial-condition outputs, and run on.  A refined mesh is rebuilt on
+    the stored tree (``tree_leaves``) and an adaptive run takes back its
+    cycles since the last refinement (``amr_ncyc_since_ref``).  Returns
+    (mesh, phys, driver, state) of the final tree."""
     from .athinput import ParameterInput
     from .outputs import load_restart, make_outputs
     from .state import state_from_numpy
 
-    params, time, dt, ncycle, rstate = load_restart(restart_file)
+    params, time, dt, ncycle, rstate, extras = load_restart(
+        restart_file, with_extras=True)
     pin = ParameterInput.from_string(params)
     pin.modify_from_cmdline(list(overrides))
-    mesh, phys, pgen, driver, _ = build(pin, device=device)
+    mesh, phys, pgen, driver, _ = build(
+        pin, device=device, leaves=extras.get("tree_leaves"))
+    if driver.pamr is not None and "amr_ncyc_since_ref" in extras:
+        driver.pamr.ncyc_since_ref = np.array(extras["amr_ncyc_since_ref"],
+                                              dtype=np.int64)
     state = state_from_numpy(rstate, phys.device, phys.dtype)
     mesh.time, mesh.dt, mesh.ncycle = time, dt, ncycle
     driver.res_flag = True
-    outputs = make_outputs(pin, mesh, phys)
+    outputs = make_outputs(pin, mesh, phys, driver)
     for out in outputs:
         p = out.params
         if p.dt > 0.0:
@@ -150,6 +161,7 @@ def run_restart(restart_file, overrides=(), verbose: bool = False,
             p.last_time = nskip * p.dt - p.dt
     state = driver.initialize(state)
     state = driver.execute(state, outputs=outputs, verbose=verbose)
+    mesh, phys = driver.mesh, driver.phys
     if hasattr(pgen, "final"):
         pgen.final(pin, mesh, phys, state)
     return mesh, phys, driver, state

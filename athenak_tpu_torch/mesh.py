@@ -8,8 +8,11 @@ with numpy.  Blocks are ordered along the Z-order (Morton) curve exactly
 like the reference's tree traversal.  A statically refined mesh
 (``<mesh_refinement>/refinement = static``) builds its leaves and the
 mixed-level donor tables ``ml`` with ``refinement.py``; its blocks carry
-their own extents and cell sizes.  Adaptive refinement is not ported
-yet and raises.
+their own extents and cell sizes.  An adaptive mesh
+(``refinement = adaptive``) starts from the flat root tree in z-order
+(or from ``leaves``, the rebuild constructor of ``amr.py`` and of a
+restart) and takes the same tables; ``amr.AMR`` rebuilds the mesh at
+every tree update.
 """
 
 from __future__ import annotations
@@ -79,9 +82,13 @@ class RegionIndcs:
 
 class Mesh:
     """Global Cartesian mesh decomposed into MeshBlocks: one level, or
-    statically refined."""
+    statically or adaptively refined."""
 
-    def __init__(self, pin: ParameterInput) -> None:
+    def __init__(self, pin: ParameterInput, leaves=None) -> None:
+        """``leaves``: an explicit leaf list [(l1, l2, l3, lev)], the
+        tree of an adaptive run after an update or of a restart file
+        (reference: RedistAndRefineMeshBlocks,
+        src/mesh/mesh_refinement.cpp:427-560, BuildTreeFromRestart)."""
         self.pin = pin
 
         ms = RegionSize(
@@ -159,16 +166,20 @@ class Mesh:
 
         # mesh refinement (reference: build_tree.cpp:62-229)
         self.multilevel = False
+        self.adaptive = False
+        self.amr_pool = False
         ref = "none"
         if pin.does_block_exist("mesh_refinement"):
             ref = pin.get_string("mesh_refinement", "refinement")
-            if ref == "adaptive":
-                raise NotImplementedError(
-                    "adaptive mesh refinement is not ported to "
-                    "athenak_tpu_torch yet")
-            if ref not in ("static", "none"):
+            if ref not in ("adaptive", "static", "none"):
                 raise ValueError(f"mesh_refinement/refinement={ref}")
-        if ref == "static":
+        self.adaptive = ref == "adaptive"
+        # finest allowed level relative to the root (reference:
+        # build_tree.cpp:53 num_levels)
+        self.max_allowed_level = pin.get_or_add_integer(
+            "mesh_refinement", "num_levels", 1) - 1 \
+            if ref in ("adaptive", "static") else 0
+        if ref in ("adaptive", "static"):
             if ng % 2 != 0:
                 raise ValueError("SMR/AMR requires an even nghost")
             for mb, act in ((mbnx1, True), (mbnx2, nx2 > 1),
@@ -180,8 +191,19 @@ class Mesh:
                 raise NotImplementedError(
                     "the shearing box on a refined mesh is not ported to "
                     "athenak_tpu_torch yet")
-            self._build_blocks_ml()
+            self._build_blocks_ml(leaves)
+            # an adaptive mesh takes the uniform route while its tree is
+            # flat; every tree update rebuilds the mesh and decides again
             self.multilevel = self.max_level > 0
+            if self.adaptive:
+                # the JAX package's block pool (amr_pool.py) also puts a
+                # flat adaptive tree on the mixed-level route; the port
+                # keeps that route choice (its padding stays out)
+                from .amr_pool import supports_pool
+                self.amr_pool = pin.get_or_add_boolean(
+                    "mesh_refinement", "block_pool", supports_pool(pin))
+                if self.amr_pool:
+                    self.multilevel = True
         else:
             self._build_blocks()
             self.mb_lev = np.zeros(self.nmb_total, dtype=np.int64)
@@ -263,10 +285,11 @@ class Mesh:
                 self.phys_bc_mask[key] = mask
 
     # ------------------------------------------------------------------
-    def _build_blocks_ml(self) -> None:
+    def _build_blocks_ml(self, leaves=None) -> None:
         """Refined tree: leaves, per-block (level-dependent) extents and
         cell sizes, and the mixed-level donor tables (reference:
-        build_tree.cpp:62-229 + the bvals neighbour enumeration)."""
+        build_tree.cpp:62-229 + the bvals neighbour enumeration).
+        ``leaves`` overrides the tree construction."""
         from .refinement import build_ml_tables, build_static_tree
 
         ms = self.mesh_size
@@ -276,7 +299,21 @@ class Mesh:
         nrbx = (self.nmb_x1, self.nmb_x2, self.nmb_x3)
         domain = (ms.x1min, ms.x1max, ms.x2min, ms.x2max,
                   ms.x3min, ms.x3max)
-        leaves = build_static_tree(pin, nrbx, active, domain)
+        self.tree_active = active
+        self.tree_nrbx = nrbx
+        if leaves is None:
+            if self.adaptive and not any(b.startswith("refined_region")
+                                         for b in pin.blocks):
+                # an adaptive run may start from the flat root tree
+                locs = [(l1, l2, l3)
+                        for l3 in range(nrbx[2]) for l2 in range(nrbx[1])
+                        for l1 in range(nrbx[0])]
+                nbits = max(1, (max(nrbx) - 1).bit_length())
+                locs.sort(key=lambda t: _interleave_bits3(*t, nbits))
+                leaves = [(l1, l2, l3, 0) for (l1, l2, l3) in locs]
+            else:
+                leaves = build_static_tree(pin, nrbx, active, domain)
+        leaves = [tuple(int(v) for v in leaf) for leaf in leaves]
         self.leaves = list(leaves)
         self.nmb_total = len(leaves)
         self.lloc_eachmb = np.array([[l1, l2, l3] for l1, l2, l3, _ in

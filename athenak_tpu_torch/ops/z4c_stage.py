@@ -42,12 +42,13 @@ _PRM_NAMES = (
     "shift_eta", "shift_alpha2ggamma", "shift_hh")
 
 
-def supports_z4c_stage(mesh) -> bool:
-    """3-D meshes (single block or pool; ``Z4c`` refuses refined ones);
-    the float32 and on-the-card part of the gate lives at the call
-    site."""
+def supports_z4c_stage(z, mesh) -> bool:
+    """3-D meshes of one level, a single block or a pool (the JAX gate,
+    ``pallas_z4c.py:342-346``: the kernel takes one inverse spacing for
+    all blocks, and the blocks of a refined mesh have their own); the
+    float32 and on-the-card part of the gate lives at the call site."""
     mbi = mesh.mb_indcs
-    return mbi.nx2 > 1 and mbi.nx3 > 1
+    return mbi.nx2 > 1 and mbi.nx3 > 1 and not z.multilevel
 
 
 def fold_bc_supported(bvals) -> bool:

@@ -46,10 +46,15 @@ class OutputParameters:
 
 
 class BaseOutput:
+    """An output block.  ``write`` takes the current mesh; ``phys`` is
+    the current tree's (an AMR rebuild re-points it) and ``driver`` the
+    run's."""
+
     def __init__(self, pin, mesh, phys, block: str) -> None:
         self.params = OutputParameters(pin, block)
         self.basename = pin.get_string("job", "basename")
         self.phys = phys
+        self.driver = None
 
     def due(self, mesh) -> bool:
         p = self.params
@@ -294,8 +299,9 @@ class RestartOutput(BaseOutput):
     the JAX package's ``RestartOutput``): the parameter dump, the time,
     dt and cycle, and every entry of the state, in the JAX package's npz
     container under its key names (``params``, ``time``, ``dt``,
-    ``ncycle``, ``tree_leaves`` on a refined mesh, ``treedef``,
-    ``leaf{i}``), so that either package reads the other's files.  The
+    ``ncycle``, ``tree_leaves`` on a refined mesh, ``amr_ncyc_since_ref``
+    on an adaptive one, ``treedef``, ``leaf{i}``), so that either package
+    reads the other's files.  The
     turbulence driver's threefry key is stored as the JAX package's two
     uint32 words (``state.state_to_numpy``)."""
 
@@ -316,6 +322,10 @@ class RestartOutput(BaseOutput):
         if leaves is not None:
             payload["tree_leaves"] = np.array(
                 [list(leaf) for leaf in leaves], dtype=np.int64)
+        pamr = getattr(self.driver, "pamr", None)
+        if pamr is not None:
+            payload["amr_ncyc_since_ref"] = np.asarray(
+                pamr.ncyc_since_ref, dtype=np.int64)
         keys, flat = _flatten_state(state_to_numpy(state))
         payload["treedef"] = np.frombuffer(json.dumps(keys).encode(),
                                            dtype=np.uint8)
@@ -352,18 +362,30 @@ def unflatten_state(keys, leaves):
     return out
 
 
-def load_restart(fname):
+def load_restart(fname, with_extras: bool = False):
     """A ``.rst`` file (the port's or the JAX package's) ->
-    (params_text, time, dt, ncycle, state of host numpy arrays); the
-    caller moves the state to its device and dtype."""
+    (params_text, time, dt, ncycle, state of host numpy arrays
+    [, extras]); the caller moves the state to its device and dtype.
+    ``extras`` holds the evolved tree (``tree_leaves``, a list of
+    (l1, l2, l3, lev)) and the AMR bookkeeping (``amr_ncyc_since_ref``)
+    where the file has them."""
     z = np.load(fname)
     leaves = []
     while f"leaf{len(leaves)}" in z:
         leaves.append(np.asarray(z[f"leaf{len(leaves)}"]))
     state = unflatten_state(json.loads(bytes(z["treedef"]).decode()),
                             leaves)
-    return (bytes(z["params"]).decode(), float(z["time"]), float(z["dt"]),
-            int(z["ncycle"]), state)
+    out = (bytes(z["params"]).decode(), float(z["time"]), float(z["dt"]),
+           int(z["ncycle"]), state)
+    if not with_extras:
+        return out
+    extras = {}
+    if "tree_leaves" in z:
+        extras["tree_leaves"] = [tuple(int(x) for x in row)
+                                 for row in z["tree_leaves"]]
+    if "amr_ncyc_since_ref" in z:
+        extras["amr_ncyc_since_ref"] = np.asarray(z["amr_ncyc_since_ref"])
+    return out + (extras,)
 
 
 class VtkOutput(BaseOutput):
@@ -429,7 +451,7 @@ _TYPES = {"hst": HistoryOutput, "bin": BinaryOutput, "tab": TabularOutput,
           "rst": RestartOutput, "vtk": VtkOutput}
 
 
-def make_outputs(pin, mesh, phys) -> List[BaseOutput]:
+def make_outputs(pin, mesh, phys, driver=None) -> List[BaseOutput]:
     outs: List[BaseOutput] = []
     for block in list(pin.blocks):
         if re.match(r"^output\d+$", block):
@@ -440,4 +462,5 @@ def make_outputs(pin, mesh, phys) -> List[BaseOutput]:
                     f"<{block}>/file_type = '{ftype}' is not ported to "
                     f"athenak_tpu_torch yet (ported: {sorted(_TYPES)})")
             outs.append(cls(pin, mesh, phys, block))
+            outs[-1].driver = driver
     return outs

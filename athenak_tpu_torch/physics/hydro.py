@@ -14,9 +14,12 @@ torch ops on every device.  Only the ghost fills take kernels on the
 card in float32: kernel B on a single fully periodic 3-D block with two
 ghost cells, kernel G on a same-level periodic pool (the fills of
 ``bvals.py``).  ``<hydro>/use_kernels = false`` keeps a run on the
-sweep fills, for comparison.  On a statically refined mesh the stage
-adds the flux correction after the fluxes (``refinement.flux_correct_cc``)
-and the fills take the mixed-level paths.  Driven turbulence
+sweep fills, for comparison.  On a refined mesh (static, or adaptive
+once refined) the stage adds the flux correction after the fluxes
+(``refinement.flux_correct_cc``) and the fills take the mixed-level
+paths; with ``<mesh_refinement>/prolong_primitives`` the ghosts are
+prolonged in primitive variables after every c2p
+(``bvals.prolong_prims_fixup``).  Driven turbulence
 (``<turb_driving>``) carries ``turb_force`` in the state; the driver
 applies the forcing once a cycle before the stages.  First-order flux
 correction (``<hydro>/fofc``) replaces the fluxes on the faces of cells
@@ -112,6 +115,9 @@ class Hydro:
         # the cell size: a scalar on one level, per block on a refined
         # mesh ([nmb, 1, 1, 1] for new_dt, one more axis in dirs)
         self.multilevel = mesh.multilevel
+        if self.multilevel:
+            bvals.prolong_prims = pin.get_or_add_boolean(
+                "mesh_refinement", "prolong_primitives", False)
         ms = mesh.mesh_size
         if self.multilevel:
             self.dxs = {n: torch.as_tensor(
@@ -256,6 +262,8 @@ class Hydro:
     def init_ghosts(self, state):
         u = self.bvals.fill_ghosts(state["u"])
         w, u, _ = self.cons_to_prim(u)
+        if self.bvals.prolong_prims:
+            u, w = self.bvals.prolong_prims_fixup(u, w, self.prim_to_cons)
         return dict(state, u=u, w=w)
 
     def stage_update(self, state, saved, gam0, gam1, beta_dt):
@@ -275,6 +283,8 @@ class Hydro:
             u = self.srcterms.apply(u, w, beta_dt)
         u = self.bvals.fill_ghosts(u)
         w, u, counters = self.cons_to_prim(u)
+        if self.bvals.prolong_prims:
+            u, w = self.bvals.prolong_prims_fixup(u, w, self.prim_to_cons)
         if nfofc is not None:
             counters = dict(counters, nfofc=nfofc)
         return dict(state, u=u, w=w), counters

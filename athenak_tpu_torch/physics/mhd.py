@@ -51,7 +51,11 @@ On a statically refined mesh the general path adds the JAX package's
 three multilevel steps: the flux correction after the fluxes
 (``refinement.flux_correct_cc``), the EMF correction after the corner
 EMFs (``mhd_smr.emf_correct``) and the mixed-level fills; the cell sizes
-are per block, [nmb, 1, 1, 1(, 1)] tensors on the run's device.
+are per block, [nmb, 1, 1, 1(, 1)] tensors on the run's device, and
+``<mesh_refinement>/prolong_primitives`` prolongs the ghosts in primitive
+variables after every c2p (``bvals.prolong_prims_fixup``).  An adaptive
+mesh (``amr.py``) rebuilds the physics at every tree update, so these
+routes follow the tree.
 The deck option ``<mhd>/use_kernels = false`` keeps a run on the general
 path and the sweep fills, for comparison.  GR MHD, diffusion, gravity,
 particles and the shearing box are not ported yet and raise.
@@ -292,6 +296,9 @@ class MHD:
 
         mbi = mesh.mb_indcs
         self.multilevel = mesh.multilevel
+        if self.multilevel:
+            bvals.prolong_prims = pin.get_or_add_boolean(
+                "mesh_refinement", "prolong_primitives", False)
         if self.multilevel and (mbi.nx1 < 2 * mbi.ng or (
                 mbi.nx2 > 1 and mbi.nx2 < 2 * mbi.ng)):
             raise ValueError("SMR requires meshblocks >= 2*nghost")
@@ -557,6 +564,11 @@ class MHD:
 
     def init_ghosts(self, state):
         out = self._fill_and_prims(state)
+        if self.bvals.prolong_prims:
+            bcc = out["bcc"]
+            u, w = self.bvals.prolong_prims_fixup(
+                out["u"], out["w"], lambda w2: self.prim_to_cons(w2, bcc))
+            out = dict(out, u=u, w=w)
         if self.kernel_path(out["u"]):
             # the stage kernel computes primitives itself; the cycle state
             # carries only (u, bfc)
@@ -620,6 +632,9 @@ class MHD:
         bfc = self.fill_ghosts_fc(bfc)
         bcc = compute_bcc(bfc)
         w, u, counters = self.cons_to_prim(u, bcc)
+        if self.bvals.prolong_prims:
+            u, w = self.bvals.prolong_prims_fixup(
+                u, w, lambda w2: self.prim_to_cons(w2, bcc))
         if self.use_fofc:
             counters = dict(counters, nfofc=nfofc)
         return dict(state, u=u, w=w, bfc=bfc, bcc=bcc), counters

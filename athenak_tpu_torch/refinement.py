@@ -11,7 +11,8 @@ equal to the JAX package's, key by key.  The tensor half runs in torch
 with the JAX package's operation order (pair sums halved, ``c -/+ slope /
 4`` with the min-mod slope ``0.5 * (sign + sign) * min``), so in float64
 the fills agree with the JAX package's bit for bit.  Fourth-order
-prolongation (Z4c and dynamical GR on refined meshes) is not ported yet.
+Lagrange prolongation (``prolong_cc4``, Z4c on refined meshes) takes
+two guard cells a side where min-mod takes one (``prolong_guard``).
 """
 
 from __future__ import annotations
@@ -607,3 +608,51 @@ def prolong_cc(c, cell_axes):
         for b in list(slopes.keys()):
             slopes[b] = _interleave(slopes[b], slopes[b], a)
     return c
+
+
+# 4th-order Lagrange interpolation weights at the fine-cell centres
+# x = -1/4 and +1/4 (in coarse cells) over the 5-point stencil -2..2
+# (reference: HighOrderProlongCC + InitInterpWghts,
+# src/mesh/prolongation.hpp:247-283)
+def _lagrange_w(x, nodes=(-2.0, -1.0, 0.0, 1.0, 2.0)):
+    w = np.ones(len(nodes))
+    for i, xi in enumerate(nodes):
+        for j, xj in enumerate(nodes):
+            if i != j:
+                w[i] *= (x - xj) / (xi - xj)
+    return w
+
+
+_W4_M = [float(w) for w in _lagrange_w(-0.25)]
+_W4_P = [float(w) for w in _lagrange_w(+0.25)]
+
+
+def prolong_cc4(c, cell_axes):
+    """4th-order Lagrange prolongation (reference HighOrderProlongCC for
+    the Z4c fields).  ``c`` carries TWO guard cells on each end of every
+    axis in ``cell_axes``; the result doubles the trimmed interior.  The
+    five terms are summed in stencil order, as the JAX package sums
+    them."""
+    def conv(f, a, w):
+        n = f.shape[a]
+        out = None
+        for o, wi in zip((-2, -1, 0, 1, 2), w):
+            t = wi * _take(f, 2 + o, n - 2 + o, a)
+            out = t if out is None else out + t
+        return out
+
+    for a in [ax % c.dim() for ax in cell_axes]:
+        c = _interleave(conv(c, a, _W4_M), conv(c, a, _W4_P), a)
+    return c
+
+
+def prolong_cc_order(c, cell_axes, order: int):
+    """Prolongation of the given order: 4 (Lagrange) or 2 (min-mod)."""
+    if order == 4:
+        return prolong_cc4(c, cell_axes)
+    return prolong_cc(c, cell_axes)
+
+
+def prolong_guard(order: int) -> int:
+    """Coarse guard cells needed per side by the prolongation stencil."""
+    return 2 if order == 4 else 1

@@ -10,15 +10,21 @@ algebraic constraint projection.  ``u`` is [nmb, 22, n3, n2, n1] with
 ghosts.
 
 A stage runs one of two paths.  On the card in float32, on a uniform 3-D
-mesh (``ops/z4c_stage.py``'s gate), it takes the stage kernel
+mesh (``ops/z4c_stage.py``'s gate: one level), it takes the stage kernel
 (``csrc/z4c_rhs.cuh``): RHS, RK combine and AlgConstr in one launch, then
 the outflow fill kernel on a single block with six outflow faces, or the
 general fill.  Everywhere else (the CPU, float64) the whole-array torch
 path runs: ``rhs``, the combine, ``bvals.fill_ghosts``, ``alg_constr``.
 ``<z4c>/use_kernels = false`` keeps a run on the torch path.
 
-Not ported yet (they raise): mesh refinement, the puncture trackers
-(``nco > 0``) and the matter coupling (``tmunu``).  The TPU's row packing
+On a refined mesh (static, or adaptive once its tree has refined) the
+torch path runs with per-block inverse spacings ([nmb, 1, 1, 1] tensors,
+``idx``), the mixed-level fills prolong with 4th-order Lagrange
+(``bvals.prolong_order = 4``, which needs nghost >= 4) and dt comes from
+the smallest block spacing.
+
+Not ported yet (they raise): the puncture trackers (``nco > 0``) and the
+matter coupling (``tmunu``).  The TPU's row packing
 is layout for the TPU's lanes and has no counterpart here: the state is
 always the logical 5-D array.
 """
@@ -107,15 +113,27 @@ class Z4c:
         self.device = torch.device(device)
         self.dtype = dtype
         self.opt = Z4cOptions(pin)
-        if getattr(mesh, "multilevel", False):
-            raise not_ported("Z4c on refined meshes")
+        self.multilevel = mesh.multilevel
         mbi = mesh.mb_indcs
         self.ng = mbi.ng
         if self.ng not in (2, 3, 4, 5):
             raise ValueError("Z4c requires nghost in {2,3,4,5} "
                              "(2nd/4th/6th/8th-order FD)")
         ms = mesh.mesh_size
-        self.idx = (1.0 / ms.dx1, 1.0 / ms.dx2, 1.0 / ms.dx3)
+        if self.multilevel:
+            # per-block (level-dependent) inverse spacings, broadcast
+            # against the [nmb, n3, n2, n1] channel fields
+            self.idx = tuple(torch.as_tensor(
+                1.0 / mesh.mb_size[f"dx{d}"], dtype=dtype,
+                device=self.device).reshape(-1, 1, 1, 1) for d in (1, 2, 3))
+            if self.ng < 4:
+                raise ValueError(
+                    "Z4c on refined meshes needs nghost >= 4 (4th-order "
+                    "mixed-level prolongation; reference: "
+                    "prolongation.hpp:247-283)")
+            bvals.prolong_order = 4
+        else:
+            self.idx = (1.0 / ms.dx1, 1.0 / ms.dx2, 1.0 / ms.dx3)
         # dissipation scale (reference: z4c.cpp:158)
         self.diss = (self.opt.diss * 2.0 ** (-2.0 * self.ng)
                      * (-1.0 if self.ng % 2 == 0 else 1.0))
@@ -166,7 +184,8 @@ class Z4c:
         # <z4c>/use_pallas; float32 on the card is checked per call
         use_kernels = pin.get_or_add_boolean("z4c", "use_kernels", True)
         from ..ops.z4c_stage import fold_bc_supported, supports_z4c_stage
-        self.use_stage_kernel = use_kernels and supports_z4c_stage(mesh)
+        self.use_stage_kernel = use_kernels and supports_z4c_stage(self,
+                                                                   mesh)
         self.fold_bc = self.use_stage_kernel and fold_bc_supported(bvals)
         if not use_kernels:
             bvals.use_fill_kernel = False
@@ -288,17 +307,20 @@ class Z4c:
         return dict(state, u=u, w=u), {}
 
     def dt_from_state(self, state):
-        """dt = min cell size (unit light speed, reference:
-        z4c_newdt.cpp:26-60), rounded to the state's dtype as the JAX
-        package returns it.  A Python float: dt is a mesh constant, so
-        the cycle needs no read-back from the card."""
+        """dt = min cell size over the blocks (unit light speed,
+        reference: z4c_newdt.cpp:26-60; a uniform mesh's ``mb_size``
+        holds its spacing for every block), rounded to the
+        state's dtype as the JAX package returns it.  A Python float: dt
+        is a mesh constant, so the cycle needs no read-back from the
+        card."""
         mbi = self.mesh.mb_indcs
-        ms = self.mesh.mesh_size
-        dt = ms.dx1
+        sz = self.mesh.mb_size
+        dx = [float(np.min(sz[f"dx{d}"])) for d in (1, 2, 3)]
+        dt = dx[0]
         if mbi.nx2 > 1:
-            dt = min(dt, ms.dx2)
+            dt = min(dt, dx[1])
         if mbi.nx3 > 1:
-            dt = min(dt, ms.dx3)
+            dt = min(dt, dx[2])
         return torch.tensor(dt, dtype=state["u"].dtype).item()
 
 

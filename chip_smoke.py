@@ -171,6 +171,33 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      the CLI for 10 cycles: finite, no c2p failure, exact launches,
      wall-clock zone-cycles/s, the host ms of the source terms and of
      one ``vtk`` dump.
+ 17. drives the adaptive decks through the CLI, kernel path and plain
+     path (``<block>/use_kernels``), with the launch counts set to 0
+     just before each run and every tree update recorded:
+     ``inputs/mhd/blast_amr.athinput`` as shipped (64^3 root of 16^3
+     blocks, the block-pool route: kernel J three times a stage and no
+     other kernel, exact), with ``mesh_refinement/block_pool=false``
+     (kernel A twice a cycle and kernel G while the tree is flat, J
+     three times a stage once it refines, exact for A and J) and at
+     128^3 / 32^3 (the full-width run), ``blast_hydro_amr`` as shipped
+     (its slope criterion stays below 2.0, the tree flat) and with
+     value_max 0.5 (no kernel on either), and
+     ``inputs/z4c/one_puncture_amr.athinput`` in float32 (kernel H four
+     times a cycle while the tree is flat and never after, kernel I
+     never: the deck is a pool): at least one refinement, the same
+     leaf sequence on both paths, div(B) <= 1e-5 on every level after
+     every tree update and at the end, mass kept to 1e-5, the paths
+     within SMR_PATH_TOL's tiers of the plain path's range
+     (``range_diff``; the trees of the start and the end differ), chi
+     above its floor and the lapse at the puncture in (0, 1); kernel J
+     against its plain version on the refined blast's [nmb, 5, 20^3]
+     state (f32 two-tier, f64 1e-10) and kernel H on the flat 64 x 8^3
+     ng 4 pool (f32 2e-5, f64 1e-10); a ``-r`` restart of
+     ``blast_amr`` (28 cycles straight against 14 + ``-r`` 14, bitwise;
+     the deck refines first at cycle 12); zone-cycles/s of both paths in
+     turns, the host ms of ``check_flags``, ``update_tree``, the
+     rebuild and the remap of every tree update, and one stage's parts
+     on the refined tree (``smr_stage_parts``).
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -286,6 +313,27 @@ SLICE_DECKS = {
                                "advect_hyd.athinput"),
 }
 PUNCTURE = os.path.join(ROOT, "inputs", "z4c", "one_puncture.athinput")
+
+# phase 17: the adaptive decks
+BLAST_AMR = os.path.join(ROOT, "inputs", "mhd", "blast_amr.athinput")
+HYDRO_AMR = os.path.join(ROOT, "inputs", "hydro", "blast_hydro_amr.athinput")
+Z4C_AMR = os.path.join(ROOT, "inputs", "z4c", "one_puncture_amr.athinput")
+AMR_WIDE = ["mesh/nx1=128", "mesh/nx2=128", "mesh/nx3=128",
+            "meshblock/nx1=32", "meshblock/nx2=32", "meshblock/nx3=32"]
+NCYC_AMR = 20
+AMR_NOPOOL = ["mesh_refinement/block_pool=false"]
+# blast_amr's flat tree, where kernels A and G are checked: 4 cycles in
+AMR_FLAT_CYCLES = 4
+# (label, deck, physics block, cycles, overrides); blast_amr's density
+# passes value_max 1.5 at cycle 12 at 64^3 and later at 128^3
+AMR_RUNS = [
+    ("blast_amr", BLAST_AMR, "mhd", NCYC_AMR, []),
+    ("blast_amr_nopool", BLAST_AMR, "mhd", NCYC_AMR, AMR_NOPOOL),
+    ("blast_amr_128", BLAST_AMR, "mhd", 30, AMR_WIDE),
+    ("hydro_amr", HYDRO_AMR, "hydro", NCYC_AMR, ["job/precision=single"]),
+    ("hydro_amr_0.5", HYDRO_AMR, "hydro", NCYC_AMR,
+     ["job/precision=single", "amr_criterion1/value_max=0.5"]),
+    ("z4c_amr", Z4C_AMR, "z4c", 6, ["job/precision=single"])]
 NCYC_Z4C = 10
 # phase 10's pool: one_puncture.athinput as two blocks of 32^3, nghost 4
 Z4C_POOL = ["mesh/nghost=4", "mesh/nx1=64", "mesh/nx2=32", "mesh/nx3=32",
@@ -1336,58 +1384,78 @@ def ghost_donors(torch, pool_fill, shape, kind, nbr, mesh):
     return dst, filled.reshape(-1)[dst]
 
 
+def pool_fill_pair(torch, mesh, label):
+    """Kernel G against its plain version, bitwise, on the pool of
+    ``mesh``: random cell and face arrays in f32 and f64.  Returns the
+    largest difference, the neighbour table and the f32 arrays after the
+    kernel's fill."""
+    from athenak_tpu_torch.ops import pool_fill
+
+    nbr = torch.as_tensor(pool_fill.neighbor27(mesh), device="cuda")
+    nmb, n = mesh.nmb_total, mesh.mb_indcs.ncells1
+    shapes = {"cc": (nmb, 5, n, n, n), "x1f": (nmb, n, n, n + 1),
+              "x2f": (nmb, n, n + 1, n), "x3f": (nmb, n + 1, n, n)}
+    maxerr, kept = 0.0, None
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator().manual_seed(13)
+        arrs = {k: torch.rand(v, generator=gen, dtype=dtype).cuda()
+                for k, v in shapes.items()}
+        got = {k: v.clone() for k, v in arrs.items()}
+        pool_fill.pool_fill_cc(got["cc"], nbr, mesh)
+        pool_fill.pool_fill_fc({k: got[k] for k in ("x1f", "x2f", "x3f")},
+                               nbr, mesh)
+        ref = {k: v.clone() for k, v in arrs.items()}
+        pool_fill.pool_fill_plain(list(ref.values()), list(ref), nbr, mesh)
+        torch.cuda.synchronize()
+        for k in arrs:
+            if not torch.equal(got[k], ref[k]):
+                raise AssertionError(f"pool_fill {label} {k} {dtype}: "
+                                     "not bitwise")
+            maxerr = max(maxerr, float((got[k] - ref[k]).abs().max()))
+        if dtype == torch.float32:
+            kept = got
+    return maxerr, nbr, kept
+
+
+def pool_fill_times(torch, mesh, nbr, arrs):
+    """Kernel G's times on a pool (u, then the face field), its plain
+    version's, one torch.take of every ghost's donor, and the bound
+    (every ghost read once and written once)."""
+    from athenak_tpu_torch.ops import pool_fill
+
+    u = arrs["cc"]
+    fcs = {k: arrs[k] for k in ("x1f", "x2f", "x3f")}
+    dst, src = ghost_donors(torch, pool_fill, tuple(u.shape), "cc",
+                            nbr.cpu(), mesh)
+    dst, src = dst.cuda(), src.cuda()
+    if not torch.equal(torch.take(u, src), u.reshape(-1)[dst]):
+        raise AssertionError("the donor index differs from the pool fill")
+    return {
+        "ms": cuda_ms(lambda: pool_fill.pool_fill_cc(u, nbr, mesh), 50),
+        "fc_ms": cuda_ms(lambda: pool_fill.pool_fill_fc(fcs, nbr, mesh),
+                         50),
+        "plain_ms": cuda_ms(lambda: pool_fill.pool_fill_plain(
+            [u], ["cc"], nbr, mesh), 20),
+        "library_ms": cuda_ms(lambda: torch.take(u, src), 50),
+        "bound": bound(2 * dst.numel() * u.element_size(), 0),
+        "ghosts": dst.numel()}
+
+
 def phase_pool_fill(torch, card, turb_deck, pool_deck):
     """Kernel G against its plain version, bitwise, on the pools of turb8
     and pool; times on turb8 beside one torch.take of every ghost."""
-    from athenak_tpu_torch.ops import pool_fill
-
     res, maxerr = {}, 0.0
     for label, deck, extra in (("turb8", turb_deck, TURB8),
                                ("pool", pool_deck, []),
                                ("hturb8", HTURB_DECK, HTURB8)):
         mesh = pool_mesh(deck, extra)
-        nbr = torch.as_tensor(pool_fill.neighbor27(mesh), device="cuda")
-        nmb, n = mesh.nmb_total, mesh.mb_indcs.ncells1
-        shapes = {"cc": (nmb, 5, n, n, n), "x1f": (nmb, n, n, n + 1),
-                  "x2f": (nmb, n, n + 1, n), "x3f": (nmb, n + 1, n, n)}
-        for dtype in (torch.float32, torch.float64):
-            gen = torch.Generator().manual_seed(13)
-            arrs = {k: torch.rand(v, generator=gen, dtype=dtype).cuda()
-                    for k, v in shapes.items()}
-            got = {k: v.clone() for k, v in arrs.items()}
-            fcs = {k: got[k] for k in ("x1f", "x2f", "x3f")}
-            pool_fill.pool_fill_cc(got["cc"], nbr, mesh)
-            pool_fill.pool_fill_fc(fcs, nbr, mesh)
-            ref = {k: v.clone() for k, v in arrs.items()}
-            pool_fill.pool_fill_plain(list(ref.values()), list(ref), nbr,
-                                      mesh)
-            torch.cuda.synchronize()
-            for k in arrs:
-                if not torch.equal(got[k], ref[k]):
-                    raise AssertionError(f"pool_fill {label} {k} {dtype}: "
-                                         "not bitwise")
-                maxerr = max(maxerr, float((got[k] - ref[k]).abs().max()))
-            if label == "turb8" and dtype == torch.float32:
-                u = got["cc"]
-                dst, src = ghost_donors(torch, pool_fill, shapes["cc"], "cc",
-                                        nbr.cpu(), mesh)
-                dst, src = dst.cuda(), src.cuda()
-                if not torch.equal(torch.take(u, src), u.reshape(-1)[dst]):
-                    raise AssertionError("the donor index differs from the "
-                                         "pool fill")
-                res = {
-                    "ms": cuda_ms(lambda: pool_fill.pool_fill_cc(u, nbr,
-                                                                 mesh), 50),
-                    "fc_ms": cuda_ms(lambda: pool_fill.pool_fill_fc(
-                        fcs, nbr, mesh), 50),
-                    "plain_ms": cuda_ms(lambda: pool_fill.pool_fill_plain(
-                        [u], ["cc"], nbr, mesh), 20),
-                    "library_ms": cuda_ms(lambda: torch.take(u, src), 50),
-                    # every ghost read once and written once
-                    "bound": bound(2 * dst.numel() * u.element_size(), 0),
-                    "ghosts": dst.numel()}
+        err, nbr, arrs = pool_fill_pair(torch, mesh, label)
+        maxerr = max(maxerr, err)
+        if label == "turb8":
+            res = pool_fill_times(torch, mesh, nbr, arrs)
         print(f"phase 8: pool_fill bitwise equal to its plain version on "
-              f"{label} ({nmb} x {n - 4}^3; f32, f64; cell and face arrays)")
+              f"{label} ({mesh.nmb_total} x {mesh.mb_indcs.nx1}^3; f32, "
+              f"f64; cell and face arrays)")
     print_ptxas("8", "pool_fill.cu")
     print(f"phase 8: [{card}] pool_fill of u on turb8 {res['ms']:.4f} ms "
           f"({res['ghosts']} ghosts), of the face field "
@@ -2679,6 +2747,424 @@ def phase_slice(torch, kernels, card):
                          **deck_parts}}
 
 
+def range_diff(got, ref):
+    """(share of interior cells within SMR_PATH_TOL[0], max) of
+    |got - ref| over the range of ``ref`` (max - min over the interior):
+    how far two runs are apart, on the scale of what varies in them.  An
+    adaptive run ends on another tree than it starts, so what the plain
+    path changed (``change_diff``) cannot be formed cell by cell; its
+    blast starts from uniform ambient values, so the range is that
+    change."""
+    got, ref = interior(got), interior(ref)
+    scale = max(float(ref.max() - ref.min()), 1e-30)
+    rel = ((got - ref).abs() / scale).double()
+    return (float((rel < SMR_PATH_TOL[0]).double().mean()),
+            float(rel.max()))
+
+
+def flat_cycles(trees, n):
+    """The cycles of an n-cycle adaptive run taken on a flat tree: the run
+    starts on the flat root tree, and the tree of the update at cycle c
+    takes cycles c + 1 onward."""
+    count, start, flat = 0, 0, True
+    for c, leaves in trees:
+        count += c - start if flat else 0
+        start, flat = c, all(leaf[3] == 0 for leaf in leaves)
+    return count + (n - start if flat else 0)
+
+
+def amr_cli(torch, kernels, deck, ncyc, extra):
+    """``run_cli`` with div(B) by level checked after every tree update
+    (``check_levels``, which fails above 1e-5).  The trees (cycle,
+    leaves), their times and each update's host ms are the AMR step's own
+    record (``AMR.updates``); the cycles on a flat tree follow from it."""
+    from athenak_tpu_torch import amr
+    divb = []
+    rebuild = amr.AMR.rebuild
+
+    def checked(self, driver, state, new_leaves, prov, outputs=()):
+        state = rebuild(self, driver, state, new_leaves, prov, outputs)
+        if "bfc" in state:
+            divb.append(check_levels(
+                torch, driver.mesh, state, f"after the tree update of "
+                f"cycle {driver.mesh.ncycle}"))
+        return state
+
+    amr.AMR.rebuild = checked
+    try:
+        launches, mesh, phys, driver, state, _, written = run_cli(
+            torch, kernels, deck, ncyc, extra)
+    finally:
+        amr.AMR.rebuild = rebuild
+    updates = driver.pamr.updates
+    rec = {"trees": [(r["ncycle"], r["leaves"]) for r in updates],
+           "times": [r["time"] for r in updates], "divb": divb,
+           "timings": [{k: v for k, v in r.items() if k != "leaves"}
+                       for r in updates],
+           "hst": [t for t in written.values() if t is not None]}
+    rec["flat_cycles"] = flat_cycles(rec["trees"], ncyc)
+    return launches, mesh, phys, driver, state, rec
+
+
+def hst_times(text):
+    """The time column of a history file's rows."""
+    return [float(line.split()[0]) for line in text.splitlines()
+            if line.strip() and not line.startswith("#")]
+
+
+def pool_fill_expect(rec, n):
+    """Kernel G's launches on block_pool=false while the tree is flat,
+    for a run that refines once and stays refined: the face field and u
+    (two launches) at every stage's fill, 4 a cycle, and at every fill
+    that makes the primitives on the flat tree: the initial fill, the
+    first dt (kernel A's state carries no primitives), the history write
+    at t = 0 and each one before the first update (whose write comes
+    after the new tree is in place), and the final write if the run
+    ends flat."""
+    flat = rec["flat_cycles"]
+    if not rec["trees"]:
+        return 4 * n + 2 * (2 + len(hst_times(rec["hst"][0])))
+    if any(all(leaf[3] == 0 for leaf in t) for _, t in rec["trees"]):
+        raise AssertionError("the tree flattened again: G's count has no "
+                             "formula here")
+    # a row carries its time to data_format's digits; the rows apart
+    # by a cycle's dt, more than 1e-4 of the time within these runs
+    t_first = rec["times"][0] * (1.0 - 1e-4)
+    writes = sum(1 for t in hst_times(rec["hst"][0]) if t < t_first)
+    return 4 * flat + 2 * (2 + writes)
+
+
+def amr_expect(label, launches, rec, n, use):
+    """The exact launches of an adaptive run: the pool route J three
+    times a stage; block_pool=false A twice a cycle on the flat tree and
+    J three times a stage on a refined one, G as ``pool_fill_expect``
+    says; hydro none; Z4c H four times a cycle while flat."""
+    flat = rec["flat_cycles"]
+    expect = {k: 0 for k in launches}
+    if use == "true":
+        if label.startswith("blast_amr"):
+            if "nopool" in label:
+                expect["mega_stage_v2"] = 2 * flat
+                expect["fused_flux_dir"] = 6 * (n - flat)
+                expect["pool_fill"] = pool_fill_expect(rec, n)
+            else:
+                expect["fused_flux_dir"] = 6 * n
+        elif label.startswith("z4c"):
+            expect["z4c_stage"] = 4 * flat
+    if launches != expect:
+        raise AssertionError(f"{label} use_kernels={use}: launches "
+                             f"{launches}, not {expect} ({flat} flat "
+                             f"cycles of {n})")
+
+
+def amr_flat_checks(torch, card):
+    """Kernels A and G on blast_amr's flat tree with block_pool=false: 64
+    blocks of 16^3 ([64, 5, 20^3] with ghosts).  A against its plain
+    version on both RK2 stages of the state after AMR_FLAT_CYCLES cycles
+    (f32 two-tier on each channel's scale over the pool, floor counts and
+    dtmin; f64 within TAIL_STAGE_TOL of the stage's max|change|), and G
+    bitwise against its plain version on the pool's cell and face arrays
+    in f32 and f64; the times, plain times and bounds of both in f32."""
+    from athenak_tpu_torch.ops import stage
+    out = {"stage_err": 0.0, "stage_change": {}}
+    for prec in ("single", "double"):
+        state, phys = deck_state(torch, BLAST_AMR, AMR_NOPOOL, prec,
+                                 AMR_FLAT_CYCLES)
+        if phys.multilevel or phys.mesh.nmb_total != 64 or \
+                not phys.use_mega_v2 or not phys.bvals.use_pool_fill:
+            raise AssertionError("the flat blast_amr pool is not on "
+                                 "kernel A's route")
+        u0, b0, dt = state["u"], state["bfc"], phys.mesh.dt
+        inp_u, inp_b = u0, b0
+        for s, (g0, g1, beta) in enumerate(((0.0, 1.0, 1.0),
+                                            (0.5, 0.5, 0.5))):
+            bdt = float(torch.tensor(beta, dtype=u0.dtype)
+                        * torch.tensor(dt, dtype=u0.dtype))
+            args = (inp_u, inp_b, u0, b0, phys.eos, g0, g1, bdt, phys.dxs)
+            uk, bk, ck = stage.mega_stage_v2(*args)
+            up, bp, cp = stage.mega_stage_v2_plain(*args)
+            torch.cuda.synchronize()
+            tag = f"blast_amr flat stage {s + 1} {prec}"
+            if prec == "single":
+                # each channel over the pool: the ambient blocks hold
+                # no momentum
+                uscale = interior(up).abs().amax(
+                    dim=(0, -3, -2, -1), keepdim=True).clamp(min=1e-30)
+                bscale = max(float(interior(bp[c]).abs().max()) for c in bp)
+                out["stage_err"] = max(out["stage_err"], two_tier(
+                    interior(uk), interior(up), uscale, f"{tag} u"))
+                for c in bp:
+                    out["stage_err"] = max(out["stage_err"], two_tier(
+                        interior(bk[c]), interior(bp[c]), bscale,
+                        f"{tag} {c}"))
+                for key in ("neos_dfloor", "neos_efloor", "neos_tfloor"):
+                    if int(ck[key]) != int(cp[key]):
+                        raise AssertionError(f"{tag} {key}: {int(ck[key])} "
+                                             f"!= {int(cp[key])}")
+                rtol = 1e-4
+            else:
+                diff = {"u": change_diff(uk, up, inp_u)[1]}
+                bchange = max(float((interior(bp[c]) - interior(inp_b[c]))
+                                    .abs().max()) for c in bp)
+                for c in bp:
+                    diff[c] = float((interior(bk[c]) - interior(bp[c]))
+                                    .abs().max()) / max(bchange, 1e-30)
+                if not max(diff.values()) <= TAIL_STAGE_TOL:
+                    raise AssertionError(f"{tag}: kernel A and its plain "
+                                         f"version apart by {diff} of the "
+                                         f"change")
+                out["stage_change"][f"stage {s + 1}"] = max(diff.values())
+                rtol = 1e-10
+            dk, dp = float(ck["dtmin"]), float(cp["dtmin"])
+            if abs(dk - dp) > rtol * abs(dp):
+                raise AssertionError(f"{tag} dtmin {dk!r} vs {dp!r}")
+            inp_u, inp_b = fill_plain(phys, up, bp)
+        if prec == "single":
+            args = (u0, b0, u0, b0, phys.eos, 0.0, 1.0, dt, phys.dxs)
+            out["stage_ms"] = cuda_ms(lambda: stage.mega_stage_v2(*args), 20)
+            out["stage_plain_ms"] = cuda_ms(
+                lambda: stage.mega_stage_v2_plain(*args), 3)
+            out["stage_bound"] = bound(3 * nbytes(u0, *b0.values()),
+                                       OPS_MEGA * interior(u0[:, 0]).numel())
+            out["stage_shape"] = list(u0.shape)
+            mesh = phys.mesh
+        del state, u0, b0, inp_u, inp_b, uk, bk, up, bp
+    out["fill_err"], nbr, arrs = pool_fill_pair(torch, mesh,
+                                                "blast_amr flat")
+    out["fill"] = pool_fill_times(torch, mesh, nbr, arrs)
+    print(f"phase 17: mega_stage_v2 agrees with its plain version on "
+          f"blast_amr's flat {out['stage_shape']} pool after "
+          f"{AMR_FLAT_CYCLES} cycles (both RK2 stages; f32 two-tier, f64 "
+          f"max |difference| over the stage's max|change| "
+          f"{out['stage_change']}, limit {TAIL_STAGE_TOL}), [{card}] "
+          f"{out['stage_ms']:.4f} ms/stage, plain "
+          f"{out['stage_plain_ms']:.4f}, bound "
+          f"{out['stage_bound'][0]:.4f}; pool_fill bitwise equal to its "
+          f"plain version there (f32, f64; cell and face arrays), u "
+          f"{out['fill']['ms']:.4f} ms ({out['fill']['ghosts']} ghosts), "
+          f"face field {out['fill']['fc_ms']:.4f} ms, plain "
+          f"{out['fill']['plain_ms']:.4f}, torch.take "
+          f"{out['fill']['library_ms']:.4f}, bound "
+          f"{out['fill']['bound'][0]:.5f}")
+    return out
+
+
+def amr_kernel_checks(torch, card, state, phys):
+    """Kernel J against its plain version on a refined blast's state
+    ([nmb, 5, 20^3] with ghosts; f32 two-tier, f64 1e-10) and kernel H
+    against its plain version on the flat 64 x 8^3 ng 4 Z4c pool (the
+    four RK4 stages, f32 2e-5, f64 1e-10); times of both in f32."""
+    from athenak_tpu_torch.ops import flux
+    from athenak_tpu_torch.ops import z4c_stage as zs
+    out = {"flux_dir_shape": list(state["w"].shape), "flux_dir_err": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        w, bcc = state["w"].to(dtype), state["bcc"].to(dtype)
+        bfc = {k: v.to(dtype) for k, v in state["bfc"].items()}
+        for name, _axis, ivx, _dx in phys.dirs:
+            args = (w, bcc, bfc[f"{name}f"], phys.eos, name, ivx)
+            got = flux.fused_flux_dir(*args)
+            ref = flux.flux_dir_plain(*args)
+            for g, r in zip(got, ref):
+                g, r = faces(g), faces(r)
+                scale = float(r.abs().max()) or 1.0
+                if dtype == torch.float32:
+                    out["flux_dir_err"] = max(out["flux_dir_err"], two_tier(
+                        g, r, scale, f"amr fused_flux_dir {name}"))
+                elif float((g - r).abs().max()) / scale > 1e-10:
+                    raise AssertionError(f"amr fused_flux_dir {name} f64")
+            if dtype == torch.float32 and name == "x1":
+                cells = w[:, 0].numel()
+                out["flux_dir_ms"] = cuda_ms(
+                    lambda: flux.fused_flux_dir(*args), 20)
+                out["flux_dir_plain_ms"] = cuda_ms(
+                    lambda: flux.flux_dir_plain(*args), 3)
+                out["flux_dir_bound"] = bound(
+                    15 * cells * w.element_size(), OPS_FACE["hlld"] * cells)
+    out["z4c_err"] = 0.0
+    for prec in ("single", "double"):
+        zphys, u, u1, dt = z4c_inputs(torch, Z4C_AMR, [], prec)
+        if not zphys.use_stage_kernel or zphys.mesh.nmb_total != 64:
+            raise AssertionError("the flat Z4c AMR pool is not on kernel "
+                                 "H's route")
+        tol = 2e-5 if prec == "single" else 1e-10
+        for g0, g1, bdt in rk4_sets(torch, u.dtype, dt):
+            a = interior(zs.fused_z4c_stage(u, u1, zphys, g0, g1, bdt),
+                         4).double()
+            b = interior(zs.fused_z4c_stage_plain(u, u1, zphys, g0, g1,
+                                                  bdt), 4).double()
+            rel = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+            if not rel <= tol:
+                raise AssertionError(f"amr z4c_stage {prec}: {rel:g}")
+            if prec == "single":
+                out["z4c_err"] = max(out["z4c_err"],
+                                     float((a - b).abs().max()))
+        if prec == "single":
+            args = (u, u1, zphys) + rk4_sets(torch, u.dtype, dt)[1]
+            out["z4c_ms"] = cuda_ms(lambda: zs.fused_z4c_stage(*args), 20)
+            out["z4c_plain_ms"] = cuda_ms(
+                lambda: zs.fused_z4c_stage_plain(*args), 2)
+            out["z4c_bound"] = z4c_bound(zphys, u)
+            out["z4c_shape"] = list(u.shape)
+    print(f"phase 17: fused_flux_dir agrees with its plain version on the "
+          f"refined blast {out['flux_dir_shape']} (f32 two-tier, f64 "
+          f"1e-10), [{card}] x1 {out['flux_dir_ms']:.4f} ms, plain "
+          f"{out['flux_dir_plain_ms']:.4f}, bound "
+          f"{out['flux_dir_bound'][0]:.4f}; z4c_stage on the flat "
+          f"{out['z4c_shape']} pool (f32 2e-5, f64 1e-10) "
+          f"{out['z4c_ms']:.4f} ms, plain {out['z4c_plain_ms']:.3f}, bound "
+          f"{out['z4c_bound'][0]:.4f}")
+    return out
+
+
+def amr_restart(torch, kernels):
+    """blast_amr on the pool route: 2 x 14 cycles straight against 14, a
+    .rst, then -r and 14 more: the trees equal and u and the face field
+    bitwise equal; the tree refined by cycle 14 (the deck's first update
+    comes at cycle 12)."""
+    from athenak_tpu_torch import main as cli_main
+    from athenak_tpu_torch.outputs import load_restart
+    n = 14
+    common = ["output9/file_type=rst", f"output9/dcycle={n}"]
+    cwd = os.getcwd()
+    os.environ["ATHENAK_DEVICE"] = "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            m1, _, _, s1 = cli_main.cli([
+                "-i", BLAST_AMR, "-d", os.path.join(tmp, "straight"),
+                *common, f"time/nlim={2 * n}"])
+            os.chdir(cwd)
+            cli_main.cli(["-i", BLAST_AMR, "-d", os.path.join(tmp, "first"),
+                          *common, f"time/nlim={n}"])
+            os.chdir(cwd)
+            rst = os.path.join(tmp, "first", "BlastAMR.00001.rst")
+            extras = load_restart(rst, with_extras=True)[5]
+            kernels.reset_counts()
+            m2, _, _, s2 = cli_main.cli([
+                "-r", rst, "-d", os.path.join(tmp, "first"),
+                f"time/nlim={2 * n}"])
+            resumed = {k.name: k.launches for k in kernels.ALL if k.launches}
+        finally:
+            os.chdir(cwd)
+    lev10 = max(leaf[3] for leaf in extras["tree_leaves"])
+    if lev10 < 1:
+        raise AssertionError("blast_amr restart: the tree is flat at cycle "
+                             f"{n}")
+    if m1.leaves != m2.leaves or m2.ncycle != 2 * n:
+        raise AssertionError("blast_amr restart: trees differ")
+    for key in ["u"] + [f"bfc/{c}" for c in s1["bfc"]]:
+        a = s1[key] if "/" not in key else s1["bfc"][key[4:]]
+        b = s2[key] if "/" not in key else s2["bfc"][key[4:]]
+        if not torch.equal(a, b):
+            raise AssertionError(f"blast_amr restart: {key} not bitwise")
+    print(f"phase 17: restart blast_amr: {2 * n} cycles straight and {n} + "
+          f"-r {n} bitwise equal (u, face field), trees equal "
+          f"({m2.nmb_total} blocks, levels up to {lev10} at cycle {n}); "
+          f"launches resumed {resumed}")
+    return {"resumed": resumed, "nmb": m2.nmb_total}
+
+
+def phase_amr(torch, kernels, card):
+    """The adaptive decks through the CLI (see the module docstring)."""
+    from athenak_tpu_torch.main import build
+    out = {}
+    kchecks = None
+    for label, deck, block, n, extra in AMR_RUNS:
+        mesh0, _, _, _, st0 = build(pin_for(extra, deck), device="cuda")
+        mass0 = volume_mass(torch, mesh0, st0["u"])
+        alpha0 = float(interior(st0["u"][:, 18], 4).min()) \
+            if block == "z4c" else None
+        del st0
+        res = {}
+        for use in ("true", "false"):
+            launches, mesh, phys, driver, state, rec = amr_cli(
+                torch, kernels, deck, n,
+                extra + [f"{block}/use_kernels={use}"])
+            amr_expect(label, launches, rec, n, use)
+            if not bool(torch.isfinite(state["u"]).all()):
+                raise AssertionError(f"{label} {use}: non-finite state")
+            if label != "hydro_amr" and not rec["trees"]:
+                raise AssertionError(f"{label} {use}: no tree update")
+            info = {"launches": launches, "trees": rec["trees"],
+                    "flat_cycles": rec["flat_cycles"],
+                    "levels": sorted(set(mesh.mb_lev.tolist())),
+                    "nmb": mesh.nmb_total, "zcps": driver.zcps,
+                    "divb_updates": rec["divb"],
+                    "timings": rec["timings"]}
+            if block == "z4c":
+                u = state["u"]
+                chi = float(interior(u[:, 0], 4).min())
+                alpha = float(interior(u[:, 18], 4).min())
+                if chi < phys.opt.chi_min_floor or not 0.0 < alpha < 1.0:
+                    raise AssertionError(f"{label} {use}: chi {chi}, lapse "
+                                         f"at the puncture {alpha}")
+                info.update(chi_min=chi, lapse=(alpha0, alpha))
+            else:
+                dmass = abs(volume_mass(torch, mesh, state["u"]) - mass0) \
+                    / mass0
+                if dmass > 1e-5:
+                    raise AssertionError(f"{label} {use}: mass drift "
+                                         f"{dmass:g}")
+                info["dmass"] = dmass
+                if "bfc" in state:
+                    info["divb"] = check_levels(torch, mesh, state, label)
+            res[use] = (info, mesh, phys, state)
+            print(f"phase 17: {label} use_kernels={use}: {n} cycles "
+                  f"({rec['flat_cycles']} on a flat tree), "
+                  f"{len(rec['trees'])} tree updates at cycles "
+                  f"{[c for c, _ in rec['trees']]}, {mesh.nmb_total} blocks "
+                  f"at the end on levels {info['levels']}, launches "
+                  f"{launches}, div(B) by level after each update "
+                  f"{rec['divb']}, {info.get('dmass', '')} mass drift; "
+                  f"[{card}] CLI zone-cycles/s {driver.zcps:.6e} (wall "
+                  f"clock, AMR steps included); per update host ms "
+                  f"{rec['timings']}")
+        (ki, km, kp, ks), (pi, pm, pp, ps) = res["true"], res["false"]
+        if ki["trees"] != pi["trees"]:
+            raise AssertionError(f"{label}: the paths took different trees")
+        if block == "z4c":
+            a, b = ks["u"].double(), ps["u"].double()
+            diff = {"u": float(((a - b).abs()
+                                / b.abs().clamp(min=1.0)).max())}
+            if not diff["u"] <= Z4C_PATH_TOL:
+                raise AssertionError(f"{label}: paths apart {diff}")
+        else:
+            pairs = [("u", ks["u"], ps["u"])] + [
+                (c, ks["bfc"][c], ps["bfc"][c]) for c in ks.get("bfc", {})]
+            diff = {k: range_diff(a, b) for k, a, b in pairs}
+            for k, d in diff.items():
+                if not (d[0] > 0.95 and d[1] < SMR_PATH_TOL[1]):
+                    raise AssertionError(f"{label}: paths apart in {k}: {d}")
+        parts = None
+        if label == "blast_amr":
+            parts = smr_stage_parts(torch, kp, ks, km.dt)
+            kchecks = amr_kernel_checks(torch, card, ks, kp)
+        del res, ks, ps
+        if label == "blast_amr_nopool":
+            print(f"phase 17: {label}: pool_fill {ki['launches']['pool_fill']}"
+                  f" = 4 x {ki['flat_cycles']} flat cycles + 2 x (initial "
+                  f"fill, first dt, history rows before the first update)")
+            kchecks.update(flat=amr_flat_checks(torch, card))
+        rates = {"true": [ki["zcps"]], "false": [pi["zcps"]]}
+        if label == "blast_amr":
+            for use in ("true", "false"):
+                *_, d, _, _ = amr_cli(torch, kernels, deck, n, extra + [
+                    f"{block}/use_kernels={use}"])
+                rates[use].append(d.zcps)
+        print(f"phase 17: [{card}] {label} kernel vs plain path {diff}; "
+              f"zone-cycles/s in turns (true, false, true, false; wall "
+              f"clock of the CLI run) kernel {rates['true']}, plain "
+              f"{rates['false']}; one stage's parts on the final tree, ms "
+              f"{parts}")
+        out[label] = {"launches": ki["launches"], "rates": rates,
+                      "parts": parts, "path_diff": diff,
+                      "trees": [(c, len(t)) for c, t in ki["trees"]],
+                      "levels": ki["levels"], "nmb": ki["nmb"],
+                      "flat_cycles": ki["flat_cycles"],
+                      "timings_ms": ki["timings"]}
+    restart = amr_restart(torch, kernels)
+    return {"runs": out, "checks": kchecks, "restart": restart}
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
     return {"name": name, "route": "cuda",
@@ -2746,6 +3232,7 @@ def main() -> int:
         hydro = phase("14", phase_hydro_main, torch, kernels, card)
         tail, tail_flux = phase("15", phase_tail_main, torch, kernels, card)
         slice_ = phase("16", phase_slice, torch, kernels, card)
+        amr = phase("17", phase_amr, torch, kernels, card)
     print(f"seconds a phase: {seconds}")
 
     def runs(name):
@@ -2756,14 +3243,18 @@ def main() -> int:
                 **{k: v["launches"].get(name, 0) for k, v in hydro.items()},
                 **{k: v["launches"].get(name, 0) for k, v in tail.items()},
                 **{k: v.get(name, 0)
-                   for k, v in slice_["launches"].items()}}
+                   for k, v in slice_["launches"].items()},
+                **{k: v["launches"].get(name, 0)
+                   for k, v in amr["runs"].items()}}
 
     ft, fe = fill_times, fill_errs
     zr = z4c_res["res"]["60^3 ng 2"]
     print(json.dumps({"kernels": [
         kernel_entry("mega_stage_v2", "mega_stage_v2.cu",
                      "pallas_stage.py:823", runs("mega_stage_v2"),
-                     stage_res["max_abs_err"], stage_res["ms"],
+                     max(stage_res["max_abs_err"],
+                         amr["checks"]["flat"]["stage_err"]),
+                     stage_res["ms"],
                      stage_res["plain_ms"], stage_res["bound"], None),
         kernel_entry("periodic_fill_cc", "periodic_fill.cu",
                      "pallas_fill.py:68", runs("periodic_fill_cc"),
@@ -2794,7 +3285,9 @@ def main() -> int:
                      aux_res["ms"], aux_res["plain_ms"], aux_res["bound"],
                      None),
         kernel_entry("pool_fill", "pool_fill.cu", "pallas_pool_fill.py:221",
-                     runs("pool_fill"), pool_res["max_abs_err"],
+                     runs("pool_fill"),
+                     max(pool_res["max_abs_err"],
+                         amr["checks"]["flat"]["fill_err"]),
                      pool_res["ms"], pool_res["plain_ms"], pool_res["bound"],
                      pool_res["library_ms"]),
         kernel_entry("z4c_stage", "z4c_rhs.cuh", "pallas_z4c.py:384",
@@ -2832,6 +3325,9 @@ def main() -> int:
                            for k, v in {**turb, **z4c, **smr,
                                         **hydro}.items()},
         "tail_path_diff": {k: v["path_diff"] for k, v in tail.items()},
+        "amr": {"runs": {k: {kk: vv for kk, vv in v.items()}
+                         for k, v in amr["runs"].items()},
+                "checks": amr["checks"], "restart": amr["restart"]},
         "slice": {k: slice_[k] for k in ("turb_rates", "fofc", "restart",
                                          "turb60_poked_nfofc",
                                          "flux_dir_rt2d_mhd", "deck_zcps",

@@ -1028,3 +1028,35 @@ def test_turb_deck_launches(card):
     assert got == {"periodic_fill_cc": 5}
     assert phys.use_fofc and "nfofc" in driver.ecounters and len(rows) == 4
     assert bool(torch.isfinite(st["u"]).all())
+
+
+@pytest.mark.parametrize("label,deck,block,extra", [
+    ("blast_amr", "mhd/blast_amr.athinput", "mhd", []),
+    ("blast_amr_nopool", "mhd/blast_amr.athinput", "mhd",
+     ["mesh_refinement/block_pool=false"]),
+    ("z4c_amr", "z4c/one_puncture_amr.athinput", "z4c",
+     ["job/precision=single", "mesh/nx1=16", "mesh/nx2=16",
+      "mesh/nx3=16"])])
+def test_amr_routes_and_launches(card, label, deck, block, extra):
+    """The adaptive decks in float32 (``chip_smoke``'s phase-17 rules;
+    the blast refines at cycle 12, the puncture at cycle 1): the
+    block-pool route launches J three times a stage
+    and nothing else; without the pool A runs twice a cycle on the flat
+    tree, G as ``chip_smoke.pool_fill_expect`` counts its fills there,
+    and J three times a stage once it refines; the Z4c pool runs H
+    four times a cycle while flat and never on the refined tree, and I
+    never.  The tree refines, and both paths take the same trees."""
+    import chip_smoke
+    path = os.path.join(os.path.dirname(DECK), "..", deck)
+    n = 3 if block == "z4c" else 14
+    trees = {}
+    for use in ("true", "false"):
+        launches, mesh, phys, _, st, rec = chip_smoke.amr_cli(
+            torch, kernels, path, n, extra + [f"{block}/use_kernels={use}"])
+        chip_smoke.amr_expect(label, launches, rec, n, use)
+        assert rec["trees"] and 0 < rec["flat_cycles"] < n
+        assert bool(torch.isfinite(st["u"]).all())
+        trees[use] = rec["trees"]
+        if block == "z4c":
+            assert not phys.use_stage_kernel and phys.multilevel
+    assert trees["true"] == trees["false"]

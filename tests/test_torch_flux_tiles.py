@@ -38,11 +38,12 @@ SMEM_RESERVED = 1024         # bytes the runtime keeps for each block
 # (nmb, n3, n2, n1): the smr deck, the 1028^2 Orszag-Tang block, the
 # 2-D MHD decks, the 1-D bw row, and ragged shapes
 # (tests/test_torch_cuda.py's among them, its 1-D rows too); last,
-# rt2d-mhd's 64 x 192 block with its ghosts
+# rt2d-mhd's 64 x 192 block with its ghosts; last, inputs/mhd/blast_amr's
+# 64 blocks of 16^3 with their ghosts
 SHAPES = [(120, 36, 36, 36), (1, 1, 1028, 1028), (1, 1, 132, 132),
           (1, 1, 68, 132), (1, 1, 1, 260), (2, 1, 1, 37), (2, 12, 10, 14),
           (2, 1, 12, 16), (3, 9, 7, 5), (1, 4, 4, 4), (2, 1, 30, 27),
-          (2, 40, 14, 38), (1, 1, 196, 68)]
+          (2, 40, 14, 38), (1, 1, 196, 68), (64, 20, 20, 20)]
 SLOTS = [396, 132, 7]        # resident blocks: 3 an SM, 1 an SM, a few
 
 HARNESS = r"""

@@ -187,7 +187,7 @@ def test_port_never_imports_jax():
               "pgen.cpaw", "pgen.field_loop", "pgen.current_sheet",
               "ops.fluid", "ops.rsolvers_sr", "srcterms", "units",
               "pgen.rt", "pgen.lw_implode", "pgen.slotted_cyl",
-              "pgen.advection"):
+              "pgen.advection", "amr", "amr_pool", "z4c.z4c_amr"):
         assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

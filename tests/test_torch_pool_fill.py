@@ -179,7 +179,8 @@ KTHREADS, KSLOTS = 256, 8          # csrc/common.cuh kThreads, pool_fill.cu
 # (blocks along x1, x2, x3, cells of a block): the turb8 and pool decks'
 # pools, the layouts above and one odd interior extent
 ENUM_CASES = [((2, 2, 2), 64), ((2, 2, 2), 62)] + \
-    [(layout, NB) for layout in LAYOUTS] + [((2, 1, 2), 7)]
+    [(layout, NB) for layout in LAYOUTS] + [((2, 1, 2), 7)] \
+    + [((4, 4, 4), 16)]   # inputs/mhd/blast_amr's flat tree, no pool
 CALLS = [("cc",), ("x1f", "x2f", "x3f")]
 
 ENUM_HARNESS = r"""

@@ -155,9 +155,11 @@ def test_kernel_route_matches_pallas(f32_interpret, monkeypatch):
 
 @pytest.mark.parametrize("case", ["adaptive", "prolong_primitives", "sr"])
 def test_unported_options(case, monkeypatch):
-    """Adaptive refinement and prolongation in primitives raise; an SR
-    deck on a refined mesh builds, keeps its SR solver on the general
-    path and never reaches kernel J, even with the kernel gate open."""
+    """Adaptive refinement and prolongation in primitives, which raised
+    before they were ported, build (``test_torch_amr_*.py`` hold them
+    against JAX); an SR deck on a refined mesh builds, keeps its SR
+    solver on the general path and never reaches kernel J, even with the
+    kernel gate open."""
     text = deck("2d")
     if case == "adaptive":
         text = text.replace("refinement = static", "refinement = adaptive")
@@ -169,11 +171,17 @@ def test_unported_options(case, monkeypatch):
             .replace("rsolver = hlld", "rsolver = hlle") \
             .replace("gamma = 1.6666666666666667",
                      "gamma = 1.3333333333333333")
-    pin = ParameterInput.from_string(text)
     if case != "sr":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            torch_main.build(pin, device="cpu")
+        text += "<amr_criterion1>\nmethod = location\n"
+        mesh, phys, _, driver, _ = torch_main.build(
+            ParameterInput.from_string(text), device="cpu")
+        if case == "adaptive":
+            assert mesh.adaptive and driver.pamr is not None
+            assert mesh.amr_pool and phys.multilevel
+        else:
+            assert not mesh.adaptive and phys.bvals.prolong_prims
         return
+    pin = ParameterInput.from_string(text)
     calls = []
     monkeypatch.setattr(torch_mhd, "kernel_dtype_ok", lambda t: True)
     monkeypatch.setattr(torch_flux, "fused_flux_dir",

@@ -45,9 +45,11 @@ STATIC_SMEM = 256            # bytes of static shared memory, at most
 
 # (nmb, n3, n2, n1) with ghosts: the 124^3 blast, the 8 x 62^3 pool, the
 # 64 x 32 x 32 MHD test decks, and tests/test_torch_cuda.py's 20^3 block,
-# 2 x 2 x 1 pool of 13 x 17 x 11 interior cells and 12^3 block
+# 2 x 2 x 1 pool of 13 x 17 x 11 interior cells and 12^3 block; last,
+# inputs/mhd/blast_amr's flat tree without its block pool (64 x 16^3)
 SHAPES = [(1, 128, 128, 128), (8, 66, 66, 66), (1, 36, 36, 68),
-          (1, 24, 24, 24), (4, 15, 21, 17), (1, 12, 12, 12)]
+          (1, 24, 24, 24), (4, 15, 21, 17), (1, 12, 12, 12),
+          (64, 20, 20, 20)]
 SLOTS = [264, 132, 7]        # resident blocks: 2 an SM, 1 an SM, a few
 
 HARNESS = r"""

@@ -39,10 +39,11 @@ SMEM_RESERVED = 1024         # bytes the runtime keeps for each block
 SMEM_BLOCK = 232448          # the most one block may take
 
 # (nmb, n3, n2, n1, nghost): the decks' shapes with ghosts, then ragged
-# ones (tests/test_torch_cuda.py's ragged interior among them)
+# ones (tests/test_torch_cuda.py's ragged interior among them); last,
+# inputs/z4c/one_puncture_amr's flat tree (64 blocks of 8^3, nghost 4)
 SHAPES = [(1, 64, 64, 64, 2), (1, 70, 70, 70, 3), (2, 40, 40, 40, 4),
           (1, 52, 48, 56, 5), (1, 15, 10, 13, 2), (2, 15, 13, 19, 3),
-          (2, 19, 17, 21, 4), (1, 21, 19, 17, 5)]
+          (2, 19, 17, 21, 4), (1, 21, 19, 17, 5), (64, 16, 16, 16, 4)]
 
 SHIM = r"""
 #pragma once

@@ -178,3 +178,88 @@ def check_pair(pair: DeckPair, tol=1e-10, ng=2):
     assert np.isfinite(pair.state["u"]).all()
     assert pair.state["u"].dtype == np.float64
     return pair
+
+
+class AmrPair:
+    """One adaptive deck through both packages' ``main.run`` (the JAX
+    package's driver, with its AMR step, block pool or not as the deck
+    says, compiled at XLA's backend optimisation level 0), with the leaf
+    list of every tree update (``jax_trees`` recorded around the JAX
+    package's AMR step, ``trees`` read off the port's ``AMR.updates``:
+    lists of (cycle, leaves)) and the dt each cycle chose before its AMR
+    step (``jax_dts``, ``dts``)."""
+
+    def __init__(self, text: str, overrides=(), jax_overrides=(),
+                 rundir=None) -> None:
+        from athenak_tpu import amr as jax_amr
+        from athenak_tpu_torch import amr as torch_amr
+        import pytest
+
+        self.jax_trees = []
+        self.jax_dts, self.dts = [], []
+        with pytest.MonkeyPatch.context() as mp:
+            for mod, seq, dts in ((jax_amr, self.jax_trees, self.jax_dts),
+                                  (torch_amr, None, self.dts)):
+                mp.setattr(mod.AMR, "step",
+                           _recording(mod.AMR.step, seq, dts))
+            mp.setattr(jax, "jit", _jit_o0(jax.jit))
+            pj = JaxInput.from_string(text)
+            pj.modify_from_cmdline(JAX_EXTRA + list(overrides)
+                                   + list(jax_overrides))
+            cwd = os.getcwd()
+            if rundir is not None:
+                os.makedirs(rundir, exist_ok=True)
+                os.chdir(rundir)
+            try:
+                (self.jax_mesh, self.jax_phys, self.jax_driver,
+                 st) = jax_main.run(pj)
+                self.jax_state = jax.tree_util.tree_map(np.asarray, st)
+                pt = ParameterInput.from_string(text)
+                pt.modify_from_cmdline(list(overrides))
+                self.mesh, self.phys, self.driver, st = torch_main.run(
+                    pt, device="cpu")
+                self.state = state_to_numpy(st)
+            finally:
+                os.chdir(cwd)
+        self.trees = [(r["ncycle"], r["leaves"])
+                      for r in self.driver.pamr.updates]
+
+    def check(self, tol=1e-10, ng=2):
+        """The leaf sequence equal at every tree update, the block counts
+        created and deleted equal, the state and time to ``tol``."""
+        assert self.trees == self.jax_trees
+        np.testing.assert_allclose(self.dts, self.jax_dts, rtol=tol)
+        assert self.mesh.leaves == [tuple(v) for v in self.jax_mesh.leaves]
+        for k in ("nmb_created", "nmb_deleted"):
+            assert getattr(self.driver.pamr, k) == \
+                getattr(self.jax_driver.pamr, k), k
+        assert self.mesh.ncycle == self.jax_mesh.ncycle
+        np.testing.assert_allclose(self.mesh.time, self.jax_mesh.time,
+                                   rtol=tol)
+        assert_states_close(self.state, self.jax_state, tol, ng)
+        return self
+
+
+def _recording(step, seq, dts):
+    """``AMR.step`` that appends the cycle's dt to ``dts`` and, unless
+    ``seq`` is None, (cycle, leaves) to ``seq`` at every tree update."""
+    def wrapped(self, driver, state, outputs=()):
+        dts.append(float(driver.mesh.dt))
+        state, changed = step(self, driver, state, outputs)
+        if changed and seq is not None:
+            seq.append((int(driver.mesh.ncycle),
+                        [tuple(int(v) for v in leaf)
+                         for leaf in driver.mesh.leaves]))
+        return state, changed
+    return wrapped
+
+
+def _jit_o0(jit):
+    """``jax.jit`` at backend optimisation level 0 (``jit_o0``), for the
+    JAX package's driver and AMR step, which compile a cycle for every
+    tree."""
+    def wrapped(fn=None, **kw):
+        opts = dict(kw.pop("compiler_options", None) or {},
+                    xla_backend_optimization_level=0)
+        return jit(fn, compiler_options=opts, **kw)
+    return wrapped
