@@ -11,9 +11,11 @@ nvcc at first use (``kernels/``).
 
 Ported so far: 3-D ideal MHD on single-level meshes, Newtonian (PLM +
 HLLD) and special-relativistic (PLM + HLLE or LLF, the Kastaun c2p),
-with driven turbulence; vacuum Z4c numerical relativity (the single
-puncture); RK1-RK4, periodic or outflow boundaries, the blast, turb and
-z4c_one_puncture problem generators and ``bin`` outputs.
+with driven turbulence; Newtonian and SR hydrodynamics; static and
+adaptive mesh refinement; vacuum Z4c numerical relativity with its
+generators, puncture trackers, waveforms, constraints and CCE and
+horizon dumps; RK1-RK4, the history, binary, table, restart, VTK and
+waveform outputs (README.md lists the decks).
 """
 
 __version__ = "0.1.0"

@@ -11,7 +11,8 @@ cycle windows, block coalescing and pencil packing are not ported:
 coalescing repacks a pool into one superblock for the TPU's lane layout,
 so a multi-block deck runs here as a pool of blocks whatever
 ``mesh/coalesce`` says, with the same answer.  A driven run applies its
-turbulence forcing once a cycle, before the stages.  On an adaptive mesh
+turbulence forcing once a cycle, before the stages, and the physics'
+``post_cycle`` (the Z4c puncture trackers) after them.  On an adaptive mesh
 the AMR step (``amr.AMR``) runs after every cycle; a tree update
 replaces the mesh and the physics, drops the cycle function and takes
 dt on the new tree at once (the finer CFL), and the zone-cycles count
@@ -192,6 +193,12 @@ class Driver:
                     dt_fused = counters.pop("dtmin")
                 counters_tot = counters if counters_tot is None else {
                     k: counters_tot[k] + v for k, v in counters.items()}
+            # after-time-integrator tasks: the puncture trackers
+            # (reference: driver.cpp "after_timeintegrator"), with dt in
+            # the state's dtype as the JAX cycle has it
+            post = getattr(phys, "post_cycle", None)
+            if post is not None:
+                state = post(state, torch.tensor(dt, dtype=dtype).item())
             dtnew = dt_fused if dt_fused is not None \
                 else phys.dt_from_state(state)
             return state, dtnew, counters_tot
@@ -201,8 +208,13 @@ class Driver:
     # ------------------------------------------------------------------
     def initialize(self, state):
         """Ghost-zone init + first dt, the stored dt kept on a restart
-        (reference: Driver::Initialize, src/driver/driver.cpp:314-372)."""
-        state = self.phys.init_ghosts(state)
+        (reference: Driver::Initialize, src/driver/driver.cpp:314-372).
+        A resumed run takes the physics' ``restart_ghosts`` where it has
+        one (Z4c: the fill without the projection the stored state already
+        had)."""
+        init = getattr(self.phys, "restart_ghosts", None) \
+            if self.res_flag else None
+        state = (init or self.phys.init_ghosts)(state)
         if self.time_evolution != "static" and not self.res_flag:
             dtnew = float(self.phys.dt_from_state(state))
             self.mesh.dt = min(self.cfl_no * dtnew, _HUGE)

@@ -132,7 +132,8 @@ def run_restart(restart_file, overrides=(), verbose: bool = False,
     from the stored parameter dump with ``overrides`` on top, replace
     the problem generator's state with the stored one, keep the stored
     time, dt and cycle, skip the output intervals already passed and the
-    initial-condition outputs, and run on.  A refined mesh is rebuilt on
+    initial-condition outputs (the CCE and horizon dumps take their
+    stored cadence), and run on.  A refined mesh is rebuilt on
     the stored tree (``tree_leaves``) and an adaptive run takes back its
     cycles since the last refinement (``amr_ncyc_since_ref``).  Returns
     (mesh, phys, driver, state) of the final tree."""
@@ -154,6 +155,9 @@ def run_restart(restart_file, overrides=(), verbose: bool = False,
     driver.res_flag = True
     outputs = make_outputs(pin, mesh, phys, driver)
     for out in outputs:
+        if hasattr(out, "resume"):       # the CCE and horizon dumps
+            out.resume(extras)
+            continue
         p = out.params
         if p.dt > 0.0:
             nskip = int(math.floor((time + 1e-12) / p.dt)) + 1

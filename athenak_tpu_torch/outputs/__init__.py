@@ -1,13 +1,18 @@
 """Outputs: history sums, reference-format binary dumps, formatted
-tables, restart files and legacy VTK.
+tables, restart files, legacy VTK, gravitational waveforms and the CCE
+and horizon dumps.
 
 Counterpart of ``athenak_tpu/outputs/__init__.py`` (reference:
 src/outputs/ — BaseTypeOutput and the <outputN> factory,
-src/outputs/outputs.cpp:224-260).  ``hst``, ``bin``, ``tab``, ``rst``
-and ``vtk`` are ported; the other file types raise.  Every writer reads
-the state the driver hands it (``phys.unpack_state``: u, w, under MHD
-bfc and bcc, and the turbulence driver's entries) and moves what it
-writes to the host.
+src/outputs/outputs.cpp:224-260).  ``hst``, ``bin``, ``tab``, ``rst``,
+``vtk`` and ``wave`` are ported; the other file types raise.  A Z4c deck
+also gets its CCE worldtubes from ``<cce>`` and its horizon cube dumps
+from ``<z4c>/dump_horizon_N`` (reference: z4c.cpp:195-233).  Every
+writer reads the state the driver hands it (``phys.unpack_state``: u, w,
+under MHD bfc and bcc, the turbulence driver's entries, the puncture
+trackers' ``co_pos``) and moves what it writes to the host.  ``bin``,
+``tab`` and ``vtk`` take the Z4c variables of ``variables.py`` (z4c,
+adm, con, weyl) besides their hydro and MHD ones.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from ..indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 from ..state import state_to_numpy
+from .variables import is_z4c_variable, resolve_z4c
 
 
 class OutputParameters:
@@ -168,7 +174,8 @@ class BinaryOutput(BaseOutput):
     def __init__(self, pin, mesh, phys, block: str) -> None:
         super().__init__(pin, mesh, phys, block)
         self.pin = pin
-        if self.params.variable not in self._VARIABLES:
+        if self.params.variable not in self._VARIABLES and \
+                not is_z4c_variable(self.params.variable):
             raise NotImplementedError(
                 f"<{block}>/variable = '{self.params.variable}' is not "
                 f"ported to athenak_tpu_torch yet "
@@ -181,10 +188,13 @@ class BinaryOutput(BaseOutput):
                     slice(mbi.ks, mbi.ke + 1),
                     slice(mbi.js, mbi.je + 1),
                     slice(mbi.is_, mbi.ie + 1))
-        kind, labels = self._VARIABLES[p.variable]
-        base = state[kind[0]][:, :5]
-        if kind.endswith("_bcc"):
-            base = torch.cat([base, state["bcc"]], dim=1)
+        if is_z4c_variable(p.variable):
+            labels, base = resolve_z4c(p.variable, self.phys, state)
+        else:
+            kind, labels = self._VARIABLES[p.variable]
+            base = state[kind[0]][:, :5]
+            if kind.endswith("_bcc"):
+                base = torch.cat([base, state["bcc"]], dim=1)
         # only the interior crosses to the host
         arr = base[interior].to(device="cpu", dtype=torch.float64).numpy()
         header_bytes = self.pin.dump().encode()
@@ -231,9 +241,13 @@ class TabularOutput(BaseOutput):
 
     def write(self, mesh, state) -> None:
         p = self.params
-        kind, labels = self._VARIABLES.get(
-            p.variable, ("w", ["dens", "velx", "vely", "velz", "eint"]))
-        arr = state[kind].to(device="cpu", dtype=torch.float64).numpy()
+        if is_z4c_variable(p.variable):
+            labels, arr = resolve_z4c(p.variable, self.phys, state)
+        else:
+            kind, labels = self._VARIABLES.get(
+                p.variable, ("w", ["dens", "velx", "vely", "velz", "eint"]))
+            arr = state[kind]
+        arr = arr.to(device="cpu", dtype=torch.float64).numpy()
         nvar = min(arr.shape[1], len(labels))
         mbi = mesh.mb_indcs
         fname = f"{self.basename}.{p.variable}.{p.file_number:05d}.tab"
@@ -301,13 +315,16 @@ class RestartOutput(BaseOutput):
     container under its key names (``params``, ``time``, ``dt``,
     ``ncycle``, ``tree_leaves`` on a refined mesh, ``amr_ncyc_since_ref``
     on an adaptive one, ``treedef``, ``leaf{i}``), so that either package
-    reads the other's files.  The
+    reads the other's files, and the cadence of the CCE and horizon dumps
+    (``cce_last``, ``horizon_last``, ``horizon_count``) where the run
+    writes them.  The
     turbulence driver's threefry key is stored as the JAX package's two
     uint32 words (``state.state_to_numpy``)."""
 
     def __init__(self, pin, mesh, phys, block: str) -> None:
         super().__init__(pin, mesh, phys, block)
         self.pin = pin
+        self.outputs = []   # the run's outputs (``make_outputs``)
 
     def write(self, mesh, state) -> None:
         fname = f"{self.basename}.{self.params.file_number:05d}.rst"
@@ -326,6 +343,9 @@ class RestartOutput(BaseOutput):
         if pamr is not None:
             payload["amr_ncyc_since_ref"] = np.asarray(
                 pamr.ncyc_since_ref, dtype=np.int64)
+        for out in self.outputs:
+            if hasattr(out, "restart_record"):
+                payload.update(out.restart_record())
         keys, flat = _flatten_state(state_to_numpy(state))
         payload["treedef"] = np.frombuffer(json.dumps(keys).encode(),
                                            dtype=np.uint8)
@@ -367,8 +387,8 @@ def load_restart(fname, with_extras: bool = False):
     (params_text, time, dt, ncycle, state of host numpy arrays
     [, extras]); the caller moves the state to its device and dtype.
     ``extras`` holds the evolved tree (``tree_leaves``, a list of
-    (l1, l2, l3, lev)) and the AMR bookkeeping (``amr_ncyc_since_ref``)
-    where the file has them."""
+    (l1, l2, l3, lev)), the AMR bookkeeping (``amr_ncyc_since_ref``) and
+    the cadence of the CCE and horizon dumps where the file has them."""
     z = np.load(fname)
     leaves = []
     while f"leaf{len(leaves)}" in z:
@@ -383,8 +403,10 @@ def load_restart(fname, with_extras: bool = False):
     if "tree_leaves" in z:
         extras["tree_leaves"] = [tuple(int(x) for x in row)
                                  for row in z["tree_leaves"]]
-    if "amr_ncyc_since_ref" in z:
-        extras["amr_ncyc_since_ref"] = np.asarray(z["amr_ncyc_since_ref"])
+    for key in ("amr_ncyc_since_ref", "cce_last", "horizon_last",
+                "horizon_count"):
+        if key in z:
+            extras[key] = np.asarray(z[key])
     return out + (extras,)
 
 
@@ -402,13 +424,16 @@ class VtkOutput(BaseOutput):
 
     def write(self, mesh, state) -> None:
         p = self.params
-        kind, labels = BinaryOutput._VARIABLES.get(
-            p.variable, ("w", ["dens", "velx", "vely", "velz", "eint"]))
-        arr = state[kind[0]][:, :5]
-        if kind.endswith("_bcc"):
-            arr = torch.cat([arr, state["bcc"].to(arr.dtype)], dim=1)
+        if is_z4c_variable(p.variable):
+            labels, arr = resolve_z4c(p.variable, self.phys, state)
         else:
-            labels = labels[:arr.shape[1]]
+            kind, labels = BinaryOutput._VARIABLES.get(
+                p.variable, ("w", ["dens", "velx", "vely", "velz", "eint"]))
+            arr = state[kind[0]][:, :5]
+            if kind.endswith("_bcc"):
+                arr = torch.cat([arr, state["bcc"].to(arr.dtype)], dim=1)
+            else:
+                labels = labels[:arr.shape[1]]
         mbi = mesh.mb_indcs
         act = arr[:, :, mbi.ks:mbi.ke + 1, mbi.js:mbi.je + 1,
                   mbi.is_:mbi.ie + 1].to(device="cpu",
@@ -447,8 +472,153 @@ class VtkOutput(BaseOutput):
                 f.write(g[v].astype(">f4").tobytes())
 
 
+class WaveformOutput(BaseOutput):
+    """Gravitational-wave diagnostics of a Z4c run: psi4 (l, m) modes on
+    extraction spheres and the compact-object trackers (reference:
+    src/z4c/z4c_wave_extr.cpp, src/z4c/compact_object_tracker.cpp; the
+    JAX package's ``WaveformOutput``, its file names and columns:
+    ``<basename>.co_<n>.txt`` rows of time and position, and
+    ``<basename>.waveform.txt``, a header and one row a radius a write).
+    Deck keys of <z4c>: nrad_wave_extraction, extraction_radius_N,
+    extraction_nlev, lmax_wave_extraction, nco.  The tracker positions
+    are the device's ``co_pos`` (``Z4c.post_cycle``), and only those
+    [nco, 3] floats and the two psi4 channels cross to the host, at
+    output cadence; psi4 is computed with the current tree's physics."""
+
+    def __init__(self, pin, mesh, phys, block: str) -> None:
+        super().__init__(pin, mesh, phys, block)
+        from ..z4c.weyl import WaveExtractor
+        nrad = pin.get_or_add_integer("z4c", "nrad_wave_extraction", 0)
+        radii = [pin.get_real("z4c", f"extraction_radius_{n + 1}")
+                 for n in range(nrad)]
+        nlev = pin.get_or_add_integer("z4c", "extraction_nlev", 16)
+        lmax = pin.get_or_add_integer("z4c", "lmax_wave_extraction", 4)
+        self.extractor = WaveExtractor(radii, lmax=lmax, nlevel=nlev) \
+            if radii else None
+        self.nco = pin.get_or_add_integer("z4c", "nco", 0)
+        self._wrote_header = False
+
+    def write(self, mesh, state) -> None:
+        if self.nco > 0:
+            pos = state["co_pos"].detach().to(
+                device="cpu", dtype=torch.float64).numpy()
+            for n, (x, y, z) in enumerate(pos):
+                with open(f"{self.basename}.co_{n}.txt", "a") as f:
+                    f.write(f"{mesh.time:.10e} {x:.10e} {y:.10e} {z:.10e}\n")
+        if self.extractor is None:
+            return
+        from ..z4c.weyl import weyl_scalars
+        rp, ip = weyl_scalars(self.phys, state["u"])
+        rp, ip = rp.cpu().numpy(), ip.cpu().numpy()
+        keys = sorted(self.extractor.ylm.keys())
+        if not self._wrote_header:
+            with open(f"{self.basename}.waveform.txt", "a") as f:
+                cols = " ".join(f"Re_l{l}_m{m} Im_l{l}_m{m}"
+                                for l, m in keys)
+                f.write(f"# time radius {cols}\n")
+            self._wrote_header = True
+        for rad, modes in self.extractor.modes(mesh, rp, ip):
+            with open(f"{self.basename}.waveform.txt", "a") as f:
+                vals = " ".join(f"{modes[k][0]:.10e} {modes[k][1]:.10e}"
+                                for k in keys)
+                f.write(f"{mesh.time:.10e} {rad:.6e} {vals}\n")
+
+
+class CCEOutput:
+    """Cadenced CCE worldtube dumps (reference: Z4c::CCEDump,
+    z4c_tasks.cpp:345-360: a float32 time comparison, every worldtube at
+    each dump time), into ``cce/cce_<time>.bin``.  ``due`` is its own
+    cadence (the JAX package's class has none, ROADMAP F11); a restart
+    file carries it (``restart_record``, ``resume``)."""
+
+    def __init__(self, pin, mesh, phys) -> None:
+        from ..z4c.cce import CCE
+        self.phys = phys
+        self.driver = None
+        self.cce_dt = pin.get_or_add_real("cce", "cce_dt", 1.0)
+        ncce = pin.get_integer("cce", "num_radii")
+        self.worldtubes = [CCE(pin, mesh, i) for i in range(ncce)]
+        self.last = -100.0  # reference cce_dump_last_output_time
+
+    def due(self, mesh) -> bool:
+        return bool(np.float32(mesh.time)
+                    >= np.float32(self.last + self.cce_dt))
+
+    def maybe_write(self, mesh, state, force: bool = False) -> None:
+        if not (force or self.due(mesh)):
+            return
+        for wt in self.worldtubes:
+            wt.dump(mesh, self.phys, state["u"])
+        self.last = float(np.float32(mesh.time))
+
+    def restart_record(self):
+        return {"cce_last": np.float64(self.last)}
+
+    def resume(self, extras) -> None:
+        self.last = float(_cadence(extras, "cce_last"))
+
+
+class HorizonDumpOutput:
+    """Cadenced horizon cube dumps (reference: Z4c::DumpHorizons,
+    z4c_tasks.cpp:554-575), into ``horizon_<n>/output_<count>/``; the
+    first at t = 0, then every ``<z4c>/horizon_dt`` (a float32
+    comparison).  Horizon n is centred on tracker n, the device's
+    ``co_pos[n]``; a horizon without a tracker (n >= nco) stays at its
+    deck centre ``co_<n>_x/y/z``.  ``due`` is its own cadence (ROADMAP
+    F11); a restart file carries it and the dump counts."""
+
+    def __init__(self, pin, mesh, phys) -> None:
+        from ..z4c.cce import HorizonDump
+        self.phys = phys
+        self.driver = None
+        self.dumps = []
+        n = 0
+        while pin.get_or_add_boolean("z4c", f"dump_horizon_{n}", False):
+            self.dumps.append(HorizonDump(pin, mesh, n))
+            n += 1
+        self.nco = pin.get_or_add_integer("z4c", "nco", 0)
+        self.last = 0.0
+
+    def due(self, mesh) -> bool:
+        if not self.dumps:
+            return False
+        return bool(np.float32(mesh.time)
+                    >= np.float32(self.last + self.dumps[0].horizon_dt)
+                    or (mesh.time == 0.0 and self.dumps[0].output_count == 0))
+
+    def maybe_write(self, mesh, state, force: bool = False) -> None:
+        if not (force or self.due(mesh)):
+            return
+        if self.nco > 0:
+            pos = state["co_pos"].detach().to(
+                device="cpu", dtype=torch.float64).numpy()
+        for n, hd in enumerate(self.dumps):
+            hd.dump(mesh, self.phys, state["u"],
+                    center=pos[n] if n < self.nco else None)
+        self.last = float(np.float32(mesh.time))
+
+    def restart_record(self):
+        return {"horizon_last": np.float64(self.last),
+                "horizon_count": np.array(
+                    [hd.output_count for hd in self.dumps], dtype=np.int64)}
+
+    def resume(self, extras) -> None:
+        self.last = float(_cadence(extras, "horizon_last"))
+        for hd, count in zip(self.dumps, _cadence(extras, "horizon_count")):
+            hd.output_count = int(count)
+
+
+def _cadence(extras, key):
+    if key not in extras:
+        raise ValueError(
+            f"the restart file holds no '{key}': it was not written with "
+            "this deck's CCE or horizon dumps, so their cadence cannot "
+            "be resumed")
+    return extras[key]
+
+
 _TYPES = {"hst": HistoryOutput, "bin": BinaryOutput, "tab": TabularOutput,
-          "rst": RestartOutput, "vtk": VtkOutput}
+          "rst": RestartOutput, "vtk": VtkOutput, "wave": WaveformOutput}
 
 
 def make_outputs(pin, mesh, phys, driver=None) -> List[BaseOutput]:
@@ -463,4 +633,19 @@ def make_outputs(pin, mesh, phys, driver=None) -> List[BaseOutput]:
                     f"athenak_tpu_torch yet (ported: {sorted(_TYPES)})")
             outs.append(cls(pin, mesh, phys, block))
             outs[-1].driver = driver
+    # CCE worldtubes and horizon cube dumps come from their own deck
+    # blocks, not <outputN> (reference: z4c.cpp:195-233; task-list
+    # cadence in z4c_tasks.cpp:345, 555)
+    if pin.does_block_exist("z4c"):
+        if pin.does_block_exist("cce") and \
+                pin.get_or_add_integer("cce", "num_radii", 0) > 0:
+            outs.append(CCEOutput(pin, mesh, phys))
+        if pin.does_parameter_exist("z4c", "dump_horizon_0"):
+            outs.append(HorizonDumpOutput(pin, mesh, phys))
+    # restart files last, so that one holds the cadence of the outputs
+    # written in the same cycle
+    outs.sort(key=lambda out: isinstance(out, RestartOutput))
+    for out in outs:
+        if isinstance(out, RestartOutput):
+            out.outputs = outs
     return outs

@@ -1,0 +1,90 @@
+"""The Z4c output variables: the evolved fields, the ADM fields, the
+constraint monitors and psi4.
+
+Counterpart of the Z4c part of ``athenak_tpu/outputs/variables.py``
+(reference: the ``var_choice`` rows of src/outputs/outputs.hpp:31-105 for
+z4c, adm, con and weyl): every name resolves to the labels and a tensor
+[nmb, nvar, n3, n2, n1] computed on the state's device, of which the
+writers move only the interior to the host.  The hydro and MHD derived
+variables are not ported yet (ROADMAP Queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import torch
+
+Z4C_LABELS = [
+    "z4c_chi",
+    "z4c_gxx", "z4c_gxy", "z4c_gxz", "z4c_gyy", "z4c_gyz", "z4c_gzz",
+    "z4c_Khat",
+    "z4c_Axx", "z4c_Axy", "z4c_Axz", "z4c_Ayy", "z4c_Ayz", "z4c_Azz",
+    "z4c_Gamx", "z4c_Gamy", "z4c_Gamz",
+    "z4c_Theta", "z4c_alpha", "z4c_betax", "z4c_betay", "z4c_betaz"]
+
+ADM_LABELS = [
+    "adm_gxx", "adm_gxy", "adm_gxz", "adm_gyy", "adm_gyz", "adm_gzz",
+    "adm_Kxx", "adm_Kxy", "adm_Kxz", "adm_Kyy", "adm_Kyz", "adm_Kzz",
+    "adm_alpha", "adm_betax", "adm_betay", "adm_betaz"]
+
+CON_NAMES = ("con", "con_C", "con_H", "con_M", "con_Z", "con_Mx",
+             "con_My", "con_Mz")
+
+NAMES = tuple(["z4c"] + Z4C_LABELS + ["adm", "adm_psi4"] + ADM_LABELS
+              + list(CON_NAMES) + ["weyl", "weyl_rpsi4", "weyl_ipsi4"])
+
+
+def is_z4c_variable(name: str) -> bool:
+    return name in NAMES
+
+
+def resolve_z4c(name: str, phys, state):
+    """(labels, tensor [nmb, nvar, n3, n2, n1]) of a Z4c output variable
+    on the state's device; a name of another family raises KeyError."""
+    if not is_z4c_variable(name):
+        raise KeyError(f"'{name}' is not a Z4c output variable")
+    z = state["u"]
+    if name == "z4c":
+        return list(Z4C_LABELS), z[:, :len(Z4C_LABELS)]
+    if name.startswith("z4c"):
+        i = Z4C_LABELS.index(name)
+        return [name], z[:, i:i + 1]
+    if name.startswith("adm"):
+        from ..z4c.z4c import adm_from_z4c
+        adm = adm_from_z4c(phys, z)
+        fields = adm["g3d"] + adm["K_dd"] + [adm["alpha"]] + adm["beta_u"]
+        if name == "adm":
+            return list(ADM_LABELS), torch.stack(fields, dim=1)
+        if name == "adm_psi4":
+            # det(gamma)^(1/6) of the six-component metric (the JAX
+            # package passes the list to its 3x3 determinant; ROADMAP F11)
+            from ..z4c.ahf import _det6
+            return ["adm_psi4"], (_det6(adm["g3d"]) ** (1.0 / 6.0))[:, None]
+        i = ADM_LABELS.index(name)
+        return [name], fields[i][:, None]
+    if name.startswith("con"):
+        if name == "con_H":
+            H, _ = phys.adm_constraints(z)
+            return ["con_H"], H[:, None]
+        if name == "con_M":
+            _, M2 = phys.adm_constraints(z)
+            return ["con_M"], torch.sqrt(M2)[:, None]
+        con = phys.adm_constraints(z, full=True)
+        if name == "con_C":
+            return ["con_C"], con["C"][:, None]
+        if name == "con_Z":
+            return ["con_Z"], con["Z"][:, None]
+        if name in ("con_Mx", "con_My", "con_Mz"):
+            a = {"con_Mx": 0, "con_My": 1, "con_Mz": 2}[name]
+            return [name], con["M_d"][a][:, None]
+        # the full monitor set (reference: z4c.hpp:61-67 I_CON_* order)
+        fields = [con["C"], con["H"], torch.sqrt(con["M2"]),
+                  con["Z"]] + list(con["M_d"])
+        return (["con_C", "con_H", "con_M", "con_Z",
+                 "con_Mx", "con_My", "con_Mz"], torch.stack(fields, dim=1))
+    from ..z4c.weyl import weyl_scalars
+    rp, ip = weyl_scalars(phys, z)
+    if name == "weyl_rpsi4":
+        return ["r_psi4"], rp[:, None]
+    if name == "weyl_ipsi4":
+        return ["i_psi4"], ip[:, None]
+    return ["r_psi4", "i_psi4"], torch.stack([rp, ip], dim=1)

@@ -14,7 +14,9 @@ selected by <problem>/pgen_name.  The blast wave and driven turbulence
 linear waves, the Orszag-Tang vortex, the circularly polarised Alfven
 wave, the field loop, the current sheet, Rayleigh-Taylor, the
 Liska-Wendroff implosion, the slotted cylinder, the advection test and
-the Z4c single puncture are ported so far.
+the Z4c generators (single, boosted and two punctures, Kerr-Schild, the
+linear wave and the AwA gauge-wave and robust-stability tests) are
+ported so far.
 """
 
 from __future__ import annotations
@@ -34,6 +36,16 @@ _REGISTRY = {
     "field_loop": "athenak_tpu_torch.pgen.field_loop",
     "turb": "athenak_tpu_torch.pgen.turb",
     "z4c_one_puncture": "athenak_tpu_torch.pgen.z4c_one_puncture",
+    "z4c_linear_wave": "athenak_tpu_torch.pgen.z4c_linear_wave",
+    "z4c_two_punctures": "athenak_tpu_torch.pgen.z4c_two_punctures",
+    "z4c_two_puncture": "athenak_tpu_torch.pgen.z4c_two_punctures",
+    "z4c_kerr_schild": "athenak_tpu_torch.pgen.z4c_kerr_schild",
+    "kerr_schild": "athenak_tpu_torch.pgen.z4c_kerr_schild",
+    "z4c_gauge_wave": "athenak_tpu_torch.pgen.z4c_gauge_wave",
+    "gauge_wave": "athenak_tpu_torch.pgen.z4c_gauge_wave",
+    "z4c_stability": "athenak_tpu_torch.pgen.z4c_stability",
+    "robust_stability": "athenak_tpu_torch.pgen.z4c_stability",
+    "z4c_boosted_puncture": "athenak_tpu_torch.pgen.z4c_boosted_puncture",
     "kh": "athenak_tpu_torch.pgen.kh",
     "current_sheet": "athenak_tpu_torch.pgen.current_sheet",
     "shu_osher": "athenak_tpu_torch.pgen.shu_osher",

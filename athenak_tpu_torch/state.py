@@ -4,9 +4,11 @@ The JAX package's state is a dict of arrays: ``u``, under MHD ``bfc`` (a
 dict of the face arrays x1f, x2f, x3f) and, when present, ``w``, ``bcc``
 and the turbulence driver's ``turb_force`` and threefry key
 ``turb_key`` (two uint32 words; an int64 tensor in the port,
-``prng.py``).  A Z4c state holds ``u`` (and ``w``, the same array) and
-no ``bfc``.  These two functions move such a dict (as numpy arrays) into
-the port and back, so both packages can start from one state.
+``prng.py``).  A Z4c state holds ``u`` (and ``w``, the same array), no
+``bfc``, and with puncture trackers their positions ``co_pos`` [nco, 3]
+at the state's dtype.  These two functions move such a dict (as numpy
+arrays) into the port and back, so both packages can start from one
+state.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_KEYS = ("u", "w", "bcc", "turb_force")
+_KEYS = ("u", "w", "bcc", "turb_force", "co_pos")
 
 
 def _check_keys(d) -> None:

@@ -23,13 +23,22 @@ torch path runs with per-block inverse spacings ([nmb, 1, 1, 1] tensors,
 (``bvals.prolong_order = 4``, which needs nghost >= 4) and dt comes from
 the smallest block spacing.
 
-Not ported yet (they raise): the puncture trackers (``nco > 0``) and the
-matter coupling (``tmunu``).  The TPU's row packing
-is layout for the TPU's lanes and has no counterpart here: the state is
-always the logical 5-D array.
+The puncture trackers (``<z4c>/nco > 0``) are device state:
+``state["co_pos"]`` is an [nco, 3] tensor at the state's dtype on the
+run's device, moved once a cycle by ``post_cycle`` (dx/dt = -beta(x),
+the shift interpolated trilinearly on the card by
+``z4c_amr.device_interp``); only the AMR check and the outputs read it
+back.  ``adm_constraints`` computes the Hamiltonian and momentum
+constraint monitors in torch ops.
+
+Not ported yet (it raises): the matter coupling (``tmunu``).  The TPU's
+row packing is layout for the TPU's lanes and has no counterpart here:
+the state is always the logical 5-D array.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -79,6 +88,21 @@ def spatial_inv(g, detg):
     gu[2][2] = (g[0][0] * g[1][1] - g[0][1] * g[0][1]) * i
     gu[1][0], gu[2][0], gu[2][1] = gu[0][1], gu[0][2], gu[1][2]
     return gu
+
+
+def adm_from_z4c(z4c, u):
+    """Pointwise ADM variables from the Z4c state (reference:
+    Z4c::Z4cToADM, z4c_adm.cpp; the JAX package's
+    ``dyngr.adm_from_z4c``): gamma_ij = g-tilde_ij / chi and K_ij =
+    (A-tilde_ij + g-tilde_ij K / 3) / chi with chi = psi^-4, as lists of
+    the six components (xx, xy, xz, yy, yz, zz), with alpha and beta^i."""
+    chi, g, khat, A, gam, theta, alpha, beta = z4c.unpack(u)
+    chi_g = torch.clamp(chi, min=z4c.opt.chi_min_floor)
+    oopsi4 = chi_g ** (-4.0 / z4c.opt.chi_psi_power)   # = chi for -4
+    K = khat + 2.0 * theta
+    g3d = [g[a][b] / oopsi4 for (a, b) in _sym_pairs()]
+    K_dd = [(A[a][b] + g[a][b] * K / 3.0) / oopsi4 for (a, b) in _sym_pairs()]
+    return {"g3d": g3d, "alpha": alpha, "beta_u": beta, "K_dd": K_dd}
 
 
 class Z4cOptions:
@@ -139,9 +163,22 @@ class Z4c:
                      * (-1.0 if self.ng % 2 == 0 else 1.0))
         self.shape = (mesh.nmb_total, NZ4C,
                       mbi.ncells3, mbi.ncells2, mbi.ncells1)
+        # compact-object (puncture) trackers: positions are device state
+        # (state["co_pos"]) moved on the device each cycle; radius and
+        # reflevel feed the <z4c_amr> tracker criterion (reference:
+        # src/z4c/compact_object_tracker.cpp:66-73)
         self.nco = pin.get_or_add_integer("z4c", "nco", 0)
-        if self.nco > 0:
-            raise not_ported("the Z4c puncture trackers (z4c/nco > 0)")
+        self.tracker_pos0 = np.array(
+            [[pin.get_or_add_real("z4c", f"co_{n}_x", 0.0),
+              pin.get_or_add_real("z4c", f"co_{n}_y", 0.0),
+              pin.get_or_add_real("z4c", f"co_{n}_z", 0.0)]
+             for n in range(self.nco)], dtype=np.float64).reshape(-1, 3)
+        self.tracker_radius = np.array(
+            [pin.get_or_add_real("z4c", f"co_{n}_radius", 0.0)
+             for n in range(self.nco)])
+        self.tracker_reflevel = np.array(
+            [pin.get_or_add_integer("z4c", f"co_{n}_reflevel", -1)
+             for n in range(self.nco)], dtype=np.int64)
 
         # Sommerfeld boundary mask: outermost active layer of blocks whose
         # mesh face is outflow/diode/vacuum/user (reference:
@@ -244,9 +281,163 @@ class Z4c:
         out[:, I_CHI] = torch.clamp(chi, min=self.opt.chi_min_floor)
         return out
 
+    # ------------------------------------------------------------------
+    def coords_bcast(self):
+        """Per-block cell-centre coordinates as broadcastable float64
+        host arrays ([nmb, 1, 1, n1], [nmb, 1, n2, 1], [nmb, n3, 1, 1]),
+        made once."""
+        if getattr(self, "_coords_bcast", None) is None:
+            mesh = self.mesh
+            mbi = mesh.mb_indcs
+            nmb = mesh.nmb_total
+            xc = np.empty((nmb, 1, 1, mbi.ncells1))
+            yc = np.empty((nmb, 1, mbi.ncells2, 1))
+            zc = np.empty((nmb, mbi.ncells3, 1, 1))
+            for gid in range(nmb):
+                x1v, x2v, x3v = mesh.cell_centers(gid)
+                xc[gid, 0, 0, :] = x1v
+                yc[gid, 0, :, 0] = x2v
+                zc[gid, :, 0, 0] = x3v
+            self._coords_bcast = (xc, yc, zc)
+        return self._coords_bcast
+
+    # ------------------------------------------------------------------
+    def adm_constraints(self, u, full: bool = False):
+        """Hamiltonian and momentum constraint monitors (reference:
+        z4c_calculate_adm_constraints.cpp; the JAX package's
+        ``Z4c.adm_constraints``, term for term).  Returns (H, M2), M2 the
+        squared norm of the momentum constraint; with ``full`` a dict that
+        also holds the covariant momentum components M_d, the Z violation
+        (z4c_adm.cpp:511-517) and the monitor C = H^2 + M^2 + Theta^2 +
+        4Z (z4c_adm.cpp:519-520).  Valid on the interior."""
+        opt = self.opt
+        ng = self.ng
+        idx = self.idx
+        chi, g, khat, A, gam, theta, alpha, beta = self.unpack(u)
+
+        def D1(f, d):
+            return fd.d1(f, d, idx, ng)
+
+        K = khat + 2.0 * theta
+        detg = spatial_det(g)
+        gu = spatial_inv(g, detg)
+        dg = [[[D1(g[a][b], d) for b in range(3)] for a in range(3)]
+              for d in range(3)]
+        dchi = [D1(chi, d) for d in range(3)]
+        dkhat = [D1(khat, d) for d in range(3)]
+        dtheta = [D1(theta, d) for d in range(3)]
+        dgam = [[D1(gam[a], d) for a in range(3)] for d in range(3)]
+        Gddd = [[[0.5 * (dg[a][b][c] + dg[b][a][c] - dg[c][a][b])
+                  for b in range(3)] for a in range(3)] for c in range(3)]
+        Gudd = [[[sum(gu[c][d] * Gddd[d][a][b] for d in range(3))
+                  for b in range(3)] for a in range(3)] for c in range(3)]
+        gam_c = [sum(gu[b][c] * Gudd[a][b][c]
+                     for b in range(3) for c in range(3)) for a in range(3)]
+
+        chi_g = torch.clamp(chi, min=opt.chi_min_floor)
+        oopsi4 = chi_g ** (-4.0 / opt.chi_psi_power)
+        npow = opt.chi_psi_power
+        dphi = [dchi[a] / (chi_g * npow) for a in range(3)]
+
+        ddg = {}
+        for a, b in itertools.combinations_with_replacement(range(3), 2):
+            for c, d in _sym_pairs():
+                if a == b:
+                    ddg[(a, b, c, d)] = fd.d2(g[c][d], a, idx, ng)
+                else:
+                    ddg[(a, b, c, d)] = fd.d1d1(g[c][d], a, b, idx, ng)
+
+        def DDg(a, b, c, d):
+            a, b = (a, b) if a <= b else (b, a)
+            c, d = (c, d) if c <= d else (d, c)
+            return ddg[(a, b, c, d)]
+
+        ddchi = [[fd.d2(chi, a, idx, ng) if a == b
+                  else fd.d1d1(chi, min(a, b), max(a, b), idx, ng)
+                  for b in range(3)] for a in range(3)]
+
+        Rdd = [[None] * 3 for _ in range(3)]
+        for a, b in _sym_pairs():
+            # Gam^c (Gamma_{a,bc} + Gamma_{b,ac}): index placement of
+            # rhs_core.py / z4c_calcrhs.cpp:309-311
+            r = sum(0.5 * (g[c][a] * dgam[b][c] + g[c][b] * dgam[a][c]
+                           + gam_c[c] * (Gddd[a][b][c] + Gddd[b][a][c]))
+                    for c in range(3))
+            r = r - sum(0.5 * gu[c][d] * DDg(c, d, a, b)
+                        for c in range(3) for d in range(3))
+            r = r + sum(gu[c][d] * (Gudd[e][c][a] * Gddd[b][e][d]
+                                    + Gudd[e][c][b] * Gddd[a][e][d]
+                                    + Gudd[e][a][d] * Gddd[e][c][b])
+                        for c in range(3) for d in range(3)
+                        for e in range(3))
+            Rdd[a][b] = r
+            Rdd[b][a] = r
+        Ddphi = [[None] * 3 for _ in range(3)]
+        for a, b in _sym_pairs():
+            v = (ddchi[a][b] / (chi_g * npow) - npow * dphi[a] * dphi[b]
+                 - sum(Gudd[c][a][b] * dphi[c] for c in range(3)))
+            Ddphi[a][b] = v
+            Ddphi[b][a] = v
+        trDdphi = sum(gu[c][d] * (Ddphi[c][d] + 2.0 * dphi[c] * dphi[d])
+                      for c in range(3) for d in range(3))
+        Rphi = [[4.0 * dphi[a] * dphi[b] - 2.0 * Ddphi[a][b]
+                 - 2.0 * g[a][b] * trDdphi for b in range(3)]
+                for a in range(3)]
+
+        AA = sum(gu[a][c] * gu[b][d] * A[a][b] * A[c][d]
+                 for a in range(3) for b in range(3)
+                 for c in range(3) for d in range(3))
+        R = sum(oopsi4 * gu[a][b] * (Rdd[a][b] + Rphi[a][b])
+                for a in range(3) for b in range(3))
+        H = R + (2.0 / 3.0) * K * K - AA
+
+        dA = [[[fd.d1(A[a][b], d, idx, ng) for b in range(3)]
+               for a in range(3)] for d in range(3)]
+        M = []
+        for a in range(3):
+            v = sum(gu[b][c] * (dA[b][c][a]
+                                - sum(Gudd[e][b][c] * A[e][a]
+                                      + Gudd[e][b][a] * A[c][e]
+                                      for e in range(3)))
+                    for b in range(3) for c in range(3))
+            v = v - (3.0 / 2.0) * sum(
+                gu[b][c] * A[c][a] * dchi[b] / chi_g for b in range(3)
+                for c in range(3))
+            v = v - (2.0 / 3.0) * (dkhat[a] + 2.0 * dtheta[a])
+            M.append(v)
+        M2 = sum(gu[a][b] * M[a] * M[b] for a in range(3) for b in range(3))
+        if not full:
+            return H, M2
+        Z = 0.25 * sum(g[a][b] * (gam[a] - gam_c[a]) * (gam[b] - gam_c[b])
+                       for a in range(3) for b in range(3))
+        C = H * H + M2 + theta * theta + 4.0 * Z
+        return {"H": H, "M2": M2, "M_d": M, "Z": Z, "C": C}
+
     # ------------------------------------------------- state-dict interface
     def make_state(self, u):
-        return {"u": u, "w": u}
+        state = {"u": u, "w": u}
+        if self.nco > 0:
+            state["co_pos"] = torch.as_tensor(self.tracker_pos0,
+                                              dtype=u.dtype, device=u.device)
+        return state
+
+    def post_cycle(self, state, dt):
+        """After the stages: advance the puncture trackers one Euler step
+        of dx/dt = -beta(x) with the cycle's final shift (reference:
+        CompactObjectTracker::InterpolateShift + EvolveTracker,
+        compact_object_tracker.cpp:100-150), on the device; ``dt`` is the
+        cycle's dt rounded to the state's dtype."""
+        if self.nco == 0:
+            return state
+        if "co_pos" not in state:
+            raise ValueError(
+                f"<z4c>/nco = {self.nco} but the state holds no 'co_pos' "
+                "(a restart file written without the trackers?)")
+        from .z4c_amr import device_interp
+        pos = state["co_pos"]
+        beta = device_interp(self.mesh, state["u"],
+                             [I_BETAX + a for a in range(3)], pos)
+        return dict(state, co_pos=pos - dt * beta)
 
     def save_state(self, state):
         return {"u1": state["u"]}
@@ -261,6 +452,15 @@ class Z4c:
     def init_ghosts(self, state):
         u = self.bvals.fill_ghosts(state["u"])
         u = self.alg_constr(u)
+        return dict(state, u=u, w=u)
+
+    def restart_ghosts(self, state):
+        """The ghost fill of a resumed run.  A stored state ended its last
+        stage projected and filled, and the projection is not idempotent
+        to the last bit, so the restart fills without projecting again and
+        continues the straight run bitwise (the JAX package projects
+        again; ROADMAP F11)."""
+        u = self.bvals.fill_ghosts(state["u"])
         return dict(state, u=u, w=u)
 
     def cons_to_prim(self, u):

@@ -198,6 +198,36 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      turns, the host ms of ``check_flags``, ``update_tree``, the
      rebuild and the remap of every tree update, and one stage's parts
      on the refined tree (``smr_stage_parts``).
+ 18. drives the binary-black-hole decks and the other Z4c decks of
+     ``inputs/z4c`` through the CLI, launch counts set to 0 before each
+     run and checked exactly: the two-puncture SOR (64^3, 4000
+     half-sweeps) timed on the card and, over BBH_SOR_HOST_ITERS
+     half-sweeps, in numpy on the host (the two within 1e-12 of
+     max|u|); ``bbh_flat`` (``two_puncture_trackers.athinput`` as one
+     128^3 block on [-16, 16]^3, the binary under the keys the generator
+     reads, BBH_FLAT; f32): kernel H against its plain version on the
+     initialised state with noise at [1, 22, 136^3] (f32 2e-5, f64
+     1e-10), kernel I bitwise, the ms of ``weyl_scalars`` and
+     ``adm_constraints``, 10 cycles on both paths (H and I 4 a cycle on
+     the kernel path, nothing on the plain one; the paths within
+     Z4C_PATH_TOL, the trackers within 1e-4 of the separation and moved,
+     ||H||_2 finite and grown less than 10x); ``bbh_amr`` (the deck as
+     shipped in f32, 5 cycles, a waveform row every 0.1): the same
+     trees on both paths, each
+     update one level finer at both trackers, H 4 a cycle while flat,
+     the paths within Z4C_PATH_TOL, at least two waveform rows; a ``-r``
+     restart of the binary at 64^3 (10 straight against 5 + 5, u and
+     co_pos bitwise); ``kerr_schild`` and ``one_puncture_ahf`` as
+     shipped in f32 (H and I once a stage) and ``FastFlow`` on
+     ``one_puncture_ahf``'s initial data at ``tests/test_ahf.py``'s
+     64^3 on [-2, 2]^3 (M_irr within 0.01 of 1, mean radius within 0.03
+     of 1/2); kernel B bitwise on 22 channels at [1, 22, 12, 12, 72]
+     and [1, 22, 54^3], H against its plain version at gauge_wave's
+     [1, 22, 12, 12, 72] (nghost 4), ``awa/gauge_wave`` in f32 on both
+     paths (H 3 a cycle; B's gate takes nghost 2 only, as the JAX
+     package's), ``awa/robust_stability`` in f64 (the plain path) and
+     in f32 (H 3 a cycle, B once more than that), its noise kept at its
+     size.
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -334,6 +364,37 @@ AMR_RUNS = [
     ("hydro_amr_0.5", HYDRO_AMR, "hydro", NCYC_AMR,
      ["job/precision=single", "amr_criterion1/value_max=0.5"]),
     ("z4c_amr", Z4C_AMR, "z4c", 6, ["job/precision=single"])]
+# phase 18: binary black holes and the other Z4c decks of inputs/z4c
+BBH = os.path.join(ROOT, "inputs", "z4c", "two_puncture_trackers.athinput")
+KERR = os.path.join(ROOT, "inputs", "z4c", "kerr_schild.athinput")
+AHF1 = os.path.join(ROOT, "inputs", "z4c", "one_puncture_ahf.athinput")
+GAUGE = os.path.join(ROOT, "inputs", "z4c", "awa", "gauge_wave.athinput")
+ROBUST = os.path.join(ROOT, "inputs", "z4c", "awa",
+                      "robust_stability.athinput")
+# the binary under the keys the generator reads (the shipped deck's
+# par_* keys are read by neither package: ROADMAP F10), one level
+BBH_BINARY = ["problem/punc1_x1=3", "problem/punc2_x1=-3",
+              "problem/punc1_P_x2=-0.1", "problem/punc2_P_x2=0.1"]
+BBH_FLAT = BBH_BINARY + [
+    "mesh_refinement/refinement=none", "z4c/extraction_radius_1=12"] + [
+    f"{b}/nx{d}=128" for b in ("mesh", "meshblock") for d in (1, 2, 3)] + [
+    f"mesh/x{d}{e}={v}" for d in (1, 2, 3) for e, v in (("min", -16.0),
+                                                        ("max", 16.0))]
+BBH_RST = [o for o in BBH_FLAT if "nx" not in o] + [
+    f"{b}/nx{d}=64" for b in ("mesh", "meshblock") for d in (1, 2, 3)]
+# the shipped deck (tracker AMR to level 4), a waveform row every 0.1
+BBH_AMR = ["job/precision=single", "output1/dt=0.1"]
+NCYC_BBH = 10
+NCYC_BBH_AMR = 5
+NCYC_BBH_RST = 10
+NCYC_Z4C_SLICE = 10
+# numpy's half-sweeps of the SOR timed on the host (30 ms each at 64^3)
+BBH_SOR_HOST_ITERS = 200
+# tests/test_ahf.py's mesh for the horizon finder: 64^3 on [-2, 2]^3
+AHF_FIND = ["mesh/nghost=4"] + [
+    f"{b}/nx{d}=64" for b in ("mesh", "meshblock") for d in (1, 2, 3)] + [
+    f"mesh/x{d}{e}={v}" for d in (1, 2, 3) for e, v in (("min", -2.0),
+                                                        ("max", 2.0))]
 NCYC_Z4C = 10
 # phase 10's pool: one_puncture.athinput as two blocks of 32^3, nghost 4
 Z4C_POOL = ["mesh/nghost=4", "mesh/nx1=64", "mesh/nx2=32", "mesh/nx3=32",
@@ -946,20 +1007,12 @@ def timed_cycles(torch, use_kernels: str, deck=DECK, ncyc=NCYC,
     return ncyc * mesh.nmb_total * mbi.nx1 * mbi.nx2 * mbi.nx3 / sec
 
 
-def run_cli(torch, kernels, deck, ncyc, extra=()):
+def cli_run(torch, kernels, deck, ncyc, extra=()):
     """Drive ``main.cli`` on ``deck`` for ncyc cycles with the launch
     counts set to 0 just before; returns the counts read just after, the
-    run, the relative change of the interior sum of u[IDN] (the deck's
-    ghost depth off every side) and the files written (name -> the text
-    of a history file, None for the others)."""
+    run and the files written (name -> the text of a history or text
+    file, None for the others)."""
     from athenak_tpu_torch import main as cli_main
-    from athenak_tpu_torch.main import build
-
-    mesh0, _, _, _, state0 = build(pin_for(list(extra), deck),
-                                   device="cuda")
-    ng = mesh0.mb_indcs.ng
-    mass0 = float(interior(state0["u"][:, 0], ng).double().sum())
-    del state0
     os.environ["ATHENAK_DEVICE"] = "cuda"
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -973,11 +1026,28 @@ def run_cli(torch, kernels, deck, ncyc, extra=()):
         written = {}
         for f in sorted(os.listdir(tmp)):
             written[f] = None
-            if f.endswith(".hst"):
+            if f.endswith((".hst", ".txt")):
                 with open(os.path.join(tmp, f)) as fh:
                     written[f] = fh.read()
     if mesh.ncycle != ncyc:
         raise AssertionError(f"{mesh.ncycle} cycles run, {ncyc} asked")
+    return launches, mesh, phys, driver, state, written
+
+
+def run_cli(torch, kernels, deck, ncyc, extra=()):
+    """``cli_run`` with the relative change of the interior sum of
+    u[IDN] (the deck's ghost depth off every side) over the run, from a
+    build of its initial state: returns the counts, the run, that change
+    and the files written."""
+    from athenak_tpu_torch.main import build
+
+    mesh0, _, _, _, state0 = build(pin_for(list(extra), deck),
+                                   device="cuda")
+    ng = mesh0.mb_indcs.ng
+    mass0 = float(interior(state0["u"][:, 0], ng).double().sum())
+    del state0
+    launches, mesh, phys, driver, state, written = cli_run(
+        torch, kernels, deck, ncyc, extra)
     mass = float(interior(state["u"][:, 0], ng).double().sum())
     return (launches, mesh, phys, driver, state, abs(mass - mass0) / mass0,
             written)
@@ -2341,7 +2411,8 @@ def output_ms(torch, kind, pin, mesh, phys, state, block="output9"):
     pin.set_value(block, "file_type", kind)
     if kind == "vtk":
         pin.set_value(block, "variable", "hydro_w")
-    out = outputs.make_outputs(pin, mesh, phys)[-1]
+    out, = [o for o in outputs.make_outputs(pin, mesh, phys)
+            if getattr(o, "params", None) and o.params.block == block]
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -2801,7 +2872,8 @@ def amr_cli(torch, kernels, deck, ncyc, extra):
            "times": [r["time"] for r in updates], "divb": divb,
            "timings": [{k: v for k, v in r.items() if k != "leaves"}
                        for r in updates],
-           "hst": [t for t in written.values() if t is not None]}
+           "hst": [t for f, t in written.items() if f.endswith(".hst")],
+           "txt": {f: t for f, t in written.items() if f.endswith(".txt")}}
     rec["flat_cycles"] = flat_cycles(rec["trees"], ncyc)
     return launches, mesh, phys, driver, state, rec
 
@@ -3165,6 +3237,519 @@ def phase_amr(torch, kernels, card):
     return {"runs": out, "checks": kchecks, "restart": restart}
 
 
+def z4c_expect(launches, label, **counts):
+    expect = {k: 0 for k in launches}
+    expect.update(counts)
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, not {expect}")
+
+
+def z4c_paths_apart(a, b):
+    """max |a - b| / max(|b|, 1) over two states (Z4C_PATH_TOL's
+    measure)."""
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def check_z4c_state(torch, phys, state, label):
+    """A finite state with chi above its floor; returns min chi."""
+    u = state["u"]
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"{label}: non-finite state")
+    chi = float(interior(u[:, 0], phys.ng).min())
+    if chi < phys.opt.chi_min_floor:
+        raise AssertionError(f"{label}: chi {chi} below its floor")
+    return chi
+
+
+def ham_norm(torch, phys, u):
+    """The L2 norm of the Hamiltonian constraint over the interior."""
+    H, _ = phys.adm_constraints(u)
+    return float(interior(H[:, None], phys.ng).double().pow(2).mean()
+                 .sqrt())
+
+
+def sor_numpy(domain, centers, masses, Ps, N, iters, omega=1.8):
+    """The JAX package's red-black SOR for the two-puncture correction
+    in numpy (``athenak_tpu/pgen/z4c_two_punctures.py:57-99``, spins 0),
+    the plain version the port's torch sweeps are held against."""
+    import numpy as np
+    from athenak_tpu_torch.pgen.z4c_two_punctures import _bowen_york
+    from athenak_tpu_torch.z4c.z4c import sym_idx
+    x0, x1, y0, y1, z0, z1 = domain
+    xs, ys, zs = (np.linspace(a, b, N) for a, b in ((x0, x1), (y0, y1),
+                                                    (z0, z1)))
+    h = xs[1] - xs[0]
+    Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
+    psi = 1.0 + sum(m / (2.0 * np.maximum(np.sqrt(
+        (X - c[0]) ** 2 + (Y - c[1]) ** 2 + (Z - c[2]) ** 2), 1e-12))
+        for m, c in zip(masses, centers))
+    At = _bowen_york([X, Y, Z], masses, centers, Ps, [[0.0] * 3] * 2)
+    Asq = sum((1.0 if a == b else 2.0) * At[sym_idx(a, b)] ** 2
+              for a in range(3) for b in range(a, 3))
+    u = np.zeros_like(X)
+    ii, jj, kk = np.meshgrid(*(np.arange(N),) * 3, indexing="ij")
+    red = (ii + jj + kk) % 2 == 0
+    inner = np.zeros_like(red)
+    inner[1:-1, 1:-1, 1:-1] = True
+    for _ in range(iters // 2):
+        for mask in (red, ~red):
+            rhs = -(1.0 / 8.0) * Asq * (psi + u) ** (-7.0)
+            nb = sum(np.roll(u, s, ax) for ax in range(3) for s in (1, -1))
+            gs = (nb - h * h * rhs) / 6.0
+            m = mask & inner
+            u[m] = (1.0 - omega) * u[m] + omega * gs[m]
+    return u
+
+
+def bbh_sor(torch):
+    """The two-puncture SOR of the flat binary (``tp_npoints`` 64,
+    ``tp_iterations`` 4000): ms of the torch sweeps on the card, and of
+    the numpy sweeps on the host over BBH_SOR_HOST_ITERS half-sweeps
+    (scaled to 4000: a half-sweep costs the same throughout); the two
+    within 1e-12 of max|u| after BBH_SOR_HOST_ITERS half-sweeps."""
+    from athenak_tpu_torch.pgen.z4c_two_punctures import _solve_u
+    # the domain, centres, masses and momenta of BBH_FLAT
+    args = ((-16.0, 16.0, -16.0, 16.0, -16.0, 16.0),
+            [[3.0, 0.0, 0.0], [-3.0, 0.0, 0.0]], [0.5, 0.5],
+            [[0.0, -0.1, 0.0], [0.0, 0.1, 0.0]])
+    spins = [[0.0] * 3] * 2
+    _solve_u(*args, spins, N=64, iters=2, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = _solve_u(*args, spins, N=64, iters=4000, device="cuda")
+    torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    short = _solve_u(*args, spins, N=64, iters=BBH_SOR_HOST_ITERS,
+                     device="cuda")[3]
+    t0 = time.perf_counter()
+    ref = sor_numpy(*args, N=64, iters=BBH_SOR_HOST_ITERS)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    scale = float(abs(ref).max())
+    err = float(abs(short - ref).max()) / scale
+    if not err <= 1e-12:
+        raise AssertionError(f"two-puncture SOR on the card vs numpy: {err}")
+    return {"card_ms": card_ms, "numpy_ms": host_ms,
+            "numpy_ms_4000": host_ms * 4000 / BBH_SOR_HOST_ITERS,
+            "err": err, "max_u": float(abs(full[3]).max())}
+
+
+def bbh_stage_checks(torch, card):
+    """On the flat binary's initialised state at 128^3 (one block of
+    136^3 with ghosts): ||H||_2, the ms of ``weyl_scalars`` and
+    ``adm_constraints``; kernel H against its plain version on the state
+    with noise (one RK4 set; f32 2e-5, f64 1e-10) and kernel I bitwise
+    against the sweeps on H's output; H's and I's times."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import z4c_stage as zs
+    from athenak_tpu_torch.z4c.weyl import weyl_scalars
+    out = {"err": 0.0}
+    for prec in ("single", "double"):
+        mesh, phys, _, driver, st = build(
+            pin_for([f"job/precision={prec}", *BBH_FLAT], BBH),
+            device="cuda")
+        st = driver.initialize(st)
+        u0 = st["u"]
+        if tuple(u0.shape) != (1, 22, 136, 136, 136) or not phys.fold_bc:
+            raise AssertionError(f"bbh_flat: {tuple(u0.shape)}, fold "
+                                 f"{phys.fold_bc}")
+        if prec == "single":
+            out["H2_0"] = ham_norm(torch, phys, u0)
+            out["weyl_ms"] = cuda_ms(lambda: weyl_scalars(phys, u0), 3)
+            out["con_ms"] = cuda_ms(lambda: phys.adm_constraints(u0), 3)
+            out["con_full_ms"] = cuda_ms(
+                lambda: phys.adm_constraints(u0, full=True), 3)
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        u = u0.double() + 1e-3 * torch.randn(u0.shape, generator=gen,
+                                             device="cuda",
+                                             dtype=torch.float64)
+        u1 = (u * (1.0 + 1e-3 * torch.randn(
+            u0.shape, generator=gen, device="cuda",
+            dtype=torch.float64))).to(u0.dtype)
+        u = u.to(u0.dtype)
+        del st, u0
+        g0, g1, bdt = rk4_sets(torch, u.dtype, mesh.dt)[1]
+        got = zs.fused_z4c_stage(u, u1, phys, g0, g1, bdt)
+        want = zs.fused_z4c_stage_plain(u, u1, phys, g0, g1, bdt)
+        a, b = interior(got, 4).double(), interior(want, 4).double()
+        rel = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        tol = 2e-5 if prec == "single" else 1e-10
+        if not rel <= tol:
+            raise AssertionError(f"bbh_flat z4c_stage {prec}: {rel:g}")
+        del a, b, want
+        k = zs.outflow_fill(got.clone(), phys.bvals)
+        p = phys.bvals.fill_ghosts(got.clone())
+        if not (torch.equal(k, p) and bool(torch.isfinite(k).all())):
+            raise AssertionError(f"bbh_flat z4c_outflow_fill {prec}: not "
+                                 "bitwise")
+        del k, p
+        out[f"rel_{prec}"] = rel
+        if prec == "single":
+            out["err"] = rel
+            args = (u, u1, phys, g0, g1, bdt)
+            out["ms"] = cuda_ms(lambda: zs.fused_z4c_stage(*args), 10)
+            out["plain_ms"] = cuda_ms(
+                lambda: zs.fused_z4c_stage_plain(*args), 1)
+            out["bound"] = z4c_bound(phys, u)
+            out["fill_ms"] = cuda_ms(
+                lambda: zs.outflow_fill(got, phys.bvals), 20)
+            out["fill_plain_ms"] = cuda_ms(
+                lambda: phys.bvals.fill_ghosts(got), 3)
+            out["fill_bound"] = outflow_fill_bound(phys, got)
+        del u, u1, got
+    print(f"phase 18: bbh_flat z4c_stage agrees with its plain version at "
+          f"[1, 22, 136^3] (f32 {out['rel_single']:.3e}, f64 "
+          f"{out['rel_double']:.3e}), z4c_outflow_fill bitwise; [{card}] "
+          f"z4c_stage {out['ms']:.4f} ms, plain {out['plain_ms']:.1f} ms, "
+          f"bound {out['bound'][0]:.4f} ms ({out['bound'][1]}); "
+          f"z4c_outflow_fill {out['fill_ms']:.4f} ms, plain "
+          f"{out['fill_plain_ms']:.3f}, bound {out['fill_bound'][0]:.5f}; "
+          f"weyl_scalars {out['weyl_ms']:.2f} ms a call, adm_constraints "
+          f"{out['con_ms']:.2f} (full {out['con_full_ms']:.2f}); ||H||_2 at "
+          f"t = 0 {out['H2_0']:.4e}")
+    return out
+
+
+def bbh_flat(torch, kernels, card):
+    """The flat binary at 128^3 through the CLI in f32 for NCYC_BBH
+    cycles on both paths: H and I 4 a cycle on the kernel path, nothing
+    on the plain one; the paths within Z4C_PATH_TOL, the trackers within
+    1e-4 of the separation and moved; ||H||_2 finite and grown less than
+    10x; the waveform rows written."""
+    sor = bbh_sor(torch)
+    print(f"phase 18: two-puncture SOR (64^3, 4000 half-sweeps) [{card}] "
+          f"{sor['card_ms']:.0f} ms on the card; numpy on the host "
+          f"{sor['numpy_ms']:.0f} ms for {BBH_SOR_HOST_ITERS} half-sweeps "
+          f"({sor['numpy_ms_4000']:.0f} ms scaled to 4000); the two within "
+          f"{sor['err']:.2e} of max|u| after {BBH_SOR_HOST_ITERS}")
+    checks = bbh_stage_checks(torch, card)
+    runs = {}
+    for use in ("true", "false"):
+        launches, mesh, phys, driver, state, written = cli_run(
+            torch, kernels, BBH, NCYC_BBH,
+            ["job/precision=single", *BBH_FLAT, f"z4c/use_kernels={use}"])
+        n = 4 * NCYC_BBH if use == "true" else 0
+        z4c_expect(launches, f"bbh_flat use_kernels={use}", z4c_stage=n,
+                   z4c_outflow_fill=n)
+        chi = check_z4c_state(torch, phys, state, f"bbh_flat {use}")
+        rows = [ln for ln in written["two_puncture_trackers.waveform.txt"]
+                .splitlines() if not ln.startswith("#")]
+        runs[use] = (launches, state, driver.zcps, chi, len(rows))
+    launches, state, zcps, chi, nrows = runs["true"]
+    plain = runs["false"][1]
+    diff = z4c_paths_apart(state["u"], plain["u"])
+    dpos = float((state["co_pos"] - plain["co_pos"]).abs().max())
+    if not (diff <= Z4C_PATH_TOL and dpos <= 1e-4 * 6.0):
+        raise AssertionError(f"bbh_flat: paths apart {diff:g}, trackers "
+                             f"{dpos:g}")
+    moved = state["co_pos"].double().cpu().numpy() - phys.tracker_pos0
+    h2 = ham_norm(torch, phys, state["u"])
+    if not (abs(moved).max() > 0.0 and math.isfinite(h2)
+            and h2 <= 10.0 * checks["H2_0"] and nrows >= 2):
+        raise AssertionError(f"bbh_flat: trackers moved {moved.tolist()}, "
+                             f"||H||_2 {checks['H2_0']:g} -> {h2:g}, "
+                             f"{nrows} waveform rows")
+    print(f"phase 18: bbh_flat {NCYC_BBH} cycles, launches {launches}; "
+          f"chi >= {chi:.4e}; trackers moved {moved.tolist()}; ||H||_2 "
+          f"{checks['H2_0']:.4e} -> {h2:.4e}; {nrows} waveform rows; "
+          f"kernel vs plain path {diff:.3e}, trackers {dpos:.3e}; [{card}] "
+          f"CLI zone-cycles/s (wall clock, first cycle and two wave "
+          f"outputs included) kernel {zcps:.6e}, plain "
+          f"{runs['false'][2]:.6e}")
+    return {"launches": launches, "sor": sor, "checks": checks,
+            "rates": {"true": [zcps], "false": [runs["false"][2]]},
+            "path_diff": diff, "tracker_diff": dpos, "H2": h2,
+            "moved": moved.tolist()}
+
+
+def tracker_levels(leaves, pos, lo=-100.0, width=200.0, nroot=4):
+    """The finest level among the leaves whose box holds ``pos`` (the
+    shipped BBH deck's 4^3 root blocks on [-100, 100]^3)."""
+    best = -1
+    for l1, l2, l3, lev in leaves:
+        w = width / (nroot << lev)
+        if all(lo + l * w <= p <= lo + (l + 1) * w
+               for l, p in zip((l1, l2, l3), pos)):
+            best = max(best, lev)
+    return best
+
+
+def bbh_amr(torch, kernels, card):
+    """``two_puncture_trackers.athinput`` as shipped (tracker AMR to 5
+    levels) in f32 for NCYC_BBH_AMR cycles, both paths: the same trees,
+    each update one level finer at both trackers (up to co_N_reflevel),
+    H 4 a cycle while flat, the paths within Z4C_PATH_TOL, the waveform
+    rows written."""
+    res = {}
+    for use in ("true", "false"):
+        launches, mesh, phys, driver, state, rec = amr_cli(
+            torch, kernels, BBH, NCYC_BBH_AMR,
+            BBH_AMR + [f"z4c/use_kernels={use}"])
+        amr_expect("z4c_bbh", launches, rec, NCYC_BBH_AMR, use)
+        chi = check_z4c_state(torch, phys, state, f"bbh_amr {use}")
+        for n, (c, leaves) in enumerate(rec["trees"]):
+            got = [tracker_levels(leaves, p) for p in phys.tracker_pos0]
+            want = min(n + 1, int(phys.tracker_reflevel.max()))
+            if got != [want, want]:
+                raise AssertionError(f"bbh_amr {use}: the update of cycle "
+                                     f"{c} put the trackers on levels "
+                                     f"{got}, not {want}")
+        rows = [ln for ln in rec["txt"]["two_puncture_trackers.waveform.txt"]
+                .splitlines() if not ln.startswith("#")]
+        if len(rows) < 2:
+            raise AssertionError(f"bbh_amr {use}: {len(rows)} waveform rows")
+        res[use] = (rec, state, driver.zcps, launches, chi, len(rows),
+                    mesh.nmb_total)
+    if res["true"][0]["trees"] != res["false"][0]["trees"]:
+        raise AssertionError("bbh_amr: the paths took different trees")
+    diff = z4c_paths_apart(res["true"][1]["u"], res["false"][1]["u"])
+    if not diff <= Z4C_PATH_TOL:
+        raise AssertionError(f"bbh_amr: paths apart {diff:g}")
+    rec, _, zcps, launches, chi, nrows, nmb = res["true"]
+    print(f"phase 18: bbh_amr {NCYC_BBH_AMR} cycles "
+          f"({rec['flat_cycles']} flat), tree updates at cycles "
+          f"{[c for c, _ in rec['trees']]} to "
+          f"{[len(t) for _, t in rec['trees']]} blocks, launches "
+          f"{launches}, chi >= {chi:.4e}, {nrows} waveform rows, kernel vs "
+          f"plain path {diff:.3e}; [{card}] CLI zone-cycles/s kernel "
+          f"{zcps:.6e}, plain {res['false'][2]:.6e}; per update host ms "
+          f"{rec['timings']}")
+    return {"launches": launches, "path_diff": diff, "nmb": nmb,
+            "rates": {"true": [zcps], "false": [res["false"][2]]},
+            "trees": [(c, len(t)) for c, t in rec["trees"]]}
+
+
+def bbh_restart(torch, kernels):
+    """The flat binary at 64^3 in f32: NCYC_BBH_RST cycles straight
+    against half, a .rst, then -r and the rest: u and the trackers
+    bitwise."""
+    from athenak_tpu_torch import main as cli_main
+    n = NCYC_BBH_RST // 2
+    common = ["job/precision=single", *BBH_RST, "output9/file_type=rst",
+              f"output9/dcycle={n}"]
+    cwd = os.getcwd()
+    os.environ["ATHENAK_DEVICE"] = "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            _, _, _, s1 = cli_main.cli(["-i", BBH, "-d",
+                                        os.path.join(tmp, "straight"),
+                                        *common, f"time/nlim={2 * n}"])
+            os.chdir(cwd)
+            cli_main.cli(["-i", BBH, "-d", os.path.join(tmp, "first"),
+                          *common, f"time/nlim={n}"])
+            os.chdir(cwd)
+            rst = os.path.join(tmp, "first",
+                               "two_puncture_trackers.00001.rst")
+            kernels.reset_counts()
+            m2, _, _, s2 = cli_main.cli(["-r", rst, "-d",
+                                         os.path.join(tmp, "first"),
+                                         f"time/nlim={2 * n}"])
+            resumed = {k.name: k.launches for k in kernels.ALL if k.launches}
+        finally:
+            os.chdir(cwd)
+    for key in ("u", "co_pos"):
+        if not torch.equal(s1[key], s2[key]):
+            raise AssertionError(f"bbh restart: {key} not bitwise")
+    if m2.ncycle != 2 * n or s2["co_pos"].dtype != torch.float32:
+        raise AssertionError("bbh restart: wrong run")
+    print(f"phase 18: restart bbh_flat 64^3: {2 * n} cycles straight and "
+          f"{n} + -r {n} bitwise equal (u, co_pos {s2['co_pos'].tolist()}); "
+          f"launches resumed {resumed}")
+    return {"resumed": resumed}
+
+
+def z4c_slice_decks(torch, kernels, card):
+    """kerr_schild and one_puncture_ahf as shipped in f32 for
+    NCYC_Z4C_SLICE cycles, both paths (H and I once a stage, exact; the
+    paths within Z4C_PATH_TOL); FastFlow on one_puncture_ahf's initial
+    data at tests/test_ahf.py's mesh and settings."""
+    out = {}
+    for label, deck, nstage in (("kerr_schild", KERR, 3),
+                                ("one_puncture_ahf", AHF1, 4)):
+        runs = {}
+        for use in ("true", "false"):
+            launches, mesh, phys, driver, state, _ = cli_run(
+                torch, kernels, deck, NCYC_Z4C_SLICE,
+                ["job/precision=single", f"z4c/use_kernels={use}"])
+            n = nstage * NCYC_Z4C_SLICE if use == "true" else 0
+            z4c_expect(launches, f"{label} use_kernels={use}", z4c_stage=n,
+                       z4c_outflow_fill=n)
+            chi = check_z4c_state(torch, phys, state, f"{label} {use}")
+            runs[use] = (launches, state, driver.zcps, chi)
+        diff = z4c_paths_apart(runs["true"][1]["u"], runs["false"][1]["u"])
+        if not diff <= Z4C_PATH_TOL:
+            raise AssertionError(f"{label}: paths apart {diff:g}")
+        shape = list(runs["true"][1]["u"].shape)
+        print(f"phase 18: {label} {shape} {NCYC_Z4C_SLICE} cycles, launches "
+              f"{runs['true'][0]}, chi >= {runs['true'][3]:.4e}, kernel vs "
+              f"plain path {diff:.3e}; [{card}] CLI zone-cycles/s kernel "
+              f"{runs['true'][2]:.6e}, plain {runs['false'][2]:.6e}")
+        out[label] = {"launches": runs["true"][0], "path_diff": diff,
+                      "rates": {"true": [runs["true"][2]],
+                                "false": [runs["false"][2]]}}
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.z4c.ahf import FastFlow, adm_fields_from_z4c
+    mesh, phys, _, driver, st = build(pin_for(AHF_FIND, AHF1),
+                                      device="cuda")
+    st = driver.initialize(st)
+    t0 = time.perf_counter()
+    fields = adm_fields_from_z4c(phys, st["u"])
+    t1 = time.perf_counter()
+    props = FastFlow(lmax=6, ntheta=16, flow_iterations=300).find(
+        mesh, fields, r_guess=0.7)
+    t2 = time.perf_counter()
+    if props is None or not (abs(props["mass_irr"] - 1.0) < 0.01
+                             and abs(props["mean_radius"] - 0.5) < 0.03):
+        raise AssertionError(f"FastFlow on one_puncture_ahf: {props}")
+    print(f"phase 18: FastFlow on one_puncture_ahf's initial data (64^3 on "
+          f"[-2, 2]^3, nghost 4, f64): M_irr {props['mass_irr']:.6f}, mean "
+          f"radius {props['mean_radius']:.6f}, {props['iterations']} "
+          f"iterations; ADM fields {1e3 * (t1 - t0):.0f} ms (card + copy), "
+          f"the finder {1e3 * (t2 - t1):.0f} ms on the host")
+    out["ahf"] = {k: props[k] for k in ("mass_irr", "mean_radius",
+                                        "iterations")}
+    return out
+
+
+def awa_decks(torch, kernels, card, fill):
+    """The AwA decks: kernel B bitwise at gauge_wave's and robust
+    stability's block shapes on 22 channels; kernel H against its plain
+    version at gauge_wave's [1, 22, 12, 12, 72] (nghost 4); gauge_wave in
+    f32 through the CLI on both paths (H 3 a stage; B's gate takes
+    nghost 2 only, as the JAX package's); robust_stability in f64 (the
+    plain path: its 1e-10 noise is below f32's resolution of 1) and in
+    f32 (H 3 a cycle, B once more than that)."""
+    from athenak_tpu_torch.ops import z4c_stage as zs
+    out = {"b": {}, "b_err": 0.0}
+    gen = torch.Generator().manual_seed(18)
+    for shape in ((1, 22, 12, 12, 72), (1, 22, 54, 54, 54)):
+        for dtype in (torch.float32, torch.float64):
+            a = torch.rand(shape, generator=gen, dtype=dtype).cuda()
+            b = a.clone()
+            n0 = kernels.PERIODIC_FILL_CC.launches
+            fill.periodic_fill_cc(a)
+            if kernels.PERIODIC_FILL_CC.launches != n0 + 1:
+                raise AssertionError("periodic_fill_cc: not one launch")
+            fill.fill_plain(b, fill.shifts(b.shape))
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"periodic_fill_cc {shape} {dtype}: "
+                                     "not bitwise")
+            out["b_err"] = max(out["b_err"], float((a - b).abs().max()))
+            if dtype == torch.float32:
+                ghosts = a.numel() - interior(a).numel()
+                out["b"][str(list(shape))] = {
+                    "ms": cuda_ms(lambda: fill.periodic_fill_cc(a), 50),
+                    "plain_ms": cuda_ms(
+                        lambda: fill.fill_plain(b, fill.shifts(b.shape)), 20),
+                    "bound": bound(2 * ghosts * a.element_size(), 0)}
+    h = {}
+    for prec in ("single", "double"):
+        phys, u, u1, dt = z4c_inputs(torch, GAUGE, [], prec)
+        if tuple(u.shape) != (1, 22, 12, 12, 72) or phys.ng != 4:
+            raise AssertionError(f"gauge_wave: {tuple(u.shape)}")
+        tol = 2e-5 if prec == "single" else 1e-10
+        worst = 0.0
+        for g0, g1, bdt in rk4_sets(torch, u.dtype, dt):
+            a = interior(zs.fused_z4c_stage(u, u1, phys, g0, g1, bdt),
+                         4).double()
+            b = interior(zs.fused_z4c_stage_plain(u, u1, phys, g0, g1, bdt),
+                         4).double()
+            rel = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+            if not rel <= tol:
+                raise AssertionError(f"gauge_wave z4c_stage {prec}: {rel:g}")
+            worst = max(worst, rel)
+        h[prec] = worst
+        if prec == "single":
+            args = (u, u1, phys) + rk4_sets(torch, u.dtype, dt)[1]
+            h["ms"] = cuda_ms(lambda: zs.fused_z4c_stage(*args), 50)
+            h["plain_ms"] = cuda_ms(lambda: zs.fused_z4c_stage_plain(*args),
+                                    3)
+            h["bound"] = z4c_bound(phys, u)
+    out["h"] = h
+    runs = {}
+    for label, deck, prec, use, nstage in (
+            ("gauge_wave", GAUGE, "single", "true", 3),
+            ("gauge_wave", GAUGE, "single", "false", 3),
+            ("robust_stability", ROBUST, "double", "true", 3),
+            ("robust_stability_f32", ROBUST, "single", "true", 3),
+            ("robust_stability_f32", ROBUST, "single", "false", 3)):
+        launches, mesh, phys, driver, state, _ = cli_run(
+            torch, kernels, deck, NCYC_Z4C_SLICE,
+            [f"job/precision={prec}", f"z4c/use_kernels={use}"])
+        n = NCYC_Z4C_SLICE
+        expect = {}
+        if use == "true" and prec == "single":
+            expect["z4c_stage"] = nstage * n
+            if phys.ng == 2:
+                expect["periodic_fill_cc"] = 1 + nstage * n
+        z4c_expect(launches, f"{label} use_kernels={use}", **expect)
+        check_z4c_state(torch, phys, state, label)
+        dev = None
+        if label.startswith("robust"):
+            # the noise stays at its size: Gamma^i, three centred
+            # differences of 1e-10 noise over dx = 0.02, starts below
+            # 1.5e-8 and must stay below 2e-8; every other channel below
+            # 1e-8 (f32: below 1e-6, where the noise rounds)
+            flat = torch.zeros(22, dtype=torch.float64, device="cuda")
+            flat[[0, 1, 4, 6, 18]] = 1.0
+            d = (interior(state["u"], 2).double()
+                 - flat[None, :, None, None, None]).abs().amax(
+                     dim=(0, 2, 3, 4))
+            gam = float(d[14:17].max())
+            rest = float(torch.cat([d[:14], d[17:]]).max())
+            dev = {"Gamma": gam, "other": rest}
+            lim = (2e-8, 1e-8) if prec == "double" else (1e-6, 1e-6)
+            if not (gam < lim[0] and rest < lim[1]):
+                raise AssertionError(f"{label}: |u - Minkowski| {dev}")
+        runs[(label, use)] = (launches, state, driver.zcps, dev)
+    for label in ("gauge_wave", "robust_stability_f32"):
+        diff = z4c_paths_apart(runs[(label, "true")][1]["u"],
+                               runs[(label, "false")][1]["u"])
+        if not diff <= Z4C_PATH_TOL:
+            raise AssertionError(f"{label}: paths apart {diff:g}")
+        out[label] = {"launches": runs[(label, "true")][0],
+                      "path_diff": diff,
+                      "rates": {"true": [runs[(label, "true")][2]],
+                                "false": [runs[(label, "false")][2]]},
+                      "dev": runs[(label, "true")][3]}
+    out["robust_stability"] = {
+        "launches": runs[("robust_stability", "true")][0],
+        "dev": runs[("robust_stability", "true")][3],
+        "rates": {"false": [runs[("robust_stability", "true")][2]]}}
+    bs = "; ".join(f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, "
+                   f"bound {v['bound'][0]:.6f})" for k, v in out["b"].items())
+    print(f"phase 18: periodic_fill_cc bitwise on 22 channels (f32, f64), "
+          f"[{card}] {bs}; z4c_stage at gauge_wave's [1, 22, 12, 12, 72] "
+          f"ng 4 (f32 {h['single']:.3e}, f64 {h['double']:.3e}) "
+          f"{h['ms']:.4f} ms, plain {h['plain_ms']:.2f}, bound "
+          f"{h['bound'][0]:.6f}")
+    for label in ("gauge_wave", "robust_stability_f32", "robust_stability"):
+        r = out[label]
+        print(f"phase 18: {label} {NCYC_Z4C_SLICE} cycles, launches "
+              f"{r['launches']}, kernel vs plain path "
+              f"{r.get('path_diff', 'f64: plain path only')}, max|u - "
+              f"Minkowski| {r['dev']}; [{card}] CLI zone-cycles/s "
+              f"{r['rates']}")
+    return out
+
+
+def phase_bbh(torch, kernels, card, fill):
+    """Phase 18 (see the module docstring)."""
+    out = {"bbh_flat": bbh_flat(torch, kernels, card),
+           "bbh_amr": bbh_amr(torch, kernels, card),
+           "restart": bbh_restart(torch, kernels)}
+    out.update(z4c_slice_decks(torch, kernels, card))
+    out["awa"] = awa_decks(torch, kernels, card, fill)
+    runs = {k: out[k] for k in ("bbh_flat", "bbh_amr", "kerr_schild",
+                                "one_puncture_ahf")}
+    runs.update({k: out["awa"][k] for k in ("gauge_wave",
+                                            "robust_stability_f32",
+                                            "robust_stability")})
+    out["runs"] = runs
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
     return {"name": name, "route": "cuda",
@@ -3233,6 +3818,7 @@ def main() -> int:
         tail, tail_flux = phase("15", phase_tail_main, torch, kernels, card)
         slice_ = phase("16", phase_slice, torch, kernels, card)
         amr = phase("17", phase_amr, torch, kernels, card)
+        bbh = phase("18", phase_bbh, torch, kernels, card, fill)
     print(f"seconds a phase: {seconds}")
 
     def runs(name):
@@ -3245,7 +3831,10 @@ def main() -> int:
                 **{k: v.get(name, 0)
                    for k, v in slice_["launches"].items()},
                 **{k: v["launches"].get(name, 0)
-                   for k, v in amr["runs"].items()}}
+                   for k, v in amr["runs"].items()},
+                **{k: v["launches"].get(name, 0)
+                   for k, v in bbh["runs"].items()},
+                "bbh_restart": bbh["restart"]["resumed"].get(name, 0)}
 
     ft, fe = fill_times, fill_errs
     zr = z4c_res["res"]["60^3 ng 2"]
@@ -3362,6 +3951,12 @@ def main() -> int:
             **{f"z4c_outflow_fill {k}": v["fill"]["device_us"]
                for k, v in z4c_res["res"].items() if "fill" in v}},
         "pool_fill_fc_ms": pool_res["fc_ms"],
+        "bbh": {"sor": bbh["bbh_flat"]["sor"],
+                "bbh_flat_checks": bbh["bbh_flat"]["checks"],
+                "awa_fill": bbh["awa"]["b"], "awa_stage": bbh["awa"]["h"],
+                "ahf": bbh["ahf"],
+                "runs": {k: {kk: v[kk] for kk in ("rates", "path_diff")
+                             if kk in v} for k, v in bbh["runs"].items()}},
         "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
         "build_seconds": kernels.BUILD_INFO.get("source_seconds"),
         "card": card}))

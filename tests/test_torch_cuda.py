@@ -596,15 +596,16 @@ def test_v1_kernels_reject_bad_input(card):
                                nbr, mesh)
 
 
-def _z4c(extra, dtype_name):
-    """The single-puncture deck at 16^3 on the card, initialised, with
-    every channel perturbed (the shift too) and a register u1."""
+def _z4c(extra, dtype_name, deck="one_puncture"):
+    """A Z4c deck of ``inputs/z4c`` (the single puncture at 16^3 unless
+    ``extra`` says otherwise) on the card, initialised, with every
+    channel perturbed (the shift too) and a register u1."""
     from athenak_tpu_torch.athinput import ParameterInput as Pin
     pin = Pin.from_file(os.path.join(os.path.dirname(DECK), "..", "z4c",
-                                     "one_puncture.athinput"))
-    pin.modify_from_cmdline(
-        ["mesh/nx1=16", "mesh/nx2=16", "mesh/nx3=16",
-         f"job/precision={dtype_name}"] + list(extra))
+                                     f"{deck}.athinput"))
+    if deck == "one_puncture":
+        extra = ["mesh/nx1=16", "mesh/nx2=16", "mesh/nx3=16"] + list(extra)
+    pin.modify_from_cmdline([f"job/precision={dtype_name}"] + list(extra))
     mesh, phys, _, driver, st = build(pin, device="cuda")
     st = driver.initialize(st)
     gen = torch.Generator().manual_seed(5)
@@ -674,6 +675,64 @@ def test_z4c_stage_kernel_pool_and_ragged(card, dtype, layout, ng):
         err = ((got[core] - want[core]).abs()
                / want[core].abs().clamp(min=1.0)).max()
         assert float(err) <= tol, (s, float(err))
+
+
+# the shapes of the binary-black-hole slice: the AwA gauge wave as
+# shipped ([1, 22, 12, 12, 72], nghost 4 on a 4-cell x2/x3 interior,
+# periodic) and the flat binary's one block of 128^3 with nghost 4
+# ([1, 22, 136^3], outflow with Sommerfeld rows)
+Z4C_BBH_SHAPES = {
+    "gauge_wave": ("awa/gauge_wave", []),
+    "binary_136": ("one_puncture", ["mesh/nghost=4"] + [
+        f"{b}/nx{d}=128" for b in ("mesh", "meshblock") for d in (1, 2, 3)])}
+
+
+@pytest.mark.parametrize("dtype", ["single", "double"])
+@pytest.mark.parametrize("shape", sorted(Z4C_BBH_SHAPES))
+def test_z4c_stage_kernel_bbh_shapes(card, dtype, shape):
+    """Kernel H against its plain version at the gauge wave's and the
+    flat binary's shapes, on interior cells: one launch a call, float32
+    to 2e-5 and float64 to 1e-10 of max(|value|, 1); the four RK4 sets
+    on the gauge wave, the first on the 136^3 block (its plain version
+    takes a second a stage)."""
+    from athenak_tpu_torch.driver import make_integrator
+    from athenak_tpu_torch.ops import z4c_stage
+    deck, extra = Z4C_BBH_SHAPES[shape]
+    phys, u, u1 = _z4c(extra, dtype, deck=deck)
+    assert tuple(u.shape) == ((1, 22, 12, 12, 72) if shape == "gauge_wave"
+                              else (1, 22, 136, 136, 136))
+    assert phys.use_stage_kernel and phys.ng == 4
+    rk4 = make_integrator("rk4")
+    core = (slice(None), slice(None), slice(4, -4), slice(4, -4),
+            slice(4, -4))
+    tol = 2e-5 if dtype == "single" else 1e-10
+    for s in range(4 if shape == "gauge_wave" else 1):
+        args = (u, u1, phys, rk4.gam0[s], rk4.gam1[s], rk4.beta[s] * 0.01)
+        n0 = kernels.Z4C_STAGE.launches
+        got = z4c_stage.fused_z4c_stage(*args)
+        assert kernels.Z4C_STAGE.launches == n0 + 1
+        want = z4c_stage.fused_z4c_stage_plain(*args)
+        err = ((got[core] - want[core]).abs()
+               / want[core].abs().clamp(min=1.0)).max()
+        assert float(err) <= tol, (s, float(err))
+        del got, want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", [(1, 22, 12, 12, 72), (1, 22, 54, 54, 54)])
+def test_fill_kernel_bitwise_z4c_channels(card, dtype, shape):
+    """Kernel B on the 22 Z4c channels at the gauge wave's block shape
+    and at robust stability's (50^3 with nghost 2): bitwise equal to the
+    plain sweeps, one launch."""
+    gen = torch.Generator().manual_seed(22)
+    a = torch.rand(shape, generator=gen, dtype=getattr(torch, dtype)).to(
+        card)
+    b = a.clone()
+    n0 = kernels.PERIODIC_FILL_CC.launches
+    fill.periodic_fill_cc(a)
+    assert kernels.PERIODIC_FILL_CC.launches == n0 + 1
+    fill.fill_plain(b, fill.shifts(b.shape))
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

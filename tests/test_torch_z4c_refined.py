@@ -266,6 +266,38 @@ def test_z4c_amr_flags_match_jax(body):
 
 
 def test_tracker_method_raises():
+    """``method = tracker`` is ported: its flags (the trackers' distance
+    to each block's box, against each tracker's radius and level) equal
+    the JAX package's on a tree with three levels; an unknown method
+    raises, in both packages."""
     text = Z4C_AMR.format(body="method = tracker")
-    with pytest.raises(NotImplementedError, match="tracker"):
-        Z4cAMR(ParameterInput.from_string(text))
+    pj, pt = JaxInput.from_string(text), ParameterInput.from_string(text)
+    jz, tz = JaxZ4cAMR(pj), Z4cAMR(pt)
+    assert tz.method == jz.method == "tracker"
+    jmesh, mesh = JaxMesh(pj), Mesh(pt)
+    lev = np.zeros(mesh.nmb_total, np.int64)
+    lev[::3] = 1
+    lev[::7] = 2
+    jmesh.mb_lev, mesh.mb_lev = lev, lev.copy()
+
+    class Phys:                      # what host_flags reads of Z4c
+        nco = 2
+        tracker_pos0 = np.array([[2.6, -1.0, 0.0], [-4.0, 0.0, 0.0]])
+        tracker_radius = np.array([3.0, 1.5])
+        tracker_reflevel = np.array([2, -1])
+
+    flags = np.zeros(mesh.nmb_total, np.int32)
+    pos = np.array([[2.4, -1.1, 0.3], [-4.2, 0.1, -0.2]])
+    ref = jz.host_flags(flags.copy(), {"co_pos": jnp.asarray(pos)}, jmesh,
+                        Phys)
+    got = tz.host_flags(flags.copy(), {"co_pos": torch.as_tensor(pos)},
+                        mesh, Phys)
+    np.testing.assert_array_equal(got, ref)
+    assert set(ref.tolist()) == {-1, 0, 1}
+    np.testing.assert_array_equal(
+        tz.host_flags(flags.copy(), {}, mesh, Phys),
+        jz.host_flags(flags.copy(), {}, jmesh, Phys))
+    bad = Z4C_AMR.format(body="method = nearest")
+    for cls, inp in ((Z4cAMR, ParameterInput), (JaxZ4cAMR, JaxInput)):
+        with pytest.raises(ValueError, match="nearest"):
+            cls(inp.from_string(bad))

@@ -263,3 +263,95 @@ def _jit_o0(jit):
                     xla_backend_optimization_level=0)
         return jit(fn, compiler_options=opts, **kw)
     return wrapped
+
+
+class EagerRun:
+    """One Z4c deck through the JAX package outside ``jax.jit`` (a Z4c
+    right-hand side is thousands of small operations, each compiled once
+    eagerly; ``jax.jit`` is made the identity, so the AMR step's rebuild
+    and fills and the waveform output's psi4 run the same way, and the
+    fills the rebuild compiles for a new tree serve its cycles): build,
+    initialise, then ``ncyc`` cycles of its ``make_cycle_fn`` (the
+    puncture trackers' ``post_cycle`` included) with the port driver's
+    dt rule, its AMR step after every cycle (every tree update recorded
+    in ``trees`` as (cycle, leaves)) and, with ``outputs``, its outputs
+    called as its driver calls them, in ``rundir``.  Keeps the final
+    state (numpy), time, mesh, physics and driver."""
+
+    def __init__(self, text: str, overrides=(), ncyc: int = 3,
+                 outputs: bool = False, rundir=None) -> None:
+        import pytest
+        from athenak_tpu.outputs import make_outputs
+
+        pin = JaxInput.from_string(text)
+        pin.modify_from_cmdline(JAX_EXTRA + list(overrides))
+        self.pin = pin
+        self.trees = []
+        cwd = os.getcwd()
+        if rundir is not None:
+            os.makedirs(rundir, exist_ok=True)
+            os.chdir(rundir)
+        try:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(jax, "jit", lambda f=None, **kw: f)
+                self._run(pin, ncyc, make_outputs if outputs else None)
+        finally:
+            os.chdir(cwd)
+
+    def _run(self, pin, ncyc, make_outputs) -> None:
+        mesh, phys, _, driver, st = jax_main.build(pin)
+        outs = make_outputs(pin, mesh, phys) if make_outputs else []
+        st = driver.initialize(st)
+        self.ready = jax.tree_util.tree_map(np.asarray, st)
+        for out in outs:
+            out.maybe_write(mesh, st["u"], st["w"], force=True, state=st)
+        for _ in range(ncyc):
+            m = driver.mesh
+            cycle = driver.make_cycle_fn()
+            st, dtnew, _ = cycle(st, jnp.asarray(m.dt, st["u"].dtype))
+            m.time += m.dt
+            m.ncycle += 1
+            dt = min(2.0 * m.dt, driver.cfl_no * float(dtnew))
+            if m.time < driver.tlim and m.time + dt > driver.tlim:
+                dt = driver.tlim - m.time
+            m.dtold, m.dt = m.dt, dt
+            if driver.pamr is not None:
+                st, changed = driver.pamr.step(driver, st, outs)
+                if changed:
+                    m = driver.mesh
+                    dtn = float(driver.phys.dt_from_state(st))
+                    m.dt = min(m.dt, driver.cfl_no * dtn)
+                    self.trees.append((m.ncycle, [
+                        tuple(int(v) for v in leaf) for leaf in m.leaves]))
+            if outs and any(out.due(m) for out in outs):
+                for out in outs:
+                    out.maybe_write(m, st["u"], st["w"], state=st)
+        for out in outs:
+            out.maybe_write(driver.mesh, st["u"], st["w"], force=True,
+                            state=st)
+        self.mesh, self.phys, self.driver = driver.mesh, driver.phys, driver
+        self.state = jax.tree_util.tree_map(np.asarray, st)
+        self.time = driver.mesh.time
+
+
+def port_run(text: str, overrides=(), ncyc: int = 3, rundir=None):
+    """The same deck through the port's ``main.run`` on the CPU for
+    ``ncyc`` cycles in ``rundir``: (mesh, phys, driver, numpy state)."""
+    pin = ParameterInput.from_string(text)
+    pin.modify_from_cmdline(list(overrides) + [f"time/nlim={ncyc}"])
+    cwd = os.getcwd()
+    if rundir is not None:
+        os.makedirs(rundir, exist_ok=True)
+        os.chdir(rundir)
+    try:
+        mesh, phys, driver, st = torch_main.run(pin, device="cpu")
+    finally:
+        os.chdir(cwd)
+    return mesh, phys, driver, state_to_numpy(st)
+
+
+def scaled_err(got, want):
+    """max |got - want| / max(|want|, 1), the Z4c tests' measure."""
+    want = np.asarray(want)
+    return float((np.abs(np.asarray(got) - want)
+                  / np.maximum(np.abs(want), 1.0)).max())
