@@ -795,6 +795,11 @@ class AMR:
         bvals = BoundaryValues(mesh)
         phys = make_physics(self.pin, mesh, bvals, old_phys.device,
                             old_phys.dtype)
+        # carry the problem generator's hooks across the rebuild (the JAX
+        # amr.py:845-848, 993-996)
+        bvals.user_bc_func = old_phys.bvals.user_bc_func
+        if hasattr(old_phys, "srcterms_func"):
+            phys.srcterms_func = old_phys.srcterms_func
         t1 = _time.perf_counter()
 
         mbi = mesh.mb_indcs

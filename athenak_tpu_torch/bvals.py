@@ -26,6 +26,12 @@ A single fully periodic block takes the fill kernel
 pool-fill kernel (``ops/pool_fill.py``, kernel G) when the tensor lies
 on the card in float32, the port's counterpart of the JAX package's TPU
 gate.
+
+A ``user`` boundary flag leaves its ghosts to the problem generator's
+``user_bc_func(u, bvals) -> u`` (the sweeps treat the side as periodic),
+which runs after every fill route, as in the JAX package; the hooks of
+the port's problem generators write in place, and ``fill_ghosts``
+returns what the hook returns.
 """
 
 from __future__ import annotations
@@ -85,7 +91,8 @@ class BoundaryValues:
         }
         for key, flag in self.flag.items():
             if self.any_phys.get(key, False) and flag not in (
-                    "periodic", "outflow", "reflect", "diode", "vacuum"):
+                    "periodic", "outflow", "reflect", "diode", "vacuum",
+                    "user"):
                 raise NotImplementedError(
                     f"boundary flag '{flag}' is not ported to "
                     "athenak_tpu_torch yet")
@@ -101,6 +108,8 @@ class BoundaryValues:
         self.use_pool_fill = supports_pool_fill(mesh)
         self._nbr27 = None
         self._nbr27_dev = None
+        # a problem generator's user boundary function, fn(u, bvals) -> u
+        self.user_bc_func = None
 
     def nbr27(self, device=None):
         """The [nmb, 27] donor table of the pool fill: host numpy, or with
@@ -131,15 +140,18 @@ class BoundaryValues:
         """
         if self.use_fill_kernel and kernel_dtype_ok(u):
             from .ops.fill import periodic_fill_cc
-            return periodic_fill_cc(u)
-        if self.pool_fill_active(u):
+            u = periodic_fill_cc(u)
+        elif self.pool_fill_active(u):
             from .ops.pool_fill import pool_fill_cc
-            return pool_fill_cc(u, self.nbr27(u.device), self.mesh)
-        for _ in range(2 if self.multilevel else 1):
-            for ax in self.active_axes:
-                self._sweep_axis(u, ax)
-        if self.multilevel:
-            self._fill_corners(u)
+            u = pool_fill_cc(u, self.nbr27(u.device), self.mesh)
+        else:
+            for _ in range(2 if self.multilevel else 1):
+                for ax in self.active_axes:
+                    self._sweep_axis(u, ax)
+            if self.multilevel:
+                self._fill_corners(u)
+        if self.user_bc_func is not None:
+            u = self.user_bc_func(u, self)
         return u
 
     # ------------------------------------------------------------------
@@ -363,7 +375,8 @@ class BoundaryValues:
         n = u.shape[axis]
         key = f"{ax}{side}"
         flag = self.flag[key]
-        if flag == "periodic":
+        if flag in ("periodic", "user"):
+            # a user side: the hook writes its ghosts after the fill
             return gathered
         nvel = _NORMAL_VEL[ax]
         if side == "m":

@@ -12,7 +12,8 @@ coalescing repacks a pool into one superblock for the TPU's lane layout,
 so a multi-block deck runs here as a pool of blocks whatever
 ``mesh/coalesce`` says, with the same answer.  A driven run applies its
 turbulence forcing once a cycle, before the stages, and the physics'
-``post_cycle`` (the Z4c puncture trackers) after them.  On an adaptive mesh
+``post_cycle`` (the Z4c puncture trackers) after them; a state that
+carries the time ``t`` has it advanced by dt a cycle.  On an adaptive mesh
 the AMR step (``amr.AMR``) runs after every cycle; a tree update
 replaces the mesh and the physics, drops the cycle function and takes
 dt on the new tree at once (the finer CFL), and the zone-cycles count
@@ -199,6 +200,11 @@ class Driver:
             post = getattr(phys, "post_cycle", None)
             if post is not None:
                 state = post(state, torch.tensor(dt, dtype=dtype).item())
+            # the time a state carries for a time-dependent source term
+            # (disk_magnetosphere's planets), advanced as the JAX cycle does
+            if "t" in state:
+                state = dict(state, t=state["t"] + torch.tensor(dt,
+                                                                dtype=dtype))
             dtnew = dt_fused if dt_fused is not None \
                 else phys.dt_from_state(state)
             return state, dtnew, counters_tot

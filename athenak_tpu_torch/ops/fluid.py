@@ -52,14 +52,20 @@ def rk_update(u0, u1, flx, gam0, gam1, beta_dt, dirs):
     return gam0 * u0 + gam1 * u1 - beta_dt * divf
 
 
-def fofc_faces(c2p, u0, u1, flx, gam0, gam1, beta_dt, dirs):
+def fofc_faces(c2p, u0, u1, flx, gam0, gam1, beta_dt, dirs, excise=None):
     """The faces of first-order flux correction: a trial RK update, and
     a cell flagged where ``c2p`` (trial state -> its fixed state) changed
-    it, i.e. a floor fired or the root find failed; a face is corrected
-    where the cell on either side is flagged.  Returns ({direction: face
-    mask [nmb, n3, n2, n1]}, the number of flagged cells)."""
-    utest = rk_update(u0, u1, flx, gam0, gam1, beta_dt, dirs)
-    flag = (c2p(utest) != utest).any(dim=1)
+    it, i.e. a floor fired or the root find failed; with ``c2p`` None no
+    trial is made.  ``excise`` ([nmb, n3, n2, n1] bool, GR) flags the
+    cells around the horizon besides.  A face is corrected where the cell
+    on either side is flagged.  Returns ({direction: face mask [nmb, n3,
+    n2, n1]}, the number of flagged cells)."""
+    flag = excise
+    if c2p is not None:
+        utest = rk_update(u0, u1, flx, gam0, gam1, beta_dt, dirs)
+        flag = (c2p(utest) != utest).any(dim=1)
+        if excise is not None:
+            flag = flag | excise
     masks = {name: flag | torch.roll(flag, 1, dims=axis - 1)
              for name, axis, _ivx, _dx in dirs}
     return masks, flag.sum()

@@ -47,21 +47,26 @@ NG = 2
 def pallas_physics(phys) -> bool:
     """The physics conditions of the JAX ``MHD.use_pallas``
     (``athenak_tpu/physics/mhd.py:127-146``): PLM, Newtonian HLLD or SR
-    HLLE/LLF, the ideal gas, no passive scalars.  The JAX package takes
-    none of its MHD stage kernels (A, C, D, E, J) without them; every
-    kernel gate of the port's MHD stage starts from this one."""
-    ok_solver = ((not phys.is_sr and phys.rsolver == "hlld")
-                 or (phys.is_sr and phys.rsolver in ("hlle", "llf")))
+    HLLE/LLF (never GR), the ideal gas, no passive scalars.  The JAX
+    package takes none of its MHD stage kernels (A, C, D, E, J) without
+    them; every kernel gate of the port's MHD stage starts from this
+    one."""
+    is_gr = getattr(phys, "is_gr", False)
+    ok_solver = ((not (phys.is_sr or is_gr) and phys.rsolver == "hlld")
+                 or (phys.is_sr and not is_gr
+                     and phys.rsolver in ("hlle", "llf")))
     return (phys.recon_method == "plm" and ok_solver
             and phys.nscalars == 0 and phys.eos.is_ideal)
 
 
 def no_stage_extras(phys) -> bool:
     """None of the physics that the JAX stage-kernel gates exclude
-    (``pallas_stage.py:176-181, 564-573``): first-order flux correction
-    and ``<*_srcterms>``; the rest of that list (GR excision, gravity,
-    diffusion) raises in the MHD constructor."""
-    return not phys.use_fofc and phys.srcterms is None
+    (``pallas_stage.py:176-181, 564-573``): first-order flux correction,
+    GR flux excision and ``<*_srcterms>``; the rest of that list
+    (gravity, diffusion) raises in the MHD constructor."""
+    return (not phys.use_fofc
+            and getattr(phys, "fofc_excise_mask", None) is None
+            and phys.srcterms is None)
 
 
 def supports_mega_stage(phys, mesh) -> bool:
@@ -76,12 +81,16 @@ def supports_mega_stage(phys, mesh) -> bool:
 
 
 def supports_mega_v2(phys, mesh) -> bool:
-    """Gate of kernel A: the stage-kernel gate and no turbulence driving,
-    whose forcing reads the state's primitives between cycles (the JAX
-    ``supports_mega_v2``; the port has neither the problem generators'
-    source-term hook nor user boundary functions, which it also
-    excludes)."""
+    """Gate of kernel A: the stage-kernel gate, no turbulence driving,
+    whose forcing reads the state's primitives between cycles, no
+    problem generator's source-term hook or user boundary function and
+    no prolongation in primitives (the JAX ``supports_mega_v2``).  The
+    hooks arrive after the physics is built, so ``MHD.kernel_path``
+    checks them again at every stage."""
     return (getattr(phys, "pturb", None) is None
+            and getattr(phys, "srcterms_func", None) is None
+            and phys.bvals.user_bc_func is None
+            and not phys.bvals.prolong_prims
             and supports_mega_stage(phys, mesh))
 
 

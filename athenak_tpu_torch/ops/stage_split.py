@@ -54,12 +54,13 @@ def supports_fused_stage(phys, mesh) -> bool:
 
 def supports_fused_ct(phys, mesh) -> bool:
     """Gate for kernel D: the JAX ``use_pallas and supports_fused_ct``
-    (``athenak_tpu/physics/mhd.py:230-232``), that is ``pallas_physics``,
-    3-D, one level and two ghost cells.  Like the JAX gate it admits
-    FOFC and source terms: D runs after them on the general path and
-    reads the corrected mass flux.  GR and resistivity raise in the
-    constructor."""
+    (``athenak_tpu/physics/mhd.py:230-232``, ``pallas_stage.py:365``),
+    that is ``pallas_physics``, not GR, 3-D, one level and two ghost
+    cells.  Like the JAX gate it admits FOFC and source terms: D runs
+    after them on the general path and reads the corrected mass flux.
+    Resistivity raises in the constructor."""
     return (len(phys.dirs) == 3 and pallas_physics(phys)
+            and not getattr(phys, "is_gr", False)
             and not mesh.multilevel and mesh.mb_indcs.ng == NG)
 
 

@@ -54,9 +54,13 @@ def supports_z4c_stage(z, mesh) -> bool:
 def fold_bc_supported(bvals) -> bool:
     """True when the stage is followed by the outflow fill kernel: a
     single block whose six faces are all outflow (the NR production
-    configuration).  Any other mesh runs ``bvals.fill_ghosts``."""
+    configuration) and no user boundary function (the JAX
+    ``fold_bc_supported``, ``pallas_z4c.py:381``).  Any other mesh runs
+    ``bvals.fill_ghosts``.  A hook installed after the physics is built
+    is checked again at every stage (``Z4c.stage_update``)."""
     return (bvals.mesh.nmb_total == 1
-            and all(f == "outflow" for f in bvals.flag.values()))
+            and all(f == "outflow" for f in bvals.flag.values())
+            and bvals.user_bc_func is None)
 
 
 def stage_params(z, gam0, gam1, beta_dt):

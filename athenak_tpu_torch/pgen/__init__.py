@@ -15,8 +15,9 @@ linear waves, the Orszag-Tang vortex, the circularly polarised Alfven
 wave, the field loop, the current sheet, Rayleigh-Taylor, the
 Liska-Wendroff implosion, the slotted cylinder, the advection test and
 the Z4c generators (single, boosted and two punctures, Kerr-Schild, the
-linear wave and the AwA gauge-wave and robust-stability tests) are
-ported so far.
+linear wave and the AwA gauge-wave and robust-stability tests), the GR
+generators (Bondi accretion, the split monopole, the Fishbone-Moncrief
+torus) and the star-disk magnetosphere are ported so far.
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ _REGISTRY = {
     "slotted_cyl": "athenak_tpu_torch.pgen.slotted_cyl",
     "slotted_cylinder": "athenak_tpu_torch.pgen.slotted_cyl",
     "advection": "athenak_tpu_torch.pgen.advection",
+    "gr_bondi": "athenak_tpu_torch.pgen.gr_bondi",
+    "gr_monopole": "athenak_tpu_torch.pgen.gr_monopole",
+    "gr_torus": "athenak_tpu_torch.pgen.gr_torus",
+    "disk_magnetosphere": "athenak_tpu_torch.pgen.disk_magnetosphere",
 }
 
 

@@ -1,4 +1,4 @@
-"""Hydrodynamics, Newtonian or special-relativistic.
+"""Hydrodynamics, Newtonian, special- or general-relativistic.
 
 Counterpart of ``athenak_tpu/physics/hydro.py`` (reference:
 src/hydro/hydro.hpp:67-158, hydro_tasks.cpp:48-80, hydro_fluxes.cpp,
@@ -24,9 +24,19 @@ prolonged in primitive variables after every c2p
 applies the forcing once a cycle before the stages.  First-order flux
 correction (``<hydro>/fofc``) replaces the fluxes on the faces of cells
 whose trial update would floor with first-order LLF fluxes, and
-``<hydro_srcterms>`` adds its source terms after the RK update.  GR
-hydro, diffusion, gravity, particles and the shearing box are not ported
-yet and raise.
+``<hydro_srcterms>`` adds its source terms after the RK update.
+
+GR (``<coord>/general_rel``) runs on the fixed Cartesian Kerr-Schild
+metric of ``coordinates.GRGeometry``, computed once: the GR solvers take
+the face metric, the c2p the cell-centre one with the Lorentz ceiling
+and the horizon excision, the stage adds the coordinate source terms
+after the RK update, the faces around the horizon always take
+first-order fluxes (the flux-excision mask, with or without
+``<hydro>/fofc``) and dt is bounded by the speed of light.  A problem
+generator may enroll ``srcterms_func(u, w, beta_dt[, t=])``, called
+after the source terms (``needs_time``: the time the state carries in
+``t``).  Diffusion, gravity, particles and the shearing box are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -34,15 +44,18 @@ from __future__ import annotations
 import torch
 
 from ..bvals import BoundaryValues
-from ..coordinates import Coordinates
+from ..coordinates import Coordinates, GRGeometry, excision_masks
 from ..indices import IDN, IEN, IVX, IVY, IVZ, RECON_NGHOST
 from ..mesh import Mesh
 from ..ops import recon as recon_ops
 from ..ops import rsolvers
 from ..ops.eos import EOSData, cons_to_prim_hydro, prim_to_cons_hydro
+from ..ops.eos_gr import (coord_src_terms, cons_to_prim_gr_hydro,
+                          prim_to_cons_gr_hydro)
 from ..ops.eos_sr import (cons_to_prim_sr_hydro, prim_to_cons_sr_hydro,
                           sr_hydro_sound_speeds)
 from ..ops.fluid import face_floors, fofc_faces, rk_update, scalar_fluxes
+from ..ops.rsolvers_gr import GR_HYDRO_RSOLVER_FNS, llf_gr
 from ..ops.rsolvers_sr import SR_HYDRO_RSOLVER_FNS, llf_sr
 from ..refinement import flux_correct_cc
 from ..srcterms import SourceTerms
@@ -60,12 +73,11 @@ class Hydro:
         self.bvals = bvals
         self.device = torch.device(device)
         self.dtype = dtype
-        coord = Coordinates(pin)
-        if coord.is_general_relativistic:
-            raise not_ported("general-relativistic hydro")
+        self.coord = coord = Coordinates(pin)
         self.is_sr = coord.is_special_relativistic
+        self.is_gr = coord.is_general_relativistic
         self.eos = EOSData.from_input(pin, "hydro")
-        if self.is_sr and not self.eos.is_ideal:
+        if (self.is_sr or self.is_gr) and not self.eos.is_ideal:
             raise ValueError("relativistic hydro requires the ideal-gas EOS")
         self.nhydro = self.eos.nfluid
         self.nscalars = pin.get_or_add_integer("hydro", "nscalars", 0)
@@ -84,6 +96,11 @@ class Hydro:
                 raise ValueError(
                     f"hydro/rsolver={self.rsolver} not available in SR")
             self._solve = SR_HYDRO_RSOLVER_FNS[self.rsolver]
+        elif self.is_gr:
+            if self.rsolver not in GR_HYDRO_RSOLVER_FNS:
+                raise ValueError(
+                    f"hydro/rsolver={self.rsolver} not available in GR")
+            self._solve = GR_HYDRO_RSOLVER_FNS[self.rsolver]
         else:
             if self.rsolver not in rsolvers.HYDRO_RSOLVER_FNS:
                 raise ValueError(f"hydro/rsolver={self.rsolver} unknown")
@@ -135,6 +152,15 @@ class Hydro:
             self.dirs.append(("x3", 2, IVZ, dx5["x3"]))
         self.time_evolution = pin.get_string("time", "evolution") \
             if pin.does_block_exist("time") else "dynamic"
+        # the metric, kept (GR), and the excision masks
+        self.geom = GRGeometry(mesh, coord.coord_data, self.device, dtype,
+                               faces=[d[0] for d in self.dirs]) \
+            if self.is_gr else None
+        self.excise_mask, self.fofc_excise_mask = \
+            excision_masks(self.geom, mesh, self.device) if self.is_gr \
+            else (None, None)
+        # a problem generator's source-term hook, fn(u, w, beta_dt) -> u
+        self.srcterms_func = None
         # turbulence driving (reference: src/srcterms/turb_driver.cpp),
         # applied by the driver once a cycle before the stages
         from ..turb_driver import TurbulenceDriver
@@ -153,11 +179,20 @@ class Hydro:
 
     # ------------------------------------------------------------------ eos
     def cons_to_prim(self, u):
+        if self.is_gr:
+            cd = self.coord.coord_data
+            gl, gu = self.geom.metric("cc")
+            return cons_to_prim_gr_hydro(
+                u, self.eos, gl, gu, excise_mask=self.excise_mask,
+                dexcise=cd.dexcise, pexcise=cd.pexcise)
         if self.is_sr:
             return cons_to_prim_sr_hydro(u, self.eos)
         return cons_to_prim_hydro(u, self.eos)
 
     def prim_to_cons(self, w):
+        if self.is_gr:
+            return prim_to_cons_gr_hydro(w, self.eos,
+                                         *self.geom.metric("cc"))
         if self.is_sr:
             return prim_to_cons_sr_hydro(w, self.eos)
         return prim_to_cons_hydro(w, self.eos)
@@ -176,9 +211,13 @@ class Hydro:
             wl, wr = rec(w, axis)
             if floors:
                 wl, wr = face_floors(wl, self.eos), face_floors(wr, self.eos)
-            f = self._solve(wl, wr, self.eos, ivx)
+            f = self._solve(wl, wr, self.eos, ivx, *self._face_metric(name))
             out[name] = scalar_fluxes(f, wl, wr, self.nhydro)
         return out
+
+    def _face_metric(self, name: str):
+        """The solvers' extra arguments: the face metric under GR."""
+        return self.geom.metric(name) if self.is_gr else ()
 
     def rk_update(self, u0, u1, flx, gam0, gam1, beta_dt):
         """gam0 * u0 + gam1 * u1 - beta_dt * div(F) over the whole array
@@ -191,17 +230,22 @@ class Hydro:
         """First-order flux correction (reference: Hydro::FOFC,
         src/hydro/hydro_fofc.cpp:30-200): a trial update and c2p flag the
         cells where a floor fired or the root find failed (``u_fixed``
-        differs from the trial state), and the faces on either side of a
+        differs from the trial state), under GR with excision also the
+        cells around the horizon, and the faces on either side of a
         flagged cell take first-order LLF fluxes from the cell-centred
         primitives.  Returns (flx, nfofc)."""
-        masks, nfofc = fofc_faces(lambda ut: self.cons_to_prim(ut)[1], u,
-                                  u1, flx, gam0, gam1, beta_dt, self.dirs)
-        first_order = llf_sr if self.is_sr else rsolvers.llf
+        c2p = (lambda ut: self.cons_to_prim(ut)[1]) if self.use_fofc \
+            else None
+        masks, nfofc = fofc_faces(c2p, u, u1, flx, gam0, gam1, beta_dt,
+                                  self.dirs, excise=self.fofc_excise_mask)
+        first_order = llf_gr if self.is_gr else \
+            llf_sr if self.is_sr else rsolvers.llf
         out = dict(flx)
         for name, axis, ivx, _dx in self.dirs:
             wl = torch.roll(w, 1, dims=axis)   # cell i-1 at face i
-            f1 = scalar_fluxes(first_order(wl, w, self.eos, ivx), wl, w,
-                               self.nhydro)
+            f1 = scalar_fluxes(first_order(wl, w, self.eos, ivx,
+                                           *self._face_metric(name)),
+                               wl, w, self.nhydro)
             out[name] = torch.where(masks[name].unsqueeze(1), f1, out[name])
         return out, nfofc
 
@@ -217,6 +261,10 @@ class Hydro:
         vx, vy, vz = wa[:, IVX], wa[:, IVY], wa[:, IVZ]
         if self.time_evolution == "kinematic":
             dv = (torch.abs(vx), torch.abs(vy), torch.abs(vz))
+        elif self.is_gr:
+            # light speed bounds every signal (reference:
+            # hydro_newdt.cpp:85-88)
+            dv = (torch.ones_like(vx),) * 3
         elif self.is_sr:
             lor = torch.sqrt(1.0 + vx * vx + vy * vy + vz * vz)
             p = self.eos.pressure(wa[:, IEN])
@@ -266,21 +314,38 @@ class Hydro:
             u, w = self.bvals.prolong_prims_fixup(u, w, self.prim_to_cons)
         return dict(state, u=u, w=w)
 
+    def restart_ghosts(self, state):
+        """The state of a resumed run: ``init_ghosts``, but under GR the
+        stored state as it is.  It holds every ghost and the primitives
+        of its last c2p, and a second GR c2p is not the identity on a
+        floored state (the floors fire again on p2c's rounding), so
+        refilling would part a resumed run from a straight one."""
+        if self.is_gr and "w" in state:
+            return state
+        return self.init_ghosts(state)
+
     def stage_update(self, state, saved, gam0, gam1, beta_dt):
         """One RK stage: fluxes -> (FOFC) -> (flux correction) -> update
-        -> (source terms) -> fill -> c2p (reference task chain
-        hydro_tasks.cpp:54-70); with FOFC the counters carry ``nfofc``."""
+        -> (coordinate and other source terms, the hook) -> fill -> c2p
+        (reference task chain hydro_tasks.cpp:54-70); with FOFC or
+        excision the counters carry ``nfofc``."""
         u, w = state["u"], state["w"]
         flx = self.fluxes(w)
         nfofc = None
-        if self.use_fofc:
+        if self.use_fofc or self.fofc_excise_mask is not None:
             flx, nfofc = self._apply_fofc(u, saved["u1"], w, flx, gam0,
                                           gam1, beta_dt)
         if self.multilevel:
             flx = flux_correct_cc(flx, self.mesh, [d[0] for d in self.dirs])
         u = self.rk_update(u, saved["u1"], flx, gam0, gam1, beta_dt)
+        if self.is_gr:
+            u = coord_src_terms(u, w, self.eos, self.geom, beta_dt)
         if self.srcterms is not None and self.srcterms.any_enabled:
             u = self.srcterms.apply(u, w, beta_dt)
+        if self.srcterms_func is not None:
+            kw = {"t": state.get("t")} \
+                if getattr(self.srcterms_func, "needs_time", False) else {}
+            u = self.srcterms_func(u, w, beta_dt, **kw)
         u = self.bvals.fill_ghosts(u)
         w, u, counters = self.cons_to_prim(u)
         if self.bvals.prolong_prims:

@@ -1,5 +1,5 @@
-"""Ideal magnetohydrodynamics with constrained transport, Newtonian or
-special-relativistic.
+"""Ideal magnetohydrodynamics with constrained transport, Newtonian,
+special- or general-relativistic.
 
 Counterpart of ``athenak_tpu/physics/mhd.py`` (reference:
 src/mhd/mhd.hpp, mhd_tasks.cpp:48-81, mhd_fluxes.cpp, mhd_corner_e.cpp,
@@ -57,7 +57,22 @@ variables after every c2p (``bvals.prolong_prims_fixup``).  An adaptive
 mesh (``amr.py``) rebuilds the physics at every tree update, so these
 routes follow the tree.
 The deck option ``<mhd>/use_kernels = false`` keeps a run on the general
-path and the sweep fills, for comparison.  GR MHD, diffusion, gravity,
+path and the sweep fills, for comparison.
+
+GR MHD (``<coord>/general_rel``) takes none of the kernels, as in the
+JAX package (``pallas_physics``): it runs the general path on the fixed
+Kerr-Schild metric of ``coordinates.GRGeometry``, with the GR solvers on
+the face metric, the GR cell-centred EMFs in ``corner_e``, the
+coordinate source terms with the magnetic stress after the RK update,
+the Lorentz ceiling and excision in the c2p, first-order fluxes on the
+faces around the horizon (the flux-excision mask) and dt bounded by the
+speed of light.  A problem generator may enroll ``srcterms_func(u, w,
+beta_dt[, bcc=][, t=])`` (``needs_bcc``, ``needs_time``), called after
+the source terms on every route (after kernel E on the v1 route and
+kernel C on the split one), and ``bvals.user_bc_func``; either closes
+kernel A at run time, and a user boundary function closes F's fill and
+the pool route of the v1 stage, as in the JAX package (generators
+install the hooks after the physics is built).  Diffusion, gravity,
 particles and the shearing box are not ported yet and raise.
 A driven run (``<turb_driving>``) carries ``turb_force`` in its state;
 the driver applies the forcing once a cycle before the stages.
@@ -70,15 +85,18 @@ import torch
 from ..bvals import _AXIS_OF, BoundaryValues, kernel_dtype_ok
 from ..refinement import flux_correct_cc
 from . import mhd_smr
-from ..coordinates import Coordinates
+from ..coordinates import Coordinates, GRGeometry, excision_masks
 from ..indices import IDN, IEN, IVX, IVY, IVZ, RECON_NGHOST
 from ..mesh import Mesh
 from ..ops import recon as recon_ops
 from ..ops import rsolvers_mhd
 from ..ops.eos import EOSData, cons_to_prim_mhd, prim_to_cons_mhd
 from ..ops.fluid import face_floors, fofc_faces, rk_update, scalar_fluxes
+from ..ops.eos_gr import (coord_src_terms, cons_to_prim_gr_mhd,
+                          four_field, four_velocity, prim_to_cons_gr_mhd)
 from ..ops.eos_sr import (cons_to_prim_sr_mhd, prim_to_cons_sr_mhd,
                           sr_mhd_fast_speeds)
+from ..ops.rsolvers_grmhd import GR_MHD_RSOLVER_FNS, llf_grmhd
 from ..ops.rsolvers_srmhd import SR_MHD_RSOLVER_FNS, llf_srmhd
 from ..srcterms import SourceTerms
 from ..utils import not_ported
@@ -104,13 +122,14 @@ def compute_bcc(bfc):
 
 
 def face_fluxes(w, bcc, bfc, eos: EOSData, solve, dirs, rec=recon_ops.plm,
-                floors: bool = False):
+                floors: bool = False, face_metric=None):
     """Reconstruct (w, bcc) and solve per direction; returns (flx, emf)
     with the reference EMF names (reference:
     src/mhd/mhd_fluxes.cpp:120-250).  ``floors`` applies the density and
     internal-energy floors to the face states, as the stage kernels do;
-    ``dirs`` lists (name, axis, ivx, dx).  Passive scalars take the
-    upwind flux on the mass flux."""
+    ``dirs`` lists (name, axis, ivx, dx); ``face_metric(name)`` gives the
+    GR solvers their face metric.  Passive scalars take the upwind flux
+    on the mass flux."""
     bface = {"x1": bfc["x1f"][..., :-1],
              "x2": bfc["x2f"][..., :-1, :],
              "x3": bfc["x3f"][..., :-1, :, :]}
@@ -120,7 +139,8 @@ def face_fluxes(w, bcc, bfc, eos: EOSData, solve, dirs, rec=recon_ops.plm,
         bl, br = rec(bcc, axis)
         if floors:
             wl, wr = face_floors(wl, eos), face_floors(wr, eos)
-        f, ey, ez = solve(wl, wr, bl, br, bface[name], eos, ivx)
+        extra = face_metric(name) if face_metric is not None else ()
+        f, ey, ez = solve(wl, wr, bl, br, bface[name], eos, ivx, *extra)
         flx[name] = scalar_fluxes(f, wl, wr, eos.nfluid)
         emf[EY_NAME[name]] = ey
         emf[EZ_NAME[name]] = ez
@@ -146,27 +166,44 @@ def _gs07(e_cc, e_a, e_b, f_a, f_b, axa, axb):
     return 0.25 * (l_b + r_b + l_a + r_a + e_b_m + e_b + e_a_m + e_a)
 
 
-def corner_e(w, bcc, fden, emf, ndim: int, is_sr: bool = False):
+def gr_cell_emfs(w, bcc, glower, gupper):
+    """The GR cell-centred EMFs from the 4-velocity and the 4-field,
+    (e1, e2, e3) = (b^2 u^3 - b^3 u^2, ...) (reference:
+    mhd_corner_e.cpp:86-133, 243-293)."""
+    uu, ul = four_velocity(w, glower, gupper)
+    b = four_field(bcc, uu, ul)
+    return (b[2] * uu[3] - b[3] * uu[2], b[3] * uu[1] - b[1] * uu[3],
+            b[1] * uu[2] - b[2] * uu[1])
+
+
+def corner_e(w, bcc, fden, emf, ndim: int, is_sr: bool = False,
+             metric=None):
     """Edge EMFs by Gardiner-Stone (2005/07) upwinding (reference:
     src/mhd/mhd_corner_e.cpp).  ``fden`` holds the mass flux per direction
     ([nmb, n3, n2, n1]); returns cell-indexed e1, e2, e3.  SR primitives
     store u^i = gamma v^i, so under SR the transport velocity in
-    E = -v x B is u^i / gamma (reference: mhd_corner_e.cpp:136-143)."""
+    E = -v x B is u^i / gamma (reference: mhd_corner_e.cpp:136-143);
+    under GR (``metric`` the cell-centre (glower, gupper)) the cell EMFs
+    are ``gr_cell_emfs``."""
     if ndim == 1:
         e2 = emf["e2x1"]
         return torch.zeros_like(e2), e2, emf["e3x1"]
-    vx, vy, vz = w[:, IVX], w[:, IVY], w[:, IVZ]
-    if is_sr:
-        lor = torch.sqrt(1.0 + vx * vx + vy * vy + vz * vz)
-        vx, vy, vz = vx / lor, vy / lor, vz / lor
-    bx, by, bz = bcc[:, 0], bcc[:, 1], bcc[:, 2]
-    e3cc = vy * bx - vx * by
+    if metric is not None:
+        e1cc, e2cc, e3cc = gr_cell_emfs(w, bcc, *metric)
+    else:
+        vx, vy, vz = w[:, IVX], w[:, IVY], w[:, IVZ]
+        if is_sr:
+            lor = torch.sqrt(1.0 + vx * vx + vy * vy + vz * vz)
+            vx, vy, vz = vx / lor, vy / lor, vz / lor
+        bx, by, bz = bcc[:, 0], bcc[:, 1], bcc[:, 2]
+        e3cc = vy * bx - vx * by
+        if ndim == 3:
+            e1cc = vz * by - vy * bz
+            e2cc = vx * bz - vz * bx
     e3 = _gs07(e3cc, emf["e3x1"], emf["e3x2"], fden["x1"], fden["x2"],
                IA, JA)
     if ndim == 2:
         return emf["e1x2"], emf["e2x1"], e3
-    e1cc = vz * by - vy * bz
-    e2cc = vx * bz - vz * bx
     e1 = _gs07(e1cc, emf["e1x2"], emf["e1x3"], fden["x2"], fden["x3"],
                JA, KA)
     e2 = _gs07(e2cc, emf["e2x3"], emf["e2x1"], fden["x3"], fden["x1"],
@@ -248,12 +285,11 @@ class MHD:
         self.bvals = bvals
         self.device = torch.device(device)
         self.dtype = dtype
-        coord = Coordinates(pin)
-        if coord.is_general_relativistic:
-            raise not_ported("general-relativistic MHD")
+        self.coord = coord = Coordinates(pin)
         self.is_sr = coord.is_special_relativistic
+        self.is_gr = coord.is_general_relativistic
         self.eos = EOSData.from_input(pin, "mhd")
-        if self.is_sr and not self.eos.is_ideal:
+        if (self.is_sr or self.is_gr) and not self.eos.is_ideal:
             raise ValueError("relativistic MHD requires the ideal-gas EOS")
         self.nmhd = self.eos.nfluid
         self.nscalars = pin.get_or_add_integer("mhd", "nscalars", 0)
@@ -270,6 +306,11 @@ class MHD:
                 raise ValueError(
                     f"mhd/rsolver={self.rsolver} not available in SR MHD")
             self._solve = SR_MHD_RSOLVER_FNS[self.rsolver]
+        elif self.is_gr:
+            if self.rsolver not in GR_MHD_RSOLVER_FNS:
+                raise ValueError(
+                    f"mhd/rsolver={self.rsolver} not available in GR MHD")
+            self._solve = GR_MHD_RSOLVER_FNS[self.rsolver]
         else:
             if self.rsolver not in rsolvers_mhd.MHD_RSOLVER_FNS:
                 raise ValueError(f"mhd/rsolver={self.rsolver} unknown")
@@ -333,6 +374,15 @@ class MHD:
         from ..turb_driver import TurbulenceDriver
         self.pturb = TurbulenceDriver(pin, mesh, self.device) \
             if pin.does_block_exist("turb_driving") else None
+        # the metric, kept (GR), and the excision masks
+        self.geom = GRGeometry(mesh, coord.coord_data, self.device, dtype,
+                               faces=[d[0] for d in self.dirs]) \
+            if self.is_gr else None
+        self.excise_mask, self.fofc_excise_mask = \
+            excision_masks(self.geom, mesh, self.device) if self.is_gr \
+            else (None, None)
+        # a problem generator's source-term hook, fn(u, w, beta_dt) -> u
+        self.srcterms_func = None
 
         use_kernels = pin.get_or_add_boolean("mhd", "use_kernels", True)
         from ..ops.flux import supports_flux_dir
@@ -357,19 +407,31 @@ class MHD:
             bvals.use_pool_fill = False
 
     def kernel_path(self, u) -> bool:
-        """True when a stage on ``u`` runs the stage kernel A."""
-        return self.use_mega_v2 and kernel_dtype_ok(u)
+        """True when a stage on ``u`` runs the stage kernel A: its gate,
+        re-checked for the hooks a problem generator installs after the
+        physics is built (the JAX ``_mega_v2_active``)."""
+        return (self.use_mega_v2 and self.srcterms_func is None
+                and self.bvals.user_bc_func is None and kernel_dtype_ok(u))
 
     # ---------------------------------------------------------------- eos
     def compute_bcc(self, bfc):
         return compute_bcc(bfc)
 
     def cons_to_prim(self, u, bcc):
+        if self.is_gr:
+            cd = self.coord.coord_data
+            gl, gu = self.geom.metric("cc")
+            return cons_to_prim_gr_mhd(
+                u, bcc, self.eos, gl, gu, excise_mask=self.excise_mask,
+                dexcise=cd.dexcise, pexcise=cd.pexcise)
         if self.is_sr:
             return cons_to_prim_sr_mhd(u, bcc, self.eos)
         return cons_to_prim_mhd(u, bcc, self.eos)
 
     def prim_to_cons(self, w, bcc):
+        if self.is_gr:
+            return prim_to_cons_gr_mhd(w, bcc, self.eos,
+                                       *self.geom.metric("cc"))
         if self.is_sr:
             return prim_to_cons_sr_mhd(w, bcc, self.eos)
         return prim_to_cons_mhd(w, bcc, self.eos)
@@ -394,7 +456,8 @@ class MHD:
         return face_fluxes(
             w, bcc, bfc, self.eos, self._solve, self.dirs,
             rec=recon_ops.RECON_FNS[self.recon_method],
-            floors=self.recon_method in recon_ops.FLOORED_METHODS)
+            floors=self.recon_method in recon_ops.FLOORED_METHODS,
+            face_metric=self.geom.metric if self.is_gr else None)
 
     def rk_update(self, u0, u1, flx, gam0, gam1, beta_dt):
         return rk_update(u0, u1, flx, gam0, gam1, beta_dt, self.dirs)
@@ -403,13 +466,17 @@ class MHD:
                     beta_dt):
         """First-order flux correction (reference: MHD::FOFC,
         src/mhd/mhd_fofc.cpp): the cells whose trial update floors or
-        fails in c2p are flagged as in ``Hydro._apply_fofc``, and the
-        faces on either side of a flagged cell take first-order LLF
-        fluxes and face EMFs (the SR LLF under SR).  Returns
+        fails in c2p (and under GR with excision the cells around the
+        horizon) are flagged as in ``Hydro._apply_fofc``, and the faces
+        on either side of a flagged cell take first-order LLF fluxes and
+        face EMFs (the SR or GR LLF under SR or GR).  Returns
         (flx, emf, nfofc)."""
-        masks, nfofc = fofc_faces(lambda ut: self.cons_to_prim(ut, bcc)[1],
-                                  u, u1, flx, gam0, gam1, beta_dt, self.dirs)
-        first_order = llf_srmhd if self.is_sr else rsolvers_mhd.llf
+        c2p = (lambda ut: self.cons_to_prim(ut, bcc)[1]) if self.use_fofc \
+            else None
+        masks, nfofc = fofc_faces(c2p, u, u1, flx, gam0, gam1, beta_dt,
+                                  self.dirs, excise=self.fofc_excise_mask)
+        first_order = llf_grmhd if self.is_gr else \
+            llf_srmhd if self.is_sr else rsolvers_mhd.llf
         bface = {"x1": bfc["x1f"][..., :-1],
                  "x2": bfc["x2f"][..., :-1, :],
                  "x3": bfc["x3f"][..., :-1, :, :]}
@@ -417,8 +484,9 @@ class MHD:
         for name, axis, ivx, _dx in self.dirs:
             wl = torch.roll(w, 1, dims=axis)   # cell i-1 at face i
             bl = torch.roll(bcc, 1, dims=axis)
+            extra = self.geom.metric(name) if self.is_gr else ()
             f1, ey1, ez1 = first_order(wl, w, bl, bcc, bface[name],
-                                       self.eos, ivx)
+                                       self.eos, ivx, *extra)
             f1 = scalar_fluxes(f1, wl, w, self.nmhd)
             fmask = masks[name]
             out_f[name] = torch.where(fmask.unsqueeze(1), f1, out_f[name])
@@ -427,7 +495,21 @@ class MHD:
         return out_f, out_e, nfofc
 
     def corner_e(self, w, bcc, fden, emf):
-        return corner_e(w, bcc, fden, emf, len(self.dirs), is_sr=self.is_sr)
+        return corner_e(w, bcc, fden, emf, len(self.dirs), is_sr=self.is_sr,
+                        metric=self.geom.metric("cc") if self.is_gr
+                        else None)
+
+    def _user_srcs(self, u, w, beta_dt, bcc, t=None):
+        """The problem generator's source-term hook (the JAX
+        ``_user_srcs``): a function with ``needs_bcc`` takes the cell
+        field, one with ``needs_time`` the time (reference: user sources
+        receive (Mesh*, time, dt); disk-magnetosphere.cpp)."""
+        kw = {}
+        if getattr(self.srcterms_func, "needs_bcc", False):
+            kw["bcc"] = bcc
+        if getattr(self.srcterms_func, "needs_time", False):
+            kw["t"] = t
+        return self.srcterms_func(u, w, beta_dt, **kw)
 
     def ct_update(self, bfc, bfc_old, e1, e2, e3, gam0, gam1, beta_dt):
         return ct_update(bfc, bfc_old, e1, e2, e3, gam0, gam1, beta_dt,
@@ -495,7 +577,8 @@ class MHD:
         for side in ("m", "p"):
             key = f"{ax}{side}"
             flag = bv.flag[key]
-            if not bv.any_phys[key] or flag == "periodic":
+            # a user side keeps the gathered faces, as the JAX package's
+            if not bv.any_phys[key] or flag in ("periodic", "user"):
                 continue
             for comp, arr in bfc.items():
                 mask = bv.local_mask(key, 4, arr.device)
@@ -527,6 +610,9 @@ class MHD:
         if self.time_evolution == "kinematic":
             dv = (torch.abs(wa[:, IVX]), torch.abs(wa[:, IVY]),
                   torch.abs(wa[:, IVZ]))
+        elif self.is_gr:
+            # light speed bounds every signal (reference: mhd_newdt.cpp)
+            dv = (torch.ones_like(wa[:, IVX]),) * 3
         elif self.is_sr:
             dv = sr_signal_speeds(self.eos, wa, ba)
         else:
@@ -575,9 +661,45 @@ class MHD:
             del out["w"], out["bcc"]
         return out
 
+    def restart_ghosts(self, state):
+        """The state of a resumed run: ``init_ghosts``, but under GR the
+        stored state as it is (see ``Hydro.restart_ghosts``)."""
+        if self.is_gr and "w" in state and "bcc" in state:
+            return state
+        return self.init_ghosts(state)
+
+    def stage_route(self, u) -> str:
+        """The route a stage on ``u`` takes: "A" (kernel A), "E" (the v1
+        route), "C" (the split stage) or "general".  Kernel A's gate
+        admits E's too: a hook that closes A at run time leaves the stage
+        to E, as in the JAX package's route order (``mhd.py:1577-1640``)."""
+        if self.kernel_path(u):
+            return "A"
+        on_card = kernel_dtype_ok(u)
+        if (self.use_mega_stage or self.use_mega_v2) and on_card:
+            return "E"
+        if self.use_fused_stage and on_card:
+            return "C"
+        return "general"
+
+    def aux_route(self, u) -> str:
+        """How the v1 route fills u and takes its primitives: "F" (kernel
+        F with the periodic wrap), "G+F" (the pool fill, then F) or
+        "general"; a user boundary function closes both kernel routes
+        (the JAX ``mhd.py:1601-1610``)."""
+        bv = self.bvals
+        if bv.user_bc_func is not None:
+            return "general"
+        if bv.use_fill_kernel:
+            return "F"
+        if bv.pool_fill_active(u):
+            return "G+F"
+        return "general"
+
     def stage_update(self, state, saved, gam0, gam1, beta_dt):
         """One RK stage (reference task chain mhd_tasks.cpp:48-81)."""
-        if self.kernel_path(state["u"]):
+        route = self.stage_route(state["u"])
+        if route == "A":
             from ..ops.stage import mega_stage_v2
             u, bfc, counters = mega_stage_v2(
                 state["u"], state["bfc"], saved["u1"], saved["bfc1"],
@@ -589,18 +711,21 @@ class MHD:
             return dict(state, u=u, bfc=bfc), counters
         u, w, bfc, bcc = state["u"], state["w"], state["bfc"], state["bcc"]
         on_card = kernel_dtype_ok(u)
-        if self.use_mega_stage and on_card:
+        do_fofc = self.use_fofc or self.fofc_excise_mask is not None
+        if route == "E":
             return self._stage_v1(state, saved, gam0, gam1, beta_dt)
-        if self.use_fused_stage and on_card:
+        if route == "C":
             # kernel C: the 5-channel fluxes stay in the kernel's shared
             # memory; only the mass flux and the face EMFs come back
             from ..ops.stage_split import fused_stage3d
             u, fden, emf = fused_stage3d(
                 w, bcc, bfc, u, saved["u1"], self.eos, gam0, gam1,
                 beta_dt, self.dxs, self.stage_solver)
+            if self.srcterms_func is not None:
+                u = self._user_srcs(u, w, beta_dt, bcc, t=state.get("t"))
         else:
             flx, emf = self.fluxes(w, bcc, bfc)
-            if self.use_fofc:
+            if do_fofc:
                 flx, emf, nfofc = self._apply_fofc(
                     u, saved["u1"], w, bcc, bfc, flx, emf, gam0, gam1,
                     beta_dt)
@@ -608,8 +733,13 @@ class MHD:
                 flx = flux_correct_cc(flx, self.mesh,
                                       [d[0] for d in self.dirs])
             u = self.rk_update(u, saved["u1"], flx, gam0, gam1, beta_dt)
+            if self.is_gr:
+                u = coord_src_terms(u, w, self.eos, self.geom, beta_dt,
+                                    bcc=bcc)
             if self.srcterms is not None and self.srcterms.any_enabled:
                 u = self.srcterms.apply(u, w, beta_dt)
+            if self.srcterms_func is not None:
+                u = self._user_srcs(u, w, beta_dt, bcc, t=state.get("t"))
             # kernel D and corner_e read the corrected mass flux
             fden = {n: flx[n][:, IDN] for n in flx}
         if self.use_fused_ct and on_card:
@@ -635,27 +765,32 @@ class MHD:
         if self.bvals.prolong_prims:
             u, w = self.bvals.prolong_prims_fixup(
                 u, w, lambda w2: self.prim_to_cons(w2, bcc))
-        if self.use_fofc:
+        if do_fofc:
             counters = dict(counters, nfofc=nfofc)
         return dict(state, u=u, w=w, bfc=bfc, bcc=bcc), counters
 
     def _stage_v1(self, state, saved, gam0, gam1, beta_dt):
         """The v1 stage route (JAX ``mhd.py:1586-1625``): kernel E from
-        the state's primitives, the face fill, then kernel F.  A single
-        periodic block takes F with its periodic wrap; a pool takes the
-        pool fill of u and F without it; any other mesh the general fill,
-        bcc and c2p.  F's new-dt maxima ride along in dynamic runs."""
+        the state's primitives, the source-term hook, the face fill, then
+        kernel F.  A single periodic block takes F with its periodic wrap;
+        a pool takes the pool fill of u and F without it; any other mesh,
+        or a user boundary function, the general fill, bcc and c2p.  F's
+        new-dt maxima ride along in dynamic runs."""
         from ..ops.aux import fused_aux3d
         from ..ops.stage_v1 import fused_mega_stage3d
         bv = self.bvals
         u, bfc = fused_mega_stage3d(
             state["w"], state["bcc"], state["bfc"], state["u"], saved["u1"],
             saved["bfc1"], self.eos, gam0, gam1, beta_dt, self.dxs)
+        if self.srcterms_func is not None:
+            u = self._user_srcs(u, state["w"], beta_dt, state["bcc"],
+                                t=state.get("t"))
         bfc = self.fill_ghosts_fc(bfc)
         dxs = self.dxs if self.time_evolution == "dynamic" else None
-        if bv.use_fill_kernel:
+        aux = self.aux_route(u)
+        if aux == "F":
             u, w, bcc, counters = fused_aux3d(u, bfc, self.eos, dxs=dxs)
-        elif bv.pool_fill_active(u):
+        elif aux == "G+F":
             u = bv.fill_ghosts(u)
             u, w, bcc, counters = fused_aux3d(u, bfc, self.eos, dxs=dxs,
                                               wrap=False)

@@ -6,7 +6,9 @@ and the turbulence driver's ``turb_force`` and threefry key
 ``turb_key`` (two uint32 words; an int64 tensor in the port,
 ``prng.py``).  A Z4c state holds ``u`` (and ``w``, the same array), no
 ``bfc``, and with puncture trackers their positions ``co_pos`` [nco, 3]
-at the state's dtype.  These two functions move such a dict (as numpy
+at the state's dtype.  A state whose problem generator has a
+time-dependent source term carries the time ``t`` (0-d, at the state's
+dtype).  These two functions move such a dict (as numpy
 arrays) into the port and back, so both packages can start from one
 state.
 """
@@ -16,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_KEYS = ("u", "w", "bcc", "turb_force", "co_pos")
+_KEYS = ("u", "w", "bcc", "turb_force", "co_pos", "t")
 
 
 def _check_keys(d) -> None:

@@ -497,7 +497,10 @@ class Z4c:
         if self.kernel_path(u):
             from ..ops.z4c_stage import fused_z4c_stage, outflow_fill
             u = fused_z4c_stage(u, saved["u1"], self, gam0, gam1, beta_dt)
-            u = outflow_fill(u, self.bvals) if self.fold_bc \
+            # the user hook is checked again here: generators install it
+            # after the physics is built (the JAX z4c.py:503)
+            fold = self.fold_bc and self.bvals.user_bc_func is None
+            u = outflow_fill(u, self.bvals) if fold \
                 else self.bvals.fill_ghosts(u)
             return dict(state, u=u, w=u), {}
         rhs = self.rhs(u)

@@ -228,6 +228,37 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      package's), ``awa/robust_stability`` in f64 (the plain path) and
      in f32 (H 3 a cycle, B once more than that), its noise kept at its
      size.
+ 19. drives the GR slice and the problem generators' hooks through the
+     CLI, the launch counts set to 0 before each run: no kernel may
+     launch on any of these decks (GR closes A, C, D, E and J, as the
+     JAX package's gates do; none is periodic, which B and G need).
+     ``torus124`` (``bench.py``'s ``GR_TORUS_DECK``, copied here as text:
+     the FM torus with the SANE loop at 124 x 124 x 64, GRMHD, HLLE,
+     FOFC, f32) for 10 cycles with a history row a cycle: the state
+     finite, div(B) at roundoff, ``nfofc`` and the c2p counters, the
+     flux-sphere columns finite, zone-cycles/s over 5 more cycles (CUDA
+     events), the ms of each part of a stage (c2p, fluxes, FOFC, the
+     coordinate source terms, corner EMFs + CT, the fills), the device
+     launches of a stage (``torch.profiler``) and the peak of
+     ``torch.cuda.max_memory_allocated``; ``inputs/grmhd/torus_sane``
+     as shipped (60 x 60 x 44), 10 cycles, the same checks; the Bondi
+     decks of ``tests/test_gr_bondi.py`` (32^3 to t = 3, RMS-L1 below
+     5e-3) and ``tests/test_gr_mhd.py`` (24^3 to t = 2, below 1e-2) in
+     f64; the split monopole of ``tests/test_gr_monopole.py`` (32 x 32
+     x 16 as 4 blocks, FOFC, t = 4, f64): |<Omega>/Omega_H - 0.5| / 0.5
+     below 0.2, its std below 0.12, at least 100 rows, div(B) below
+     1e-11; ``inputs/grhydro/bondi``, ``inputs/tests/bondi`` and
+     ``inputs/tests/monopole`` as shipped (f64), 5 cycles each;
+     ``inputs/tests/gr_monopole.athinput`` as shipped (256 x 256
+     x 128 as 2 blocks, nghost 3, f64, FOFC), 2 cycles, the ms of a
+     cycle and the peak memory; Bondi at 16^3 in f64, 3 cycles, on the
+     card against the port on the CPU within 1e-10 of u's scale;
+     ``inputs/mhd/disk_magnetosphere.athinput`` as shipped (f64, 8
+     blocks of 32 x 32 x 16, user sides, FOFC, the planet), 10 cycles,
+     its history written with the planet's columns; and restarts: the
+     torus at 64 x 64 x 32 (10 cycles straight against 5 + ``-r`` 5,
+     the history rows after the restart included) and the 32^3 Bondi in
+     f64 (the user boundary enrolled again), bitwise.
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -413,6 +444,180 @@ Z4C_MIXED = 11
 Z4C_PATH_TOL = 1e-4
 # inputs/hydro/turb.athinput's mesh, time and driving blocks at 128^3, with
 # <hydro> replaced by <mhd> (PLM, HLLD) and a uniform x1 field b0
+# phase 19: the GR slice and the hooks
+NCYC_GR = 10
+TORUS_SANE = os.path.join(ROOT, "inputs", "grmhd", "torus_sane.athinput")
+GR_MONOPOLE = os.path.join(ROOT, "inputs", "tests", "gr_monopole.athinput")
+DISK_MAG = os.path.join(ROOT, "inputs", "mhd", "disk_magnetosphere.athinput")
+GR_SHIPPED = {"grhydro_bondi": ("grhydro", "bondi.athinput"),
+              "tests_bondi": ("tests", "bondi.athinput"),
+              "tests_monopole": ("tests", "monopole.athinput")}
+GR_ROWS = ["output8/file_type=hst", "output8/dcycle=1",
+           "output8/data_format=%.17e"]
+TORUS_RST = ["mesh/nx1=64", "mesh/nx2=64", "mesh/nx3=32"]
+
+# bench.py's GR_TORUS_DECK, copied as text
+GR_TORUS_DECK = """
+<job>
+basename = bench_torus
+precision = single
+
+<mesh>
+nghost = 2
+nx1 = 124
+x1min = -20.0
+x1max = 20.0
+ix1_bc = outflow
+ox1_bc = outflow
+nx2 = 124
+x2min = -20.0
+x2max = 20.0
+ix2_bc = outflow
+ox2_bc = outflow
+nx3 = 64
+x3min = -10.0
+x3max = 10.0
+ix3_bc = outflow
+ox3_bc = outflow
+
+<coord>
+general_rel = true
+a = 0.9375
+excise = true
+dexcise = 1.0e-8
+pexcise = 0.333e-10
+
+<time>
+evolution = dynamic
+integrator = rk2
+cfl_number = 0.3
+tlim = 10.0
+
+<mhd>
+eos = ideal
+gamma = 1.4444444444444444
+reconstruct = plm
+rsolver = hlle
+fofc = true
+
+<problem>
+pgen_name = gr_torus
+r_edge = 6.0
+r_peak = 12.0
+b_norm = 0.1
+potential_cutoff = 0.2
+"""
+
+# tests/test_gr_bondi.py's and tests/test_gr_mhd.py's Bondi decks
+GR_BONDI_DECK = """
+<job>
+basename = gr_bondi
+
+<mesh>
+nghost = 2
+nx1 = {n}
+x1min = -10.0
+x1max = 10.0
+ix1_bc = user
+ox1_bc = user
+nx2 = {n}
+x2min = -10.0
+x2max = 10.0
+ix2_bc = user
+ox2_bc = user
+nx3 = {n}
+x3min = -10.0
+x3max = 10.0
+ix3_bc = user
+ox3_bc = user
+
+<coord>
+general_rel = true
+a = 0.0
+excise = true
+dexcise = 1.0e-8
+pexcise = 0.333e-12
+
+<time>
+evolution = dynamic
+integrator = rk2
+cfl_number = 0.3
+tlim = {tlim}
+
+<{phys}>
+eos = ideal
+reconstruct = plm
+rsolver = hlle
+gamma = 1.3333333333333
+
+<problem>
+pgen_name = gr_bondi
+k_adi = 1.0
+r_crit = 8.0
+"""
+
+# tests/test_gr_monopole.py's deck
+GR_MONO_TEST_DECK = """
+<job>
+basename = monopole
+
+<mesh>
+nghost = 2
+nx1 = 32
+x1min = -6.0
+x1max = 6.0
+ix1_bc = diode
+ox1_bc = diode
+nx2 = 32
+x2min = -6.0
+x2max = 6.0
+ix2_bc = diode
+ox2_bc = diode
+nx3 = 16
+x3min = 0.0
+x3max = 6.0
+ix3_bc = diode
+ox3_bc = diode
+
+<meshblock>
+nx1 = 16
+nx2 = 16
+nx3 = 16
+
+<coord>
+general_rel = true
+a = 0.5
+excise = true
+dexcise = 1.0e-4
+pexcise = 0.333e-6
+
+<time>
+evolution = dynamic
+integrator = rk2
+cfl_number = 0.3
+nlim = -1
+tlim = 4.0
+ndiag = 100
+
+<mhd>
+eos = ideal
+reconstruct = plm
+rsolver = hlle
+gamma = 1.3333333333333
+dfloor = 1.0e-6
+pfloor = 0.333e-8
+fofc = true
+gamma_max = 10.0
+
+<problem>
+pgen_name = gr_monopole
+nlevel = 5
+sigma_norm = 5000.0
+rhomin = 1.0e-6
+umin = 1.0e-8
+a_norm = 1.0
+"""
+
 TURB_DECK = """
 <job>
 basename = turb
@@ -3749,6 +3954,374 @@ def phase_bbh(torch, kernels, card, fill):
     out["runs"] = runs
     return out
 
+# ---------------------------------------------------------------- phase 19
+def gr_cli(torch, kernels, label, deck, extra=(), text=None):
+    """One deck of phase 19 through ``main.cli`` in a temporary directory
+    (``text`` written there as the deck when given), the launch counts
+    set to 0 just before: returns (launches, mesh, phys, driver, state,
+    files, peak), ``files`` the text of every ``.hst`` and ``.dat`` file
+    written and ``peak`` the run's ``torch.cuda.max_memory_allocated``.
+    Raises if any kernel launched."""
+    from athenak_tpu_torch import main as cli_main
+    os.environ["ATHENAK_DEVICE"] = "cuda"
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        if text is not None:
+            deck = os.path.join(tmp, "deck.athinput")
+            with open(deck, "w") as f:
+                f.write(text)
+        run = os.path.join(tmp, "run")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        try:
+            mesh, phys, driver, state = cli_main.cli(
+                ["-i", deck, "-d", run, *extra])
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels.ALL}
+        peak = torch.cuda.max_memory_allocated()
+        files = {}
+        for f in sorted(os.listdir(run)):
+            if f.endswith((".hst", ".dat")):
+                with open(os.path.join(run, f)) as fh:
+                    files[f] = fh.read()
+    if any(launches.values()):
+        raise AssertionError(f"phase 19 {label}: kernels launched: "
+                             f"{launches}")
+    return launches, mesh, phys, driver, state, files, peak
+
+
+def gr_check(torch, mesh, phys, state, label):
+    """Finite u and w and, under MHD, div(B) at roundoff: max|div B| dx /
+    max|B| over the interior <= 1e-11 in float64, 1e-5 in float32.
+    Returns (that measure, max|div B|), None without a field."""
+    for k in ("u", "w"):
+        if not bool(torch.isfinite(state[k]).all()):
+            raise AssertionError(f"phase 19 {label}: non-finite {k}")
+    if "bfc" not in state:
+        return None
+    b = state["bfc"]
+    if not all(bool(torch.isfinite(v).all()) for v in b.values()):
+        raise AssertionError(f"phase 19 {label}: non-finite face field")
+    ng = mesh.mb_indcs.ng
+    div = ((b["x1f"][..., 1:] - b["x1f"][..., :-1]) / phys.dxs["x1"]
+           + (b["x2f"][..., 1:, :] - b["x2f"][..., :-1, :]) / phys.dxs["x2"]
+           + (b["x3f"][:, 1:] - b["x3f"][:, :-1]) / phys.dxs["x3"])
+    dmax = float(interior(div, ng).abs().max())
+    bmax = max(max(float(v.abs().max()) for v in b.values()), 1e-30)
+    rel = dmax * phys.dxs["x1"] / bmax
+    lim = 1e-11 if state["u"].dtype == torch.float64 else 1e-5
+    if rel > lim:
+        raise AssertionError(f"phase 19 {label}: max|div B| dx / max|B| = "
+                             f"{rel:g} > {lim:g}")
+    return rel, dmax
+
+
+def hst_table(text):
+    """(labels, rows) of a history file's text."""
+    lines = text.splitlines()
+    labels = re.findall(r"\[\d+\]=(\S+)", lines[1])
+    rows = [[float(x) for x in ln.split()] for ln in lines[2:]]
+    return labels, rows
+
+
+def gr_rate(torch, mesh, driver, state, ncyc):
+    """zone-cycles/s of ncyc more cycles of a warm run (CUDA events)."""
+    cycle = driver.make_cycle_fn()
+    dt = mesh.dt
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(ncyc):
+        state, dtnew, _ = cycle(state, dt)
+        dt = min(2.0 * dt, driver.cfl_no * float(dtnew))
+    t1.record()
+    torch.cuda.synchronize()
+    mbi = mesh.mb_indcs
+    return (ncyc * mesh.nmb_total * mbi.nx1 * mbi.nx2 * mbi.nx3
+            / (t0.elapsed_time(t1) / 1e3))
+
+
+def gr_stage_parts(torch, phys, state, mesh):
+    """ms a call of each part of a GR MHD stage on the run's state (CUDA
+    events), and the device launches of one whole stage
+    (``torch.profiler``; None where it records no device time)."""
+    from athenak_tpu_torch.ops.eos_gr import coord_src_terms
+    u, w, bcc, bfc = state["u"], state["w"], state["bcc"], state["bfc"]
+    bdt = 0.5 * mesh.dt
+    saved = phys.save_state(state)
+    flx, emf = phys.fluxes(w, bcc, bfc)
+    fden = {n: f[:, 0] for n, f in flx.items()}
+
+    def fill():
+        phys.bvals.fill_ghosts(u.clone())
+        phys.fill_ghosts_fc({k: v.clone() for k, v in bfc.items()})
+
+    parts = {
+        "c2p": cuda_ms(lambda: phys.cons_to_prim(u, bcc), 3),
+        "fluxes": cuda_ms(lambda: phys.fluxes(w, bcc, bfc), 3),
+        "fofc": cuda_ms(lambda: phys._apply_fofc(
+            u, u, w, bcc, bfc, flx, emf, 0.5, 0.5, bdt), 3),
+        "rk_update": cuda_ms(lambda: phys.rk_update(u, u, flx, 0.5, 0.5,
+                                                    bdt), 3),
+        "coord_src": cuda_ms(lambda: coord_src_terms(
+            u.clone(), w, phys.eos, phys.geom, bdt, bcc=bcc), 3),
+        "corner_e_ct": cuda_ms(lambda: phys.ct_update(
+            bfc, bfc, *phys.corner_e(w, bcc, fden, emf), 0.5, 0.5, bdt), 3),
+        "fill": cuda_ms(fill, 3),
+        "stage": cuda_ms(lambda: phys.stage_update(state, saved, 0.5, 0.5,
+                                                   bdt), 3),
+    }
+    split = device_split(torch, lambda: phys.stage_update(
+        state, saved, 0.5, 0.5, bdt), 1)
+    return parts, split_launches(split, 1)
+
+
+def gr_torus(torch, kernels, label, deck, text=None, parts=False):
+    """A torus deck for NCYC_GR cycles with a history row a cycle: the
+    checks of phase 19 (see the module docstring); with ``parts`` the
+    zone-cycles/s of 5 more cycles, the stage's parts and launches."""
+    launches, mesh, phys, driver, state, files, peak = gr_cli(
+        torch, kernels, label, deck, [f"time/nlim={NCYC_GR}", *GR_ROWS],
+        text=text)
+    divb = gr_check(torch, mesh, phys, state, label)
+    hst, = [v for k, v in files.items() if k.endswith(".hst")]
+    labels, rows = hst_table(hst)
+    flux_cols = [i for i, lab in enumerate(labels)
+                 if lab.startswith(("mdot", "edot", "ldot", "phi"))]
+    if len(rows) != NCYC_GR + 2 or not flux_cols or not all(
+            math.isfinite(r[i]) for r in rows for i in flux_cols):
+        raise AssertionError(f"phase 19 {label}: history rows {len(rows)}, "
+                             f"flux columns {flux_cols} not all finite")
+    out = {"launches": launches, "div_b": divb,
+           "counters": dict(driver.ecounters), "peak_gb": peak / 2 ** 30,
+           "metric_gb": phys.geom.nbytes() / 2 ** 30,
+           "wall_zcps": driver.zcps,
+           "flux_row": {labels[i]: rows[-1][i] for i in flux_cols}}
+    if parts:
+        out["zcps"] = gr_rate(torch, mesh, driver, state, 5)
+        out["parts_ms"], out["launches_a_stage"] = gr_stage_parts(
+            torch, phys, state, mesh)
+    print(f"phase 19: {label} {NCYC_GR} cycles, no kernel launched; "
+          f"div B {divb}; counters {out['counters']}; peak "
+          f"{out['peak_gb']:.2f} GB (metric {out['metric_gb']:.2f}); wall "
+          f"{driver.zcps:.3e} zc/s; flux columns {out['flux_row']}"
+          + (f"; {out['zcps']:.3e} zc/s over 5 more cycles; stage parts "
+             f"ms {out['parts_ms']}; device launches a stage "
+             f"{out['launches_a_stage']}" if parts else ""))
+    return out
+
+
+def gr_bars(torch, kernels):
+    """The Bondi and monopole decks of the JAX package's tests, f64, held
+    to those tests' bars."""
+    out = {}
+    for label, n, tlim, phys_, bar in (("bondi", 32, 3.0, "hydro", 5e-3),
+                                       ("bondi_mhd", 24, 2.0, "mhd", 1e-2)):
+        launches, mesh, phys, driver, state, files, _ = gr_cli(
+            torch, kernels, label, None,
+            text=GR_BONDI_DECK.format(n=n, tlim=tlim, phys=phys_))
+        gr_check(torch, mesh, phys, state, label)
+        rms = float(files["gr_bondi-errs.dat"].splitlines()[-1].split()[4])
+        if not rms < bar:
+            raise AssertionError(f"phase 19 {label}: RMS-L1 {rms} >= {bar}")
+        out[label] = {"launches": launches, "rms_l1": rms,
+                      "ncycle": mesh.ncycle, "wall_zcps": driver.zcps}
+        print(f"phase 19: {label} {n}^3 f64 to t = {tlim}: RMS-L1 {rms:.4e} "
+              f"(bar {bar}), {mesh.ncycle} cycles, no kernel launched")
+    launches, mesh, phys, driver, state, files, _ = gr_cli(
+        torch, kernels, "monopole", None, text=GR_MONO_TEST_DECK)
+    divb = gr_check(torch, mesh, phys, state, "monopole")
+    omega = [float(r.split()[2])
+             for r in files["monopole-diag.dat"].splitlines()[1:]]
+    mean = sum(omega) / len(omega)
+    std = math.sqrt(sum((o - mean) ** 2 for o in omega) / len(omega))
+    err = abs(mean - 0.5) / 0.5
+    if not (len(omega) > 100 and err < 0.2 and std < 0.12
+            and divb[1] < 1e-11):
+        raise AssertionError(f"phase 19 monopole: rows {len(omega)}, "
+                             f"mean error {err}, std {std}, div B {divb}")
+    out["monopole"] = {"launches": launches, "rows": len(omega),
+                       "mean_err": err, "std": std, "div_b": divb,
+                       "ncycle": mesh.ncycle, "wall_zcps": driver.zcps}
+    print(f"phase 19: monopole 32x32x16 f64 to t = 4 ({mesh.ncycle} "
+          f"cycles): |<Omega>/Omega_H - 0.5|/0.5 = {err:.4f}, std "
+          f"{std:.4f}, {len(omega)} rows, max|div B| {divb[1]:.3e}, no "
+          "kernel launched")
+    return out
+
+
+def gr_big_monopole(torch, kernels):
+    """``gr_monopole.athinput`` as shipped, 2 cycles (f64)."""
+    launches, mesh, phys, driver, state, _, peak = gr_cli(
+        torch, kernels, "gr_monopole", GR_MONOPOLE, ["time/nlim=2"])
+    divb = gr_check(torch, mesh, phys, state, "gr_monopole")
+    cycle = driver.make_cycle_fn()
+    ms = host_ms(torch, lambda: cycle(state, mesh.dt), 1)
+    out = {"launches": launches, "div_b": divb, "cycle_ms": ms,
+           "peak_gb": peak / 2 ** 30,
+           "metric_gb": phys.geom.nbytes() / 2 ** 30,
+           "cells": mesh.nmb_total * mesh.mb_indcs.ncells1
+           * mesh.mb_indcs.ncells2 * mesh.mb_indcs.ncells3}
+    print(f"phase 19: gr_monopole 256x256x128 f64 2 cycles: {ms:.1f} ms a "
+          f"cycle, peak {out['peak_gb']:.2f} GB (metric "
+          f"{out['metric_gb']:.2f} GB, {out['cells']} cells with ghosts), "
+          f"div B {divb}, no kernel launched")
+    return out
+
+
+def gr_shipped(torch, kernels):
+    """The other GR decks of ``inputs/`` as shipped (f64), 5 cycles each
+    through the CLI: no kernel, finite, div(B) at roundoff."""
+    out = {}
+    for label, (folder, name) in GR_SHIPPED.items():
+        launches, mesh, phys, driver, state, _, _ = gr_cli(
+            torch, kernels, label, os.path.join(ROOT, "inputs", folder, name),
+            ["time/nlim=5"])
+        divb = gr_check(torch, mesh, phys, state, label)
+        out[label] = {"launches": launches, "div_b": divb,
+                      "wall_zcps": driver.zcps}
+        print(f"phase 19: inputs/{folder}/{name} as shipped, 5 cycles: "
+              f"{driver.zcps:.3e} zc/s wall, div B {divb}, no kernel "
+              "launched")
+    return out
+
+
+def gr_card_cpu(torch):
+    """Bondi at 16^3, f64, 3 cycles on the card and on the CPU: u within
+    1e-10 of its scale."""
+    from athenak_tpu_torch import main as run_main
+    from athenak_tpu_torch.athinput import ParameterInput
+    text = GR_BONDI_DECK.format(n=16, tlim=3.0, phys="hydro")
+    u = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for dev in ("cuda", "cpu"):
+                pin = ParameterInput.from_string(text)
+                pin.modify_from_cmdline(["time/nlim=3"])
+                u[dev] = run_main.run(pin, device=dev)[3]["u"].cpu()
+        finally:
+            os.chdir(cwd)
+    ref = interior(u["cpu"])
+    err = float((interior(u["cuda"]) - ref).abs().max() / ref.abs().max())
+    if err > 1e-10:
+        raise AssertionError(f"phase 19: Bondi card against CPU {err:g}")
+    print(f"phase 19: Bondi 16^3 f64 3 cycles, the card against the CPU: "
+          f"{err:.3e} of u's scale")
+    return err
+
+
+def gr_disk(torch, kernels):
+    """``disk_magnetosphere.athinput`` as shipped, 10 cycles (f64)."""
+    launches, mesh, phys, driver, state, files, _ = gr_cli(
+        torch, kernels, "disk_magnetosphere", DISK_MAG,
+        [f"time/nlim={NCYC_GR}"])
+    divb = gr_check(torch, mesh, phys, state, "disk_magnetosphere")
+    labels, rows = hst_table(files["diskmag.hst"])
+    planet = [lab for lab in labels if lab.endswith("0") and lab[:-1] in (
+        "fr", "ft", "fp", "fxpp", "fypp", "fzpp", "torque", "xpp", "ypp",
+        "zpp", "rpp", "tpp", "ppp", "mp")]
+    if len(planet) != 14 or len(rows) != 2 or not all(
+            math.isfinite(v) for r in rows for v in r):
+        raise AssertionError(f"phase 19 disk_magnetosphere: planet columns "
+                             f"{planet}, rows {rows}")
+    out = {"launches": launches, "div_b": divb, "t": float(state["t"]),
+           "counters": dict(driver.ecounters), "wall_zcps": driver.zcps,
+           "mp0": rows[-1][labels.index("mp0")]}
+    print(f"phase 19: disk_magnetosphere 8 x 32x32x16 f64 {NCYC_GR} "
+          f"cycles: div B {divb}, t {out['t']:.6e}, planet mass "
+          f"{out['mp0']:.6e}, counters {out['counters']}, no kernel "
+          "launched")
+    return out
+
+
+def gr_restart(torch, kernels):
+    """-r restarts: the torus at TORUS_RST and the 32^3 Bondi (f64), 10
+    cycles straight against 5 + -r 5, every state entry and the history
+    rows after the restart point bitwise equal."""
+    from athenak_tpu_torch import main as cli_main
+    from athenak_tpu_torch.outputs import load_restart
+    os.environ["ATHENAK_DEVICE"] = "cuda"
+    n = NCYC_GR // 2
+    out = {}
+    cwd = os.getcwd()
+    for label, text, base, extra in (
+            ("torus", GR_TORUS_DECK, "bench_torus", TORUS_RST),
+            ("bondi", GR_BONDI_DECK.format(n=32, tlim=3.0, phys="hydro"),
+             "gr_bondi", [])):
+        common = [*extra, *GR_ROWS, "output9/file_type=rst",
+                  f"output9/dcycle={n}"]
+        with tempfile.TemporaryDirectory() as tmp:
+            deck = os.path.join(tmp, "deck.athinput")
+            with open(deck, "w") as f:
+                f.write(text)
+            try:
+                kernels.reset_counts()
+                *_, s1 = cli_main.cli(["-i", deck, "-d", os.path.join(
+                    tmp, "straight"), *common, f"time/nlim={2 * n}"])
+                os.chdir(cwd)
+                cli_main.cli(["-i", deck, "-d", os.path.join(tmp, "first"),
+                              *common, f"time/nlim={n}"])
+                os.chdir(cwd)
+                rst = os.path.join(tmp, "first", f"{base}.00001.rst")
+                t_rst = load_restart(rst)[1]
+                mesh, phys, _, s2 = cli_main.cli([
+                    "-r", rst, "-d", os.path.join(tmp, "first"),
+                    f"time/nlim={2 * n}"])
+            finally:
+                os.chdir(cwd)
+            launched = {k.name: k.launches for k in kernels.ALL
+                        if k.launches}
+            rows = []
+            for run in ("straight", "first"):
+                with open(os.path.join(tmp, run, f"{base}.hst")) as f:
+                    rows.append([r for r in f.read().splitlines()[2:]
+                                 if float(r.split()[0]) > t_rst])
+        keys = sorted(k for k in s1 if k != "bfc") + [
+            f"bfc/{c}" for c in s1.get("bfc", {})]
+        for key in keys:
+            a = s1[key] if "/" not in key else s1["bfc"][key[4:]]
+            b = s2[key] if "/" not in key else s2["bfc"][key[4:]]
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 19 restart {label}: {key} not "
+                                     "bitwise equal to the straight run")
+        if launched or mesh.ncycle != 2 * n or len(rows[0]) != n + 1 \
+                or rows[0] != rows[1]:
+            raise AssertionError(f"phase 19 restart {label}: launches "
+                                 f"{launched}, {mesh.ncycle} cycles, rows "
+                                 f"{len(rows[0])} / {len(rows[1])}")
+        if label == "bondi" and phys.bvals.user_bc_func is None:
+            raise AssertionError("phase 19 restart bondi: no user boundary")
+        out[label] = {"keys": keys, "rows": len(rows[0])}
+        print(f"phase 19: restart {label}: {2 * n} cycles straight and {n} "
+              f"+ -r {n} bitwise equal in {keys}; {len(rows[0])} history "
+              f"rows after t = {t_rst:.6e} equal; no kernel launched")
+    return out
+
+
+def phase_gr(torch, kernels, card):
+    """Phase 19 (see the module docstring)."""
+    out = {"torus124": gr_torus(torch, kernels, "torus124", None,
+                                text=GR_TORUS_DECK, parts=True),
+           "torus_sane": gr_torus(torch, kernels, "torus_sane",
+                                  TORUS_SANE)}
+    out.update(gr_bars(torch, kernels))
+    out.update(gr_shipped(torch, kernels))
+    out["gr_monopole"] = gr_big_monopole(torch, kernels)
+    out["card_cpu"] = gr_card_cpu(torch)
+    out["disk_magnetosphere"] = gr_disk(torch, kernels)
+    out["restart"] = gr_restart(torch, kernels)
+    out["runs"] = {k: out[k] for k in ("torus124", "torus_sane", "bondi",
+                                       "bondi_mhd", "monopole",
+                                       "gr_monopole", "disk_magnetosphere",
+                                       *GR_SHIPPED)}
+    return out
+
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
@@ -3819,6 +4392,7 @@ def main() -> int:
         slice_ = phase("16", phase_slice, torch, kernels, card)
         amr = phase("17", phase_amr, torch, kernels, card)
         bbh = phase("18", phase_bbh, torch, kernels, card, fill)
+        gr = phase("19", phase_gr, torch, kernels, card)
     print(f"seconds a phase: {seconds}")
 
     def runs(name):
@@ -3834,6 +4408,8 @@ def main() -> int:
                    for k, v in amr["runs"].items()},
                 **{k: v["launches"].get(name, 0)
                    for k, v in bbh["runs"].items()},
+                **{k: v["launches"].get(name, 0)
+                   for k, v in gr["runs"].items()},
                 "bbh_restart": bbh["restart"]["resumed"].get(name, 0)}
 
     ft, fe = fill_times, fill_errs
@@ -3957,6 +4533,9 @@ def main() -> int:
                 "ahf": bbh["ahf"],
                 "runs": {k: {kk: v[kk] for kk in ("rates", "path_diff")
                              if kk in v} for k, v in bbh["runs"].items()}},
+        "gr": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+               if isinstance(v, dict) else v
+               for k, v in gr.items() if k != "runs"},
         "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
         "build_seconds": kernels.BUILD_INFO.get("source_seconds"),
         "card": card}))

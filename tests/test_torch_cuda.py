@@ -1119,3 +1119,129 @@ def test_amr_routes_and_launches(card, label, deck, block, extra):
         if block == "z4c":
             assert not phys.use_stage_kernel and phys.multilevel
     assert trees["true"] == trees["false"]
+
+
+# ------------------------------------------------------------------ GR
+def _gr_state(dev, mhd):
+    """Random primitives around a spinning hole whose c2p hits every fix
+    (floors, the ceiling, excision, non-finite momenta), the metric and
+    the excision mask, float64 on ``dev``."""
+    import numpy as np
+    from athenak_tpu_torch.gr import cks
+    from athenak_tpu_torch.ops import eos as teos
+    from athenak_tpu_torch.ops import eos_gr
+    rng = np.random.default_rng(5)
+    shape = (2, 10, 11, 12)
+    x, y, z = (rng.uniform(-5.0, 5.0, shape) for _ in range(3))
+    a = 0.9375
+    rad2 = x * x + y * y + z * z
+    rk = np.sqrt(0.5 * (rad2 - a * a + np.sqrt((rad2 - a * a) ** 2
+                                               + 4 * a * a * z * z)))
+    w = np.concatenate([rng.uniform(0.01, 2.0, (2, 1) + shape[1:]),
+                        rng.uniform(-3.0, 3.0, (2, 3) + shape[1:]),
+                        rng.uniform(0.01, 2.0, (2, 1) + shape[1:])], axis=1)
+    bcc = rng.uniform(-1.0, 1.0, (2, 3) + shape[1:])
+    eos = teos.EOSData(gamma=4.0 / 3.0, is_ideal=True, dfloor=0.05,
+                       pfloor=0.02, gamma_max=3.0)
+    t = {k: torch.tensor(v, device=dev) for k, v in (
+        ("x", x), ("y", y), ("z", z), ("w", w), ("bcc", bcc))}
+    gl, gu = cks.metric(t["x"], t["y"], t["z"], a)
+    if mhd:
+        u = eos_gr.prim_to_cons_gr_mhd(t["w"], t["bcc"], eos, gl, gu)
+    else:
+        u = eos_gr.prim_to_cons_gr_hydro(t["w"], eos, gl, gu)
+    m = torch.tensor(rng.random(shape), device=dev)
+    u[:, 0] = torch.where(m < 0.1, u[:, 0] * 0.01, u[:, 0])
+    u[:, 4] = torch.where((m > 0.1) & (m < 0.2), u[:, 4] * 0.001, u[:, 4])
+    u[:, 4] = torch.where((m > 0.2) & (m < 0.25), -u[:, 4], u[:, 4])
+    u[:, 1] = torch.where((m > 0.25) & (m < 0.3), u[:, 1] * 1e3, u[:, 1])
+    u[:, 3] = torch.where((m > 0.35) & (m < 0.38),
+                          torch.full_like(u[:, 3], float("nan")), u[:, 3])
+    return u, t["bcc"], eos, gl, gu, torch.tensor(rk <= 1.0, device=dev)
+
+
+@pytest.mark.parametrize("mhd", [False, True], ids=["hydro", "mhd"])
+def test_gr_c2p_card_matches_cpu(card, mhd):
+    """The GR c2p and p2c on the card against the CPU, float64, 1e-12 of
+    each output's scale, the counters equal."""
+    from athenak_tpu_torch.ops import eos_gr
+    out = {}
+    for dev in ("cpu", card):
+        u, bcc, eos, gl, gu, exc = _gr_state(dev, mhd)
+        kw = dict(excise_mask=exc, dexcise=1e-3, pexcise=1e-4)
+        if mhd:
+            w, uf, cnt = eos_gr.cons_to_prim_gr_mhd(u, bcc, eos, gl, gu, **kw)
+            back = eos_gr.prim_to_cons_gr_mhd(w, bcc, eos, gl, gu)
+        else:
+            w, uf, cnt = eos_gr.cons_to_prim_gr_hydro(u, eos, gl, gu, **kw)
+            back = eos_gr.prim_to_cons_gr_hydro(w, eos, gl, gu)
+        out[str(dev)] = (w.cpu(), uf.cpu(), back.cpu(),
+                         {k: int(v) for k, v in cnt.items()})
+    ref, got = out["cpu"], out[str(card)]
+    for a, b in zip(got[:3], ref[:3]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+    assert got[3] == ref[3] and all(v > 0 for v in ref[3].values())
+
+
+def test_gr_torus_no_kernel_launches(card):
+    """The 32 x 32 x 16 magnetised torus (``tests/test_gr_torus.py``'s
+    deck) in float32, 3 cycles: GR closes every kernel, so none
+    launches; the state stays finite."""
+    text = """
+<job>
+basename = torus
+precision = single
+<mesh>
+nghost = 2
+nx1 = 32
+x1min = -20.0
+x1max = 20.0
+ix1_bc = outflow
+ox1_bc = outflow
+nx2 = 32
+x2min = -20.0
+x2max = 20.0
+ix2_bc = outflow
+ox2_bc = outflow
+nx3 = 16
+x3min = -10.0
+x3max = 10.0
+ix3_bc = outflow
+ox3_bc = outflow
+<coord>
+general_rel = true
+a = 0.9375
+excise = true
+dexcise = 1.0e-8
+pexcise = 0.333e-10
+<time>
+evolution = dynamic
+integrator = rk2
+cfl_number = 0.3
+tlim = 5.0
+<mhd>
+eos = ideal
+reconstruct = plm
+rsolver = hlle
+gamma = 1.4444444444444444
+fofc = true
+<problem>
+pgen_name = gr_torus
+r_edge = 6.0
+r_peak = 12.0
+b_norm = 0.1
+pert_amp = 0.02
+"""
+    from athenak_tpu_torch.athinput import ParameterInput as TorchInput
+    mesh, phys, _, driver, state = build(TorchInput.from_string(text),
+                                         device="cuda")
+    kernels.reset_counts()
+    state = driver.initialize(state)
+    driver.nlim = 3
+    state = driver.execute(state)
+    assert mesh.ncycle == 3 and phys.is_gr
+    assert all(k.launches == 0 for k in kernels.ALL)
+    for key in ("u", "w", "bcc"):
+        assert bool(torch.isfinite(state[key]).all()), key
+    assert state["u"].dtype == torch.float32 and state["u"].is_cuda
