@@ -798,14 +798,23 @@ class AMR:
         # carry the problem generator's hooks across the rebuild (the JAX
         # amr.py:845-848, 993-996)
         bvals.user_bc_func = old_phys.bvals.user_bc_func
+        bvals.inflow_state = old_phys.bvals.inflow_state
         if hasattr(old_phys, "srcterms_func"):
             phys.srcterms_func = old_phys.srcterms_func
+            # a hook that reads the cell coordinates moves to the new tree
+            rebind = getattr(phys.srcterms_func, "rebind", None)
+            if rebind is not None:
+                rebind(mesh)
         t1 = _time.perf_counter()
 
         mbi = mesh.mb_indcs
         act_axes = _act_axes(mbi)
         tbl = _prov_tables(prov)
         refined = tbl["mode"] == 1
+        # the state's other entries ride along as they are: a multigrid
+        # run's potential ``phi`` stays on the old tree, and the first
+        # solve on the new one reads it at the new gids (clamped), as the
+        # JAX package's rebuild and warm start do
         new_state = dict(state)
         for key in ("u", "w"):
             if key in state:

@@ -27,7 +27,10 @@ pool-fill kernel (``ops/pool_fill.py``, kernel G) when the tensor lies
 on the card in float32, the port's counterpart of the JAX package's TPU
 gate.
 
-A ``user`` boundary flag leaves its ghosts to the problem generator's
+An ``inflow`` flag holds its ghosts at the fixed state a problem
+generator puts in ``inflow_state`` (a [nvar] tensor a face key, x1m and
+so on; the outflow copy until one is set).  A ``user`` boundary flag
+leaves its ghosts to the problem generator's
 ``user_bc_func(u, bvals) -> u`` (the sweeps treat the side as periodic),
 which runs after every fill route, as in the JAX package; the hooks of
 the port's problem generators write in place, and ``fill_ghosts``
@@ -92,7 +95,7 @@ class BoundaryValues:
         for key, flag in self.flag.items():
             if self.any_phys.get(key, False) and flag not in (
                     "periodic", "outflow", "reflect", "diode", "vacuum",
-                    "user"):
+                    "inflow", "user"):
                 raise NotImplementedError(
                     f"boundary flag '{flag}' is not ported to "
                     "athenak_tpu_torch yet")
@@ -110,6 +113,9 @@ class BoundaryValues:
         self._nbr27_dev = None
         # a problem generator's user boundary function, fn(u, bvals) -> u
         self.user_bc_func = None
+        # fixed inflow states set by problem generators: face key ->
+        # [nvar] tensor
+        self.inflow_state = {}
 
     def nbr27(self, device=None):
         """The [nmb, 27] donor table of the pool fill: host numpy, or with
@@ -397,6 +403,10 @@ class BoundaryValues:
             e[:, nvel] = torch.clamp(v, max=0.0) if side == "m" \
                 else torch.clamp(v, min=0.0)
             bc = e.expand(gathered.shape)
+        elif flag == "inflow":
+            st = self.inflow_state.get(key)
+            bc = edge_cell.expand(gathered.shape) if st is None else \
+                st.to(u.dtype).reshape(1, -1, 1, 1, 1).expand(gathered.shape)
         else:  # vacuum
             bc = torch.zeros_like(gathered)
         return torch.where(self.local_mask(key, 5, u.device), bc, gathered)

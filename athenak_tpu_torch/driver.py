@@ -242,6 +242,13 @@ class Driver:
         outputs = outputs or []
         wall0 = _time.perf_counter()
 
+        # the multigrid's defect printout: one verbose solve on the
+        # current state (the JAX driver's; the reference prints it in
+        # every solve, multigrid_driver.cpp:788-860)
+        pgrav = getattr(phys, "pgrav", None)
+        if pgrav is not None and getattr(pgrav, "show_defect", 0) > 0:
+            pgrav.solve_verbose(phys.unpack_state(state)["u"])
+
         if outputs and not self.res_flag:
             sv = phys.unpack_state(state)
             for out in outputs:

@@ -61,12 +61,18 @@ def pallas_physics(phys) -> bool:
 
 def no_stage_extras(phys) -> bool:
     """None of the physics that the JAX stage-kernel gates exclude
-    (``pallas_stage.py:176-181, 564-573``): first-order flux correction,
-    GR flux excision and ``<*_srcterms>``; the rest of that list
-    (gravity, diffusion) raises in the MHD constructor."""
+    (``pallas_stage.py:176-182, 564-573``): first-order flux correction,
+    GR flux excision, ``<*_srcterms>``, self-gravity, viscosity,
+    resistivity and conduction.  The stage kernels A, C and E have no
+    room for the diffusive fluxes, the resistive EMFs or the potential
+    solve."""
     return (not phys.use_fofc
             and getattr(phys, "fofc_excise_mask", None) is None
-            and phys.srcterms is None)
+            and phys.srcterms is None
+            and getattr(phys, "pgrav", None) is None
+            and getattr(phys, "pvisc", None) is None
+            and getattr(phys, "presist", None) is None
+            and getattr(phys, "pcond", None) is None)
 
 
 def supports_mega_stage(phys, mesh) -> bool:

@@ -44,7 +44,8 @@ def solver_for(phys) -> str:
 def supports_fused_stage(phys, mesh) -> bool:
     """Gate for kernel C: the physics conditions of the JAX
     ``supports_fused_stage`` (``pallas_physics``, 3-D, one level, two
-    ghost cells, no FOFC and no source terms: ``no_stage_extras``).  The
+    ghost cells, none of FOFC, source terms, self-gravity and diffusion:
+    ``no_stage_extras``).  The
     TPU tile conditions (``pallas_stage.py:183-187``) have no
     counterpart: the kernel takes any block of at least 6 cells a side."""
     return (len(phys.dirs) == 3 and pallas_physics(phys)
@@ -55,12 +56,14 @@ def supports_fused_stage(phys, mesh) -> bool:
 def supports_fused_ct(phys, mesh) -> bool:
     """Gate for kernel D: the JAX ``use_pallas and supports_fused_ct``
     (``athenak_tpu/physics/mhd.py:230-232``, ``pallas_stage.py:365``),
-    that is ``pallas_physics``, not GR, 3-D, one level and two ghost
-    cells.  Like the JAX gate it admits FOFC and source terms: D runs
-    after them on the general path and reads the corrected mass flux.
-    Resistivity raises in the constructor."""
+    that is ``pallas_physics``, not GR, no resistivity (D's corner EMFs
+    have no resistive part), 3-D, one level and two ghost cells.  Like
+    the JAX gate it admits FOFC, source terms, viscosity, conduction and
+    self-gravity: D runs after them on the general path and reads the
+    corrected mass flux."""
     return (len(phys.dirs) == 3 and pallas_physics(phys)
             and not getattr(phys, "is_gr", False)
+            and getattr(phys, "presist", None) is None
             and not mesh.multilevel and mesh.mb_indcs.ng == NG)
 
 

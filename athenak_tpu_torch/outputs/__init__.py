@@ -27,7 +27,8 @@ import torch
 
 from ..indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 from ..state import state_to_numpy
-from .variables import is_z4c_variable, resolve_z4c
+from .variables import (FLUID_NAMES, is_z4c_variable, resolve_fluid,
+                        resolve_z4c)
 
 
 class OutputParameters:
@@ -174,12 +175,12 @@ class BinaryOutput(BaseOutput):
     def __init__(self, pin, mesh, phys, block: str) -> None:
         super().__init__(pin, mesh, phys, block)
         self.pin = pin
-        if self.params.variable not in self._VARIABLES and \
+        if self.params.variable not in FLUID_NAMES and \
                 not is_z4c_variable(self.params.variable):
             raise NotImplementedError(
                 f"<{block}>/variable = '{self.params.variable}' is not "
                 f"ported to athenak_tpu_torch yet "
-                f"(ported: {sorted(self._VARIABLES)})")
+                f"(ported: {sorted(FLUID_NAMES)})")
 
     def write(self, mesh, state) -> None:
         p = self.params
@@ -191,10 +192,7 @@ class BinaryOutput(BaseOutput):
         if is_z4c_variable(p.variable):
             labels, base = resolve_z4c(p.variable, self.phys, state)
         else:
-            kind, labels = self._VARIABLES[p.variable]
-            base = state[kind[0]][:, :5]
-            if kind.endswith("_bcc"):
-                base = torch.cat([base, state["bcc"]], dim=1)
+            labels, base = resolve_fluid(p.variable, self.phys, state)
         # only the interior crosses to the host
         arr = base[interior].to(device="cpu", dtype=torch.float64).numpy()
         header_bytes = self.pin.dump().encode()

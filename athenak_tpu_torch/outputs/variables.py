@@ -1,12 +1,13 @@
-"""The Z4c output variables: the evolved fields, the ADM fields, the
-constraint monitors and psi4.
+"""Output variables: the fluid's conserved and primitive fields, the
+cell-centred field, the gravitational potential, and the Z4c fields, ADM
+fields, constraint monitors and psi4.
 
-Counterpart of the Z4c part of ``athenak_tpu/outputs/variables.py``
-(reference: the ``var_choice`` rows of src/outputs/outputs.hpp:31-105 for
-z4c, adm, con and weyl): every name resolves to the labels and a tensor
-[nmb, nvar, n3, n2, n1] computed on the state's device, of which the
-writers move only the interior to the host.  The hydro and MHD derived
-variables are not ported yet (ROADMAP Queue 1 item 9).
+Counterpart of ``athenak_tpu/outputs/variables.py`` for these names
+(reference: the ``var_choice`` rows of src/outputs/outputs.hpp:31-105):
+every name resolves to the labels and a tensor [nmb, nvar, n3, n2, n1]
+on the state's device, of which the writers move only the interior to
+the host.  The other hydro and MHD derived variables are not ported yet
+(ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -31,6 +32,35 @@ CON_NAMES = ("con", "con_C", "con_H", "con_M", "con_Z", "con_Mx",
 
 NAMES = tuple(["z4c"] + Z4C_LABELS + ["adm", "adm_psi4"] + ADM_LABELS
               + list(CON_NAMES) + ["weyl", "weyl_rpsi4", "weyl_ipsi4"])
+
+
+_HYDRO_U = ["dens", "mom1", "mom2", "mom3", "ener"]
+_HYDRO_W = ["dens", "velx", "vely", "velz", "eint"]
+FLUID_NAMES = ("hydro_u", "hydro_w", "mhd_u", "mhd_w", "mhd_u_bcc",
+               "mhd_w_bcc", "mhd_bcc", "grav_phi")
+
+
+def resolve_fluid(name: str, phys, state):
+    """(labels, tensor) of a fluid output variable, as the JAX
+    ``resolve`` gives them: the fluid channels of u or w (four under an
+    isothermal EOS, scalars left out), with the cell-centred field for
+    ``*_bcc``; ``mhd_bcc`` the field alone; ``grav_phi`` the potential of
+    a fresh solve on the state (the JAX package's own file holds no cell
+    data, ROADMAP F18)."""
+    if name == "grav_phi":
+        return ["phi"], phys.pgrav.solve(state["u"], phys.bvals)
+    if name == "mhd_bcc":
+        return ["bcc1", "bcc2", "bcc3"], state["bcc"]
+    if name not in FLUID_NAMES:
+        raise KeyError(f"'{name}' is not a fluid output variable")
+    key = name.split("_", 1)[1]
+    nh = phys.nmhd if getattr(phys, "is_mhd", False) else phys.nhydro
+    arr = state[key[0]]
+    labels = (_HYDRO_U if key[0] == "u" else _HYDRO_W)[:nh]
+    if key.endswith("_bcc"):
+        return labels + ["bcc1", "bcc2", "bcc3"], torch.cat(
+            [arr[:, :nh], state["bcc"].to(arr.dtype)], dim=1)
+    return labels, arr[:, :min(nh, 5)]
 
 
 def is_z4c_variable(name: str) -> bool:

@@ -17,7 +17,9 @@ Liska-Wendroff implosion, the slotted cylinder, the advection test and
 the Z4c generators (single, boosted and two punctures, Kerr-Schild, the
 linear wave and the AwA gauge-wave and robust-stability tests), the GR
 generators (Bondi accretion, the split monopole, the Fishbone-Moncrief
-torus) and the star-disk magnetosphere are ported so far.
+torus), the star-disk magnetosphere, the diffusion decay tests, the
+shock-cloud interaction and the self-gravity problems (the Jeans wave,
+the binary potential, the Bonnor-Ebert collapse) are ported so far.
 """
 
 from __future__ import annotations
@@ -60,6 +62,12 @@ _REGISTRY = {
     "gr_monopole": "athenak_tpu_torch.pgen.gr_monopole",
     "gr_torus": "athenak_tpu_torch.pgen.gr_torus",
     "disk_magnetosphere": "athenak_tpu_torch.pgen.disk_magnetosphere",
+    "diffusion_test": "athenak_tpu_torch.pgen.diffusion_test",
+    "shock_cloud": "athenak_tpu_torch.pgen.shock_cloud",
+    "jeans": "athenak_tpu_torch.pgen.jeans_wave",
+    "gravity": "athenak_tpu_torch.pgen.jeans_wave",
+    "binary_gravity": "athenak_tpu_torch.pgen.binary_gravity",
+    "be_collapse": "athenak_tpu_torch.pgen.be_collapse",
 }
 
 

@@ -25,6 +25,13 @@ applies the forcing once a cycle before the stages.  First-order flux
 correction (``<hydro>/fofc``) replaces the fluxes on the faces of cells
 whose trial update would floor with first-order LLF fluxes, and
 ``<hydro_srcterms>`` adds its source terms after the RK update.
+Viscosity and thermal conduction (``<hydro>/nu_iso``, ``alpha_iso``;
+``diffusion.py``) add their fluxes into the Godunov fluxes, before FOFC
+and the flux correction, and bound dt.  Self-gravity (``<gravity>``;
+``gravity.py``, ``multigrid.py``) solves for the potential from the
+stage's state before the RK update, and ``<hydro_srcterms>/self_gravity``
+applies it; a multigrid run carries the potential in ``state["phi"]``,
+the next solve's starting guess.
 
 GR (``<coord>/general_rel``) runs on the fixed Cartesian Kerr-Schild
 metric of ``coordinates.GRGeometry``, computed once: the GR solvers take
@@ -35,8 +42,7 @@ first-order fluxes (the flux-excision mask, with or without
 ``<hydro>/fofc``) and dt is bounded by the speed of light.  A problem
 generator may enroll ``srcterms_func(u, w, beta_dt[, t=])``, called
 after the source terms (``needs_time``: the time the state carries in
-``t``).  Diffusion, gravity, particles and the shearing box are not
-ported yet and raise.
+``t``).  Particles and the shearing box are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -44,6 +50,9 @@ from __future__ import annotations
 import torch
 
 from ..bvals import BoundaryValues
+from ..diffusion import Conduction, Viscosity
+from ..gravity import make_gravity
+from ..multigrid import MGPoisson
 from ..coordinates import Coordinates, GRGeometry, excision_masks
 from ..indices import IDN, IEN, IVX, IVY, IVZ, RECON_NGHOST
 from ..mesh import Mesh
@@ -110,10 +119,6 @@ class Hydro:
             raise ValueError(
                 f"reconstruct={self.recon_method} requires nghost >= "
                 f"{ng_need} but mesh/nghost={mesh.mb_indcs.ng}")
-        for key in ("nu_iso", "nu_aniso", "alpha_iso", "alpha_aniso",
-                    "alpha_spitzer"):
-            if pin.does_parameter_exist("hydro", key):
-                raise not_ported(f"diffusion (hydro/{key})")
         # first-order flux correction (reference: src/hydro/hydro_fofc.cpp)
         self.use_fofc = pin.get_or_add_boolean("hydro", "fofc", False)
         # source terms of the <hydro_srcterms> block (reference:
@@ -121,8 +126,7 @@ class Hydro:
         self.srcterms = SourceTerms("hydro_srcterms", pin, mesh, self.eos) \
             if pin.does_block_exist("hydro_srcterms") else None
         for block, what in (("shearing_box", "the shearing box"),
-                            ("particles", "particles"),
-                            ("gravity", "self-gravity")):
+                            ("particles", "particles")):
             if pin.does_block_exist(block):
                 raise not_ported(what)
 
@@ -152,6 +156,18 @@ class Hydro:
             self.dirs.append(("x3", 2, IVZ, dx5["x3"]))
         self.time_evolution = pin.get_string("time", "evolution") \
             if pin.does_block_exist("time") else "dynamic"
+        # diffusion, made only where a coefficient is given (reference:
+        # src/hydro/hydro.cpp:77-96)
+        self.pvisc = Viscosity("hydro", pin, mesh, self.eos, self.dxs) \
+            if any(pin.does_parameter_exist("hydro", k)
+                   for k in ("nu_iso", "nu_aniso")) else None
+        self.pcond = Conduction("hydro", pin, mesh, self.eos, self.dxs) \
+            if any(pin.does_parameter_exist("hydro", k)
+                   for k in ("alpha_iso", "alpha_aniso", "alpha_spitzer")) \
+            else None
+        # self-gravity (reference: src/gravity/, src/multigrid/)
+        self.pgrav = make_gravity(pin, mesh, self.device, dtype) \
+            if pin.does_block_exist("gravity") else None
         # the metric, kept (GR), and the excision masks
         self.geom = GRGeometry(mesh, coord.coord_data, self.device, dtype,
                                faces=[d[0] for d in self.dirs]) \
@@ -213,6 +229,10 @@ class Hydro:
                 wl, wr = face_floors(wl, self.eos), face_floors(wr, self.eos)
             f = self._solve(wl, wr, self.eos, ivx, *self._face_metric(name))
             out[name] = scalar_fluxes(f, wl, wr, self.nhydro)
+        if self.pvisc is not None:
+            out = self.pvisc.add_viscous_flux(w, out, self.dirs)
+        if self.pcond is not None:
+            out = self.pcond.add_heat_flux(w, out, self.dirs)
         return out
 
     def _face_metric(self, name: str):
@@ -295,6 +315,10 @@ class Hydro:
         state = {"u": u, "w": w}
         if self.pturb is not None:
             state.update(self.pturb.init_state_entries(u.dtype))
+        if isinstance(self.pgrav, MGPoisson):
+            # the multigrid's starting guess, carried from stage to stage
+            state["phi"] = torch.zeros((u.shape[0], 1) + u.shape[2:],
+                                       dtype=u.dtype, device=u.device)
         return state
 
     def save_state(self, state):
@@ -337,11 +361,15 @@ class Hydro:
                                           gam1, beta_dt)
         if self.multilevel:
             flx = flux_correct_cc(flx, self.mesh, [d[0] for d in self.dirs])
+        # the potential of the stage's state, before the update (the
+        # reference solves before the stage's task list, driver.cpp:406-408)
+        phi = self.pgrav.solve(u, self.bvals, phi0=state.get("phi")) \
+            if self.pgrav is not None else None
         u = self.rk_update(u, saved["u1"], flx, gam0, gam1, beta_dt)
         if self.is_gr:
             u = coord_src_terms(u, w, self.eos, self.geom, beta_dt)
         if self.srcterms is not None and self.srcterms.any_enabled:
-            u = self.srcterms.apply(u, w, beta_dt)
+            u = self.srcterms.apply(u, w, beta_dt, flx=flx, phi=phi)
         if self.srcterms_func is not None:
             kw = {"t": state.get("t")} \
                 if getattr(self.srcterms_func, "needs_time", False) else {}
@@ -352,10 +380,18 @@ class Hydro:
             u, w = self.bvals.prolong_prims_fixup(u, w, self.prim_to_cons)
         if nfofc is not None:
             counters = dict(counters, nfofc=nfofc)
-        return dict(state, u=u, w=w), counters
+        out = dict(state, u=u, w=w)
+        if phi is not None and "phi" in state:
+            out["phi"] = phi
+        return out, counters
 
     def dt_from_state(self, state):
         dt = self.new_dt(state["w"])
+        ndim = len(self.dirs)
+        if self.pvisc is not None:
+            dt = torch.minimum(dt, self.pvisc.new_dt(ndim, dt))
+        if self.pcond is not None:
+            dt = torch.minimum(dt, self.pcond.new_dt(ndim, dt))
         if self.srcterms is not None and self.srcterms.any_enabled:
             dt = torch.minimum(dt, self.srcterms.new_dt(state["w"]))
         return dt

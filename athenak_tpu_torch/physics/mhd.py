@@ -72,8 +72,19 @@ the source terms on every route (after kernel E on the v1 route and
 kernel C on the split one), and ``bvals.user_bc_func``; either closes
 kernel A at run time, and a user boundary function closes F's fill and
 the pool route of the v1 stage, as in the JAX package (generators
-install the hooks after the physics is built).  Diffusion, gravity,
-particles and the shearing box are not ported yet and raise.
+install the hooks after the physics is built).  Particles and the
+shearing box are not ported yet and raise.
+
+Viscosity, conduction and resistivity (``diffusion.py``) add their
+fluxes into the Godunov fluxes on the general path, after kernel J's
+where J forms them, and the resistive EMFs into the corner EMFs; they
+bound dt.  Self-gravity (``<gravity>``; ``gravity.py``,
+``multigrid.py``) solves for the potential from the stage's state
+before the RK update and ``<mhd_srcterms>/self_gravity`` applies it.
+Any of the four closes the stage kernels A, C and E (and F with E), as
+in the JAX package; resistivity also closes D, whose corner EMFs have no
+resistive part.  Kernel J stays open: its gate reads only the solver
+physics.
 A driven run (``<turb_driving>``) carries ``turb_force`` in its state;
 the driver applies the forcing once a cycle before the stages.
 """
@@ -98,6 +109,9 @@ from ..ops.eos_sr import (cons_to_prim_sr_mhd, prim_to_cons_sr_mhd,
                           sr_mhd_fast_speeds)
 from ..ops.rsolvers_grmhd import GR_MHD_RSOLVER_FNS, llf_grmhd
 from ..ops.rsolvers_srmhd import SR_MHD_RSOLVER_FNS, llf_srmhd
+from ..diffusion import Conduction, Resistivity, Viscosity
+from ..gravity import make_gravity
+from ..multigrid import MGPoisson
 from ..srcterms import SourceTerms
 from ..utils import not_ported
 
@@ -320,18 +334,13 @@ class MHD:
             raise ValueError(
                 f"reconstruct={self.recon_method} requires nghost >= "
                 f"{ng_need} but mesh/nghost={mesh.mb_indcs.ng}")
-        for key in ("nu_iso", "nu_aniso", "eta_ohm", "eta_ad", "alpha_iso",
-                    "alpha_aniso", "alpha_spitzer"):
-            if pin.does_parameter_exist("mhd", key):
-                raise not_ported(f"diffusion (mhd/{key})")
         # first-order flux correction (reference: src/mhd/mhd_fofc.cpp)
         self.use_fofc = pin.get_or_add_boolean("mhd", "fofc", False)
         # source terms of the <mhd_srcterms> block
         self.srcterms = SourceTerms("mhd_srcterms", pin, mesh, self.eos) \
             if pin.does_block_exist("mhd_srcterms") else None
         for block, what in (("shearing_box", "the shearing box"),
-                            ("particles", "particles"),
-                            ("gravity", "self-gravity")):
+                            ("particles", "particles")):
             if pin.does_block_exist(block):
                 raise not_ported(what)
 
@@ -383,6 +392,21 @@ class MHD:
             else (None, None)
         # a problem generator's source-term hook, fn(u, w, beta_dt) -> u
         self.srcterms_func = None
+        # diffusion, made only where a coefficient is given (reference:
+        # src/mhd/mhd.cpp:103-131)
+        self.pvisc = Viscosity("mhd", pin, mesh, self.eos, self.dxs) \
+            if any(pin.does_parameter_exist("mhd", k)
+                   for k in ("nu_iso", "nu_aniso")) else None
+        self.presist = Resistivity(pin, mesh, self.eos, self.dxs) \
+            if any(pin.does_parameter_exist("mhd", k)
+                   for k in ("eta_ohm", "eta_ad")) else None
+        self.pcond = Conduction("mhd", pin, mesh, self.eos, self.dxs) \
+            if any(pin.does_parameter_exist("mhd", k)
+                   for k in ("alpha_iso", "alpha_aniso", "alpha_spitzer")) \
+            else None
+        # self-gravity (reference: src/gravity/, src/multigrid/)
+        self.pgrav = make_gravity(pin, mesh, self.device, dtype) \
+            if pin.does_block_exist("gravity") else None
 
         use_kernels = pin.get_or_add_boolean("mhd", "use_kernels", True)
         from ..ops.flux import supports_flux_dir
@@ -442,7 +466,10 @@ class MHD:
         SR one under SR).  Kernel J forms them on the card in float32 where
         its gate admits the deck, with the face-state floors of the JAX
         package's ``pallas_flux`` route; elsewhere face-state floors only
-        for ppmx, wenoz and teno, as on the JAX package's general path."""
+        for ppmx, wenoz and teno, as on the JAX package's general path.
+        The viscous, conductive and resistive fluxes are added after
+        either (the JAX package's ``pallas_flux`` route leaves them out,
+        ROADMAP F16)."""
         if self.use_flux_dir and kernel_dtype_ok(w):
             from ..ops.flux import fused_flux_dir
             flx, emf = {}, {}
@@ -452,12 +479,20 @@ class MHD:
                 flx[name] = f
                 emf[EY_NAME[name]] = ey
                 emf[EZ_NAME[name]] = ez
-            return flx, emf
-        return face_fluxes(
-            w, bcc, bfc, self.eos, self._solve, self.dirs,
-            rec=recon_ops.RECON_FNS[self.recon_method],
-            floors=self.recon_method in recon_ops.FLOORED_METHODS,
-            face_metric=self.geom.metric if self.is_gr else None)
+        else:
+            flx, emf = face_fluxes(
+                w, bcc, bfc, self.eos, self._solve, self.dirs,
+                rec=recon_ops.RECON_FNS[self.recon_method],
+                floors=self.recon_method in recon_ops.FLOORED_METHODS,
+                face_metric=self.geom.metric if self.is_gr else None)
+        if self.pvisc is not None:
+            flx = self.pvisc.add_viscous_flux(w, flx, self.dirs)
+        if self.pcond is not None:
+            flx = self.pcond.add_heat_flux(w, flx, self.dirs)
+        if self.presist is not None:
+            flx = self.presist.add_resistive_flux(bfc, bcc, flx, self.dirs,
+                                                  len(self.dirs))
+        return flx, emf
 
     def rk_update(self, u0, u1, flx, gam0, gam1, beta_dt):
         return rk_update(u0, u1, flx, gam0, gam1, beta_dt, self.dirs)
@@ -494,10 +529,18 @@ class MHD:
                 out_e[key] = torch.where(fmask, e1, out_e[key])
         return out_f, out_e, nfofc
 
-    def corner_e(self, w, bcc, fden, emf):
-        return corner_e(w, bcc, fden, emf, len(self.dirs), is_sr=self.is_sr,
-                        metric=self.geom.metric("cc") if self.is_gr
-                        else None)
+    def corner_e(self, w, bcc, fden, emf, bfc=None):
+        """The corner EMFs plus the resistive ones from the face field
+        ``bfc`` (reference: Resistivity::AddResistiveEMFs, called from
+        CornerE)."""
+        e1, e2, e3 = corner_e(w, bcc, fden, emf, len(self.dirs),
+                              is_sr=self.is_sr,
+                              metric=self.geom.metric("cc") if self.is_gr
+                              else None)
+        if self.presist is None:
+            return e1, e2, e3
+        return self.presist.add_resistive_emf(bfc, bcc, e1, e2, e3,
+                                              len(self.dirs))
 
     def _user_srcs(self, u, w, beta_dt, bcc, t=None):
         """The problem generator's source-term hook (the JAX
@@ -630,6 +673,10 @@ class MHD:
                  "bcc": bcc if bcc is not None else compute_bcc(bfc)}
         if self.pturb is not None:
             state.update(self.pturb.init_state_entries(u.dtype))
+        if isinstance(self.pgrav, MGPoisson):
+            # the multigrid's starting guess, carried from stage to stage
+            state["phi"] = torch.zeros((u.shape[0], 1) + u.shape[2:],
+                                       dtype=u.dtype, device=u.device)
         return state
 
     def save_state(self, state):
@@ -712,6 +759,7 @@ class MHD:
         u, w, bfc, bcc = state["u"], state["w"], state["bfc"], state["bcc"]
         on_card = kernel_dtype_ok(u)
         do_fofc = self.use_fofc or self.fofc_excise_mask is not None
+        phi = None
         if route == "E":
             return self._stage_v1(state, saved, gam0, gam1, beta_dt)
         if route == "C":
@@ -732,12 +780,17 @@ class MHD:
             if self.multilevel:
                 flx = flux_correct_cc(flx, self.mesh,
                                       [d[0] for d in self.dirs])
+            # the potential of the stage's state, before the update
+            # (reference: driver.cpp:406-408)
+            if self.pgrav is not None:
+                phi = self.pgrav.solve(u, self.bvals,
+                                       phi0=state.get("phi"))
             u = self.rk_update(u, saved["u1"], flx, gam0, gam1, beta_dt)
             if self.is_gr:
                 u = coord_src_terms(u, w, self.eos, self.geom, beta_dt,
                                     bcc=bcc)
             if self.srcterms is not None and self.srcterms.any_enabled:
-                u = self.srcterms.apply(u, w, beta_dt)
+                u = self.srcterms.apply(u, w, beta_dt, flx=flx, phi=phi)
             if self.srcterms_func is not None:
                 u = self._user_srcs(u, w, beta_dt, bcc, t=state.get("t"))
             # kernel D and corner_e read the corrected mass flux
@@ -752,7 +805,7 @@ class MHD:
                 saved["bfc1"], gam0, gam1, beta_dt, self.dxs,
                 is_sr=self.is_sr)
         else:
-            e1, e2, e3 = self.corner_e(w, bcc, fden, emf)
+            e1, e2, e3 = self.corner_e(w, bcc, fden, emf, bfc)
             if self.multilevel:
                 e1, e2, e3 = mhd_smr.emf_correct(
                     self.mesh, self.bvals.active_axes, e1, e2, e3)
@@ -767,7 +820,10 @@ class MHD:
                 u, w, lambda w2: self.prim_to_cons(w2, bcc))
         if do_fofc:
             counters = dict(counters, nfofc=nfofc)
-        return dict(state, u=u, w=w, bfc=bfc, bcc=bcc), counters
+        out = dict(state, u=u, w=w, bfc=bfc, bcc=bcc)
+        if phi is not None and "phi" in state:
+            out["phi"] = phi
+        return out, counters
 
     def _stage_v1(self, state, saved, gam0, gam1, beta_dt):
         """The v1 stage route (JAX ``mhd.py:1586-1625``): kernel E from
@@ -804,6 +860,14 @@ class MHD:
         if "w" not in state:
             state = self.unpack_state(state)
         dt = self.new_dt(state["w"], state["bcc"])
+        ndim = len(self.dirs)
+        if self.pvisc is not None:
+            dt = torch.minimum(dt, self.pvisc.new_dt(ndim, dt))
+        if self.pcond is not None:
+            dt = torch.minimum(dt, self.pcond.new_dt(ndim, dt))
+        if self.presist is not None:
+            dt = torch.minimum(dt, self.presist.new_dt(state["bcc"], ndim,
+                                                       dt))
         if self.srcterms is not None and self.srcterms.any_enabled:
             dt = torch.minimum(dt, self.srcterms.new_dt(state["w"]))
         return dt

@@ -5,9 +5,10 @@ src/srcterms/srcterms.cpp:37-306, srcterms_newdt.cpp:25-111): constant
 acceleration, optically thin ISM cooling (the SPEX curve of Schure et al.
 2009 with the Koyama & Inutsuka 2002 low-T branch and the CGOLS high-T
 fit) and relativistic cooling, each a pointwise update of the whole
-array in torch ops after the RK update.  Each fluid owns its instance
-(input blocks ``<hydro_srcterms>`` / ``<mhd_srcterms>``).  Self-gravity
-is not ported yet and raises.
+array in torch ops after the RK update, and the self-gravity sources
+from the potential of the stage (Mullen, Hanawa & Gammie 2020).  Each
+fluid owns its instance (input blocks ``<hydro_srcterms>`` /
+``<mhd_srcterms>``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ import torch
 
 from .indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 from .units import ATOMIC_MASS_UNIT_CGS, Units
-from .utils import not_ported
 
 _TINY = float(np.finfo(np.float32).tiny)
 _HUGE = float(np.finfo(np.float32).max)
@@ -79,8 +79,8 @@ class SourceTerms:
         self.const_accel = pin.get_or_add_boolean(block, "const_accel", False)
         self.ism_cooling = pin.get_or_add_boolean(block, "ism_cooling", False)
         self.rel_cooling = pin.get_or_add_boolean(block, "rel_cooling", False)
-        if pin.get_or_add_boolean(block, "self_gravity", False):
-            raise not_ported(f"self-gravity source terms (<{block}>)")
+        self.self_gravity = pin.get_or_add_boolean(block, "self_gravity",
+                                                   False)
         if self.const_accel:
             self.const_accel_val = pin.get_real(block, "const_accel_val")
             self.const_accel_dir = pin.get_integer(block, "const_accel_dir")
@@ -94,7 +94,7 @@ class SourceTerms:
             self.crate_rel = pin.get_real(block, "crate_rel")
             self.cpower_rel = pin.get_or_add_real(block, "cpower_rel", 1.0)
         self.any_enabled = (self.const_accel or self.ism_cooling
-                            or self.rel_cooling)
+                            or self.rel_cooling or self.self_gravity)
 
     def _cooling_units(self):
         u = self.units
@@ -103,10 +103,12 @@ class SourceTerms:
         heating_unit = u.pressure_cgs / u.time_cgs / n_unit
         return u.temperature_cgs, cooling_unit, heating_unit
 
-    def apply(self, u, w, beta_dt):
+    def apply(self, u, w, beta_dt, flx=None, phi=None):
         """``u`` plus every enabled source from the primitives ``w``
         (reference: SourceTerms::ApplySrcTerms, srcterms.cpp:93-101),
-        ghost zones too (the fill overwrites them right after)."""
+        ghost zones too (the fill overwrites them right after); the
+        self-gravity sources read the stage's fluxes ``flx`` and
+        potential ``phi``."""
         u = u.clone()
         if self.const_accel:
             d = self.const_accel_dir   # 1, 2, 3 -> IM1, IM2, IM3
@@ -132,6 +134,41 @@ class SourceTerms:
             u[:, IM1] += -fac * ux
             u[:, IM2] += -fac * uy
             u[:, IM3] += -fac * uz
+        if self.self_gravity and phi is not None:
+            u = self._self_gravity(u, w, beta_dt, flx, phi)
+        return u
+
+    def _self_gravity(self, u, w, beta_dt, flx, phi):
+        """The momentum source and the energy source from the Godunov
+        mass fluxes (Mullen, Hanawa & Gammie 2020; reference:
+        srcterms.cpp:215-306); ``phi`` [nmb, 1, n3, n2, n1] with its
+        ghosts filled."""
+        mesh = self.mesh
+        mbi = mesh.mb_indcs
+        p = phi[:, 0]
+        if mesh.multilevel:
+            def _dx(name):
+                return torch.as_tensor(
+                    np.asarray(mesh.mb_size[name]).reshape(-1, 1, 1, 1),
+                    dtype=p.dtype, device=p.device)
+            dx1, dx2, dx3 = _dx("dx1"), _dx("dx2"), _dx("dx3")
+        else:
+            ms = mesh.mesh_size
+            dx1, dx2, dx3 = ms.dx1, ms.dx2, ms.dx3
+        dirs = [(3, dx1, "x1", IM1)]
+        if mbi.nx2 > 1:
+            dirs.append((2, dx2, "x2", IM2))
+        if mbi.nx3 > 1:
+            dirs.append((1, dx3, "x3", IM3))
+        for a, dx, name, imom in dirs:
+            dpl = -(p - torch.roll(p, 1, dims=a))       # phi(i) - phi(i-1)
+            dpr = -(torch.roll(p, -1, dims=a) - p)      # phi(i+1) - phi(i)
+            hdtodx = 0.5 * beta_dt / dx
+            u[:, imom] += hdtodx * w[:, IDN] * (dpl + dpr)
+            if self.eos.is_ideal and flx is not None:
+                f = flx[name][:, IDN]
+                fp = torch.roll(f, -1, dims=a)
+                u[:, IEN] += hdtodx * (f * dpl + fp * dpr)
         return u
 
     def new_dt(self, w):

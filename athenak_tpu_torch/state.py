@@ -8,7 +8,9 @@ and the turbulence driver's ``turb_force`` and threefry key
 ``bfc``, and with puncture trackers their positions ``co_pos`` [nco, 3]
 at the state's dtype.  A state whose problem generator has a
 time-dependent source term carries the time ``t`` (0-d, at the state's
-dtype).  These two functions move such a dict (as numpy
+dtype).  A multigrid gravity run carries the last stage's potential
+``phi`` [nmb, 1, n3, n2, n1], the next solve's first guess.  These two
+functions move such a dict (as numpy
 arrays) into the port and back, so both packages can start from one
 state.
 """
@@ -18,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_KEYS = ("u", "w", "bcc", "turb_force", "co_pos", "t")
+_KEYS = ("u", "w", "bcc", "turb_force", "co_pos", "t", "phi")
 
 
 def _check_keys(d) -> None:

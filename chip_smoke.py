@@ -259,6 +259,37 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      torus at 64 x 64 x 32 (10 cycles straight against 5 + ``-r`` 5,
      the history rows after the restart included) and the 32^3 Bondi in
      f64 (the user boundary enrolled again), bitwise.
+ 20. drives the diffusion and self-gravity slice through the CLI, the
+     launch counts set to 0 before each run and checked exactly:
+     ``diff_blast`` (``inputs/mhd/blast.athinput`` at 124^3 in f32 with
+     ``nu_iso``, ``eta_ohm`` and ``alpha_iso`` 1e-3, 10 cycles: J three
+     times a stage, B at every fill, A and D never; the plain path within
+     SMR_PATH_TOL's tiers of what it changed; J against its plain version
+     on its state, f32 two-tier; the ms of J, each diffusion operator and
+     the corner EMFs a stage, the dt limits) and the same without
+     ``eta_ohm`` (J and D once a stage); ``inputs/hydro/viscosity`` and
+     ``inputs/mhd/resistivity`` as shipped (64 cells, f64) to tlim: the
+     decay amplitude within 5% of exp(-coef k^2 t) (the bars of
+     ``tests/test_diffusion.py``); ``shock_cloud`` as shipped (160 x 80
+     x 80, f64, inflow), 10 cycles, no kernel; ``jeans_wave`` as shipped
+     (f64) and at 256 x 128 x 128 in f32 on both paths (B on u and phi,
+     1 + 4 a cycle; bitwise paths; the FFT solve's ms), the shipped deck
+     to tlim, and ``tests/test_jeans.py``'s stable deck in f64 at 32 and
+     64 (its bars); ``selfgravity`` as shipped and at 128^3 on both paths
+     (f64: the generator's floor density underflows in f32, so no kernel
+     can launch and the two paths are one; V-cycles a solve, ms of a
+     solve); ``binary_gravity`` as shipped (64^3 root,
+     two refined levels, f64): the verbose solve to 1e-9 in at most 13
+     V-cycles and the acceleration L2 error below 1 (the bars of
+     ``tests/test_multigrid.py``); ``be_collapse`` as shipped (f64, 20
+     cycles, a tree update) and with two ghost cells in f32 on both
+     paths (G on u and phi while the tree is flat, 1 + 4 a flat cycle;
+     the paths bitwise); ``be_collapse_mhd`` as shipped (f64, 10 cycles,
+     its ``bin`` of ``mhd_w``, ``mhd_bcc`` and ``grav_phi`` and its
+     ``rst``), in f32 on both paths (J three times a stage; the paths
+     within SMR_PATH_TOL's tiers of the plain path's range; J against its
+     plain version on its state) and restarted through ``-r`` (10 cycles
+     straight against 5 + 5, u, the face field and phi bitwise).
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -4323,6 +4354,544 @@ def phase_gr(torch, kernels, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: diffusion and self-gravity
+# ---------------------------------------------------------------------------
+NCYC_GRAV = 10
+NCYC_BE = 20
+DIFF_FULL = ["mhd/nu_iso=1e-3", "mhd/eta_ohm=1e-3", "mhd/alpha_iso=1e-3"]
+DIFF_NOETA = ["mhd/nu_iso=1e-3", "mhd/alpha_iso=1e-3"]
+VISC_DECK = os.path.join(ROOT, "inputs", "hydro", "viscosity.athinput")
+RESIST_DECK = os.path.join(ROOT, "inputs", "mhd", "resistivity.athinput")
+SHOCK_CLOUD = os.path.join(ROOT, "inputs", "hydro", "shock_cloud.athinput")
+JEANS = os.path.join(ROOT, "inputs", "tests", "jeans_wave.athinput")
+SELFGRAV = os.path.join(ROOT, "inputs", "tests", "selfgravity.athinput")
+BINARY = os.path.join(ROOT, "inputs", "tests", "binary_gravity.athinput")
+BE = os.path.join(ROOT, "inputs", "tests", "be_collapse.athinput")
+BE_MHD = os.path.join(ROOT, "inputs", "tests", "be_collapse_mhd.athinput")
+JEANS_BIG = ["job/precision=single", "mesh/nx1=256", "mesh/nx2=128",
+             "mesh/nx3=128"]
+# in float64: the generator's floor density (1e-300) is 1e-38 in
+# float32, and the float32 state goes non-finite within two cycles on
+# either path, so kernel B (float32) has no run here; the deck's tlim
+# (0.5) falls within 10 cycles at 128^3
+SELFGRAV_BIG = ["mesh/nx1=128", "mesh/nx2=128", "mesh/nx3=128",
+                "time/tlim=100"]
+# kernel G's gate takes two ghost cells (as the JAX package's): the
+# shipped deck's four close it, so G runs on this variant
+BE_G = ["job/precision=single", "mesh/nghost=2"]
+# tests/test_jeans.py's deck (copied here as text): the shipped
+# jeans_wave.athinput sets njeans, a key the generator does not read
+JEANS_TEST_DECK = """
+<job>
+basename = JeansWave
+<mesh>
+nghost = 2
+nx1 = 32
+x1min = 0.0
+x1max = 1.0
+ix1_bc = periodic
+ox1_bc = periodic
+nx2 = 16
+x2min = 0.0
+x2max = 0.5
+ix2_bc = periodic
+ox2_bc = periodic
+nx3 = 16
+x3min = 0.0
+x3max = 0.5
+ix3_bc = periodic
+ox3_bc = periodic
+<meshblock>
+nx1 = 8
+nx2 = 8
+nx3 = 8
+<time>
+evolution = dynamic
+integrator = rk2
+cfl_number = 0.3
+nlim = -1
+tlim = 0.1
+ndiag = 100000
+<hydro>
+eos = isothermal
+reconstruct = plm
+rsolver = hlle
+iso_sound_speed = 1.0
+<gravity>
+four_pi_G = 1.0
+<hydro_srcterms>
+self_gravity = true
+<problem>
+pgen_name = gravity
+amp = 1.0e-6
+n_jeans = 0.5
+"""
+
+
+def turn_rates(torch, deck, extra, block):
+    """zone-cycles/s of the kernel and the plain path in turns (true,
+    false, true, false), each over NCYC_GRAV cycles after a warm-up
+    cycle (CUDA events; ``timed_cycles``)."""
+    rates = {"true": [], "false": []}
+    for use in ("true", "false", "true", "false"):
+        rates[use].append(timed_cycles(torch, use, deck, NCYC_GRAV,
+                                       list(extra), block))
+    return rates
+
+
+def grav_cli(torch, kernels, deck, extra=(), ncyc=None):
+    """``main.cli`` on ``deck`` in a temporary directory (``ncyc`` cycles,
+    or to tlim), the launch counts set to 0 just before and read just
+    after: (launches of the kernels that launched, mesh, phys, driver,
+    state, the names of the files written)."""
+    from athenak_tpu_torch import main as cli_main
+    os.environ["ATHENAK_DEVICE"] = "cuda"
+    cwd = os.getcwd()
+    extra = list(extra) + ([f"time/nlim={ncyc}"] if ncyc else [])
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_counts()
+        try:
+            mesh, phys, driver, state = cli_main.cli(
+                ["-i", deck, "-d", tmp, *extra])
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels.ALL if k.launches}
+        files = sorted(os.listdir(tmp))
+    if ncyc and mesh.ncycle != ncyc:
+        raise AssertionError(f"{deck}: {mesh.ncycle} cycles, {ncyc} asked")
+    if not bool(torch.isfinite(state["u"]).all()):
+        raise AssertionError(f"{deck} {extra}: non-finite state")
+    return launches, mesh, phys, driver, state, files
+
+
+def expect_launches(label, got, expect):
+    if got != expect:
+        raise AssertionError(f"phase 20 {label}: launches {got}, expected "
+                             f"{expect}")
+
+
+def bitwise_paths(torch, label, a, b):
+    """The kernel and plain paths of a deck whose only kernels are the
+    fills: every entry of the two states bitwise equal."""
+    for key in ("u", "w", "phi"):
+        if key in a and not torch.equal(a[key], b[key]):
+            raise AssertionError(f"phase 20 {label}: {key} differs between "
+                                 "the kernel and the plain path")
+
+
+def grav_solve_ms(torch, phys, state):
+    """The run's mean V-cycles a solve (the multigrid; None for the
+    FFT), then ms (events) and V-cycles of a solve from the state
+    started from zeros or the full-multigrid guess, as the deck asks:
+    (run_vcycles, ms, vcycles)."""
+    pg = phys.pgrav
+    run = pg.ncycles / max(pg.nsolve, 1) if hasattr(pg, "ncycles") \
+        else None
+    n0, c0 = pg.nsolve, getattr(pg, "ncycles", 0)
+    ms = cuda_ms(lambda: pg.solve(state["u"], phys.bvals), 5)
+    cyc = (getattr(pg, "ncycles", 0) - c0) / max(pg.nsolve - n0, 1)
+    return run, ms, cyc
+
+
+def amplitude(x, y):
+    """The least-squares amplitude of sin(2 pi x) in y."""
+    import numpy as np
+    s = np.sin(2.0 * math.pi * x)
+    return abs(float(np.dot(y, s) / np.dot(s, s)))
+
+
+def diff_blast(torch, kernels, card):
+    """The 124^3 blast with viscosity, Ohmic resistivity and conduction:
+    J three times a stage, B at every fill, A and D never (exact); the
+    plain path within SMR_PATH_TOL's tiers of what it changed; the same
+    without resistivity: J and D (once a stage).  J against its plain
+    version on the diffusive state (f32 two-tier); the ms of a stage's
+    parts and the dt limits."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import flux
+    n = NCYC_GRAV
+    out, states = {}, {}
+    for label, extra in (("diff_blast", DIFF_FULL),
+                         ("diff_blast plain", DIFF_FULL
+                          + ["mhd/use_kernels=false"]),
+                         ("diff_blast noeta", DIFF_NOETA)):
+        got, mesh, phys, driver, state, files = grav_cli(
+            torch, kernels, DECK, extra, n)
+        expect = {} if "plain" in label else {
+            "fused_flux_dir": 6 * n, "periodic_fill_cc": 1 + 2 * n,
+            "periodic_fill_fc": 1 + 2 * n}
+        if label == "diff_blast noeta":
+            expect["fused_ct3d"] = 2 * n
+        expect_launches(label, got, expect)
+        if phys.presist is not None and (phys.use_fused_ct
+                                         or phys.use_mega_v2):
+            raise AssertionError(f"{label}: A or D open with resistivity")
+        out[label] = {"launches": got, "zcps": driver.zcps}
+        states[label] = (mesh, phys, state)
+        print(f"phase 20: {label} (124^3, f32): {n} cycles, launches {got}; "
+              f"[{card}] CLI zone-cycles/s {driver.zcps:.6e} (wall clock)")
+    state0 = build(pin_for(DIFF_FULL), device="cuda")[-1]
+    ka, pa = states["diff_blast"][2], states["diff_blast plain"][2]
+    diff = {k: change_diff(a, b, c) for k, a, b, c in
+            [("u", ka["u"], pa["u"], state0["u"])]
+            + [(c, ka["bfc"][c], pa["bfc"][c], state0["bfc"][c])
+               for c in ("x1f", "x2f", "x3f")]}
+    for k, d in diff.items():
+        if not (d[0] > 0.95 and d[1] < SMR_PATH_TOL[1]):
+            raise AssertionError(f"diff_blast: paths apart in {k}: {d}")
+    del state0, pa
+    mesh, phys, state = states["diff_blast"]
+    w, bcc, bfc = state["w"], state["bcc"], state["bfc"]
+    err = 0.0
+    for name, _axis, ivx, _dx in phys.dirs:
+        args = (w, bcc, bfc[f"{name}f"], phys.eos, name, ivx)
+        for g, r in zip(flux.fused_flux_dir(*args),
+                        flux.flux_dir_plain(*args)):
+            g, r = faces(g), faces(r)
+            err = max(err, two_tier(g, r, float(r.abs().max()) or 1.0,
+                                    f"diff_blast fused_flux_dir {name}"))
+    from athenak_tpu_torch.physics.mhd import corner_e
+    flx, emf = phys.fluxes(w, bcc, bfc)
+    dirs, nd = phys.dirs, len(phys.dirs)
+    fden = {k: f[:, 0] for k, f in flx.items()}
+    e123 = corner_e(w, bcc, fden, emf, nd)
+    parts = {
+        "fused_flux_dir x3": sum(cuda_ms(lambda d=d: flux.fused_flux_dir(
+            w, bcc, bfc[f"{d[0]}f"], phys.eos, d[0], d[2]), 10)
+            for d in dirs),
+        "viscous flux": cuda_ms(lambda: phys.pvisc.add_viscous_flux(
+            w, flx, dirs), 10),
+        "heat flux": cuda_ms(lambda: phys.pcond.add_heat_flux(
+            w, flx, dirs), 10),
+        "resistive flux": cuda_ms(lambda: phys.presist.add_resistive_flux(
+            bfc, bcc, flx, dirs, nd), 10),
+        "resistive EMF": cuda_ms(lambda: phys.presist.add_resistive_emf(
+            bfc, bcc, *e123, nd), 10),
+        "corner EMF": cuda_ms(lambda: corner_e(w, bcc, fden, emf, nd), 10)}
+    dts = {"cfl": float(phys.new_dt(w, bcc)),
+           "viscous": float(phys.pvisc.new_dt(nd, w)),
+           "conduction": float(phys.pcond.new_dt(nd, w)),
+           "resistive": float(phys.presist.new_dt(bcc, nd, w))}
+    rates = turn_rates(torch, DECK, DIFF_FULL, "mhd")
+    print(f"phase 20: [{card}] diff_blast zone-cycles/s in turns (events, "
+          f"after a warm-up cycle) {rates}")
+    print(f"phase 20: diff_blast kernel vs plain path {diff}; "
+          f"fused_flux_dir agrees with its plain version on the diffusive "
+          f"state (f32 two-tier, max abs {err:.3e}); [{card}] ms of a "
+          f"stage's parts {parts}; dt limits (before the CFL number) {dts}")
+    return {"runs": out, "path_diff": diff, "parts_ms": parts, "dt": dts,
+            "flux_dir_err": err, "rates": rates}
+
+
+def diffusion_bars(torch, kernels, card):
+    """The shipped 1-D decks to tlim in float64: the decay of the shear
+    and field amplitudes within 5% of exp(-coef k^2 t) (the bars of
+    tests/test_diffusion.py)."""
+    out = {}
+    for label, deck, coef, getter in (
+            ("viscosity", VISC_DECK, 0.02, lambda s: s["w"][0, 2]),
+            ("resistivity", RESIST_DECK, 0.02, lambda s: s["bcc"][0, 1])):
+        got, mesh, phys, driver, state, _ = grav_cli(torch, kernels, deck)
+        expect_launches(label, got, {})
+        mbi = mesh.mb_indcs
+        act = slice(mbi.is_, mbi.ie + 1)
+        y = getter(state)[0, 0, act].double().cpu().numpy()
+        x = mesh.cell_centers(0)[0][act]
+        amp = amplitude(x, y)
+        want = 1.0e-6 * math.exp(-coef * (2 * math.pi) ** 2 * mesh.time)
+        rel = abs(amp - want) / want
+        if rel > 0.05:
+            raise AssertionError(f"{label}: amplitude {amp:g} against "
+                                 f"{want:g}")
+        out[label] = {"cycles": mesh.ncycle, "amp": amp, "expect": want,
+                      "rel_err": rel, "zcps": driver.zcps}
+        print(f"phase 20: {label} as shipped (64 cells, f64) to t = "
+              f"{mesh.time:g} in {mesh.ncycle} cycles: amplitude {amp:.6e}, "
+              f"exp(-coef k^2 t) {want:.6e}, {rel:.3e} apart (bar 0.05); "
+              f"[{card}] zone-cycles/s {driver.zcps:.6e}")
+    got, mesh, phys, driver, state, _ = grav_cli(torch, kernels,
+                                                 SHOCK_CLOUD, ncyc=NCYC_GRAV)
+    expect_launches("shock_cloud", got, {})
+    out["shock_cloud"] = {"zcps": driver.zcps, "launches": got}
+    print(f"phase 20: shock_cloud as shipped (160x80x80, f64, inflow): "
+          f"{NCYC_GRAV} cycles, no kernel; [{card}] zone-cycles/s "
+          f"{driver.zcps:.6e}")
+    return out
+
+
+def fill_runs(torch, kernels, card, label, deck, big, fill_key, extra_b):
+    """A gravity deck on one periodic block: as shipped (f64, no kernel),
+    then at the big size on the kernel path (in f32 B on u and phi: once
+    at the start, twice a stage, ``extra_b`` more) and the plain path,
+    bitwise equal, and their rates in turns; ms and V-cycles of a solve.
+    With ``fill_key`` None the big size runs in f64, where no kernel can
+    launch and the two paths are one: once."""
+    out = {}
+    got, mesh, phys, driver, state, _ = grav_cli(torch, kernels, deck,
+                                                 ncyc=NCYC_GRAV)
+    expect_launches(label, got, {})
+    run, ms, cyc = grav_solve_ms(torch, phys, state)
+    out["shipped"] = {"zcps": driver.zcps, "solve_ms": ms, "vcycles": cyc,
+                      "run_vcycles": run}
+    print(f"phase 20: {label} as shipped (f64): {NCYC_GRAV} cycles, "
+          f"V-cycles a solve in the run {run}; [{card}] zone-cycles/s "
+          f"{driver.zcps:.6e}, a solve from the start guess {ms:.3f} ms "
+          f"({cyc:g} V-cycles)")
+    res = {}
+    for use in ("true", "false") if fill_key else ("true",):
+        got, mesh, phys, driver, state, _ = grav_cli(
+            torch, kernels, deck, big + [f"hydro/use_kernels={use}"],
+            NCYC_GRAV)
+        expect_launches(f"{label} big {use}", got, {
+            fill_key: 1 + 4 * NCYC_GRAV + extra_b}
+            if use == "true" and fill_key else {})
+        run, ms, cyc = grav_solve_ms(torch, phys, state)
+        res[use] = state
+        out[use] = {"launches": got, "zcps": driver.zcps, "solve_ms": ms,
+                    "vcycles": cyc, "run_vcycles": run}
+        print(f"phase 20: {label} {big} use_kernels={use}: launches {got}, "
+              f"V-cycles a solve in the run {run}; [{card}] zone-cycles/s "
+              f"{driver.zcps:.6e}, a solve from the start guess {ms:.3f} ms "
+              f"({cyc:g} V-cycles)")
+    if fill_key:
+        bitwise_paths(torch, label, res["true"], res["false"])
+        out["rates"] = turn_rates(torch, deck, big, "hydro")
+        print(f"phase 20: [{card}] {label} {big} zone-cycles/s in turns "
+              f"(events, after a warm-up cycle) {out['rates']}")
+    return out
+
+
+def jeans_bars(torch, kernels, card):
+    """tests/test_jeans.py's stable case on the card in f64: the
+    oscillation frequency at 64 x 32 x 32 within 1% of the analytic one
+    and the error at least 1/0.35 times smaller than at 32 x 16 x 16;
+    and the shipped deck to tlim in f64."""
+    from athenak_tpu_torch.pgen import jeans_wave
+    got, mesh, phys, driver, state, _ = grav_cli(torch, kernels, JEANS)
+    expect_launches("jeans shipped", got, {})
+    errs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = os.path.join(tmp, "jeans.athinput")
+        with open(deck, "w") as f:
+            f.write(JEANS_TEST_DECK)
+        for res in (32, 64):
+            got, mesh, phys, driver, state, _ = grav_cli(
+                torch, kernels, deck, [f"mesh/nx1={res}",
+                                       f"mesh/nx2={res // 2}",
+                                       f"mesh/nx3={res // 2}"])
+            r = jeans_wave.final(None, mesh, phys, state)
+            errs[res] = abs(r["omega_measured"] - r["omega"]) / r["omega"]
+    if not (errs[64] < 0.01 and errs[64] / errs[32] < 0.35):
+        raise AssertionError(f"jeans: omega errors {errs}")
+    print(f"phase 20: jeans_wave as shipped (64x32x32, f64) to t = 1 "
+          f"finite; tests/test_jeans.py's stable deck (n_jeans 0.5, f64): "
+          f"omega errors {errs} (bars: < 0.01 at 64, ratio < 0.35)")
+    return {"omega_err": errs}
+
+
+def binary_bars(torch, card):
+    """binary_gravity as shipped (f64, 64^3 root, two refined levels): the
+    verbose solve of the initial state reaches 1e-9 in at most 13
+    V-cycles and its acceleration L2 error is below 1 (the bars of
+    tests/test_multigrid.py::test_binary_gravity_smr), then one cycle
+    through the CLI and the final report."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.pgen import binary_gravity
+    pin = pin_for([], BINARY)
+    mesh, phys, _, _, state = build(pin, device="cuda")
+    t0 = time.perf_counter()
+    hist = phys.pgrav.solve_verbose(state["u"])
+    torch.cuda.synchronize()
+    verbose_ms = 1e3 * (time.perf_counter() - t0)
+    res = binary_gravity.final(pin, mesh, phys, state,
+                               phi=phys.pgrav._last_phi)
+    if not (hist[-1] <= 1e-9 and len(hist) - 1 <= 13
+            and math.isfinite(res["acc_l2"]) and res["acc_l2"] < 1.0):
+        raise AssertionError(f"binary_gravity: defects {hist}, {res}")
+    _, ms, cyc = grav_solve_ms(torch, phys, state)
+    print(f"phase 20: binary_gravity as shipped ({mesh.nmb_total} blocks on "
+          f"levels {sorted(set(mesh.mb_lev.tolist()))}, f64): defect "
+          f"{hist[-1]:.3e} after {len(hist) - 1} V-cycles (bars 1e-9, 13), "
+          f"acceleration L2 {res['acc_l2']:.4e} (bar 1), potential L2 "
+          f"{res['pot_l2']:.4e}; [{card}] the verbose solve {verbose_ms:.1f} "
+          f"ms (host clock, a host read a cycle), a solve {ms:.2f} ms "
+          f"({cyc:g} V-cycles)")
+    return {"defects": hist, "errors": res, "verbose_ms": verbose_ms,
+            "solve_ms": ms, "vcycles": cyc}
+
+
+def be_runs(torch, kernels, card):
+    """be_collapse as shipped (f64, 20 cycles: a tree update, the solves on
+    every tree) and with two ghost cells in f32 on both paths (G on u and
+    phi while the tree is flat, exact; the paths bitwise equal);
+    be_collapse_mhd as shipped (f64, 10 cycles, its bin and rst outputs)
+    and in f32 on both paths (J three times a stage; the paths within
+    SMR_PATH_TOL's tiers of the plain path's range), J against its plain
+    version on its state; a -r restart of be_collapse_mhd (10 cycles
+    straight against 5 + 5, bitwise)."""
+    out = {}
+    got, mesh, phys, driver, state, _ = grav_cli(torch, kernels, BE,
+                                                 ncyc=NCYC_BE)
+    expect_launches("be_collapse", got, {})
+    trees = [(r["ncycle"], r["nmb"]) for r in driver.pamr.updates]
+    if not trees:
+        raise AssertionError("be_collapse: no tree update")
+    run, ms, cyc = grav_solve_ms(torch, phys, state)
+    out["be_collapse"] = {"zcps": driver.zcps, "trees": trees,
+                          "solve_ms": ms, "vcycles": cyc,
+                          "run_vcycles_last_tree": run}
+    print(f"phase 20: be_collapse as shipped (f64): {NCYC_BE} cycles, trees "
+          f"(cycle, blocks) {trees}, V-cycles a solve on the last tree "
+          f"{run}; [{card}] zone-cycles/s {driver.zcps:.6e} (wall clock, "
+          f"AMR included), a solve on the last tree from the start guess "
+          f"{ms:.2f} ms ({cyc:g} V-cycles)")
+    res = {}
+    for use in ("true", "false"):
+        got, mesh, phys, driver, state, _ = grav_cli(
+            torch, kernels, BE, BE_G + [f"hydro/use_kernels={use}"], NCYC_BE)
+        trees = [(r["ncycle"], r["leaves"]) for r in driver.pamr.updates]
+        flat = flat_cycles(trees, NCYC_BE)
+        expect_launches(f"be_collapse G {use}", got, {
+            "pool_fill": 1 + 4 * flat} if use == "true" else {})
+        res[use] = (state, trees)
+        out[f"be_collapse G {use}"] = {"launches": got, "zcps": driver.zcps,
+                                      "flat_cycles": flat}
+        print(f"phase 20: be_collapse {BE_G} use_kernels={use}: launches "
+              f"{got} ({flat} cycles on the flat tree); [{card}] zone-cycles"
+              f"/s {driver.zcps:.6e}")
+    if res["true"][1] != res["false"][1]:
+        raise AssertionError("be_collapse G: the paths took other trees")
+    bitwise_paths(torch, "be_collapse G", res["true"][0], res["false"][0])
+    del res
+    got, mesh, phys, driver, state, files = grav_cli(torch, kernels, BE_MHD,
+                                                     ncyc=NCYC_GRAV)
+    expect_launches("be_collapse_mhd", got, {})
+    for want in ("mhd_w", "mhd_bcc", "grav_phi"):
+        if not any(f".{want}." in f for f in files):
+            raise AssertionError(f"be_collapse_mhd: no {want} bin in {files}")
+    mp = [float(v) for v in phys.pgrav.mp_coeffs[:4]]
+    out["be_collapse_mhd"] = {"zcps": driver.zcps, "files": files,
+                              "mp_coeffs": mp}
+    print(f"phase 20: be_collapse_mhd as shipped (f64): {NCYC_GRAV} cycles, "
+          f"files {files}, multipole coefficients 0-3 {mp}; [{card}] "
+          f"zone-cycles/s {driver.zcps:.6e}")
+    res = {}
+    for use in ("true", "false"):
+        got, mesh, phys, driver, state, _ = grav_cli(
+            torch, kernels, BE_MHD, ["job/precision=single",
+                                     f"mhd/use_kernels={use}"], NCYC_GRAV)
+        expect_launches(f"be_collapse_mhd f32 {use}", got, {
+            "fused_flux_dir": 6 * NCYC_GRAV} if use == "true" else {})
+        res[use] = (state, [(r["ncycle"], r["leaves"])
+                            for r in driver.pamr.updates], phys)
+        out[f"be_collapse_mhd f32 {use}"] = {"launches": got,
+                                            "zcps": driver.zcps}
+        print(f"phase 20: be_collapse_mhd f32 use_kernels={use}: launches "
+              f"{got}; [{card}] zone-cycles/s {driver.zcps:.6e}")
+    ks, kt, kp = res["true"]
+    ps, pt, _ = res["false"]
+    if kt != pt:
+        raise AssertionError("be_collapse_mhd: the paths took other trees")
+    diff = {k: range_diff(a, b) for k, a, b in
+            [("u", ks["u"], ps["u"])]
+            + [(c, ks["bfc"][c], ps["bfc"][c]) for c in ks["bfc"]]}
+    for k, d in diff.items():
+        if not (d[0] > 0.95 and d[1] < SMR_PATH_TOL[1]):
+            raise AssertionError(f"be_collapse_mhd: paths apart in {k}: {d}")
+    from athenak_tpu_torch.ops import flux
+    w, bcc, bfc = ks["w"], ks["bcc"], ks["bfc"]
+    err = 0.0
+    for name, _axis, ivx, _dx in kp.dirs:
+        args = (w, bcc, bfc[f"{name}f"], kp.eos, name, ivx)
+        for g, r in zip(flux.fused_flux_dir(*args),
+                        flux.flux_dir_plain(*args)):
+            g, r = faces(g), faces(r)
+            err = max(err, two_tier(g, r, float(r.abs().max()) or 1.0,
+                                    f"be_collapse_mhd fused_flux_dir"))
+    out["be_collapse_mhd f32 path_diff"] = diff
+    print(f"phase 20: be_collapse_mhd f32 kernel vs plain path {diff}; "
+          f"fused_flux_dir agrees with its plain version on its "
+          f"{list(w.shape)} state (f32 two-tier, max abs {err:.3e})")
+    del res, ks, ps, w, bcc, bfc
+    out["restart"] = be_restart(torch, kernels)
+    out["flux_dir_err"] = err
+    return out
+
+
+def be_restart(torch, kernels):
+    """be_collapse_mhd (f64): 10 cycles straight against 5, a .rst (after
+    the tree update of cycle 5, the potential of the old tree in it),
+    then -r and 5 more: u, the face field and phi bitwise equal."""
+    from athenak_tpu_torch import main as cli_main
+    n = NCYC_GRAV // 2
+    common = ["output4/dcycle=5"]
+    cwd = os.getcwd()
+    os.environ["ATHENAK_DEVICE"] = "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            m1, _, _, s1 = cli_main.cli([
+                "-i", BE_MHD, "-d", os.path.join(tmp, "straight"), *common,
+                f"time/nlim={2 * n}"])
+            os.chdir(cwd)
+            cli_main.cli(["-i", BE_MHD, "-d", os.path.join(tmp, "first"),
+                          *common, f"time/nlim={n}"])
+            os.chdir(cwd)
+            rst = os.path.join(tmp, "first", "be_collapse.00001.rst")
+            kernels.reset_counts()
+            m2, _, _, s2 = cli_main.cli(["-r", rst, "-d",
+                                         os.path.join(tmp, "first"),
+                                         f"time/nlim={2 * n}"])
+            resumed = {k.name: k.launches for k in kernels.ALL if k.launches}
+        finally:
+            os.chdir(cwd)
+    if m1.leaves != m2.leaves or m2.ncycle != 2 * n:
+        raise AssertionError("be_collapse_mhd restart: trees differ")
+    for key in ("u", "phi"):
+        if not torch.equal(s1[key], s2[key]):
+            raise AssertionError(f"be_collapse_mhd restart: {key} not "
+                                 "bitwise")
+    for c in s1["bfc"]:
+        if not torch.equal(s1["bfc"][c], s2["bfc"][c]):
+            raise AssertionError(f"be_collapse_mhd restart: {c} not bitwise")
+    print(f"phase 20: restart be_collapse_mhd (f64): {2 * n} cycles straight "
+          f"and {n} + -r {n} bitwise equal (u, face field, phi; the .rst "
+          f"carries phi), {m2.nmb_total} blocks; launches resumed {resumed}")
+    return {"resumed": resumed, "nmb": m2.nmb_total}
+
+
+def phase_grav(torch, kernels, card):
+    """Phase 20: diffusion and self-gravity (see the module docstring)."""
+    seconds = {}
+
+    def part(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        return out
+
+    blast = part("diff_blast", diff_blast, torch, kernels, card)
+    bars = part("diffusion_bars", diffusion_bars, torch, kernels, card)
+    jeans = part("jeans", fill_runs, torch, kernels, card, "jeans_wave",
+                 JEANS, JEANS_BIG, "periodic_fill_cc", 0)
+    jeans["bars"] = part("jeans_bars", jeans_bars, torch, kernels, card)
+    selfg = part("selfgravity", fill_runs, torch, kernels, card,
+                 "selfgravity", SELFGRAV, SELFGRAV_BIG, None, 0)
+    binary = part("binary", binary_bars, torch, card)
+    be = part("be", be_runs, torch, kernels, card)
+    print(f"phase 20: seconds a part {seconds}")
+    runs = {**{k: v["launches"] for k, v in blast["runs"].items()},
+            "jeans_big": jeans["true"]["launches"],
+            "selfgravity_big": selfg["true"]["launches"],
+            **{k: v["launches"] for k, v in be.items()
+               if isinstance(v, dict) and "launches" in v},
+            "be_collapse_mhd restart": be["restart"]["resumed"]}
+    return {"runs": runs, "diff_blast": blast, "diffusion": bars,
+            "jeans": jeans, "selfgravity": selfg, "binary_gravity": binary,
+            "be": be, "seconds": seconds}
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
     return {"name": name, "route": "cuda",
@@ -4393,6 +4962,7 @@ def main() -> int:
         amr = phase("17", phase_amr, torch, kernels, card)
         bbh = phase("18", phase_bbh, torch, kernels, card, fill)
         gr = phase("19", phase_gr, torch, kernels, card)
+        grav = phase("20", phase_grav, torch, kernels, card)
     print(f"seconds a phase: {seconds}")
 
     def runs(name):
@@ -4410,6 +4980,7 @@ def main() -> int:
                    for k, v in bbh["runs"].items()},
                 **{k: v["launches"].get(name, 0)
                    for k, v in gr["runs"].items()},
+                **{k: v.get(name, 0) for k, v in grav["runs"].items()},
                 "bbh_restart": bbh["restart"]["resumed"].get(name, 0)}
 
     ft, fe = fill_times, fill_errs
@@ -4536,6 +5107,7 @@ def main() -> int:
         "gr": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
                if isinstance(v, dict) else v
                for k, v in gr.items() if k != "runs"},
+        "grav_diff": {k: v for k, v in grav.items() if k != "runs"},
         "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
         "build_seconds": kernels.BUILD_INFO.get("source_seconds"),
         "card": card}))

@@ -1245,3 +1245,70 @@ pert_amp = 0.02
     for key in ("u", "w", "bcc"):
         assert bool(torch.isfinite(state[key]).all()), key
     assert state["u"].dtype == torch.float32 and state["u"].is_cuda
+
+
+def _deck_run(rel, overrides, ncyc):
+    """A deck of ``inputs/`` with overrides on the card for ncyc cycles,
+    the launch counts set to 0 before the initial fill: (launches of the
+    kernels that launched, mesh, phys, driver, state)."""
+    from athenak_tpu_torch.athinput import ParameterInput as TorchInput
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pin = TorchInput.from_file(os.path.join(root, "inputs", rel))
+    pin.modify_from_cmdline(list(overrides) + ["time/tlim=1e6"])
+    mesh, phys, _, driver, state = build(pin, device="cuda")
+    kernels.reset_counts()
+    state = driver.initialize(state)
+    driver.nlim = ncyc
+    state = driver.execute(state)
+    assert driver.mesh.ncycle == ncyc
+    assert bool(torch.isfinite(state["u"]).all())
+    return ({k.name: k.launches for k in kernels.ALL if k.launches},
+            driver.mesh, driver.phys, driver, state)
+
+
+@pytest.mark.parametrize("eta", [True, False])
+def test_diffusive_blast_launches(card, eta):
+    """The 16^3 blast in float32 with viscosity and conduction, with and
+    without Ohmic resistivity: J three times a stage, B at every fill, A
+    never, D once a stage only without resistivity."""
+    extra = ["mesh/nx1=16", "mesh/nx2=16", "mesh/nx3=16",
+             "mhd/nu_iso=1e-3", "mhd/alpha_iso=1e-3"] \
+        + (["mhd/eta_ohm=1e-3"] if eta else [])
+    got, *_ = _deck_run("mhd/blast.athinput", extra, 3)
+    want = {"fused_flux_dir": 18, "periodic_fill_cc": 7,
+            "periodic_fill_fc": 7}
+    if not eta:
+        want["fused_ct3d"] = 6
+    assert got == want
+
+
+def test_jeans_fft_fill_launches(card):
+    """The Jeans deck in float32 on one block: B fills u at the start and
+    u and phi at every stage."""
+    got, *_ = _deck_run("tests/jeans_wave.athinput", [
+        "job/precision=single", "mesh/nx1=32", "mesh/nx2=16",
+        "mesh/nx3=16"], 3)
+    assert got == {"periodic_fill_cc": 13}
+
+
+def test_be_collapse_pool_fill_launches(card):
+    """The Bonnor-Ebert collapse in float32 on a 32^3 root of 8^3 blocks
+    with two ghost cells: G fills u and phi while the tree is flat (five
+    cycles; the centre refines at cycle 5), nothing after."""
+    got, mesh, *_ = _deck_run("tests/be_collapse.athinput", [
+        "job/precision=single", "mesh/nghost=2", "mesh/nx1=32",
+        "mesh/nx2=32", "mesh/nx3=32", "meshblock/nx1=8", "meshblock/nx2=8",
+        "meshblock/nx3=8", "problem/njeans=8"], 7)
+    assert mesh.multilevel and mesh.nmb_total == 120
+    assert got == {"pool_fill": 1 + 4 * 5}
+
+
+def test_be_collapse_mhd_flux_launches(card):
+    """be_collapse_mhd in float32 on a 32^3 root of 8^3 blocks (four ghost
+    cells: D's gate is closed): J three times a stage, nothing else."""
+    got, *_ = _deck_run("tests/be_collapse_mhd.athinput", [
+        "job/precision=single", "mesh/nx1=32", "mesh/nx2=32",
+        "mesh/nx3=32", "meshblock/nx1=8", "meshblock/nx2=8",
+        "meshblock/nx3=8", "output1/dt=100", "output2/dt=100",
+        "output3/dt=100", "output4/dt=100"], 3)
+    assert got == {"fused_flux_dir": 18}

@@ -187,7 +187,10 @@ def test_port_never_imports_jax():
               "pgen.cpaw", "pgen.field_loop", "pgen.current_sheet",
               "ops.fluid", "ops.rsolvers_sr", "srcterms", "units",
               "pgen.rt", "pgen.lw_implode", "pgen.slotted_cyl",
-              "pgen.advection", "amr", "amr_pool", "z4c.z4c_amr"):
+              "pgen.advection", "amr", "amr_pool", "z4c.z4c_amr",
+              "diffusion", "gravity", "multigrid", "pgen.diffusion_test",
+              "pgen.shock_cloud", "pgen.jeans_wave", "pgen.binary_gravity",
+              "pgen.be_collapse"):
         assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -20,6 +20,10 @@
         to 1e-10;
       - the JAX package's ``load_restart`` reads the port's ``.rst``:
         the same keys, parameters, time, dt, cycle and arrays.
+  * ``bin`` of an isothermal run, byte for byte the JAX package's file
+    from the same state: ``hydro_w`` of ``inputs/tests/advect_hyd`` with
+    its passive scalar and without (four channels), ``mhd_w_bcc`` of the
+    isothermal ``linear_wave_mhd`` (seven).
 """
 
 import glob
@@ -225,3 +229,47 @@ def test_restart_cli_flags(tmp_path, monkeypatch):
     assert os.path.exists(tmp_path / "b" / "Turb.hst")
     with pytest.raises(NotImplementedError, match="-p"):
         torch_main.cli(["-i", TURB, "-p", "prof"])
+
+
+# ------------------------------------------------------------ bin (F14)
+ADVECT = os.path.join(ROOT, "inputs", "tests", "advect_hyd.athinput")
+LWAVE_MHD = os.path.join(ROOT, "inputs", "tests", "linear_wave_mhd.athinput")
+BIN_CASES = {
+    "hydro_w scalar": (ADVECT, ["output7/variable=hydro_w"], 4),
+    "hydro_w no scalar": (ADVECT, ["output7/variable=hydro_w",
+                                   "hydro/nscalars=0"], 4),
+    "mhd_w_bcc isothermal": (LWAVE_MHD, ["output7/variable=mhd_w_bcc",
+                                         "mhd/eos=isothermal",
+                                         "mesh/nx1=16", "mesh/nx2=8",
+                                         "mesh/nx3=8"], 7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BIN_CASES))
+def test_isothermal_bin_matches_jax(case, tmp_path):
+    """The ``bin`` of an isothermal run: min(nhydro, 5) fluid channels
+    under their labels (four here, a passive scalar left out), with the
+    three bcc for ``*_bcc`` (seven), byte for byte the JAX package's file
+    from the same state and parameters."""
+    deck, extra, nvar = BIN_CASES[case]
+    pj = JaxInput.from_file(deck)
+    pj.modify_from_cmdline(JAX_EXTRA + extra + ["output7/file_type=bin"])
+    jmesh, jphys, _, _, st = jax_main.build(pj)
+    st = jax.tree_util.tree_map(np.asarray, jax.jit(jphys.init_ghosts)(st))
+    jout = jax_outputs.BinaryOutput(pj, jmesh, jphys, "output7")
+    from athenak_tpu_torch.athinput import ParameterInput
+    pt = ParameterInput.from_string(pj.dump())
+    tmesh, tphys, _, _, _ = torch_main.build(
+        ParameterInput.from_string(pj.dump()), device="cpu")
+    tout = torch_outputs.BinaryOutput(pt, tmesh, tphys, "output7")
+    tst = {k: (torch.tensor(v) if not isinstance(v, dict) else
+               {c: torch.tensor(a) for c, a in v.items()})
+           for k, v in st.items()}
+    _in(str(tmp_path / "port"), lambda: tout.write(tmesh, tst))
+    jst = jax.tree_util.tree_map(jax.numpy.asarray, st)
+    _in(str(tmp_path / "jax"), lambda: jout.write(
+        jmesh, jst["u"], jst["w"], bcc=jst.get("bcc"), state=jst))
+    name = os.listdir(tmp_path / "port")[0]
+    got = (tmp_path / "port" / name).read_bytes()
+    assert got == (tmp_path / "jax" / name).read_bytes()
+    assert f"number of variables={nvar}\n".encode() in got
