@@ -29,8 +29,10 @@ gate.
 
 An ``inflow`` flag holds its ghosts at the fixed state a problem
 generator puts in ``inflow_state`` (a [nvar] tensor a face key, x1m and
-so on; the outflow copy until one is set).  A ``user`` boundary flag
-leaves its ghosts to the problem generator's
+so on; the outflow copy until one is set).  A ``shear_periodic`` x1 side
+gathers from the wraparound donor as a periodic one does; the shearing
+box (``shearing_box.py``) remaps those ghosts after the fill.  A ``user``
+boundary flag leaves its ghosts to the problem generator's
 ``user_bc_func(u, bvals) -> u`` (the sweeps treat the side as periodic),
 which runs after every fill route, as in the JAX package; the hooks of
 the port's problem generators write in place, and ``fill_ghosts``
@@ -94,8 +96,8 @@ class BoundaryValues:
         }
         for key, flag in self.flag.items():
             if self.any_phys.get(key, False) and flag not in (
-                    "periodic", "outflow", "reflect", "diode", "vacuum",
-                    "inflow", "user"):
+                    "periodic", "shear_periodic", "outflow", "reflect",
+                    "diode", "vacuum", "inflow", "user"):
                 raise NotImplementedError(
                     f"boundary flag '{flag}' is not ported to "
                     "athenak_tpu_torch yet")
@@ -381,8 +383,10 @@ class BoundaryValues:
         n = u.shape[axis]
         key = f"{ax}{side}"
         flag = self.flag[key]
-        if flag in ("periodic", "user"):
-            # a user side: the hook writes its ghosts after the fill
+        if flag in ("periodic", "shear_periodic", "user"):
+            # shear-periodic ghosts are the wraparound donor's, remapped
+            # by the shearing box after the fill; a user side's, the
+            # hook's after the fill
             return gathered
         nvel = _NORMAL_VEL[ax]
         if side == "m":

@@ -11,9 +11,13 @@ cycle windows, block coalescing and pencil packing are not ported:
 coalescing repacks a pool into one superblock for the TPU's lane layout,
 so a multi-block deck runs here as a pool of blocks whatever
 ``mesh/coalesce`` says, with the same answer.  A driven run applies its
-turbulence forcing once a cycle, before the stages, and the physics'
+turbulence forcing once a cycle, before the stages, then the particle
+push and the shearing box's orbital advection (cell and face variables,
+then the fill, the sheared remap and the c2p), and the physics'
 ``post_cycle`` (the Z4c puncture trackers) after them; a state that
-carries the time ``t`` has it advanced by dt a cycle.  On an adaptive mesh
+carries the time ``t`` has it advanced by dt a cycle.  A physics with
+its own ``imex_cycle`` (the ion-neutral two-fluid under the ImEx
+integrators) runs that as the whole cycle.  On an adaptive mesh
 the AMR step (``amr.AMR``) runs after every cycle; a tree update
 replaces the mesh and the physics, drops the cycle function and takes
 dt on the new tree at once (the finer CFL), and the zone-cycles count
@@ -137,10 +141,6 @@ class Driver:
         if self.time_evolution != "static":
             self.integrator = make_integrator(
                 pin.get_or_add_string("time", "integrator", "rk2"))
-            if self.integrator.nimp_stages:
-                raise NotImplementedError(
-                    "ImEx integrators are not ported to athenak_tpu_torch "
-                    "yet")
             self.tlim = pin.get_real("time", "tlim")
             self.nlim = pin.get_or_add_integer("time", "nlim", -1)
             self.ndiag = pin.get_or_add_integer("time", "ndiag", 1)
@@ -167,6 +167,10 @@ class Driver:
         under SR ``nc2p_fail`` too."""
         integ = self.integrator
         phys = self.phys
+        if hasattr(phys, "imex_cycle"):
+            # the two-fluid ImEx physics runs the whole cycle (reference:
+            # the interleaved task list of src/ion-neutral/)
+            return lambda state, dt: phys.imex_cycle(state, dt, integ)
         is_rk4 = integ.name == "rk4"
 
         def cycle(state, dt):
@@ -175,6 +179,10 @@ class Driver:
             # (reference: driver.cpp:401 "before_timeintegrator")
             if getattr(phys, "pturb", None) is not None:
                 state = phys.pturb.apply(state, dt, phys)
+            if getattr(phys, "ppart", None) is not None:
+                state = phys.ppart.push(state, dt)
+            if getattr(phys, "psbox", None) is not None:
+                state = self._orbital_advection(state, dt)
             saved = phys.save_state(state)
             counters_tot = None
             dt_fused = None
@@ -210,6 +218,23 @@ class Driver:
             return state, dtnew, counters_tot
 
         return cycle
+
+    def _orbital_advection(self, state, dt):
+        """The shearing box's orbital advection, once a cycle (reference:
+        the OA tasks of the hydro and MHD task lists,
+        src/shearing_box/orbital_advection_{cc,fc}.cpp): remap u (and the
+        face field), fill the ghosts, remap the sheared ones, c2p."""
+        phys, sbox = self.phys, self.phys.psbox
+        u = phys.bvals.fill_ghosts(sbox.orbital_advect(state["u"], dt))
+        u = sbox.remap_ghosts(u, state["t"])
+        if "bfc" not in state:
+            w, u, _ = phys.cons_to_prim(u)
+            return dict(state, u=u, w=w)
+        bfc = phys.fill_ghosts_fc(sbox.orbital_advect_fc(state["bfc"], dt))
+        bfc = sbox.remap_ghosts_fc(bfc, state["t"])
+        bcc = phys.compute_bcc(bfc)
+        w, u, _ = phys.cons_to_prim(u, bcc)
+        return dict(state, u=u, w=w, bfc=bfc, bcc=bcc)
 
     # ------------------------------------------------------------------
     def initialize(self, state):

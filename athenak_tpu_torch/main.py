@@ -67,7 +67,7 @@ def read_deck(path, overrides=()):
 def make_physics(pin, mesh, bvals, device, dtype):
     """Select and construct the physics module (reference:
     MeshBlockPack::AddPhysics, meshblock_pack.cpp:102-235)."""
-    for block in ("radiation", "adm", "ion-neutral"):
+    for block in ("radiation", "adm"):
         if pin.does_block_exist(block):
             raise NotImplementedError(
                 f"<{block}> physics is not ported to athenak_tpu_torch yet")
@@ -79,6 +79,15 @@ def make_physics(pin, mesh, bvals, device, dtype):
         # vacuum numerical relativity (reference: AddPhysics z4c branch)
         from .z4c.z4c import Z4c
         return Z4c(pin, mesh, bvals, device=device, dtype=dtype)
+    if pin.does_block_exist("ion-neutral"):
+        # two fluids, <hydro> neutrals and <mhd> ions, ImEx-coupled
+        # (reference: AddPhysics ion-neutral branch)
+        if not (pin.does_block_exist("hydro")
+                and pin.does_block_exist("mhd")):
+            raise ValueError(
+                "<ion-neutral> requires both <hydro> and <mhd> blocks")
+        from .physics.ion_neutral import IonNeutral
+        return IonNeutral(pin, mesh, bvals, device=device, dtype=dtype)
     if pin.does_block_exist("mhd"):
         from .physics.mhd import MHD
         return MHD(pin, mesh, bvals, device=device, dtype=dtype)

@@ -187,10 +187,6 @@ class Mesh:
                 if act and mb % 2 != 0:
                     raise ValueError(
                         "SMR/AMR requires even meshblock extents")
-            if "shear_periodic" in self.mesh_bcs.values():
-                raise NotImplementedError(
-                    "the shearing box on a refined mesh is not ported to "
-                    "athenak_tpu_torch yet")
             self._build_blocks_ml(leaves)
             # an adaptive mesh takes the uniform route while its tree is
             # flat; every tree update rebuilds the mesh and decides again
@@ -346,6 +342,21 @@ class Mesh:
                      if isinstance(v, dict) and "same" in v]
         self.nbr_gid = {k: self.ml[k]["same"] for k in face_keys}
         self.phys_bc_mask = {k: self.ml[k]["phys"] for k in face_keys}
+        # shear_periodic x1: the tables wrap as periodic ones do (the fill
+        # takes the wraparound donors), but the boundary blocks stay
+        # flagged so that the sheared y-remap finds them, as on the
+        # uniform route (reference: shear-periodic runs its own comm pass
+        # after the periodic fill, shearing_box_cc.cpp:63-140)
+        if self.mesh_bcs.get("ix1") == "shear_periodic":
+            for side in ("m", "p"):
+                mask = np.array(self.phys_bc_mask[f"x1{side}"], dtype=bool,
+                                copy=True)
+                for g, loc in enumerate(self.lloc_eachmb):
+                    lev = int(self.mb_lev[g])
+                    edge = 0 if side == "m" else (nrbx[0] << lev) - 1
+                    if int(loc[0]) == edge:
+                        mask[g] = True
+                self.phys_bc_mask[f"x1{side}"] = mask
 
     # ------------------------------------------------------------------
     def cell_centers(self, gid: int):

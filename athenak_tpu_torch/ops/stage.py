@@ -61,12 +61,15 @@ def pallas_physics(phys) -> bool:
 
 def no_stage_extras(phys) -> bool:
     """None of the physics that the JAX stage-kernel gates exclude
-    (``pallas_stage.py:176-182, 564-573``): first-order flux correction,
-    GR flux excision, ``<*_srcterms>``, self-gravity, viscosity,
-    resistivity and conduction.  The stage kernels A, C and E have no
-    room for the diffusive fluxes, the resistive EMFs or the potential
-    solve."""
+    (``pallas_stage.py:176-182, 564-573``, and the shearing box's
+    ``psbox is None`` clauses of ``athenak_tpu/physics/mhd.py:225-236``):
+    first-order flux correction, GR flux excision, ``<*_srcterms>``,
+    self-gravity, viscosity, resistivity, conduction and the shearing
+    box.  The stage kernels A, C and E have no room for the diffusive
+    fluxes, the resistive EMFs, the potential solve or the sheared
+    boundaries' remap between the fill and the c2p."""
     return (not phys.use_fofc
+            and getattr(phys, "psbox", None) is None
             and getattr(phys, "fofc_excise_mask", None) is None
             and phys.srcterms is None
             and getattr(phys, "pgrav", None) is None
@@ -88,12 +91,14 @@ def supports_mega_stage(phys, mesh) -> bool:
 
 def supports_mega_v2(phys, mesh) -> bool:
     """Gate of kernel A: the stage-kernel gate, no turbulence driving,
-    whose forcing reads the state's primitives between cycles, no
-    problem generator's source-term hook or user boundary function and
-    no prolongation in primitives (the JAX ``supports_mega_v2``).  The
-    hooks arrive after the physics is built, so ``MHD.kernel_path``
-    checks them again at every stage."""
+    whose forcing reads the state's primitives between cycles, no test
+    particles (``pallas_stage.py:788``), no problem generator's
+    source-term hook or user boundary function and no prolongation in
+    primitives (the JAX ``supports_mega_v2``).  The hooks arrive after
+    the physics is built, so ``MHD.kernel_path`` checks them again at
+    every stage."""
     return (getattr(phys, "pturb", None) is None
+            and getattr(phys, "ppart", None) is None
             and getattr(phys, "srcterms_func", None) is None
             and phys.bvals.user_bc_func is None
             and not phys.bvals.prolong_prims

@@ -54,15 +54,17 @@ def supports_fused_stage(phys, mesh) -> bool:
 
 
 def supports_fused_ct(phys, mesh) -> bool:
-    """Gate for kernel D: the JAX ``use_pallas and supports_fused_ct``
-    (``athenak_tpu/physics/mhd.py:230-232``, ``pallas_stage.py:365``),
-    that is ``pallas_physics``, not GR, no resistivity (D's corner EMFs
-    have no resistive part), 3-D, one level and two ghost cells.  Like
-    the JAX gate it admits FOFC, source terms, viscosity, conduction and
-    self-gravity: D runs after them on the general path and reads the
-    corrected mass flux."""
+    """Gate for kernel D: the JAX ``use_pallas and psbox is None and
+    supports_fused_ct`` (``athenak_tpu/physics/mhd.py:230-232``,
+    ``pallas_stage.py:365``), that is ``pallas_physics``, not GR, no
+    shearing box, no resistivity (D's corner EMFs have no resistive
+    part), 3-D, one level and two ghost cells.  Like the JAX gate it
+    admits FOFC, source terms, viscosity, conduction and self-gravity:
+    D runs after them on the general path and reads the corrected mass
+    flux."""
     return (len(phys.dirs) == 3 and pallas_physics(phys)
             and not getattr(phys, "is_gr", False)
+            and getattr(phys, "psbox", None) is None
             and getattr(phys, "presist", None) is None
             and not mesh.multilevel and mesh.mb_indcs.ng == NG)
 

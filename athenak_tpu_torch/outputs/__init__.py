@@ -5,9 +5,9 @@ and horizon dumps.
 Counterpart of ``athenak_tpu/outputs/__init__.py`` (reference:
 src/outputs/ — BaseTypeOutput and the <outputN> factory,
 src/outputs/outputs.cpp:224-260).  ``hst``, ``bin``, ``tab``, ``rst``,
-``vtk`` and ``wave`` are ported; the other file types raise.  A Z4c deck
-also gets its CCE worldtubes from ``<cce>`` and its horizon cube dumps
-from ``<z4c>/dump_horizon_N`` (reference: z4c.cpp:195-233).  Every
+``vtk``, ``wave`` and ``trk`` are ported; the other file types raise.  A
+Z4c deck also gets its CCE worldtubes from ``<cce>`` and its horizon
+cube dumps from ``<z4c>/dump_horizon_N`` (reference: z4c.cpp:195-233).  Every
 writer reads the state the driver hands it (``phys.unpack_state``: u, w,
 under MHD bfc and bcc, the turbulence driver's entries, the puncture
 trackers' ``co_pos``) and moves what it writes to the host.  ``bin``,
@@ -615,8 +615,36 @@ def _cadence(extras, key):
     return extras[key]
 
 
+class TrackedParticleOutput(BaseOutput):
+    """Tracked-particle trajectories (reference: src/outputs/
+    track_prtcl.cpp, the ``trk`` type; the JAX package's
+    ``TrackedParticleOutput``): a row of time, id, position and velocity
+    for each of the first ``<particles>/ntrack`` particles, appended to
+    ``<basename>.trk`` at each write.  A state without particles writes
+    nothing."""
+
+    def maybe_write(self, mesh, state, force: bool = False) -> None:
+        if "prtcl_x" in state:
+            super().maybe_write(mesh, state, force)
+
+    def write(self, mesh, state) -> None:
+        x = state["prtcl_x"].detach().cpu().numpy()
+        v = state["prtcl_v"].detach().cpu().numpy()
+        ntrack = min(self.phys.ppart.ntrack, x.shape[0])
+        fname = self.basename + ".trk"
+        new = not os.path.exists(fname)
+        with open(fname, "a") as f:
+            if new:
+                f.write("# time  id  x1  x2  x3  v1  v2  v3\n")
+            for p in range(ntrack):
+                f.write(f"{mesh.time:.10e}  {p:d}  "
+                        + "  ".join(f"{q:.10e}" for q in
+                                    list(x[p]) + list(v[p])) + "\n")
+
+
 _TYPES = {"hst": HistoryOutput, "bin": BinaryOutput, "tab": TabularOutput,
-          "rst": RestartOutput, "vtk": VtkOutput, "wave": WaveformOutput}
+          "rst": RestartOutput, "vtk": VtkOutput, "wave": WaveformOutput,
+          "trk": TrackedParticleOutput}
 
 
 def make_outputs(pin, mesh, phys, driver=None) -> List[BaseOutput]:

@@ -18,8 +18,10 @@ the Z4c generators (single, boosted and two punctures, Kerr-Schild, the
 linear wave and the AwA gauge-wave and robust-stability tests), the GR
 generators (Bondi accretion, the split monopole, the Fishbone-Moncrief
 torus), the star-disk magnetosphere, the diffusion decay tests, the
-shock-cloud interaction and the self-gravity problems (the Jeans wave,
-the binary potential, the Bonnor-Ebert collapse) are ported so far.
+shock-cloud interaction, the self-gravity problems (the Jeans wave,
+the binary potential, the Bonnor-Ebert collapse), the shearing-box
+problems (the shearing waves, the 2-D and 3-D MRI) and the ion-neutral
+two-fluid state are ported so far.
 """
 
 from __future__ import annotations
@@ -68,6 +70,10 @@ _REGISTRY = {
     "gravity": "athenak_tpu_torch.pgen.jeans_wave",
     "binary_gravity": "athenak_tpu_torch.pgen.binary_gravity",
     "be_collapse": "athenak_tpu_torch.pgen.be_collapse",
+    "shwave": "athenak_tpu_torch.pgen.shwave",
+    "mri2d": "athenak_tpu_torch.pgen.mri2d",
+    "mri3d": "athenak_tpu_torch.pgen.mri3d",
+    "twofluid": "athenak_tpu_torch.pgen.twofluid",
 }
 
 
@@ -83,6 +89,12 @@ def to_device(phys, a):
     """A host array as a tensor on the run's device at its dtype."""
     return torch.as_tensor(np.ascontiguousarray(a), dtype=phys.dtype,
                            device=phys.device)
+
+
+def host64(t):
+    """A tensor as a float64 numpy array on the host (the user history
+    functions sum in float64, as the JAX package's do)."""
+    return t.detach().to(device="cpu", dtype=torch.float64).numpy()
 
 
 def state_from_prims(phys, w, bfc=None):

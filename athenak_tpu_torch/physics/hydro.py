@@ -42,7 +42,16 @@ first-order fluxes (the flux-excision mask, with or without
 ``<hydro>/fofc``) and dt is bounded by the speed of light.  A problem
 generator may enroll ``srcterms_func(u, w, beta_dt[, t=])``, called
 after the source terms (``needs_time``: the time the state carries in
-``t``).  Particles and the shearing box are not ported yet and raise.
+``t``).
+
+Test particles (``<particles>``, ``particles.py``) carry ``prtcl_x`` and
+``prtcl_v`` in the state; the driver pushes them once a cycle and their
+cell-crossing time bounds dt.  The shearing box (``<shearing_box>``,
+``shearing_box.py``) carries the time ``t``; its Coriolis and tidal
+terms follow the ``<hydro_srcterms>``, its sheared x1 ghosts are remapped
+after every fill, and the driver advects the orbits once a cycle.
+Neither has a kernel; the fills keep theirs where the boundaries admit
+them (a ``shear_periodic`` side closes B and G, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -66,9 +75,10 @@ from ..ops.eos_sr import (cons_to_prim_sr_hydro, prim_to_cons_sr_hydro,
 from ..ops.fluid import face_floors, fofc_faces, rk_update, scalar_fluxes
 from ..ops.rsolvers_gr import GR_HYDRO_RSOLVER_FNS, llf_gr
 from ..ops.rsolvers_sr import SR_HYDRO_RSOLVER_FNS, llf_sr
+from ..particles import Particles
 from ..refinement import flux_correct_cc
+from ..shearing_box import ShearingBox
 from ..srcterms import SourceTerms
-from ..utils import not_ported
 
 
 class Hydro:
@@ -125,10 +135,12 @@ class Hydro:
         # src/srcterms/srcterms.cpp:37-80)
         self.srcterms = SourceTerms("hydro_srcterms", pin, mesh, self.eos) \
             if pin.does_block_exist("hydro_srcterms") else None
-        for block, what in (("shearing_box", "the shearing box"),
-                            ("particles", "particles")):
-            if pin.does_block_exist(block):
-                raise not_ported(what)
+        # test particles and the shearing box (reference: src/particles/,
+        # src/shearing_box/)
+        self.ppart = Particles(pin, mesh, device, dtype) \
+            if pin.does_block_exist("particles") else None
+        self.psbox = ShearingBox(pin, mesh, device, dtype) \
+            if pin.does_block_exist("shearing_box") else None
 
         mbi = mesh.mb_indcs
         self.shape = (mesh.nmb_total, self.nvar, mbi.ncells3, mbi.ncells2,
@@ -315,6 +327,10 @@ class Hydro:
         state = {"u": u, "w": w}
         if self.pturb is not None:
             state.update(self.pturb.init_state_entries(u.dtype))
+        if self.ppart is not None:
+            state.update(self.ppart.init_state_entries(u.dtype))
+        if self.psbox is not None:
+            state["t"] = torch.zeros((), dtype=u.dtype, device=u.device)
         if isinstance(self.pgrav, MGPoisson):
             # the multigrid's starting guess, carried from stage to stage
             state["phi"] = torch.zeros((u.shape[0], 1) + u.shape[2:],
@@ -370,11 +386,15 @@ class Hydro:
             u = coord_src_terms(u, w, self.eos, self.geom, beta_dt)
         if self.srcterms is not None and self.srcterms.any_enabled:
             u = self.srcterms.apply(u, w, beta_dt, flx=flx, phi=phi)
+        if self.psbox is not None:
+            u = self.psbox.src_terms(u, w, beta_dt, self.eos.is_ideal)
         if self.srcterms_func is not None:
             kw = {"t": state.get("t")} \
                 if getattr(self.srcterms_func, "needs_time", False) else {}
             u = self.srcterms_func(u, w, beta_dt, **kw)
         u = self.bvals.fill_ghosts(u)
+        if self.psbox is not None:
+            u = self.psbox.remap_ghosts(u, state["t"])
         w, u, counters = self.cons_to_prim(u)
         if self.bvals.prolong_prims:
             u, w = self.bvals.prolong_prims_fixup(u, w, self.prim_to_cons)
@@ -394,4 +414,7 @@ class Hydro:
             dt = torch.minimum(dt, self.pcond.new_dt(ndim, dt))
         if self.srcterms is not None and self.srcterms.any_enabled:
             dt = torch.minimum(dt, self.srcterms.new_dt(state["w"]))
+        if self.ppart is not None:
+            dt = torch.minimum(dt, torch.tensor(
+                self.ppart.new_dt(), dtype=dt.dtype, device=dt.device))
         return dt

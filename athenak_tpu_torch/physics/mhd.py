@@ -72,8 +72,20 @@ the source terms on every route (after kernel E on the v1 route and
 kernel C on the split one), and ``bvals.user_bc_func``; either closes
 kernel A at run time, and a user boundary function closes F's fill and
 the pool route of the v1 stage, as in the JAX package (generators
-install the hooks after the physics is built).  Particles and the
-shearing box are not ported yet and raise.
+install the hooks after the physics is built).
+
+Test particles (``<particles>``) close kernel A alone, as in the JAX
+package (``supports_mega_v2``): a deck of A's gate takes the v1 route E
++ F, with F's new-dt maxima off (the particles' crossing time bounds
+dt); the driver pushes them once a cycle.  The shearing box
+(``<shearing_box>``) closes A, C, D and E, as the JAX package's
+``psbox`` clauses do, and leaves J open: a PLM + HLLD deck forms its
+fluxes with J on the general path, whose stage adds the Coriolis and
+tidal terms after the ``<mhd_srcterms>``, the 2-D r-z box's orbital
+EMF before CT, and the sheared remap of the x1 ghosts after the fills;
+the driver advects the orbits (cell and face variables) once a cycle.
+A ``shear_periodic`` side closes the fills B and G (their gates want
+every side periodic).
 
 Viscosity, conduction and resistivity (``diffusion.py``) add their
 fluxes into the Godunov fluxes on the general path, after kernel J's
@@ -112,8 +124,9 @@ from ..ops.rsolvers_srmhd import SR_MHD_RSOLVER_FNS, llf_srmhd
 from ..diffusion import Conduction, Resistivity, Viscosity
 from ..gravity import make_gravity
 from ..multigrid import MGPoisson
+from ..particles import Particles
+from ..shearing_box import ShearingBox
 from ..srcterms import SourceTerms
-from ..utils import not_ported
 
 # axes of the 4-D [nmb, n3, n2, n1] EMF / face arrays
 KA, JA, IA = 1, 2, 3
@@ -339,10 +352,12 @@ class MHD:
         # source terms of the <mhd_srcterms> block
         self.srcterms = SourceTerms("mhd_srcterms", pin, mesh, self.eos) \
             if pin.does_block_exist("mhd_srcterms") else None
-        for block, what in (("shearing_box", "the shearing box"),
-                            ("particles", "particles")):
-            if pin.does_block_exist(block):
-                raise not_ported(what)
+        # test particles and the shearing box (reference: src/particles/,
+        # src/shearing_box/shearing_box_fc.cpp, orbital_advection_fc.cpp)
+        self.ppart = Particles(pin, mesh, device, dtype) \
+            if pin.does_block_exist("particles") else None
+        self.psbox = ShearingBox(pin, mesh, device, dtype) \
+            if pin.does_block_exist("shearing_box") else None
 
         mbi = mesh.mb_indcs
         self.multilevel = mesh.multilevel
@@ -621,7 +636,8 @@ class MHD:
             key = f"{ax}{side}"
             flag = bv.flag[key]
             # a user side keeps the gathered faces, as the JAX package's
-            if not bv.any_phys[key] or flag in ("periodic", "user"):
+            if not bv.any_phys[key] or flag in ("periodic",
+                                                "shear_periodic", "user"):
                 continue
             for comp, arr in bfc.items():
                 mask = bv.local_mask(key, 4, arr.device)
@@ -673,6 +689,10 @@ class MHD:
                  "bcc": bcc if bcc is not None else compute_bcc(bfc)}
         if self.pturb is not None:
             state.update(self.pturb.init_state_entries(u.dtype))
+        if self.ppart is not None:
+            state.update(self.ppart.init_state_entries(u.dtype))
+        if self.psbox is not None:
+            state["t"] = torch.zeros((), dtype=u.dtype, device=u.device)
         if isinstance(self.pgrav, MGPoisson):
             # the multigrid's starting guess, carried from stage to stage
             state["phi"] = torch.zeros((u.shape[0], 1) + u.shape[2:],
@@ -791,6 +811,9 @@ class MHD:
                                     bcc=bcc)
             if self.srcterms is not None and self.srcterms.any_enabled:
                 u = self.srcterms.apply(u, w, beta_dt, flx=flx, phi=phi)
+            if self.psbox is not None:
+                u = self.psbox.src_terms(u, w, beta_dt, self.eos.is_ideal,
+                                         bcc=bcc)
             if self.srcterms_func is not None:
                 u = self._user_srcs(u, w, beta_dt, bcc, t=state.get("t"))
             # kernel D and corner_e read the corrected mass flux
@@ -809,10 +832,16 @@ class MHD:
             if self.multilevel:
                 e1, e2, e3 = mhd_smr.emf_correct(
                     self.mesh, self.bvals.active_axes, e1, e2, e3)
+            if self.psbox is not None and not self.psbox.oa_active:
+                # the 2-D r-z box: the orbital EMF as a source
+                e1, e2 = self.psbox.src_terms_fc(e1, e2, bfc)
             bfc = self.ct_update(bfc, saved["bfc1"], e1, e2, e3,
                                  gam0, gam1, beta_dt)
         u = self.bvals.fill_ghosts(u)
         bfc = self.fill_ghosts_fc(bfc)
+        if self.psbox is not None:
+            u = self.psbox.remap_ghosts(u, state["t"])
+            bfc = self.psbox.remap_ghosts_fc(bfc, state["t"])
         bcc = compute_bcc(bfc)
         w, u, counters = self.cons_to_prim(u, bcc)
         if self.bvals.prolong_prims:
@@ -831,7 +860,7 @@ class MHD:
         kernel F.  A single periodic block takes F with its periodic wrap;
         a pool takes the pool fill of u and F without it; any other mesh,
         or a user boundary function, the general fill, bcc and c2p.  F's
-        new-dt maxima ride along in dynamic runs."""
+        new-dt maxima ride along in dynamic runs without particles."""
         from ..ops.aux import fused_aux3d
         from ..ops.stage_v1 import fused_mega_stage3d
         bv = self.bvals
@@ -842,7 +871,10 @@ class MHD:
             u = self._user_srcs(u, state["w"], beta_dt, state["bcc"],
                                 t=state.get("t"))
         bfc = self.fill_ghosts_fc(bfc)
-        dxs = self.dxs if self.time_evolution == "dynamic" else None
+        # no new-dt maxima under particles, whose crossing time bounds dt
+        # in dt_from_state (the JAX ``fuse_dt``)
+        dxs = self.dxs if (self.time_evolution == "dynamic"
+                           and self.ppart is None) else None
         aux = self.aux_route(u)
         if aux == "F":
             u, w, bcc, counters = fused_aux3d(u, bfc, self.eos, dxs=dxs)
@@ -870,4 +902,7 @@ class MHD:
                                                        dt))
         if self.srcterms is not None and self.srcterms.any_enabled:
             dt = torch.minimum(dt, self.srcterms.new_dt(state["w"]))
+        if self.ppart is not None:
+            dt = torch.minimum(dt, torch.tensor(
+                self.ppart.new_dt(), dtype=dt.dtype, device=dt.device))
         return dt

@@ -9,7 +9,12 @@ and the turbulence driver's ``turb_force`` and threefry key
 at the state's dtype.  A state whose problem generator has a
 time-dependent source term carries the time ``t`` (0-d, at the state's
 dtype).  A multigrid gravity run carries the last stage's potential
-``phi`` [nmb, 1, n3, n2, n1], the next solve's first guess.  These two
+``phi`` [nmb, 1, n3, n2, n1], the next solve's first guess.  A shearing
+box carries ``t`` (its sheared boundaries read it), a deck with
+particles their positions and velocities ``prtcl_x`` and ``prtcl_v``
+[np, 3], and an ion-neutral state the ions' ``ui`` and ``wi`` beside the
+neutrals' ``u`` and ``w``, with the stiff residuals of its implicit
+stages ``ru`` [nmb, 4, 8, n3, n2, n1].  These two
 functions move such a dict (as numpy
 arrays) into the port and back, so both packages can start from one
 state.
@@ -20,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_KEYS = ("u", "w", "bcc", "turb_force", "co_pos", "t", "phi")
+_KEYS = ("u", "w", "bcc", "turb_force", "co_pos", "t", "phi",
+         "prtcl_x", "prtcl_v", "ui", "wi", "ru")
 
 
 def _check_keys(d) -> None:

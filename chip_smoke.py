@@ -290,6 +290,30 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      within SMR_PATH_TOL's tiers of the plain path's range; J against its
      plain version on its state) and restarted through ``-r`` (10 cycles
      straight against 5 + 5, u, the face field and phi bitwise).
+ 21. drives the shearing box, particle and ion-neutral slice through the
+     CLI, the launch counts set to 0 before each run and checked
+     exactly: the nine decks as shipped (``inputs/shearing_box/*``,
+     ``inputs/particles/random_drift``, ``inputs/ion-neutral/drag``; f64,
+     10 cycles): no launch, div(B) at round-off; ``mri3d_unstratified``
+     in f32 and at ``SBOX_WIDE`` (128 x 256 x 64, one block of 2.1M
+     cells) on the kernel path (J three times a stage, nothing else) and
+     the plain path (nothing), div(B) <= 1e-5, the paths within
+     SMR_PATH_TOL's tiers of what they changed, J against its plain
+     version on the SBOX_WIDE state (f32 two-tier), the ms of a cycle's
+     parts (orbital advection, the sheared remap, J, the source terms, a
+     stage, a cycle) and both paths' zone-cycles/s in turns;
+     ``random_drift`` in f32 on both paths (B once and once a stage; the
+     paths bitwise, the drift exact to 1e-5); ``PART_BLAST``
+     (``inputs/mhd/blast.athinput`` with random_drift's ``<particles>``
+     block: E and F twice a cycle, the face fill after every E, B once, A
+     never; the paths within the tiers); and the JAX tests' bars on the
+     card, each on its test's own deck (read from the test file with
+     ``ast``) and to its own tlim in f64: the epicyclic oscillation
+     (``tests/test_shearing_box.py``), the MHD shearing wave's dByc
+     against its table, mean error below 2.1e-8, div(B) below 1e-12
+     (``tests/test_shearing_box_mhd.py``), the MRI growth checks of
+     ``tests/test_mri3d.py`` and the drag relaxation and stiff drag of
+     ``tests/test_ion_neutral.py``.
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -2428,9 +2452,10 @@ def phase_hydro_main(torch, kernels, card):
     return out
 
 
-def div_b(torch, phys, bfc):
-    """max|div B| dx / max(max|B|, 1e-30) over the interior, and the div
-    B array itself, of a face field of a 1-D, 2-D or 3-D block."""
+def div_b(torch, phys, bfc, ng=2):
+    """max|div B| dx / max(max|B|, 1e-30) over the interior (``ng``
+    cells off every side), and the div B array itself, of a face field
+    of a 1-D, 2-D or 3-D block."""
     b1, b2, b3 = bfc["x1f"], bfc["x2f"], bfc["x3f"]
     div = (b1[..., 1:] - b1[..., :-1]) / phys.dxs["x1"]
     if len(phys.dirs) > 1:
@@ -2438,7 +2463,7 @@ def div_b(torch, phys, bfc):
     if len(phys.dirs) > 2:
         div = div + (b3[:, 1:] - b3[:, :-1]) / phys.dxs["x3"]
     bmax = max(max(float(v.abs().max()) for v in bfc.values()), 1e-30)
-    div = interior(div)
+    div = interior(div, ng)
     return float(div.abs().max()) * phys.dxs["x1"] / bmax, div, bmax
 
 
@@ -4466,10 +4491,10 @@ def grav_cli(torch, kernels, deck, extra=(), ncyc=None):
     return launches, mesh, phys, driver, state, files
 
 
-def expect_launches(label, got, expect):
+def expect_launches(label, got, expect, phase="20"):
     if got != expect:
-        raise AssertionError(f"phase 20 {label}: launches {got}, expected "
-                             f"{expect}")
+        raise AssertionError(f"phase {phase} {label}: launches {got}, "
+                             f"expected {expect}")
 
 
 def bitwise_paths(torch, label, a, b):
@@ -4892,6 +4917,433 @@ def phase_grav(torch, kernels, card):
             "be": be, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 21
+NCYC_SBOX = 10
+SBOX_DIR = os.path.join(ROOT, "inputs", "shearing_box")
+SBOX_SHIPPED = ("epicycle", "hydro_compress_shwave", "hydro_orb_adv",
+                "mri2d", "mri3d", "mri3d_stratified", "mri3d_unstratified")
+SBOX_UNSTRAT = os.path.join(SBOX_DIR, "mri3d_unstratified.athinput")
+SBOX_WIDE = ["mesh/nx1=128", "mesh/nx2=256", "mesh/nx3=64"]
+RANDOM_DRIFT = os.path.join(ROOT, "inputs", "particles",
+                            "random_drift.athinput")
+DRAG_DECK = os.path.join(ROOT, "inputs", "ion-neutral", "drag.athinput")
+SINGLE = ["job/precision=single"]
+
+
+def test_literal(fname, name):
+    """A literal assigned at the top level of one of the repo's test
+    files (a deck's text, a table), read with ``ast``: phase 21 holds the
+    port to those tests' bars on their own decks, and imports nothing of
+    them (they import the JAX package)."""
+    import ast
+    with open(os.path.join(ROOT, "tests", fname)) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            value = node.value
+            if isinstance(value, ast.Call):        # np.array([...])
+                value = value.args[0]
+            return ast.literal_eval(value)
+    raise KeyError(f"tests/{fname} assigns no {name}")
+
+
+def particles_block():
+    """random_drift's ``<particles>`` block, as text."""
+    with open(RANDOM_DRIFT) as f:
+        text = f.read()
+    block = text[text.index("<particles>"):]
+    return block[:block.index("\n<", 1) + 1]
+
+
+def expect21(label, got, expect):
+    expect_launches(label, got, expect, phase="21")
+
+
+def mhd_div(torch, phys, state, label, limit):
+    """``div_b``'s measure of an MHD state over its interior (the deck's
+    ghost depth off every side), at most ``limit``."""
+    d = div_b(torch, phys, state["bfc"], phys.mesh.mb_indcs.ng)[0]
+    if not d <= limit:
+        raise AssertionError(f"phase 21 {label}: max|div B| dx / max|B| = "
+                             f"{d:g} > {limit:g}")
+    return d
+
+
+def sbox_shipped(torch, kernels, card, tmp):
+    """The nine decks as shipped (float64) for NCYC_SBOX cycles: no
+    kernel launches (the shearing box closes A, C, D and E and
+    shear_periodic B and G; the other decks are isothermal, WENO-Z with
+    HLLE, PPM4 or hydro; f64 closes every kernel), the state finite, div
+    B at round-off."""
+    decks = {n: os.path.join(SBOX_DIR, f"{n}.athinput")
+             for n in SBOX_SHIPPED}
+    decks["random_drift"] = RANDOM_DRIFT
+    decks["drag"] = DRAG_DECK
+    out = {}
+    for label, deck in decks.items():
+        got, mesh, phys, driver, state, files = grav_cli(
+            torch, kernels, deck, ncyc=NCYC_SBOX)
+        expect21(label, got, {})
+        divb = mhd_div(torch, phys.pmhd if hasattr(phys, "pmhd") else phys,
+                       state, label, 1e-12) if "bfc" in state else None
+        out[label] = {"launches": got, "zcps": driver.zcps, "divb": divb}
+        print(f"phase 21: {label} as shipped (f64, {mesh.nmb_total} "
+              f"blocks of {mesh.mb_indcs.nx1}x{mesh.mb_indcs.nx2}x"
+              f"{mesh.mb_indcs.nx3}): {NCYC_SBOX} cycles, launches {got}, "
+              f"div(B) {divb}, files {files}; [{card}] CLI zone-cycles/s "
+              f"{driver.zcps:.6e} (wall clock)")
+    return out
+
+
+def sbox_parts(torch, phys, state, driver):
+    """ms (events) of the parts of a cycle of a shearing-box MHD deck on
+    its state: the orbital advection of u and of the faces, the sheared
+    remap of u and of the faces, J's three directions, the source terms,
+    one whole stage and one whole cycle."""
+    from athenak_tpu_torch.ops import flux
+    sb = phys.psbox
+    dt = driver.mesh.dt
+    w, bcc, bfc, u = state["w"], state["bcc"], state["bfc"], state["u"]
+    saved = phys.save_state(state)
+    cycle = driver.make_cycle_fn()
+    return {
+        "orbital_advect": cuda_ms(lambda: sb.orbital_advect(u, dt), 10),
+        "orbital_advect_fc": cuda_ms(lambda: sb.orbital_advect_fc(bfc, dt),
+                                     10),
+        "remap_ghosts": cuda_ms(lambda: sb.remap_ghosts(u.clone(),
+                                                        state["t"]), 10),
+        "remap_ghosts_fc": cuda_ms(lambda: sb.remap_ghosts_fc(
+            {k: v.clone() for k, v in bfc.items()}, state["t"]), 10),
+        "fused_flux_dir x3": sum(cuda_ms(lambda d=d: flux.fused_flux_dir(
+            w, bcc, bfc[f"{d[0]}f"], phys.eos, d[0], d[2]), 10)
+            for d in phys.dirs),
+        "src_terms": cuda_ms(lambda: sb.src_terms(u, w, 1e-3,
+                                                  phys.eos.is_ideal, bcc),
+                             10),
+        "stage": cuda_ms(lambda: phys.stage_update(state, saved, 0.0, 1.0,
+                                                   dt), 5),
+        "cycle": cuda_ms(lambda: cycle(state, dt), 5)}
+
+
+def sbox_f32(torch, kernels, card):
+    """mri3d_unstratified as shipped and at SBOX_WIDE in float32 on the
+    kernel path (J three times a stage, nothing else, exact) and the
+    plain path (nothing): div(B) <= 1e-5, the paths within
+    SMR_PATH_TOL's tiers of what they changed; J against its plain
+    version on SBOX_WIDE's state (f32 two-tier); the parts of a cycle and
+    both paths' zone-cycles/s in turns."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import flux
+    n = NCYC_SBOX
+    out = {}
+    for label, extra in (("mri3d_unstratified f32", SINGLE),
+                         ("sbox_wide", SINGLE + SBOX_WIDE)):
+        states = {}
+        for use in ("true", "false"):
+            got, mesh, phys, driver, state, _ = grav_cli(
+                torch, kernels, SBOX_UNSTRAT,
+                extra + [f"mhd/use_kernels={use}"], n)
+            expect21(f"{label} {use}", got,
+                        {"fused_flux_dir": 6 * n} if use == "true" else {})
+            if phys.psbox is None or phys.use_flux_dir != (use == "true"):
+                raise AssertionError(f"{label} {use}: J's gate or the "
+                                     "shearing box is not as expected")
+            divb = mhd_div(torch, phys, state, label, 1e-5)
+            states[use] = state
+            out[f"{label} {use}"] = {"launches": got, "zcps": driver.zcps,
+                                     "divb": divb}
+            print(f"phase 21: {label} use_kernels={use}: {n} cycles, "
+                  f"launches {got}, div(B) {divb:.3e}; [{card}] CLI "
+                  f"zone-cycles/s {driver.zcps:.6e} (wall clock)")
+        state0 = build(pin_for(extra, SBOX_UNSTRAT), device="cuda")[-1]
+        ka, pa = states["true"], states["false"]
+        diff = {k: change_diff(a, b, c) for k, a, b, c in
+                [("u", ka["u"], pa["u"], state0["u"])]
+                + [(c, ka["bfc"][c], pa["bfc"][c], state0["bfc"][c])
+                   for c in ("x1f", "x2f", "x3f")]}
+        for k, d in diff.items():
+            if not (d[0] > 0.95 and d[1] < SMR_PATH_TOL[1]):
+                raise AssertionError(f"{label}: paths apart in {k}: {d}")
+        del state0, pa
+        out[label] = {"path_diff": diff}
+        print(f"phase 21: {label} kernel vs plain path {diff}")
+        if label != "sbox_wide":
+            continue
+        w, bcc, bfc = ka["w"], ka["bcc"], ka["bfc"]
+        err = 0.0
+        for name, _axis, ivx, _dx in phys.dirs:
+            args = (w, bcc, bfc[f"{name}f"], phys.eos, name, ivx)
+            for g, r in zip(flux.fused_flux_dir(*args),
+                            flux.flux_dir_plain(*args)):
+                g, r = faces(g), faces(r)
+                err = max(err, two_tier(g, r, float(r.abs().max()) or 1.0,
+                                        f"sbox_wide fused_flux_dir {name}"))
+        parts = sbox_parts(torch, phys, ka, driver)
+        rates = turn_rates(torch, SBOX_UNSTRAT, extra, "mhd")
+        out[label].update({"flux_dir_err": err, "parts_ms": parts,
+                           "rates": rates})
+        print(f"phase 21: fused_flux_dir agrees with its plain version on "
+              f"the SBOX_WIDE state (f32 two-tier, max abs {err:.3e}); "
+              f"[{card}] ms of a cycle's parts {parts}; zone-cycles/s in "
+              f"turns (events, after a warm-up cycle) {rates}")
+    return out
+
+
+def particle_runs(torch, kernels, card, tmp):
+    """random_drift in float32 on both paths (B once at the start and
+    once a stage; the paths bitwise, the drift x0 + v t wrapped) and
+    PART_BLAST (the 124^3 blast with random_drift's particles: E and F
+    twice a cycle, the face fill after every E, B once; A never; the
+    paths within SMR_PATH_TOL's tiers, each path's particles at x0 + v t
+    of its own time)."""
+    from athenak_tpu_torch.main import build
+    n = NCYC_SBOX
+    out = {}
+    res = {}
+    for use in ("true", "false"):
+        got, mesh, phys, driver, state, files = grav_cli(
+            torch, kernels, RANDOM_DRIFT,
+            SINGLE + [f"hydro/use_kernels={use}"], n)
+        expect21(f"random_drift f32 {use}", got,
+                    {"periodic_fill_cc": 1 + 2 * n} if use == "true" else {})
+        res[use] = state
+        out[f"random_drift f32 {use}"] = {"launches": got,
+                                          "zcps": driver.zcps}
+        print(f"phase 21: random_drift f32 use_kernels={use}: launches "
+              f"{got}, files {files}; [{card}] CLI zone-cycles/s "
+              f"{driver.zcps:.6e}")
+    for key in ("u", "w", "prtcl_x", "prtcl_v"):
+        if not torch.equal(res["true"][key], res["false"][key]):
+            raise AssertionError(f"random_drift f32: {key} differs between "
+                                 "the paths")
+    st0 = build(pin_for(SINGLE, RANDOM_DRIFT), device="cuda")[-1]
+    x0, v0 = st0["prtcl_x"].double(), st0["prtcl_v"].double()
+    want = -0.5 + torch.remainder(x0 + v0 * mesh.time + 0.5, 1.0)
+    drift = float((res["true"]["prtcl_x"].double() - want).abs().max())
+    if not drift < 1e-5:
+        raise AssertionError(f"random_drift f32: drift off by {drift:g}")
+    out["random_drift drift_err"] = drift
+    out_times = {}
+    deck = os.path.join(tmp, "part_blast.athinput")
+    with open(DECK) as f:
+        text = f.read()
+    with open(deck, "w") as f:
+        f.write(text + "\n" + particles_block())
+    states = {}
+    for use in ("true", "false"):
+        got, mesh, phys, driver, state, _ = grav_cli(
+            torch, kernels, deck, [f"mhd/use_kernels={use}"], n)
+        expect21(f"part_blast {use}", got, {
+            "mega_stage_v1": 2 * n, "fused_aux3d": 2 * n,
+            "periodic_fill_fc": 2 * n + 1, "periodic_fill_cc": 1}
+            if use == "true" else {})
+        divb = mhd_div(torch, phys, state, "part_blast", 1e-5)
+        states[use] = state
+        out_times[use] = mesh.time
+        out[f"part_blast {use}"] = {"launches": got, "zcps": driver.zcps,
+                                    "divb": divb}
+        print(f"phase 21: part_blast (124^3 f32, {phys.ppart.nprtcl} "
+              f"particles) use_kernels={use}: launches {got}, div(B) "
+              f"{divb:.3e}; [{card}] CLI zone-cycles/s {driver.zcps:.6e}")
+    state0 = build(pin_for([], deck), device="cuda")[-1]
+    diff = {k: change_diff(a, b, c) for k, a, b, c in
+            [("u", states["true"]["u"], states["false"]["u"], state0["u"])]}
+    for k, d in diff.items():
+        if not (d[0] > 0.95 and d[1] < SMR_PATH_TOL[1]):
+            raise AssertionError(f"part_blast: paths apart in {k}: {d}")
+    # each path's own dt chain (F's state or the plain c2p) drifts the
+    # particles: each must be x0 + v t at its own time
+    x0, v0 = state0["prtcl_x"].double(), state0["prtcl_v"].double()
+    for use, st in states.items():
+        t = out_times[use]
+        want = -1.0 + torch.remainder(x0 + v0 * t + 1.0, 2.0)
+        err = float((st["prtcl_x"].double() - want).abs().max())
+        if not err < 1e-5:
+            raise AssertionError(f"part_blast {use}: drift off by {err:g}")
+        out[f"part_blast {use}"]["drift_err"] = err
+    out["part_blast path_diff"] = diff
+    print(f"phase 21: part_blast kernel vs plain path {diff}")
+    return out
+
+
+def run_deck_text(torch, text, extra=()):
+    """``main.run`` on a deck's text on the card in a temporary
+    directory: (mesh, phys, driver, state, {file name: text of the
+    history files})."""
+    from athenak_tpu_torch.athinput import ParameterInput
+    from athenak_tpu_torch.main import run
+    pin = ParameterInput.from_string(text)
+    pin.modify_from_cmdline(list(extra))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            mesh, phys, driver, state = run(pin, device="cuda")
+        finally:
+            os.chdir(cwd)
+        hst = {}
+        for f in os.listdir(tmp):
+            if f.endswith(".hst"):
+                with open(os.path.join(tmp, f)) as fh:
+                    hst[f] = fh.read()
+    return mesh, phys, driver, state, hst
+
+
+def epicycle_bar(torch, card):
+    """tests/test_shearing_box.py::test_epicyclic_oscillation on the
+    card (f64): after one epicyclic period a uniform vx kick of 1e-3 is
+    back within 5%, vy below 0.3 of it."""
+    from athenak_tpu_torch.athinput import ParameterInput
+    from athenak_tpu_torch.main import build
+    kappa = math.sqrt(2.0 * (2.0 - 1.5))
+    text = test_literal("test_shearing_box.py", "BASE").format(
+        tlim=2.0 * math.pi / kappa, nscalars=0)
+    mesh, phys, _, driver, state = build(ParameterInput.from_string(text),
+                                         device="cuda")
+    amp = 1.0e-3
+    u = state["u"].clone()
+    u[:, 1] += amp * u[:, 0]
+    w, u, _ = phys.cons_to_prim(u)
+    state = driver.execute(driver.initialize(dict(state, u=u, w=w)))
+    mbi = mesh.mb_indcs
+    act = (0, slice(mbi.ks, mbi.ke + 1), slice(mbi.js, mbi.je + 1),
+           slice(mbi.is_, mbi.ie + 1))
+    vx, vy = state["w"][:, 1][act], state["w"][:, 2][act]
+    ok = bool(((vx - amp).abs() <= 1e-8 + 0.05 * amp).all()) \
+        and float(vy.abs().max()) < 0.3 * amp
+    res = {"cycles": mesh.ncycle, "vx_err": float((vx - amp).abs().max())
+           / amp, "vy_max": float(vy.abs().max()) / amp,
+           "zcps": driver.zcps}
+    if not ok:
+        raise AssertionError(f"epicycle bar: {res}")
+    return res
+
+
+def shwave_bar(torch, card):
+    """tests/test_shearing_box_mhd.py::test_mhd_shwave on the card
+    (f64): the dByc history against the semi-analytic table, mean error
+    below 2.1e-8, and div(B) below 1e-12."""
+    import numpy as np
+    table = np.asarray(test_literal("test_shearing_box_mhd.py", "DBYC"))
+    mesh, phys, driver, state, hst = run_deck_text(
+        torch, test_literal("test_shearing_box_mhd.py", "DECK"))
+    labels, rows = hst_table(hst["shwave4.user.hst"])
+    data = np.asarray(rows)
+    ref = np.interp(data[:, 0], np.linspace(0.0, 3.0, 301), table)
+    err = float(np.abs(data[:, 2] - ref).mean())
+    b = {k: v.double() for k, v in state["bfc"].items()}
+    dx = [phys.dxs[k] for k in ("x1", "x2", "x3")]
+    div = ((b["x1f"][..., 1:] - b["x1f"][..., :-1]) / dx[0]
+           + (b["x2f"][..., 1:, :] - b["x2f"][..., :-1, :]) / dx[1]
+           + (b["x3f"][:, 1:] - b["x3f"][:, :-1]) / dx[2])
+    divb = float(interior(div, mesh.mb_indcs.ng).abs().max())
+    res = {"cycles": mesh.ncycle, "rows": len(rows), "mean_err": err,
+           "divb": divb, "zcps": driver.zcps}
+    if not (err < 2.1e-8 and divb < 1e-12 and labels[-1] == "dByc"):
+        raise AssertionError(f"MHD shwave bar: {res}")
+    return res
+
+
+def mri3d_bar(torch, card):
+    """tests/test_mri3d.py::test_mri3d_linear_growth on the card (f64):
+    the radial field energy grows past twice its minimum near t ~ 4, the
+    toroidal energy stays below 1, the Maxwell stress is positive after
+    t = 1 and grows 1.5-fold."""
+    import numpy as np
+    mesh, phys, driver, state, hst = run_deck_text(
+        torch, test_literal("test_mri3d.py", "DECK"))
+    labels, rows = hst_table(hst["HGB.user.hst"])
+    data = np.asarray(rows)
+    col = {lab: data[:, i] for i, lab in enumerate(labels)}
+    t, me1, me3, dbxby = col["time"], col["1-ME"], col["3-ME"], col["dBxBy"]
+    tmin = float(me1[(t > 3.5) & (t < 4.5)].min())
+    late = float(me1[t > 5.8].max())
+    grow = float(dbxby[t > 5.8].max()
+                 / dbxby[(t > 2.5) & (t < 3.5)].mean())
+    res = {"cycles": mesh.ncycle, "me1_min": tmin, "me1_late": late,
+           "me3_max": float(me3.max()), "dbxby_growth": grow,
+           "zcps": driver.zcps}
+    ok = (all(c in labels for c in ("1-KE", "1-ME", "2-ME", "3-ME",
+                                     "dVxVy", "dBxBy"))
+          and bool(torch.isfinite(state["u"]).all())
+          and late > 2.0 * tmin and np.isfinite(me1).all()
+          and me3.max() < 1.0 and (dbxby[t > 1.0] > 0.0).all()
+          and grow > 1.5)
+    if not ok:
+        raise AssertionError(f"mri3d bar: {res}")
+    return res
+
+
+def drag_bars(torch, card):
+    """tests/test_ion_neutral.py on the card (f64): the drag relaxation
+    under imex2 and imex3 (dv within 0.03 dv0 of dv0 exp(-gamma (d_i +
+    d_n) t), the total momentum to 1e-12) and the stiff drag (1e6,
+    within 0.01 of the centre-of-momentum velocity)."""
+    text = test_literal("test_ion_neutral.py", "DECK")
+    out = {}
+    di, dn, dv0 = 0.4, 1.2, 0.2
+    p0 = di * 0.1 + dn * (-0.1)
+    vcom = p0 / (di + dn)
+    for integ in ("imex2", "imex3"):
+        mesh, phys, driver, st, _ = run_deck_text(
+            torch, text.format(integ=integ, drag=4.0, tlim=0.4))
+        ui, un = interior(st["ui"]).double(), interior(st["u"]).double()
+        vi = float((ui[:, 1] / ui[:, 0]).mean())
+        vn = float((un[:, 1] / un[:, 0]).mean())
+        dv = dv0 * math.exp(-4.0 * (di + dn) * mesh.time)
+        dp = abs(float(ui[:, 1].mean() + un[:, 1].mean()) - p0)
+        out[integ] = {"cycles": mesh.ncycle, "dv_err": abs(vi - vn - dv)
+                      / dv0, "momentum_err": dp}
+        if not (abs((vi - vn) - dv) < 0.03 * dv0 and dp < 1e-12
+                and abs(vi - (vcom + dn / (di + dn) * dv)) < 0.03 * dv0):
+            raise AssertionError(f"drag bar {integ}: {out[integ]}")
+    mesh, phys, driver, st, _ = run_deck_text(
+        torch, text.format(integ="imex2", drag=1.0e6, tlim=0.05))
+    ui, un = st["ui"].double(), st["u"].double()
+    off = max(float((ui[:, 1] / ui[:, 0] - vcom).abs().max()),
+              float((un[:, 1] / un[:, 0] - vcom).abs().max()))
+    dp = abs(float(ui[:, 1].mean() + un[:, 1].mean()) - p0)
+    out["stiff"] = {"cycles": mesh.ncycle, "v_off": off,
+                    "momentum_err": dp}
+    if not (off < 0.05 * 0.2 and dp < 1e-12):
+        raise AssertionError(f"stiff drag bar: {out['stiff']}")
+    return out
+
+
+def phase_sbox(torch, kernels, card):
+    """Phase 21: the shearing box, particles and the ion-neutral
+    two-fluid (see the module docstring)."""
+    seconds = {}
+
+    def part(label, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shipped = part("shipped", sbox_shipped, torch, kernels, card, tmp)
+        f32 = part("f32", sbox_f32, torch, kernels, card)
+        parts = part("particles", particle_runs, torch, kernels, card, tmp)
+    bars = {"epicycle": part("epicycle_bar", epicycle_bar, torch, card),
+            "mhd_shwave": part("shwave_bar", shwave_bar, torch, card),
+            "mri3d": part("mri3d_bar", mri3d_bar, torch, card),
+            "drag": part("drag_bars", drag_bars, torch, card)}
+    print(f"phase 21: the JAX tests' bars on the card {bars}")
+    print(f"phase 21: seconds a part {seconds}")
+    runs = {f"{k} shipped": v["launches"] for k, v in shipped.items()}
+    runs.update({k: v["launches"] for k, v in {**f32, **parts}.items()
+                 if isinstance(v, dict) and "launches" in v})
+    return {"runs": runs, "shipped": {k: {kk: vv for kk, vv in v.items()
+                                          if kk != "launches"}
+                                      for k, v in shipped.items()},
+            "f32": f32, "particles": {k: v for k, v in parts.items()
+                                      if not (isinstance(v, dict)
+                                              and "launches" in v)},
+            "bars": bars, "seconds": seconds}
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
     return {"name": name, "route": "cuda",
@@ -4963,6 +5415,7 @@ def main() -> int:
         bbh = phase("18", phase_bbh, torch, kernels, card, fill)
         gr = phase("19", phase_gr, torch, kernels, card)
         grav = phase("20", phase_grav, torch, kernels, card)
+        sbox = phase("21", phase_sbox, torch, kernels, card)
     print(f"seconds a phase: {seconds}")
 
     def runs(name):
@@ -4981,6 +5434,7 @@ def main() -> int:
                 **{k: v["launches"].get(name, 0)
                    for k, v in gr["runs"].items()},
                 **{k: v.get(name, 0) for k, v in grav["runs"].items()},
+                **{k: v.get(name, 0) for k, v in sbox["runs"].items()},
                 "bbh_restart": bbh["restart"]["resumed"].get(name, 0)}
 
     ft, fe = fill_times, fill_errs
@@ -5108,6 +5562,7 @@ def main() -> int:
                if isinstance(v, dict) else v
                for k, v in gr.items() if k != "runs"},
         "grav_diff": {k: v for k, v in grav.items() if k != "runs"},
+        "sbox": {k: v for k, v in sbox.items() if k != "runs"},
         "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
         "build_seconds": kernels.BUILD_INFO.get("source_seconds"),
         "card": card}))

@@ -190,7 +190,9 @@ def test_port_never_imports_jax():
               "pgen.advection", "amr", "amr_pool", "z4c.z4c_amr",
               "diffusion", "gravity", "multigrid", "pgen.diffusion_test",
               "pgen.shock_cloud", "pgen.jeans_wave", "pgen.binary_gravity",
-              "pgen.be_collapse"):
+              "pgen.be_collapse", "shearing_box", "particles",
+              "physics.ion_neutral", "pgen.shwave", "pgen.mri2d",
+              "pgen.mri3d", "pgen.twofluid"):
         assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
