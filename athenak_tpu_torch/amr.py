@@ -37,7 +37,6 @@ import torch
 
 from .indices import IDN
 from .refinement import prolong_cc, restrict_cc
-from .utils import not_ported
 
 # mesh axis name -> cell axis in [nmb, nvar, n3, n2, n1]
 _AXIS5 = {"x1": 4, "x2": 3, "x3": 2}
@@ -60,8 +59,6 @@ class Criterion:
         self.variable = None
         if self.method not in ("location", "user"):
             self.variable = pin.get_string(block, "variable")
-            if self.variable == "rad_coord_e":
-                raise not_ported("radiation refinement (rad_coord_e)")
         self.value_min = pin.get_or_add_real(block, "value_min", -_FLT_MAX)
         self.value_max = pin.get_or_add_real(block, "value_max", _FLT_MAX)
         self.loc_x1 = pin.get_or_add_real(block, "location_x1", 0.0)
@@ -81,6 +78,9 @@ def _crit_data(crit: Criterion, state, phys):
         if "w" not in state:
             state = phys.unpack_state(state)
         return state["w"][:, IDN]
+    if v == "rad_coord_e":
+        # the coordinate-frame energy density R^00 (radiation AMR)
+        return phys.coord_energy_density(state)
     raise ValueError(f"unknown refinement variable '{v}'")
 
 
@@ -816,7 +816,7 @@ class AMR:
         # solve on the new one reads it at the new gids (clamped), as the
         # JAX package's rebuild and warm start do
         new_state = dict(state)
-        for key in ("u", "w"):
+        for key in ("u", "w", "i0"):
             if key in state:
                 new_state[key] = remap_cc(state[key], tbl, mbi, act_axes)
         if "bfc" in state:

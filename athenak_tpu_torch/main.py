@@ -67,10 +67,20 @@ def read_deck(path, overrides=()):
 def make_physics(pin, mesh, bvals, device, dtype):
     """Select and construct the physics module (reference:
     MeshBlockPack::AddPhysics, meshblock_pack.cpp:102-235)."""
-    for block in ("radiation", "adm"):
-        if pin.does_block_exist(block):
-            raise NotImplementedError(
-                f"<{block}> physics is not ported to athenak_tpu_torch yet")
+    if pin.does_block_exist("adm"):
+        raise NotImplementedError(
+            "<adm> physics is not ported to athenak_tpu_torch yet")
+    if pin.does_block_exist("radiation"):
+        if not (pin.does_block_exist("hydro") or pin.does_block_exist("mhd")):
+            # radiation-only transport (reference: AddPhysics radiation
+            # branch)
+            from .radiation.radiation import Radiation
+            return Radiation(pin, mesh, bvals, device, dtype)
+        if not pin.does_block_exist("z4c"):
+            # radiation coupled to hydro or MHD (reference: AddPhysics
+            # rad_hydro/rad_mhd branches + RadFluidCoupling)
+            from .radiation.rad_fluid import RadiationFluid
+            return RadiationFluid(pin, mesh, bvals, device, dtype)
     if pin.does_block_exist("z4c"):
         if pin.does_block_exist("mhd"):
             raise NotImplementedError(

@@ -104,8 +104,12 @@ def _eq44(mu, b2, rpar, r, q, ud, eos: EOSData):
 
 
 def _illinois(f, zm, zp, fm, fp):
-    """Fixed-trip Illinois false-position solve of f(z) = 0 in [zm, zp];
-    returns (z, done)."""
+    """Illinois false-position solve of f(z) = 0 in [zm, zp], at most
+    _MAX_ITER trips as in the JAX package's fixed-trip loop; returns (z,
+    done).  A trip changes no cell that is done, so the loop stops as
+    soon as every cell is (one read of ``done`` a trip): the same values
+    as the fixed trips, without the trips that change nothing (near-static
+    flows converge in one or two)."""
     where = torch.where
     tol = _tol_for(zm.dtype)
     # the secant denominator guard must survive the working precision
@@ -114,6 +118,8 @@ def _illinois(f, zm, zp, fm, fp):
                                          < 2.0 * tol)
     z = 0.5 * (zm + zp)
     for _ in range(_MAX_ITER):
+        if bool(done.all()):
+            break
         znew = (zm * fp - zp * fm) / (fp - fm + tiny)
         fv = f(znew)
         newly = (torch.abs(zm - zp) < tol) | (torch.abs(fv) < tol)

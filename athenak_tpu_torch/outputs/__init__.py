@@ -27,7 +27,8 @@ import torch
 
 from ..indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 from ..state import state_to_numpy
-from .variables import (FLUID_NAMES, is_z4c_variable, resolve_fluid,
+from .variables import (FLUID_NAMES, fluid_name, is_rad_variable,
+                        is_z4c_variable, resolve_fluid, resolve_rad,
                         resolve_z4c)
 
 
@@ -175,8 +176,9 @@ class BinaryOutput(BaseOutput):
     def __init__(self, pin, mesh, phys, block: str) -> None:
         super().__init__(pin, mesh, phys, block)
         self.pin = pin
-        if self.params.variable not in FLUID_NAMES and \
-                not is_z4c_variable(self.params.variable):
+        var = self.params.variable
+        if fluid_name(var) not in FLUID_NAMES and \
+                not is_z4c_variable(var) and not is_rad_variable(var):
             raise NotImplementedError(
                 f"<{block}>/variable = '{self.params.variable}' is not "
                 f"ported to athenak_tpu_torch yet "
@@ -191,8 +193,11 @@ class BinaryOutput(BaseOutput):
                     slice(mbi.is_, mbi.ie + 1))
         if is_z4c_variable(p.variable):
             labels, base = resolve_z4c(p.variable, self.phys, state)
+        elif is_rad_variable(p.variable):
+            labels, base = resolve_rad(p.variable, self.phys, state)
         else:
-            labels, base = resolve_fluid(p.variable, self.phys, state)
+            labels, base = resolve_fluid(fluid_name(p.variable), self.phys,
+                                         state)
         # only the interior crosses to the host
         arr = base[interior].to(device="cpu", dtype=torch.float64).numpy()
         header_bytes = self.pin.dump().encode()
@@ -241,9 +246,12 @@ class TabularOutput(BaseOutput):
         p = self.params
         if is_z4c_variable(p.variable):
             labels, arr = resolve_z4c(p.variable, self.phys, state)
+        elif is_rad_variable(p.variable):
+            labels, arr = resolve_rad(p.variable, self.phys, state)
         else:
             kind, labels = self._VARIABLES.get(
-                p.variable, ("w", ["dens", "velx", "vely", "velz", "eint"]))
+                fluid_name(p.variable),
+                ("w", ["dens", "velx", "vely", "velz", "eint"]))
             arr = state[kind]
         arr = arr.to(device="cpu", dtype=torch.float64).numpy()
         nvar = min(arr.shape[1], len(labels))
@@ -424,9 +432,12 @@ class VtkOutput(BaseOutput):
         p = self.params
         if is_z4c_variable(p.variable):
             labels, arr = resolve_z4c(p.variable, self.phys, state)
+        elif is_rad_variable(p.variable):
+            labels, arr = resolve_rad(p.variable, self.phys, state)
         else:
             kind, labels = BinaryOutput._VARIABLES.get(
-                p.variable, ("w", ["dens", "velx", "vely", "velz", "eint"]))
+                fluid_name(p.variable),
+                ("w", ["dens", "velx", "vely", "velz", "eint"]))
             arr = state[kind[0]][:, :5]
             if kind.endswith("_bcc"):
                 arr = torch.cat([arr, state["bcc"].to(arr.dtype)], dim=1)

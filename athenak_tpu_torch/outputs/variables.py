@@ -1,6 +1,6 @@
 """Output variables: the fluid's conserved and primitive fields, the
-cell-centred field, the gravitational potential, and the Z4c fields, ADM
-fields, constraint monitors and psi4.
+cell-centred field, the gravitational potential, the Z4c fields, ADM
+fields, constraint monitors and psi4, and the radiation moments.
 
 Counterpart of ``athenak_tpu/outputs/variables.py`` for these names
 (reference: the ``var_choice`` rows of src/outputs/outputs.hpp:31-105):
@@ -61,6 +61,45 @@ def resolve_fluid(name: str, phys, state):
         return labels + ["bcc1", "bcc2", "bcc3"], torch.cat(
             [arr[:, :nh], state["bcc"].to(arr.dtype)], dim=1)
     return labels, arr[:, :min(nh, 5)]
+
+
+RAD_NAMES = ("rad_coord", "rad_fluid", "rad_coord_fluid")
+
+
+def fluid_name(name: str) -> str:
+    """A radiation-coupled run's ``rad_hydro_*`` and ``rad_mhd_*`` are the
+    fluid's own variables (reference: the rad_hydro_/rad_mhd_ rows)."""
+    if name.startswith(("rad_hydro_", "rad_mhd_")):
+        return name[4:]
+    return name
+
+
+def is_rad_variable(name: str) -> bool:
+    return name in RAD_NAMES
+
+
+def resolve_rad(name: str, phys, state):
+    """(labels, tensor [nmb, 10 or 20, n3, n2, n1]) of the radiation
+    moments R^{munu}: the coordinate frame (``rad_coord``), the fluid
+    frame (``rad_fluid``, a coupled run only) or both (reference:
+    derived_variables.cpp:1076-1260)."""
+    if name not in RAD_NAMES:
+        raise KeyError(f"'{name}' is not a radiation output variable")
+    rad = getattr(phys, "rad", phys)
+    i0 = state["i0"] if "i0" in state else state["u"]
+    labels, parts = [], []
+    if name in ("rad_coord", "rad_coord_fluid"):
+        lc, mc = rad.coord_moments({"u": i0})
+        labels += lc
+        parts.append(mc)
+    if name in ("rad_fluid", "rad_coord_fluid"):
+        if rad is phys:
+            raise ValueError(f"{name}: fluid-frame moments need a coupled "
+                             "fluid")
+        lf, mf = rad.fluid_moments(i0, state["w"])
+        labels += lf
+        parts.append(mf)
+    return labels, parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def is_z4c_variable(name: str) -> bool:

@@ -20,8 +20,10 @@ generators (Bondi accretion, the split monopole, the Fishbone-Moncrief
 torus), the star-disk magnetosphere, the diffusion decay tests, the
 shock-cloud interaction, the self-gravity problems (the Jeans wave,
 the binary potential, the Bonnor-Ebert collapse), the shearing-box
-problems (the shearing waves, the 2-D and 3-D MRI) and the ion-neutral
-two-fluid state are ported so far.
+problems (the shearing waves, the 2-D and 3-D MRI), the ion-neutral
+two-fluid state and the radiation problems (the hohlraum, the beam in
+Kerr and in snake coordinates, thermal relaxation, the shadow, the
+radiating linear wave, the diffusing pulse) are ported so far.
 """
 
 from __future__ import annotations
@@ -74,6 +76,13 @@ _REGISTRY = {
     "mri2d": "athenak_tpu_torch.pgen.mri2d",
     "mri3d": "athenak_tpu_torch.pgen.mri3d",
     "twofluid": "athenak_tpu_torch.pgen.twofluid",
+    "rad_hohlraum": "athenak_tpu_torch.pgen.rad_hohlraum",
+    "rad_beam": "athenak_tpu_torch.pgen.rad_beam",
+    "rad_snake": "athenak_tpu_torch.pgen.rad_snake",
+    "rad_relax": "athenak_tpu_torch.pgen.rad_relax",
+    "rad_shadow": "athenak_tpu_torch.pgen.rad_shadow",
+    "rad_linear_wave": "athenak_tpu_torch.pgen.rad_linear_wave",
+    "rad_diffusion": "athenak_tpu_torch.pgen.rad_diffusion",
 }
 
 

@@ -2,14 +2,13 @@
 
 Counterpart of ``athenak_tpu/radiation/geodesic_grid.py``, a copy kept
 in the port (reference: src/geodesic-grid/geodesic_grid.{hpp,cpp}): an
-nlevel-subdivided
-icosahedron with nangles = 10*nlevel^2 + 2 directions, unit vectors and
-solid-angle quadrature weights (plus neighbor tables for the GR angular
-fluxes, later round).
+nlevel-subdivided icosahedron with nangles = 10*nlevel^2 + 2 directions,
+unit vectors and solid-angle quadrature weights, and the neighbour,
+arc-length and edge tables of the angular fluxes.
 
-Host-side numpy construction, run once, like the reference.  The port
-uses it for the psi4 extraction spheres (``z4c/weyl.py``); radiation
-transport is not ported yet.
+Host-side numpy construction, run once, like the reference.  The
+radiation transport (``radiation.py``) and the psi4 extraction spheres
+(``z4c/weyl.py``) use it.
 """
 
 from __future__ import annotations

@@ -14,10 +14,12 @@ box carries ``t`` (its sheared boundaries read it), a deck with
 particles their positions and velocities ``prtcl_x`` and ``prtcl_v``
 [np, 3], and an ion-neutral state the ions' ``ui`` and ``wi`` beside the
 neutrals' ``u`` and ``w``, with the stiff residuals of its implicit
-stages ``ru`` [nmb, 4, 8, n3, n2, n1].  These two
-functions move such a dict (as numpy
-arrays) into the port and back, so both packages can start from one
-state.
+stages ``ru`` [nmb, 4, 8, n3, n2, n1].  A radiation-only state
+holds its intensities in ``u`` (and ``w``, the same array), a
+radiation-fluid state the fluid's entries and the intensities ``i0``
+[nmb, nangles, n3, n2, n1].  These two functions move such a dict (as
+numpy arrays) into the port and back, so both packages can start from
+one state.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 _KEYS = ("u", "w", "bcc", "turb_force", "co_pos", "t", "phi",
-         "prtcl_x", "prtcl_v", "ui", "wi", "ru")
+         "prtcl_x", "prtcl_v", "ui", "wi", "ru", "i0")
 
 
 def _check_keys(d) -> None:

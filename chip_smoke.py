@@ -314,6 +314,30 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      (``tests/test_shearing_box_mhd.py``), the MRI growth checks of
      ``tests/test_mri3d.py`` and the drag relaxation and stiff drag of
      ``tests/test_ion_neutral.py``.
+ 22. drives radiation through the CLI, the launch counts set to 0 before
+     each run and checked exactly: the five shipped radiation decks
+     (``inputs/radiation/{hohlraum_1d,relax,shadow,snake}``,
+     ``inputs/tests/rad_linwave``), ``tests/test_rad_gr.py``'s beam in
+     Kerr and ``tests/test_radiation.py``'s diffusion deck as they are
+     (f64, 5 cycles): no launch, the state finite; ``RAD_WIDE``
+     (``rad_linwave`` along x1 at 128^3 on one block in f32: 42 angles,
+     GR hydro in flat space, kappa_a 1) and ``RAD_POOL`` (the same as 8 x
+     64^3) on the kernel path and the plain path (``hydro/use_kernels``),
+     3 cycles: kernel B (one block) or G (the pool) exactly 2 + 6 n times
+     in n cycles and no other kernel, the paths bitwise equal in u, w and
+     i0, the fill kernel bitwise equal to its plain version on the
+     [1, 42, 132^3] and [8, 42, 68^3] intensities with its ms beside the
+     plain version's and the bound, the ms of a stage's parts (the
+     transport, the coupling, the fluid stage, the fills, a stage, a
+     cycle) and both paths' zone-cycles/s in turns; and the JAX tests'
+     bars on the card, each on its test's own deck (read with ``ast``)
+     in f64: the hohlraum's light front, the relaxation to T^4 + T = 101
+     and with Compton to T^4 + T = 11, the shadow, the diffusing pulse
+     within 0.08, the beam in Kerr (its energy, centroid and peak), the
+     snake's characteristic (nlevel 4, and 8 with the snake-aligned
+     tetrad) and the radiating linear wave's convergence (e64 < 6e-7,
+     ratio < 0.32; its two sizes, 8,471 launch-bound cycles, run in two
+     child processes on the card beside the bars that time nothing).
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -5170,7 +5194,7 @@ def particle_runs(torch, kernels, card, tmp):
 def run_deck_text(torch, text, extra=()):
     """``main.run`` on a deck's text on the card in a temporary
     directory: (mesh, phys, driver, state, {file name: text of the
-    history files})."""
+    history and error files})."""
     from athenak_tpu_torch.athinput import ParameterInput
     from athenak_tpu_torch.main import run
     pin = ParameterInput.from_string(text)
@@ -5184,7 +5208,7 @@ def run_deck_text(torch, text, extra=()):
             os.chdir(cwd)
         hst = {}
         for f in os.listdir(tmp):
-            if f.endswith(".hst"):
+            if f.endswith((".hst", "-errs.dat")):
                 with open(os.path.join(tmp, f)) as fh:
                     hst[f] = fh.read()
     return mesh, phys, driver, state, hst
@@ -5344,6 +5368,484 @@ def phase_sbox(torch, kernels, card):
             "bars": bars, "seconds": seconds}
 
 
+NCYC_RAD = 5
+NCYC_WIDE = 3
+RAD_LINWAVE = os.path.join(ROOT, "inputs", "tests", "rad_linwave.athinput")
+RAD_SHIPPED = {n: os.path.join(ROOT, "inputs", "radiation", f"{n}.athinput")
+               for n in ("hohlraum_1d", "relax", "shadow", "snake")}
+RAD_SHIPPED["rad_linwave"] = RAD_LINWAVE
+RAD_WIDE = ["mesh/nx1=128", "mesh/nx2=128", "mesh/nx3=128",
+            "problem/along_x1=true", "job/precision=single"]
+RAD_POOL = RAD_WIDE + ["meshblock/nx1=64", "meshblock/nx2=64",
+                       "meshblock/nx3=64"]
+
+
+def expect22(label, got, expect):
+    expect_launches(label, got, expect, phase="22")
+
+
+def rad_state_finite(torch, state, label):
+    """Every entry of a radiation state finite (i0, and u, w of a coupled
+    fluid)."""
+    for key in ("u", "w", "i0"):
+        if key in state and not bool(torch.isfinite(state[key]).all()):
+            raise AssertionError(f"phase 22 {label}: non-finite {key}")
+
+
+def rad_shipped(torch, kernels, card, tmp):
+    """The five shipped radiation decks, tests/test_rad_gr.py's beam in
+    Kerr and tests/test_radiation.py's diffusion deck as they are
+    (float64), NCYC_RAD cycles through the CLI: no launch (float64 closes
+    B and G; only rad_linwave is periodic, and it is 1-D), the state
+    finite."""
+    decks = dict(RAD_SHIPPED)
+    for name, (fname, var, fmt) in {
+            "beam_kerr": ("test_rad_gr.py", "BEAM_DECK", None),
+            "diffusion": ("test_radiation.py", "DIFF_DECK", 1.0)}.items():
+        text = test_literal(fname, var)
+        decks[name] = os.path.join(tmp, f"{name}.athinput")
+        with open(decks[name], "w") as f:
+            f.write(text if fmt is None else text.format(tlim=fmt))
+    out = {}
+    for label, deck in decks.items():
+        got, mesh, phys, driver, state, files = grav_cli(
+            torch, kernels, deck, ncyc=NCYC_RAD)
+        expect22(label, got, {})
+        rad_state_finite(torch, state, label)
+        mbi = mesh.mb_indcs
+        out[label] = {"launches": got, "zcps": driver.zcps,
+                      "angles": getattr(phys, "rad", phys).nangles}
+        print(f"phase 22: {label} as shipped (f64, {mesh.nmb_total} blocks "
+              f"of {mbi.nx1}x{mbi.nx2}x{mbi.nx3}, "
+              f"{out[label]['angles']} angles): {NCYC_RAD} cycles, "
+              f"launches {got}, files {files}; [{card}] CLI zone-cycles/s "
+              f"{driver.zcps:.6e} (wall clock)")
+    return out
+
+
+def rad_stage_parts(torch, phys, state, driver):
+    """ms (events) of the parts of a stage of a radiation-fluid deck on
+    its state: the intensity transport (fluxes and the update), the
+    coupling, the fluid's stage, the fills of u and i0, one whole stage
+    and one whole cycle."""
+    from athenak_tpu_torch.radiation.coupling import rad_fluid_coupling
+    rad, dt = phys.rad, driver.mesh.dt
+    saved = phys.save_state(state)
+    i0, u, w = state["i0"], state["u"], state["w"]
+    gm1 = phys.eos.gamma - 1.0
+    cycle = driver.make_cycle_fn()
+    return {
+        "transport": cuda_ms(lambda: rad.floor(rad.rk_update(
+            i0, saved["i1"], rad.fluxes(i0), 0.0, 1.0, dt)), 5),
+        "coupling": cuda_ms(lambda: rad_fluid_coupling(rad, i0, u, w, gm1,
+                                                       dt), 5),
+        "fluid_stage": cuda_ms(lambda: phys.fluid.stage_update(
+            state, saved, 0.0, 1.0, dt), 5),
+        "fills u+i0": cuda_ms(lambda: (phys.bvals.fill_ghosts(u.clone()),
+                                       phys.bvals.fill_ghosts(i0.clone())),
+                              5),
+        "clones u+i0": cuda_ms(lambda: (u.clone(), i0.clone()), 5),
+        "stage": cuda_ms(lambda: phys.stage_update(state, saved, 0.0, 1.0,
+                                                   dt), 3),
+        "cycle": cuda_ms(lambda: cycle(state, dt), 3)}
+
+
+def rad_fill_checks(torch, phys, state, key):
+    """Kernel B (one block) or G (a pool) against its plain version on
+    the run's [nmb, 42, n3, n2, n1] intensities, bitwise, and their times
+    beside the bound (every ghost read once and written once)."""
+    from athenak_tpu_torch.ops import fill, pool_fill
+    i0 = state["i0"]
+    mesh = phys.mesh
+    if key == "periodic_fill_cc":
+        def kern(a):
+            return fill.periodic_fill_cc(a)
+
+        def plain(a):
+            return fill.fill_plain(a, fill.shifts(a.shape))
+    else:
+        nbr = phys.bvals.nbr27(i0.device)
+
+        def kern(a):
+            return pool_fill.pool_fill_cc(a, nbr, mesh)
+
+        def plain(a):
+            return pool_fill.pool_fill_plain([a], ["cc"], nbr, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    noisy = i0 * (1.0 + torch.rand(i0.shape, generator=gen, device="cuda",
+                                   dtype=i0.dtype))
+    a, b = kern(noisy.clone()), noisy.clone()
+    plain(b)
+    if not torch.equal(a, b):
+        raise AssertionError(f"phase 22 {key}: not bitwise equal to its "
+                             f"plain version at {tuple(i0.shape)}")
+    mbi = mesh.mb_indcs
+    ghosts = i0.numel() - mesh.nmb_total * i0.shape[1] \
+        * mbi.nx1 * mbi.nx2 * mbi.nx3
+    work = noisy.clone()
+    return {"shape": list(i0.shape), "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: kern(work), 20),
+            "plain_ms": cuda_ms(lambda: plain(work), 10),
+            "bound": bound(2 * ghosts * i0.element_size(), 0)}
+
+
+def rad_wide(torch, kernels, card):
+    """RAD_WIDE (one 128^3 block) and RAD_POOL (8 x 64^3) in float32 on
+    the kernel path and the plain path (``hydro/use_kernels``), the launch
+    counts checked exactly (B or G 2 + 6 n in n cycles: u and i0 at the
+    start; u in the fluid stage, u after the coupling and i0 in each
+    stage), the paths bitwise equal, the fill kernel bitwise equal to its
+    plain version on the intensities, the ms of a stage's parts and both
+    paths' zone-cycles/s in turns."""
+    n = NCYC_WIDE
+    out = {}
+    for label, extra, key in (("rad_wide", RAD_WIDE, "periodic_fill_cc"),
+                              ("rad_pool", RAD_POOL, "pool_fill")):
+        states = {}
+        for use in ("true", "false"):
+            got, mesh, phys, driver, state, _ = grav_cli(
+                torch, kernels, RAD_LINWAVE,
+                extra + [f"hydro/use_kernels={use}"], n)
+            expect22(f"{label} {use}", got,
+                     {key: 2 + 6 * n} if use == "true" else {})
+            rad_state_finite(torch, state, label)
+            states[use] = state
+            out[f"{label} {use}"] = {"launches": got, "zcps": driver.zcps}
+            print(f"phase 22: {label} use_kernels={use}: {n} cycles, "
+                  f"launches {got}, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                  f"[{card}] CLI zone-cycles/s {driver.zcps:.6e} "
+                  f"(wall clock)")
+        for k in ("u", "w", "i0"):
+            if not torch.equal(states["true"][k], states["false"][k]):
+                raise AssertionError(f"phase 22 {label}: {k} differs "
+                                     "between the kernel and plain paths")
+        fills = rad_fill_checks(torch, phys, states["true"], key)
+        parts = rad_stage_parts(torch, phys, states["true"], driver)
+        del states
+        rates = turn_rates(torch, RAD_LINWAVE, extra, "hydro")
+        out[label] = {"fill": fills, "parts_ms": parts, "rates": rates}
+        print(f"phase 22: {label}: the paths bitwise equal (u, w, i0); "
+              f"{key} bitwise equal to its plain version on "
+              f"{fills['shape']}; [{card}] {key} {fills['ms']:.4f} ms, "
+              f"plain {fills['plain_ms']:.4f} ms, bound "
+              f"{fills['bound'][0]:.5f} ms; ms of a stage's parts {parts}; "
+              f"zone-cycles/s in turns (events, after a warm-up cycle) "
+              f"{rates}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def rad_run(torch, text, extra=()):
+    """``run_deck_text`` with the radiation state checked finite."""
+    out = run_deck_text(torch, text, extra)
+    rad_state_finite(torch, out[3], "bar")
+    return out
+
+
+def rad_interior(mesh, q):
+    """The interior of a [nmb, n3, n2, n1] field."""
+    mbi = mesh.mb_indcs
+    return q[:, mbi.ks:mbi.ke + 1, mbi.js:mbi.je + 1, mbi.is_:mbi.ie + 1]
+
+
+def hohlraum_bar(torch):
+    """tests/test_radiation.py::test_hohlraum_light_front: behind the
+    front E > 0.6 of the half-space weight, ahead below 0.05 of it, the
+    front between 0.8 t and t + 3 dx."""
+    import numpy as np
+    mesh, phys, driver, state, _ = rad_run(
+        torch, test_literal("test_radiation.py", "DECK").format(opac=""))
+    E = rad_interior(mesh, phys.moments(state["u"])[0]).double().cpu()
+    E = E[0, 1, 1].numpy()
+    mbi = mesh.mb_indcs
+    x = mesh.cell_centers(0)[0][mbi.is_:mbi.ie + 1]
+    t = mesh.time
+    wpos = phys.grid.weights[phys.grid.nh[:, 0] > 0].sum()
+    lit = np.where(E > 0.01 * wpos)[0]
+    xfront, dx = x[lit[-1]], x[1] - x[0]
+    res = {"cycles": mesh.ncycle, "behind": float(E[x < 0.5 * t].mean()
+                                                  / wpos),
+           "ahead": float(E[x > 1.2 * t].max() / wpos),
+           "front_over_t": float(xfront / t)}
+    if not (res["behind"] > 0.6 and res["ahead"] < 0.05
+            and 0.8 * t < xfront <= t + 3 * dx):
+        raise AssertionError(f"hohlraum bar: {res}")
+    return res
+
+
+def relax_bars(torch):
+    """tests/test_radiation.py's relaxation: T^4 + T = 101 (rtol 1e-4,
+    E_rad 1e-3, the sum 1e-10), and with Compton T^4 + T = 11 (the sum
+    1e-6, both temperatures 2e-3)."""
+    import numpy as np
+    out = {}
+    deck = test_literal("test_radiation.py", "RELAX_DECK")
+    comp = deck.replace("kappa_a = 1.0", "kappa_a = 0.0") \
+               .replace("kappa_s = 0.0", "kappa_s = 2.0") \
+               .replace("temp = 100.0", "temp = 10.0") \
+               .replace("cfl_number = 0.3", "cfl_number = 0.1") \
+               .replace("tlim = 10.0", "tlim = 6.0") \
+               .replace("<problem>", "<units>\ndensity_cgs = 1.0\n"
+                        "bhmass_msun = 1.0\nmu = 5.486e-5\n\n<problem>")
+    for label, text, extra, teq, tot in (
+            ("absorption", deck, (), 3.1451803, 101.0),
+            ("compton", comp, ("radiation/compton=true",), 1.7442276,
+             11.0)):
+        mesh, phys, driver, state, _ = rad_run(torch, text, extra)
+        mbi = mesh.mb_indcs
+        w = state["w"].double().cpu().numpy()[:, :, mbi.ks:mbi.ke + 1,
+                                              mbi.js:mbi.je + 1,
+                                              mbi.is_:mbi.ie + 1]
+        tgas = w[:, 4] / w[:, 0]
+        er = rad_interior(mesh, phys.coord_energy_density(state)).double()
+        er = er.cpu().numpy()
+        res = {"cycles": mesh.ncycle, "tgas": float(tgas.mean()),
+               "erad": float(er.mean()),
+               "sum_err": float(np.abs(tgas + er - tot).max() / tot)}
+        if label == "absorption":
+            ok = (np.allclose(tgas, teq, rtol=1e-4)
+                  and np.allclose(er, tot - teq, rtol=1e-3)
+                  and np.allclose(tgas + er, tot, rtol=1e-10))
+        else:
+            trad = er.mean() ** 0.25
+            res["trad"] = float(trad)
+            ok = (np.allclose(tgas + er, tot, rtol=1e-6)
+                  and np.allclose(tgas, teq, rtol=2e-3)
+                  and np.allclose(trad, teq, rtol=2e-3))
+        out[label] = res
+        if not ok:
+            raise AssertionError(f"relax bar {label}: {res}")
+    return out
+
+
+def shadow_bar(torch):
+    """tests/test_radiation.py::test_rad_shadow: behind the cloud the lit
+    rows carry E > 1e-3 and the shadowed row less than 0.2 of it."""
+    mesh, phys, driver, state, _ = rad_run(
+        torch, test_literal("test_radiation.py", "SHADOW_DECK"))
+    er = phys.rad.coord_energy_density(state).double().cpu()
+    mbi = mesh.mb_indcs
+    i = mbi.is_ + int(0.9 * mbi.nx1)
+    shadow = float(er[:, mbi.ks, mbi.js + mbi.nx2 // 2, i].min())
+    lit = float(er[:, mbi.ks, mbi.js + 1, i].max())
+    res = {"cycles": mesh.ncycle, "lit": lit, "shadow": shadow}
+    if not (lit > 1.0e-3 and shadow < 0.2 * lit):
+        raise AssertionError(f"shadow bar: {res}")
+    return res
+
+
+def diffusion_bar(torch):
+    """tests/test_radiation.py::test_rad_diffusion_pulse: at t = 1 the
+    pulse within 0.08 of the diffusion solution over |x| < 1."""
+    import numpy as np
+    tlim = 1.0
+    mesh, phys, driver, state, _ = rad_run(
+        torch, test_literal("test_radiation.py", "DIFF_DECK").format(
+            tlim=tlim))
+    mbi = mesh.mb_indcs
+    er = phys.rad.coord_energy_density(state).double().cpu().numpy()
+    x = mesh.cell_centers(0)[0][mbi.is_:mbi.ie + 1]
+    prof = er[0, 0, 0, mbi.is_:mbi.ie + 1]
+    nu, ks = 4.0, 40.0
+    dd = 1.0 / (3.0 * ks)
+    want = (np.exp(-nu ** 2 * x ** 2 / (4 * dd * nu ** 2 * tlim + 1.0))
+            / np.sqrt(4 * dd * nu ** 2 * tlim + 1.0))
+    core = np.abs(x) < 1.0
+    err = float(np.abs(prof - want)[core].max() / want.max())
+    res = {"cycles": mesh.ncycle, "err": err}
+    if not err < 0.08:
+        raise AssertionError(f"diffusion bar: {res}")
+    return res
+
+
+LWAVE_CHILD = """
+import json, os, sys, tempfile
+sys.path.insert(0, {root!r})
+from athenak_tpu_torch.athinput import ParameterInput
+from athenak_tpu_torch.main import run
+pin = ParameterInput.from_string({text!r})
+pin.modify_from_cmdline(["mesh/nx1={res}", "meshblock/nx1={blk}"])
+with tempfile.TemporaryDirectory() as tmp:
+    os.chdir(tmp)
+    mesh, phys, driver, state = run(pin, device="cuda")
+    row = open("rad_linwave-errs.dat").read().splitlines()[-1].split()
+print(json.dumps({{"err": float(row[4]), "cycles": mesh.ncycle,
+                  "wall": driver.wall_seconds}}))
+"""
+
+
+def lwave_start():
+    """tests/test_rad_gr.py::test_rad_lwave1d_convergence's two runs (32
+    and 64 cells to one damping time, 2,824 and 5,647 cycles of a few
+    thousand small launches each) started in two child processes on the
+    card, so that they run beside each other: [(res, process)]."""
+    text = test_literal("test_rad_gr.py", "RAD_LWAVE_DECK")
+    env = dict(os.environ, ATHENAK_DEVICE="cuda")
+    return [(res, subprocess.Popen(
+        [sys.executable, "-c", LWAVE_CHILD.format(root=ROOT, text=text,
+                                                  res=res, blk=res // 4)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
+        for res in (32, 64)]
+
+
+def lwave_bar(procs):
+    """The convergence bar on the two children's error files: the RMS L1
+    error at 64 cells below 6e-7 and its ratio to 32 cells' below 0.32.
+    Every child is waited for, or killed on a failure."""
+    errs, out = {}, {}
+    try:
+        for res, proc in procs:
+            stdout, stderr = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"lwave {res}: exit {proc.returncode}"
+                                     f"\n{stderr[-2000:]}")
+            rec = json.loads(stdout.strip().splitlines()[-1])
+            errs[res] = rec["err"]
+            out[f"cycles_{res}"] = rec["cycles"]
+            out[f"wall_{res}"] = rec["wall"]
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out.update({"e32": errs[32], "e64": errs[64],
+                "ratio": errs[64] / errs[32]})
+    if not (out["e64"] < 6.0e-7 and out["ratio"] < 0.32):
+        raise AssertionError(f"lwave bar: {out}")
+    return out
+
+
+def beam_bar(torch):
+    """tests/test_rad_gr.py::test_rad_beam_kerr: 25 cycles of the beam in
+    Kerr: E >= -1e-10, the excised cells empty, the total energy 2.1824
+    within 5%, its centroid (3.767, 0.2105) within (0.1, 0.05), the
+    peak 0.3551 within 5%."""
+    mesh, phys, driver, state, _ = rad_run(
+        torch, test_literal("test_rad_gr.py", "BEAM_DECK"))
+    i0 = state["u"]
+    E = phys.moments(i0)[0].double()
+    mbi = mesh.mb_indcs
+    Ea = rad_interior(mesh, E).cpu().numpy()
+    tot = cx = cy = 0.0
+    for gid in range(mesh.nmb_total):
+        x1, x2, _ = mesh.cell_centers(gid)
+        e = Ea[gid, 0]
+        tot += e.sum()
+        cx += (e * x1[mbi.is_:mbi.ie + 1][None, :]).sum()
+        cy += (e * x2[mbi.js:mbi.je + 1][:, None]).sum()
+    excised = float(i0[phys.excise_mask[:, None].expand_as(i0)].abs().max())
+    res = {"cycles": mesh.ncycle, "total": float(tot),
+           "cx": float(cx / tot), "cy": float(cy / tot),
+           "emax": float(Ea.max()), "emin": float(E.min()),
+           "excised_max": excised}
+    if not (res["emin"] > -1e-10 and excised == 0.0
+            and abs(tot - 2.1824) < 0.05 * 2.1824
+            and abs(res["cx"] - 3.767) < 0.1
+            and abs(res["cy"] - 0.2105) < 0.05
+            and abs(res["emax"] - 0.3551) < 0.05 * 0.3551):
+        raise AssertionError(f"beam bar: {res}")
+    return res
+
+
+def snake_bars(torch):
+    """tests/test_rad_snake.py: the geometry tables (n^0 = 1, face n^x
+    varying along y, finite nonzero edge speeds) and the beam's snake-x
+    centroid tracking -A sin(k pi y) within 2.5 cells (Cartesian tetrad,
+    nlevel 4) and 2 cells (snake-aligned tetrad at nlevel 8, 642
+    angles) on at least 8 rows; the ms of divfa and of the fluxes on the
+    final state."""
+    import numpy as np
+    text = test_literal("test_rad_snake.py", "DECK")
+    out = {}
+    for tet in ("false", "true"):
+        deck = text.format(tlim=1.2, snake_tet=tet)
+        if tet == "true":
+            deck = deck.replace("nlevel = 4", "nlevel = 8")
+        t0 = time.perf_counter()
+        mesh, rad, driver, state, _ = rad_run(torch, deck)
+        ndx = rad.nd_face["x1"]
+        tables = (float((rad.n0 - 1.0).abs().max()) < 1e-14
+                  and float((ndx[:, :, :, 1:] - ndx[:, :, :, :-1]).abs()
+                            .max()) > 1e-3
+                  and bool(torch.isfinite(rad.na).all())
+                  and float(rad.na.abs().max()) > 0.0)
+        E = rad.moments(state["u"])[0].double().cpu().numpy()
+        mbi = mesh.mb_indcs
+        A, k = 0.1, 2.0
+        worst, checked = 0.0, 0
+        tol = (2.5 if tet == "false" else 2.0) / 64
+        for gid in range(mesh.nmb_total):
+            x1v, x2v, _ = mesh.cell_centers(gid)
+            for j in range(mbi.js, mbi.je + 1):
+                y = x2v[j]
+                if not (0.5 < y < (1.0 if tet == "false" else 0.75)):
+                    continue
+                row = E[gid, 0, j, mbi.is_:mbi.ie + 1]
+                if row.max() <= 1e-8:
+                    continue
+                xs = x1v[mbi.is_:mbi.ie + 1]
+                cen = (row * xs).sum() / row.sum()
+                worst = max(worst, abs(cen + A * math.sin(k * math.pi * y)))
+                checked += 1
+        res = {"angles": rad.nangles, "cycles": mesh.ncycle,
+               "worst_offset_cells": worst * 64, "rows": checked,
+               "tables": tables, "seconds": time.perf_counter() - t0,
+               "zcps": driver.zcps,
+               "divfa_ms": cuda_ms(lambda: rad.divfa(state["u"]), 5),
+               "transport_ms": cuda_ms(lambda: rad.fluxes(state["u"]), 5)}
+        out[f"snake_tet={tet}"] = res
+        if not (tables and worst < tol and checked >= 8):
+            raise AssertionError(f"snake bar {tet}: {res}")
+    return out
+
+
+def phase_rad(torch, kernels, card):
+    """Phase 22: radiation (see the module docstring)."""
+    seconds = {}
+
+    def part(label, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shipped = part("shipped", rad_shipped, torch, kernels, card, tmp)
+    wide = part("wide", rad_wide, torch, kernels, card)
+    bars = {"snake": part("snake_bars", snake_bars, torch)}
+    # the linear wave's two long launch-bound runs go to two children on
+    # the card, beside the bars that time nothing
+    t0 = time.perf_counter()
+    procs = lwave_start()
+    try:
+        bars.update({
+            "hohlraum": part("hohlraum_bar", hohlraum_bar, torch),
+            "relax": part("relax_bars", relax_bars, torch),
+            "shadow": part("shadow_bar", shadow_bar, torch),
+            "diffusion": part("diffusion_bar", diffusion_bar, torch),
+            "beam_kerr": part("beam_bar", beam_bar, torch)})
+    except BaseException:
+        for _, proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+    bars["lwave"] = lwave_bar(procs)
+    seconds["lwave_bar (children, beside the bars)"] = \
+        time.perf_counter() - t0
+    print(f"phase 22: [{card}] the JAX tests' bars on the card {bars}")
+    print(f"phase 22: seconds a part {seconds}")
+    runs = {f"{k} shipped": v["launches"] for k, v in shipped.items()}
+    runs.update({k: v["launches"] for k, v in wide.items()
+                 if "launches" in v})
+    return {"runs": runs,
+            "shipped": {k: {kk: vv for kk, vv in v.items()
+                            if kk != "launches"}
+                        for k, v in shipped.items()},
+            "wide": {k: v for k, v in wide.items() if "launches" not in v},
+            "bars": bars, "seconds": seconds}
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_, library_ms):
     return {"name": name, "route": "cuda",
@@ -5416,6 +5918,7 @@ def main() -> int:
         gr = phase("19", phase_gr, torch, kernels, card)
         grav = phase("20", phase_grav, torch, kernels, card)
         sbox = phase("21", phase_sbox, torch, kernels, card)
+        rad = phase("22", phase_rad, torch, kernels, card)
     print(f"seconds a phase: {seconds}")
 
     def runs(name):
@@ -5435,6 +5938,7 @@ def main() -> int:
                    for k, v in gr["runs"].items()},
                 **{k: v.get(name, 0) for k, v in grav["runs"].items()},
                 **{k: v.get(name, 0) for k, v in sbox["runs"].items()},
+                **{k: v.get(name, 0) for k, v in rad["runs"].items()},
                 "bbh_restart": bbh["restart"]["resumed"].get(name, 0)}
 
     ft, fe = fill_times, fill_errs
@@ -5563,6 +6067,7 @@ def main() -> int:
                for k, v in gr.items() if k != "runs"},
         "grav_diff": {k: v for k, v in grav.items() if k != "runs"},
         "sbox": {k: v for k, v in sbox.items() if k != "runs"},
+        "rad": {k: v for k, v in rad.items() if k != "runs"},
         "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
         "build_seconds": kernels.BUILD_INFO.get("source_seconds"),
         "card": card}))

@@ -192,7 +192,11 @@ def test_port_never_imports_jax():
               "pgen.shock_cloud", "pgen.jeans_wave", "pgen.binary_gravity",
               "pgen.be_collapse", "shearing_box", "particles",
               "physics.ion_neutral", "pgen.shwave", "pgen.mri2d",
-              "pgen.mri3d", "pgen.twofluid"):
+              "pgen.mri3d", "pgen.twofluid", "radiation.tetrad",
+              "radiation.radiation", "radiation.coupling",
+              "radiation.rad_fluid", "pgen.rad_hohlraum", "pgen.rad_beam",
+              "pgen.rad_snake", "pgen.rad_relax", "pgen.rad_shadow",
+              "pgen.rad_linear_wave", "pgen.rad_diffusion"):
         assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -39,6 +39,28 @@ def deck_text(path: str) -> str:
         return f.read()
 
 
+def deck_literal(fname: str, name: str):
+    """A literal assigned at the top level of one of the repo's test
+    files (a deck's text), read with ``ast``."""
+    import ast
+    with open(os.path.join(ROOT, "tests", fname)) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise KeyError(f"tests/{fname} assigns no {name}")
+
+
+def read_bin(path):
+    """(the header up to the cell data, the rest) of a ``bin`` file."""
+    data = open(path, "rb").read()
+    i = data.index(b"header offset=")
+    j = data.index(b"\n", i)
+    off = int(data[i + len(b"header offset="):j])
+    return data[:j + 1 + off], data[j + 1 + off:]
+
+
 def jit_o0(fn):
     """``jax.jit`` at backend optimisation level 0."""
     return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0})
