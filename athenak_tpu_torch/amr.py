@@ -805,6 +805,13 @@ class AMR:
             rebind = getattr(phys.srcterms_func, "rebind", None)
             if rebind is not None:
                 rebind(mesh)
+        # the user refinement function as `Driver` enrolled it, and a
+        # prescribed spacetime rebound to the new tree's cells (the JAX
+        # rebuild carries neither, ROADMAP F26)
+        if getattr(old_phys, "user_refine_func", None) is not None:
+            phys.user_refine_func = old_phys.user_refine_func
+        if hasattr(phys, "adopt_spacetime"):
+            phys.adopt_spacetime(old_phys)
         t1 = _time.perf_counter()
 
         mbi = mesh.mb_indcs
@@ -816,9 +823,12 @@ class AMR:
         # solve on the new one reads it at the new gids (clamped), as the
         # JAX package's rebuild and warm start do
         new_state = dict(state)
-        for key in ("u", "w", "i0"):
+        for key in ("u", "w", "z", "i0"):
             if key in state:
                 new_state[key] = remap_cc(state[key], tbl, mbi, act_axes)
+        if "T" in state:
+            new_state["T"] = remap_cc(state["T"][:, None], tbl, mbi,
+                                      act_axes)[:, 0]
         if "bfc" in state:
             bfc = remap_fc(state["bfc"], tbl, mbi, act_axes)
             new_state["bfc"] = fc_internal(bfc, mbi, act_axes, refined)

@@ -66,26 +66,33 @@ def read_deck(path, overrides=()):
 
 def make_physics(pin, mesh, bvals, device, dtype):
     """Select and construct the physics module (reference:
-    MeshBlockPack::AddPhysics, meshblock_pack.cpp:102-235)."""
-    if pin.does_block_exist("adm"):
-        raise NotImplementedError(
-            "<adm> physics is not ported to athenak_tpu_torch yet")
-    if pin.does_block_exist("radiation"):
-        if not (pin.does_block_exist("hydro") or pin.does_block_exist("mhd")):
-            # radiation-only transport (reference: AddPhysics radiation
-            # branch)
-            from .radiation.radiation import Radiation
-            return Radiation(pin, mesh, bvals, device, dtype)
-        if not pin.does_block_exist("z4c"):
-            # radiation coupled to hydro or MHD (reference: AddPhysics
-            # rad_hydro/rad_mhd branches + RadFluidCoupling)
-            from .radiation.rad_fluid import RadiationFluid
-            return RadiationFluid(pin, mesh, bvals, device, dtype)
+    MeshBlockPack::AddPhysics, meshblock_pack.cpp:102-235), in the JAX
+    package's order: radiation alone, radiation with a fluid on a flat or
+    Kerr-Schild background, dynamical GRMHD (<mhd> with <adm> or <z4c>,
+    which takes a <radiation> block's deck too), vacuum Z4c,
+    ion-neutral, MHD, hydro."""
+    if pin.does_block_exist("radiation") \
+            and not pin.does_block_exist("hydro") \
+            and not pin.does_block_exist("mhd"):
+        # radiation-only transport (reference: AddPhysics radiation
+        # branch)
+        from .radiation.radiation import Radiation
+        return Radiation(pin, mesh, bvals, device, dtype)
+    if pin.does_block_exist("radiation") \
+            and not (pin.does_block_exist("adm")
+                     or pin.does_block_exist("z4c")):
+        # radiation coupled to hydro or MHD (reference: AddPhysics
+        # rad_hydro/rad_mhd branches + RadFluidCoupling)
+        from .radiation.rad_fluid import RadiationFluid
+        return RadiationFluid(pin, mesh, bvals, device, dtype)
+    if pin.does_block_exist("mhd") and (pin.does_block_exist("adm")
+                                        or pin.does_block_exist("z4c")):
+        # dynamical GRMHD: <mhd>+<adm> on a fixed or prescribed
+        # spacetime, <mhd>+<z4c> fully coupled (reference: AddPhysics
+        # dyn_grmhd branch, meshblock_pack.cpp:205-235)
+        from .dyngr import DynGRMHD
+        return DynGRMHD(pin, mesh, bvals, device, dtype)
     if pin.does_block_exist("z4c"):
-        if pin.does_block_exist("mhd"):
-            raise NotImplementedError(
-                "dynamical GRMHD (<mhd> with <z4c>) is not ported to "
-                "athenak_tpu_torch yet")
         # vacuum numerical relativity (reference: AddPhysics z4c branch)
         from .z4c.z4c import Z4c
         return Z4c(pin, mesh, bvals, device=device, dtype=dtype)

@@ -1,6 +1,7 @@
 """Output variables: the fluid's conserved and primitive fields, the
-cell-centred field, the gravitational potential, the Z4c fields, ADM
-fields, constraint monitors and psi4, and the radiation moments.
+cell-centred field, the gravitational potential, the temperature of a
+dynamical-GRMHD run, the Z4c fields, ADM fields, constraint monitors and
+psi4, the fluid's stress-energy, and the radiation moments.
 
 Counterpart of ``athenak_tpu/outputs/variables.py`` for these names
 (reference: the ``var_choice`` rows of src/outputs/outputs.hpp:31-105):
@@ -30,14 +31,19 @@ ADM_LABELS = [
 CON_NAMES = ("con", "con_C", "con_H", "con_M", "con_Z", "con_Mx",
              "con_My", "con_Mz")
 
+TMUNU_LABELS = [
+    "tmunu_Sxx", "tmunu_Sxy", "tmunu_Sxz", "tmunu_Syy", "tmunu_Syz",
+    "tmunu_Szz", "tmunu_E", "tmunu_Sx", "tmunu_Sy", "tmunu_Sz"]
+
 NAMES = tuple(["z4c"] + Z4C_LABELS + ["adm", "adm_psi4"] + ADM_LABELS
-              + list(CON_NAMES) + ["weyl", "weyl_rpsi4", "weyl_ipsi4"])
+              + list(CON_NAMES) + ["weyl", "weyl_rpsi4", "weyl_ipsi4"]
+              + ["tmunu"] + TMUNU_LABELS)
 
 
 _HYDRO_U = ["dens", "mom1", "mom2", "mom3", "ener"]
 _HYDRO_W = ["dens", "velx", "vely", "velz", "eint"]
 FLUID_NAMES = ("hydro_u", "hydro_w", "mhd_u", "mhd_w", "mhd_u_bcc",
-               "mhd_w_bcc", "mhd_bcc", "grav_phi")
+               "mhd_w_bcc", "mhd_bcc", "grav_phi", "hydro_t", "mhd_t")
 
 
 def resolve_fluid(name: str, phys, state):
@@ -46,7 +52,10 @@ def resolve_fluid(name: str, phys, state):
     isothermal EOS, scalars left out), with the cell-centred field for
     ``*_bcc``; ``mhd_bcc`` the field alone; ``grav_phi`` the potential of
     a fresh solve on the state (the JAX package's own file holds no cell
-    data, ROADMAP F18)."""
+    data, ROADMAP F18); ``*_t`` the temperature of a dynamical-GRMHD
+    state."""
+    if name in ("hydro_t", "mhd_t"):
+        return ["temp"], state["T"][:, None]
     if name == "grav_phi":
         return ["phi"], phys.pgrav.solve(state["u"], phys.bvals)
     if name == "mhd_bcc":
@@ -108,18 +117,32 @@ def is_z4c_variable(name: str) -> bool:
 
 def resolve_z4c(name: str, phys, state):
     """(labels, tensor [nmb, nvar, n3, n2, n1]) of a Z4c output variable
-    on the state's device; a name of another family raises KeyError."""
+    on the state's device; a name of another family raises KeyError.
+    Under dynamical GRMHD the Z4c fields are the state's ``z``, the ADM
+    fields the physics' ``adm_of`` (the evolved, fixed or prescribed
+    spacetime) and ``tmunu`` the fluid's stress-energy on it."""
     if not is_z4c_variable(name):
         raise KeyError(f"'{name}' is not a Z4c output variable")
-    z = state["u"]
+    z = state.get("z", state["u"])
+    if name.startswith("tmunu"):
+        tm = phys.set_tmunu(state["u"], state["w"], state["bcc"],
+                            phys.adm_of(state))
+        fields = tm["S_dd"] + [tm["E"]] + tm["S_d"]
+        if name == "tmunu":
+            return list(TMUNU_LABELS), torch.stack(fields, dim=1)
+        i = TMUNU_LABELS.index(name)
+        return [name], fields[i][:, None]
     if name == "z4c":
         return list(Z4C_LABELS), z[:, :len(Z4C_LABELS)]
     if name.startswith("z4c"):
         i = Z4C_LABELS.index(name)
         return [name], z[:, i:i + 1]
     if name.startswith("adm"):
-        from ..z4c.z4c import adm_from_z4c
-        adm = adm_from_z4c(phys, z)
+        if hasattr(phys, "adm_of"):
+            adm = phys.adm_of(state)
+        else:
+            from ..z4c.z4c import adm_from_z4c
+            adm = adm_from_z4c(phys, z)
         fields = adm["g3d"] + adm["K_dd"] + [adm["alpha"]] + adm["beta_u"]
         if name == "adm":
             return list(ADM_LABELS), torch.stack(fields, dim=1)
@@ -130,6 +153,8 @@ def resolve_z4c(name: str, phys, state):
             return ["adm_psi4"], (_det6(adm["g3d"]) ** (1.0 / 6.0))[:, None]
         i = ADM_LABELS.index(name)
         return [name], fields[i][:, None]
+    # the constraints and psi4 of a dynamical-GRMHD run are its Z4c's
+    phys = getattr(phys, "z4c", None) or phys
     if name.startswith("con"):
         if name == "con_H":
             H, _ = phys.adm_constraints(z)

@@ -23,7 +23,10 @@ the binary potential, the Bonnor-Ebert collapse), the shearing-box
 problems (the shearing waves, the 2-D and 3-D MRI), the ion-neutral
 two-fluid state and the radiation problems (the hohlraum, the beam in
 Kerr and in snake coordinates, thermal relaxation, the shadow, the
-radiating linear wave, the diffusing pulse) are ported so far.
+radiating linear wave, the diffusing pulse) and the dynamical-GRMHD
+generators (the TOV star, the superposed binary black hole, the
+imported ADM and BNS volumes; the shock tube on a flat ADM slice) are
+ported so far.
 """
 
 from __future__ import annotations
@@ -83,6 +86,11 @@ _REGISTRY = {
     "rad_shadow": "athenak_tpu_torch.pgen.rad_shadow",
     "rad_linear_wave": "athenak_tpu_torch.pgen.rad_linear_wave",
     "rad_diffusion": "athenak_tpu_torch.pgen.rad_diffusion",
+    "dynbbh": "athenak_tpu_torch.pgen.dynbbh",
+    "z4c_adm_import": "athenak_tpu_torch.pgen.import_id",
+    "dyngr_bns_import": "athenak_tpu_torch.pgen.import_id",
+    "tov": "athenak_tpu_torch.pgen.dyngr_tov",
+    "dyngr_tov": "athenak_tpu_torch.pgen.dyngr_tov",
 }
 
 

@@ -6,16 +6,29 @@ src/pgen/tests/shock_tube.cpp): discontinuous left/right states along
 ``problem/bxl`` .. ``bzr`` (along x1 only), each side's value on the
 faces left and right of the shock.  Under SR the velocities are the
 primitives' u^i and the SR p2c makes the conserved state; SR hydro
-raises in the physics constructor.
+raises in the physics constructor.  Under dynamical GRMHD (a physics
+with the primitive solver ``ps``) the energy slot holds the pressure,
+the background is a fixed Minkowski ADM slice, and the temperature
+comes from the EOS policy (reference: shock_tube.cpp dyngr branch).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..indices import IDN, IEN, IVX, IVY, IVZ
 
-from . import state_from_prims
+from . import state_from_prims, to_device
+
+
+def minkowski(mesh):
+    """The flat ADM slice on ``mesh``: (g3d, alpha, beta_u, K_dd) host
+    arrays [nmb, n3, n2, n1]."""
+    mbi = mesh.mb_indcs
+    shp = (mesh.nmb_total, mbi.ncells3, mbi.ncells2, mbi.ncells1)
+    one, zero = np.ones(shp), np.zeros(shp)
+    return [one, zero, zero, one, zero, one], one, [zero, zero, zero], None
 
 
 def init(pin, mesh, phys):
@@ -25,7 +38,11 @@ def init(pin, mesh, phys):
           pin.get_real("problem", "vl"), pin.get_real("problem", "wl")]
     wr = [pin.get_real("problem", "dr"), pin.get_real("problem", "ur"),
           pin.get_real("problem", "vr"), pin.get_real("problem", "wr")]
-    if phys.eos.is_ideal:
+    is_dyngr = hasattr(phys, "ps")
+    if is_dyngr:
+        wl.append(pin.get_real("problem", "pl"))
+        wr.append(pin.get_real("problem", "pr"))
+    elif phys.eos.is_ideal:
         gm1 = phys.eos.gamma - 1.0
         wl.append(pin.get_real("problem", "pl") / gm1)
         wr.append(pin.get_real("problem", "pr") / gm1)
@@ -76,4 +93,14 @@ def init(pin, mesh, phys):
         bfc["x1f"][gid] = np.where(x1f.reshape(1, 1, -1) < xshock, bxl, bxr)
         bfc["x2f"][gid] = np.where(x1v.reshape(1, 1, -1) < xshock, byl, byr)
         bfc["x3f"][gid] = np.where(x1v.reshape(1, 1, -1) < xshock, bzl, bzr)
-    return state_from_prims(phys, w, bfc)
+    if not is_dyngr:
+        return state_from_prims(phys, w, bfc)
+    phys.set_fixed_adm(*minkowski(mesh), sampler=minkowski)
+    wt = to_device(phys, w)
+    bfct = {k: to_device(phys, v) for k, v in bfc.items()}
+    bcc = phys.compute_bcc(bfct)
+    n = wt[:, IDN] / phys.ps.mb
+    T = phys.policy.temperature_from_p(torch.clamp(n, min=phys.ps.n_atm),
+                                       wt[:, IEN])
+    u = phys.prim_to_cons_state(wt, T, bcc, phys.adm_of({}))
+    return phys.make_state(u, wt, bfct, T=T)

@@ -204,18 +204,23 @@ def gr_cell_emfs(w, bcc, glower, gupper):
 
 
 def corner_e(w, bcc, fden, emf, ndim: int, is_sr: bool = False,
-             metric=None):
+             metric=None, ecc=None):
     """Edge EMFs by Gardiner-Stone (2005/07) upwinding (reference:
     src/mhd/mhd_corner_e.cpp).  ``fden`` holds the mass flux per direction
     ([nmb, n3, n2, n1]); returns cell-indexed e1, e2, e3.  SR primitives
     store u^i = gamma v^i, so under SR the transport velocity in
     E = -v x B is u^i / gamma (reference: mhd_corner_e.cpp:136-143);
     under GR (``metric`` the cell-centre (glower, gupper)) the cell EMFs
-    are ``gr_cell_emfs``."""
+    are ``gr_cell_emfs``; ``ecc`` gives the cell EMFs (e1cc, e2cc, e3cc)
+    from outside instead (dynamical GRMHD's transport velocity
+    alpha v - beta, reference: mhd_corner_e.cpp ADM branch :66-84,
+    218-240)."""
     if ndim == 1:
         e2 = emf["e2x1"]
         return torch.zeros_like(e2), e2, emf["e3x1"]
-    if metric is not None:
+    if ecc is not None:
+        e1cc, e2cc, e3cc = ecc
+    elif metric is not None:
         e1cc, e2cc, e3cc = gr_cell_emfs(w, bcc, *metric)
     else:
         vx, vy, vz = w[:, IVX], w[:, IVY], w[:, IVZ]
@@ -544,14 +549,14 @@ class MHD:
                 out_e[key] = torch.where(fmask, e1, out_e[key])
         return out_f, out_e, nfofc
 
-    def corner_e(self, w, bcc, fden, emf, bfc=None):
+    def corner_e(self, w, bcc, fden, emf, bfc=None, ecc=None):
         """The corner EMFs plus the resistive ones from the face field
         ``bfc`` (reference: Resistivity::AddResistiveEMFs, called from
-        CornerE)."""
+        CornerE); ``ecc`` the cell EMFs given from outside."""
         e1, e2, e3 = corner_e(w, bcc, fden, emf, len(self.dirs),
                               is_sr=self.is_sr,
                               metric=self.geom.metric("cc") if self.is_gr
-                              else None)
+                              and ecc is None else None, ecc=ecc)
         if self.presist is None:
             return e1, e2, e3
         return self.presist.add_resistive_emf(bfc, bcc, e1, e2, e3,

@@ -17,7 +17,10 @@ neutrals' ``u`` and ``w``, with the stiff residuals of its implicit
 stages ``ru`` [nmb, 4, 8, n3, n2, n1].  A radiation-only state
 holds its intensities in ``u`` (and ``w``, the same array), a
 radiation-fluid state the fluid's entries and the intensities ``i0``
-[nmb, nangles, n3, n2, n1].  These two functions move such a dict (as
+[nmb, nangles, n3, n2, n1].  A dynamical-GRMHD state holds the
+temperature ``T`` [nmb, n3, n2, n1] beside ``u``, ``w``, ``bfc`` and
+``bcc`` and, coupled to Z4c, the spacetime ``z`` [nmb, 22, n3, n2, n1]
+(with ``co_pos`` under trackers).  These two functions move such a dict (as
 numpy arrays) into the port and back, so both packages can start from
 one state.
 """
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 _KEYS = ("u", "w", "bcc", "turb_force", "co_pos", "t", "phi",
-         "prtcl_x", "prtcl_v", "ui", "wi", "ru", "i0")
+         "prtcl_x", "prtcl_v", "ui", "wi", "ru", "i0", "T", "z")
 
 
 def _check_keys(d) -> None:

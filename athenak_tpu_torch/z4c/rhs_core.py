@@ -6,7 +6,9 @@ z4c_calcrhs.cpp:180-590), line by line with the same operation order, so
 that the whole-array torch path (``z4c.py`` ``_WholeArrayOps``) rounds as
 the JAX package's jnp path does; the CUDA stage kernel
 (``csrc/z4c_rhs.cuh``) repeats the same order cell by cell.  The matter
-coupling (``tmunu``, dynamical GRMHD) is not ported.
+coupling (``tmunu``, dynamical GRMHD) adds its source terms after the
+gauge rows, as the JAX package does; only the whole-array path takes it
+(the kernel's gate is closed by ``tmunu``).
 
 Backend protocol (``ops``):
   d1(f, d)        first derivative, FD order 2*ng - 2
@@ -48,10 +50,6 @@ def rhs_core(ch, ops, opt, diss, tmunu=None):
     """Z4c RHS; returns the 22 channel tensors in evolved-variable order.
     ``ch``: idx -> full-window channel field; ``diss``: the pre-scaled
     sigma * 2^-2ng * sign factor."""
-    if tmunu is not None:
-        raise NotImplementedError(
-            "the Z4c matter coupling (tmunu) is not ported to "
-            "athenak_tpu_torch yet")
     chi, g, khat, A, gam, theta, alpha, beta = unpack_fields(ch)
 
     D1, D2 = ops.d1, ops.d2
@@ -272,6 +270,32 @@ def rhs_core(ch, ops, opt, diss, tmunu=None):
                         * (0.5 * alpha * dchi[b] - dalpha[b]) * gu[a][b]
                         for b in range(3))
         out[I_BETAX + a] = v
+
+    # ------------------------------------------------- matter coupling
+    # stress-energy source terms (reference: z4c_calcrhs.cpp:364,
+    # 490-532; tmunu = {"E", "S_d"[3], "S_dd"[6]} undensitised,
+    # centre-shaped)
+    if tmunu is not None:
+        fourpi = 4.0 * math.pi
+        E_m = tmunu["E"]
+        S_d_m = tmunu["S_d"]
+        S_dd_m = tmunu["S_dd"]
+        S_m = oopsi4 * sum(
+            gu[a][b] * S_dd_m[sym_idx(a, b)]
+            for a in range(3) for b in range(3))
+        out[I_KHAT] = out[I_KHAT] + fourpi * alpha * (S_m + E_m)
+        out[I_THETA] = out[I_THETA] - (
+            2.0 * fourpi * alpha * E_m * opt.use_z4c)
+        for a in range(3):
+            out[I_GAMX + a] = out[I_GAMX + a] - (
+                4.0 * fourpi * alpha
+                * sum(gu[a][b] * S_d_m[b] for b in range(3)))
+        for a, b in _sym_pairs():
+            c = I_AXX + sym_idx(a, b)
+            out[c] = out[c] - (
+                2.0 * fourpi * alpha
+                * (oopsi4 * S_dd_m[sym_idx(a, b)]
+                   - (1.0 / 3.0) * S_m * g[a][b]))
 
     # Sommerfeld radiative RHS on the outer active layer
     # (reference: Z4cSommerfeld, z4c_Sbc.cpp:25-122; derivatives forced

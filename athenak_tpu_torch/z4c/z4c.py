@@ -31,9 +31,11 @@ the shift interpolated trilinearly on the card by
 back.  ``adm_constraints`` computes the Hamiltonian and momentum
 constraint monitors in torch ops.
 
-Not ported yet (it raises): the matter coupling (``tmunu``).  The TPU's
-row packing is layout for the TPU's lanes and has no counterpart here:
-the state is always the logical 5-D array.
+The matter coupling of dynamical GRMHD (``stage_update(tmunu=...)``)
+takes the torch path whatever the gate, as the JAX package's does
+(``athenak_tpu/z4c/z4c.py:496-497``): kernel H has no matter source.
+The TPU's row packing is layout for the TPU's lanes and has no
+counterpart here: the state is always the logical 5-D array.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from ..bvals import kernel_dtype_ok
-from ..utils import not_ported
+from ..graphs import Graphed
 from . import fd
 
 # evolved-variable channel indices (reference: z4c.hpp:46-56)
@@ -227,6 +229,10 @@ class Z4c:
         if not use_kernels:
             bvals.use_fill_kernel = False
             bvals.use_pool_fill = False
+        # the RHS with the matter source (the dyngr stage) is replayed
+        # from a CUDA graph: bitwise the eager RHS, from one host launch
+        self._matter_rhs = Graphed(
+            lambda u, tmunu: self.rhs(u, tmunu=tmunu))
 
     def kernel_path(self, u) -> bool:
         """True when a stage on ``u`` runs the stage kernel."""
@@ -490,11 +496,10 @@ class Z4c:
         """One RK stage: RHS -> update -> halo -> algebraic constraints
         (reference task chain: z4c_tasks.cpp:48-85).  On the kernel path
         the projection comes before the fill; it is pointwise, so the two
-        orders agree on a uniform mesh."""
-        if tmunu is not None:
-            raise not_ported("the Z4c matter coupling (tmunu)")
+        orders agree on a uniform mesh.  ``tmunu`` (the fluid's
+        stress-energy) closes the kernel path."""
         u = state["u"]
-        if self.kernel_path(u):
+        if tmunu is None and self.kernel_path(u):
             from ..ops.z4c_stage import fused_z4c_stage, outflow_fill
             u = fused_z4c_stage(u, saved["u1"], self, gam0, gam1, beta_dt)
             # the user hook is checked again here: generators install it
@@ -503,7 +508,7 @@ class Z4c:
             u = outflow_fill(u, self.bvals) if fold \
                 else self.bvals.fill_ghosts(u)
             return dict(state, u=u, w=u), {}
-        rhs = self.rhs(u)
+        rhs = self.rhs(u) if tmunu is None else self._matter_rhs(u, tmunu)
         u = gam0 * u + gam1 * saved["u1"] + beta_dt * rhs
         u = self.bvals.fill_ghosts(u)
         u = self.alg_constr(u)

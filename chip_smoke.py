@@ -337,7 +337,42 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      snake's characteristic (nlevel 4, and 8 with the snake-aligned
      tetrad) and the radiating linear wave's convergence (e64 < 6e-7,
      ratio < 0.32; its two sizes, 8,471 launch-bound cycles, run in two
-     child processes on the card beside the bars that time nothing).
+     child lanes).
+ 23. drives dynamical GRMHD, the launch counts set to 0 before each run
+     and checked exactly (no kernel launches anywhere: float64 and
+     outflow sides close B and G, the matter source closes H, and the
+     MHD stage kernels are closed for the dyngr physics as in the JAX
+     package).  ``DYN_WIDE`` (below) runs right after phase 12; in a
+     lane: the CUDA graphs of the dyngr stage (the primitive solver,
+     the Z4c RHS with the matter source) bitwise equal to the eager
+     calls they replay, as captured and on new values; the four shipped
+     decks of
+     ``inputs/dyn_grmhd/`` as they are (f64) through the CLI, sod,
+     tov_cowling and tov_z4c_smr 10 cycles, dynbbh through its first
+     tree update (cycle 4) and two cycles past it with its ``hst``
+     output and the spacetime rebound to the new tree: states finite,
+     div(B) dx / max|B| <= 1e-5 on every level; the JAX tests' bars on
+     their own decks (f64): tests/test_dyngr.py's TOV at 24^3 for 30
+     cycles (central-density drift < 0.13 fixed, < 0.10 coupled with the
+     lapse in (0.1, 1.05)) and its shock tube against the SR MHD tube
+     (L1 < 0.005), tests/test_dynbbh.py's lapse minima at t = 0 and a
+     quarter orbit later; a restart of tov_cowling (10 cycles against 5
+     + ``-r`` 5, bitwise with T).  ``DYN_WIDE``
+     (tov_z4c_smr at 64^3 in 32^3 blocks: 64 blocks on level 1, 2.1 M
+     cells, f32, coupled Z4c) on both paths for 3 cycles, bitwise equal,
+     the ms of a stage's parts (fluxes, coordinate sources, Tmunu, the
+     Z4c RHS with matter, the fills, the c2p), the device launches of a
+     stage, peak memory and zone-cycles/s in turns.
+
+The runs that time nothing (the JAX tests' bars of phases 19-23, the
+restarts of phases 16-19, the Bonnor-Ebert runs, phase 23's graph
+checks, shipped decks and restart) run in ``LANES``: child processes on
+the card (``chip_smoke.py --lane NAME...``), started once phases 1-12
+and DYN_WIDE are done and running beside phases 13-22.  So the kernels'
+and DYN_WIDE's times are taken alone, phases 13-22's beside the lanes
+(launch-bound processes slow each other little on one card: four
+copies of the linear wave ran 1.08-1.15x slower than one,
+``prof_dyn_graphs.py``).
 
 Every failure raises, so the exit code is not 0.  The last lines of
 standard output are the card's name and power limit, one JSON line with
@@ -2261,8 +2296,8 @@ def volume_mass(torch, mesh, u):
 
 
 def check_levels(torch, mesh, state, label):
-    """Finite state and max|div B| dx / max|B| <= 1e-5 on every level;
-    returns that measure per level."""
+    """Finite state and max|div B| dx / max|B| <= 1e-5 on every level
+    that holds blocks; returns that measure per level."""
     u, bfc = state["u"], state["bfc"]
     if not (bool(torch.isfinite(u).all())
             and all(bool(torch.isfinite(v).all()) for v in bfc.values())):
@@ -2276,9 +2311,10 @@ def check_levels(torch, mesh, state, label):
     if b3.shape[1] > 2:
         div = div + (b3[:, 1:] - b3[:, :-1]) / dx["x3"]
     div = (interior(div).abs().amax(dim=(1, 2, 3)) * dx["x1"].flatten())
-    bmax = max(float(v.abs().max()) for v in bfc.values())
+    # a deck without a field (the TOV star) has div B exactly 0
+    bmax = max(max(float(v.abs().max()) for v in bfc.values()), 1e-30)
     out = []
-    for lev in range(int(mesh.mb_lev.max()) + 1):
+    for lev in sorted(set(int(v) for v in mesh.mb_lev)):
         sel = torch.as_tensor(mesh.mb_lev == lev, device=u.device)
         out.append(float(div[sel].max()) / bmax)
     if max(out) > 1e-5:
@@ -3079,24 +3115,22 @@ def slice_decks(torch, kernels, card):
 
 
 def phase_slice(torch, kernels, card):
-    """Phase 16: this slice's decks (see the module docstring)."""
+    """Phase 16: this slice's decks (see the module docstring); its
+    restarts run in a lane."""
     turb, turb_parts = slice_turb(torch, kernels, card)
     poked, nfofc = poked_turb(torch, kernels, card)
     fofc = slice_fofc_blast(torch, kernels, card)
-    restart = slice_restart(torch, kernels, card)
     rt_flux = rt2d_flux_check(torch, card)
     decks, deck_parts = slice_decks(torch, kernels, card)
     launches = {**{k: v["launches"] for k, v in turb.items()},
                 "poked turb60": poked,
                 "fofc_blast": fofc["true"]["launches"],
-                **{f"restart {k} {r}": v[r] for k, v in restart.items()
-                   for r in ("straight", "resumed")},
                 **{k: v["launches"] for k, v in decks.items()}}
     return {"launches": launches,
             "turb_rates": {k: v["rates"] for k, v in turb.items()},
             "fofc": {k: fofc[k] for k in ("true", "false", "rates",
                                           "path_diff", "fofc_ms")},
-            "restart": restart, "turb60_poked_nfofc": nfofc,
+            "turb60_poked_nfofc": nfofc,
             "flux_dir_rt2d_mhd": rt_flux,
             "deck_zcps": {k: v["zcps"] for k, v in decks.items()},
             "parts_ms": {**turb_parts, "fofc_blast_ms": fofc["fofc_ms"],
@@ -3518,8 +3552,7 @@ def phase_amr(torch, kernels, card):
                       "levels": ki["levels"], "nmb": ki["nmb"],
                       "flat_cycles": ki["flat_cycles"],
                       "timings_ms": ki["timings"]}
-    restart = amr_restart(torch, kernels)
-    return {"runs": out, "checks": kchecks, "restart": restart}
+    return {"runs": out, "checks": kchecks}
 
 
 def z4c_expect(launches, label, **counts):
@@ -4022,8 +4055,7 @@ def awa_decks(torch, kernels, card, fill):
 def phase_bbh(torch, kernels, card, fill):
     """Phase 18 (see the module docstring)."""
     out = {"bbh_flat": bbh_flat(torch, kernels, card),
-           "bbh_amr": bbh_amr(torch, kernels, card),
-           "restart": bbh_restart(torch, kernels)}
+           "bbh_amr": bbh_amr(torch, kernels, card)}
     out.update(z4c_slice_decks(torch, kernels, card))
     out["awa"] = awa_decks(torch, kernels, card, fill)
     runs = {k: out[k] for k in ("bbh_flat", "bbh_amr", "kerr_schild",
@@ -4385,19 +4417,17 @@ def gr_restart(torch, kernels):
 
 
 def phase_gr(torch, kernels, card):
-    """Phase 19 (see the module docstring)."""
+    """Phase 19 (see the module docstring); the JAX tests' bars and the
+    restarts run in a lane."""
     out = {"torus124": gr_torus(torch, kernels, "torus124", None,
                                 text=GR_TORUS_DECK, parts=True),
            "torus_sane": gr_torus(torch, kernels, "torus_sane",
                                   TORUS_SANE)}
-    out.update(gr_bars(torch, kernels))
     out.update(gr_shipped(torch, kernels))
     out["gr_monopole"] = gr_big_monopole(torch, kernels)
     out["card_cpu"] = gr_card_cpu(torch)
     out["disk_magnetosphere"] = gr_disk(torch, kernels)
-    out["restart"] = gr_restart(torch, kernels)
-    out["runs"] = {k: out[k] for k in ("torus124", "torus_sane", "bondi",
-                                       "bondi_mhd", "monopole",
+    out["runs"] = {k: out[k] for k in ("torus124", "torus_sane",
                                        "gr_monopole", "disk_magnetosphere",
                                        *GR_SHIPPED)}
     return out
@@ -4911,7 +4941,9 @@ def be_restart(torch, kernels):
 
 
 def phase_grav(torch, kernels, card):
-    """Phase 20: diffusion and self-gravity (see the module docstring)."""
+    """Phase 20's runs that time something: diffusion and self-gravity
+    (see the module docstring); its bars and the Bonnor-Ebert runs go in
+    lanes (``LANES``)."""
     seconds = {}
 
     def part(label, fn, *args):
@@ -4921,24 +4953,25 @@ def phase_grav(torch, kernels, card):
         return out
 
     blast = part("diff_blast", diff_blast, torch, kernels, card)
-    bars = part("diffusion_bars", diffusion_bars, torch, kernels, card)
     jeans = part("jeans", fill_runs, torch, kernels, card, "jeans_wave",
                  JEANS, JEANS_BIG, "periodic_fill_cc", 0)
-    jeans["bars"] = part("jeans_bars", jeans_bars, torch, kernels, card)
     selfg = part("selfgravity", fill_runs, torch, kernels, card,
                  "selfgravity", SELFGRAV, SELFGRAV_BIG, None, 0)
-    binary = part("binary", binary_bars, torch, card)
-    be = part("be", be_runs, torch, kernels, card)
     print(f"phase 20: seconds a part {seconds}")
-    runs = {**{k: v["launches"] for k, v in blast["runs"].items()},
-            "jeans_big": jeans["true"]["launches"],
-            "selfgravity_big": selfg["true"]["launches"],
+    return {"diff_blast": blast, "jeans": jeans, "selfgravity": selfg,
+            "seconds": seconds}
+
+
+def grav_runs(grav):
+    """Phase 20's launch counts by run, once its bars are in."""
+    be = grav["be"]
+    blast = grav["diff_blast"]["runs"]
+    return {**{k: v["launches"] for k, v in blast.items()},
+            "jeans_big": grav["jeans"]["true"]["launches"],
+            "selfgravity_big": grav["selfgravity"]["true"]["launches"],
             **{k: v["launches"] for k, v in be.items()
                if isinstance(v, dict) and "launches" in v},
             "be_collapse_mhd restart": be["restart"]["resumed"]}
-    return {"runs": runs, "diff_blast": blast, "diffusion": bars,
-            "jeans": jeans, "selfgravity": selfg, "binary_gravity": binary,
-            "be": be, "seconds": seconds}
 
 
 # ---------------------------------------------------------------- phase 21
@@ -5336,8 +5369,9 @@ def drag_bars(torch, card):
 
 
 def phase_sbox(torch, kernels, card):
-    """Phase 21: the shearing box, particles and the ion-neutral
-    two-fluid (see the module docstring)."""
+    """Phase 21's runs that time something: the shearing box, particles
+    and the ion-neutral two-fluid (see the module docstring); its bars
+    run in lanes (``LANES``)."""
     seconds = {}
 
     def part(label, fn, *args):
@@ -5350,11 +5384,6 @@ def phase_sbox(torch, kernels, card):
         shipped = part("shipped", sbox_shipped, torch, kernels, card, tmp)
         f32 = part("f32", sbox_f32, torch, kernels, card)
         parts = part("particles", particle_runs, torch, kernels, card, tmp)
-    bars = {"epicycle": part("epicycle_bar", epicycle_bar, torch, card),
-            "mhd_shwave": part("shwave_bar", shwave_bar, torch, card),
-            "mri3d": part("mri3d_bar", mri3d_bar, torch, card),
-            "drag": part("drag_bars", drag_bars, torch, card)}
-    print(f"phase 21: the JAX tests' bars on the card {bars}")
     print(f"phase 21: seconds a part {seconds}")
     runs = {f"{k} shipped": v["launches"] for k, v in shipped.items()}
     runs.update({k: v["launches"] for k, v in {**f32, **parts}.items()
@@ -5365,7 +5394,7 @@ def phase_sbox(torch, kernels, card):
             "f32": f32, "particles": {k: v for k, v in parts.items()
                                       if not (isinstance(v, dict)
                                               and "launches" in v)},
-            "bars": bars, "seconds": seconds}
+            "seconds": seconds}
 
 
 NCYC_RAD = 5
@@ -5659,58 +5688,39 @@ def diffusion_bar(torch):
     return res
 
 
-LWAVE_CHILD = """
-import json, os, sys, tempfile
-sys.path.insert(0, {root!r})
-from athenak_tpu_torch.athinput import ParameterInput
-from athenak_tpu_torch.main import run
-pin = ParameterInput.from_string({text!r})
-pin.modify_from_cmdline(["mesh/nx1={res}", "meshblock/nx1={blk}"])
-with tempfile.TemporaryDirectory() as tmp:
-    os.chdir(tmp)
-    mesh, phys, driver, state = run(pin, device="cuda")
-    row = open("rad_linwave-errs.dat").read().splitlines()[-1].split()
-print(json.dumps({{"err": float(row[4]), "cycles": mesh.ncycle,
-                  "wall": driver.wall_seconds}}))
-"""
+def lwave_run(res):
+    """One of tests/test_rad_gr.py::test_rad_lwave1d_convergence's two
+    runs on the card: ``res`` cells in four blocks to one damping time
+    (2,824 and 5,647 cycles of a few thousand small launches at 32 and
+    64 cells); its RMS L1 error, cycles and wall seconds."""
+    from athenak_tpu_torch.athinput import ParameterInput
+    from athenak_tpu_torch.main import run
+    pin = ParameterInput.from_string(test_literal("test_rad_gr.py",
+                                                  "RAD_LWAVE_DECK"))
+    pin.modify_from_cmdline([f"mesh/nx1={res}", f"meshblock/nx1={res // 4}"])
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            mesh, _, driver, _ = run(pin, device="cuda")
+            with open("rad_linwave-errs.dat") as f:
+                row = f.read().splitlines()[-1].split()
+        finally:
+            os.chdir(cwd)
+    return {"err": float(row[4]), "cycles": mesh.ncycle,
+            "wall": driver.wall_seconds}
 
 
-def lwave_start():
-    """tests/test_rad_gr.py::test_rad_lwave1d_convergence's two runs (32
-    and 64 cells to one damping time, 2,824 and 5,647 cycles of a few
-    thousand small launches each) started in two child processes on the
-    card, so that they run beside each other: [(res, process)]."""
-    text = test_literal("test_rad_gr.py", "RAD_LWAVE_DECK")
-    env = dict(os.environ, ATHENAK_DEVICE="cuda")
-    return [(res, subprocess.Popen(
-        [sys.executable, "-c", LWAVE_CHILD.format(root=ROOT, text=text,
-                                                  res=res, blk=res // 4)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
-        for res in (32, 64)]
-
-
-def lwave_bar(procs):
-    """The convergence bar on the two children's error files: the RMS L1
-    error at 64 cells below 6e-7 and its ratio to 32 cells' below 0.32.
-    Every child is waited for, or killed on a failure."""
-    errs, out = {}, {}
-    try:
-        for res, proc in procs:
-            stdout, stderr = proc.communicate(timeout=900)
-            if proc.returncode != 0:
-                raise AssertionError(f"lwave {res}: exit {proc.returncode}"
-                                     f"\n{stderr[-2000:]}")
-            rec = json.loads(stdout.strip().splitlines()[-1])
-            errs[res] = rec["err"]
-            out[f"cycles_{res}"] = rec["cycles"]
-            out[f"wall_{res}"] = rec["wall"]
-    finally:
-        for _, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    out.update({"e32": errs[32], "e64": errs[64],
-                "ratio": errs[64] / errs[32]})
+def lwave_bar(runs):
+    """The convergence bar on the two runs' errors: the RMS L1 error at
+    64 cells below 6e-7 and its ratio to 32 cells' below 0.32."""
+    out = {}
+    for res in (32, 64):
+        rec = runs[f"lwave{res}"]
+        out[f"cycles_{res}"] = rec["cycles"]
+        out[f"wall_{res}"] = rec["wall"]
+    out.update({"e32": runs["lwave32"]["err"], "e64": runs["lwave64"]["err"],
+                "ratio": runs["lwave64"]["err"] / runs["lwave32"]["err"]})
     if not (out["e64"] < 6.0e-7 and out["ratio"] < 0.32):
         raise AssertionError(f"lwave bar: {out}")
     return out
@@ -5801,7 +5811,9 @@ def snake_bars(torch):
 
 
 def phase_rad(torch, kernels, card):
-    """Phase 22: radiation (see the module docstring)."""
+    """Phase 22's runs that time something (see the module docstring):
+    the shipped decks, RAD_WIDE and RAD_POOL, the snake; its other bars
+    run in lanes (``LANES``)."""
     seconds = {}
 
     def part(label, fn, *args):
@@ -5814,26 +5826,6 @@ def phase_rad(torch, kernels, card):
         shipped = part("shipped", rad_shipped, torch, kernels, card, tmp)
     wide = part("wide", rad_wide, torch, kernels, card)
     bars = {"snake": part("snake_bars", snake_bars, torch)}
-    # the linear wave's two long launch-bound runs go to two children on
-    # the card, beside the bars that time nothing
-    t0 = time.perf_counter()
-    procs = lwave_start()
-    try:
-        bars.update({
-            "hohlraum": part("hohlraum_bar", hohlraum_bar, torch),
-            "relax": part("relax_bars", relax_bars, torch),
-            "shadow": part("shadow_bar", shadow_bar, torch),
-            "diffusion": part("diffusion_bar", diffusion_bar, torch),
-            "beam_kerr": part("beam_bar", beam_bar, torch)})
-    except BaseException:
-        for _, proc in procs:
-            proc.kill()
-            proc.wait()
-        raise
-    bars["lwave"] = lwave_bar(procs)
-    seconds["lwave_bar (children, beside the bars)"] = \
-        time.perf_counter() - t0
-    print(f"phase 22: [{card}] the JAX tests' bars on the card {bars}")
     print(f"phase 22: seconds a part {seconds}")
     runs = {f"{k} shipped": v["launches"] for k, v in shipped.items()}
     runs.update({k: v["launches"] for k, v in wide.items()
@@ -5844,6 +5836,540 @@ def phase_rad(torch, kernels, card):
                         for k, v in shipped.items()},
             "wide": {k: v for k, v in wide.items() if "launches" not in v},
             "bars": bars, "seconds": seconds}
+
+
+NCYC_DYN = 10
+DYN_DIR = os.path.join(ROOT, "inputs", "dyn_grmhd")
+DYN_SHIPPED = {n: os.path.join(DYN_DIR, f"{n}.athinput")
+               for n in ("sod", "tov_cowling", "tov_z4c_smr", "dynbbh")}
+# tov_z4c_smr at 64^3 in 32^3 blocks: the refined region covers the
+# centre of every root block, so 64 blocks of 32^3 sit on level 1 (2.1 M
+# cells, the hero blast's size), ng 4, coupled Z4c, float32
+DYN_WIDE = ["mesh/nx1=64", "mesh/nx2=64", "mesh/nx3=64",
+            "meshblock/nx1=32", "meshblock/nx2=32", "meshblock/nx3=32",
+            "job/precision=single"]
+NCYC_DYN_WIDE = 3
+# dynbbh: its first tree check falls after cycle 4 (refinement_interval
+# 4); two cycles past it
+NCYC_BBH_DYN = 6
+
+
+def expect23(label, got, expect):
+    expect_launches(label, got, expect, phase="23")
+
+
+def dyn_finite(torch, state, label):
+    """Every cell entry of a dyngr state finite (u, w, T, z and the face
+    field)."""
+    for key in ("u", "w", "T", "z"):
+        if key in state and not bool(torch.isfinite(state[key]).all()):
+            raise AssertionError(f"phase 23 {label}: non-finite {key}")
+
+
+def dyn_shipped(torch, kernels, card):
+    """The four shipped decks as they are (float64) through the CLI:
+    sod, tov_cowling and tov_z4c_smr NCYC_DYN cycles, dynbbh through its
+    first tree update and two cycles past it with its ``hst`` output; no
+    launch (f64, outflow sides, the matter closes H), the states finite,
+    div(B) dx / max|B| <= 1e-5 on every level (the TOV decks carry no
+    field: div B exactly 0)."""
+    out = {}
+    for label, deck in DYN_SHIPPED.items():
+        n = NCYC_BBH_DYN if label == "dynbbh" else NCYC_DYN
+        got, mesh, phys, driver, state, files = grav_cli(
+            torch, kernels, deck, ncyc=n)
+        expect23(label, got, {})
+        dyn_finite(torch, state, label)
+        div = check_levels(torch, mesh, state, f"phase 23 {label}")
+        rec = {"launches": got, "zcps": driver.zcps, "div_b": div,
+               "nmb": mesh.nmb_total}
+        if label == "dynbbh":
+            ups = driver.pamr.updates
+            if not ups or ups[0]["ncycle"] != 4 or "dynbbh.hst" not in files:
+                raise AssertionError(f"phase 23 dynbbh: updates {ups}, "
+                                     f"files {files}")
+            alpha = phys.adm_of(state)["alpha"]
+            if alpha.shape[0] != mesh.nmb_total:
+                raise AssertionError("phase 23 dynbbh: the spacetime was "
+                                     "not rebound to the new tree")
+            rec["updates"] = [(u["ncycle"], u["nmb"]) for u in ups]
+        out[label] = rec
+        mbi = mesh.mb_indcs
+        print(f"phase 23: {label} as shipped (f64, {mesh.nmb_total} blocks "
+              f"of {mbi.nx1}x{mbi.nx2}x{mbi.nx3}, levels "
+              f"{sorted(set(int(v) for v in mesh.mb_lev))}): {n} cycles, "
+              f"launches {got}, div B by level {div}, files {files}; "
+              f"[{card}] CLI zone-cycles/s {driver.zcps:.6e} (wall clock, "
+              f"{1e3 * driver.wall_seconds / n:.1f} ms a cycle)")
+    return out
+
+
+def dyn_density_drift(w, rhoc=1.28e-3):
+    return abs(float(w[:, 0].max()) - rhoc) / rhoc
+
+
+def tov_bars(torch):
+    """tests/test_dyngr.py's TOV at 24^3 for 30 cycles on its own deck
+    (f64): the central density within 0.13 of its start on the fixed
+    spacetime; within 0.10 coupled to Z4c, the lapse in (0.1, 1.05)."""
+    text = test_literal("test_dyngr.py", "TOV")
+    z4c = test_literal("test_dyngr.py", "Z4C_BLOCK")
+    out = {}
+    for label, spacetime, bar in (("fixed", "<adm>", 0.13),
+                                  ("coupled", "<adm>" + z4c, 0.10)):
+        mesh, _, _, state, _ = run_deck_text(
+            torch, text.format(nlim=30, spacetime=spacetime))
+        dyn_finite(torch, state, f"tov {label}")
+        drift = dyn_density_drift(state["w"])
+        rec = {"cycles": mesh.ncycle, "drift": drift}
+        if label == "coupled":
+            lapse = state["z"][:, 18]
+            rec["lapse"] = (float(lapse.min()), float(lapse.max()))
+            if not (rec["lapse"][0] > 0.1 and rec["lapse"][1] < 1.05):
+                raise AssertionError(f"phase 23 tov coupled: lapse {rec}")
+        if not (mesh.ncycle == 30 and drift < bar):
+            raise AssertionError(f"phase 23 tov {label}: {rec} (bar {bar})")
+        out[label] = rec
+    return out
+
+
+def sod_bar(torch):
+    """tests/test_dyngr.py::test_dyngr_shocktube_matches_sr on its own
+    deck (f64, 256 cells to t = 0.4): the fixed-Minkowski dyngr density
+    within L1 0.005 of the SR MHD tube's, the fan resolved."""
+    text = test_literal("test_dyngr.py", "MUB1")
+    dyn = test_literal("test_dyngr.py", "DYNGR_COORD")
+    sr = test_literal("test_dyngr.py", "SR_COORD")
+    rho = {}
+    for label, coord in (("dyngr", dyn), ("sr", sr)):
+        mesh, _, _, state, _ = run_deck_text(
+            torch, text.format(coord=coord, dyn_eos="ideal"))
+        rho[label] = state["w"][0, 0, 0, 0, 2:-2].double().cpu()
+        rho[f"{label}_cycles"] = mesh.ncycle
+    l1 = float((rho["dyngr"] - rho["sr"]).abs().mean())
+    out = {"l1": l1, "min": float(rho["dyngr"].min()),
+           "max": float(rho["dyngr"].max()),
+           "cycles": (rho["dyngr_cycles"], rho["sr_cycles"])}
+    if not (bool(torch.isfinite(rho["dyngr"]).all()) and l1 < 0.005
+            and out["min"] < 0.13 and out["max"] > 0.9):
+        raise AssertionError(f"phase 23 sod bar: {out}")
+    return out
+
+
+def bbh_metric_bar(torch):
+    """tests/test_dynbbh.py::test_bbh_metric_structure's minima of the
+    lapse on its own deck (f64): the two deepest at (+-10, 0) at t = 0 and
+    at (0, +-10) a quarter orbit later, within 2.6; the curvature nonzero
+    and every field finite."""
+    import numpy as np
+    from athenak_tpu_torch.athinput import ParameterInput
+    from athenak_tpu_torch.main import build
+    pin = ParameterInput.from_string(test_literal("test_dynbbh.py", "DECK"))
+    mesh, phys, _, _, _ = build(pin, device="cuda")
+    mbi = mesh.mb_indcs
+    out = {}
+    for label, t, want in (("t0", 0.0, [(-10.0, 0.0), (10.0, 0.0)]),
+                           ("quarter", 0.25 * 2.0 * math.pi
+                            / 20.0 ** -1.5, [(0.0, -10.0), (0.0, 10.0)])):
+        adm = phys.adm_of({"t": torch.tensor(t, dtype=torch.float64,
+                                             device="cuda")})
+        fields = adm["g3d"] + adm["beta_u"] + [adm["alpha"]] + adm["K_dd"]
+        if not all(bool(torch.isfinite(f).all()) for f in fields):
+            raise AssertionError(f"phase 23 bbh metric {label}: non-finite")
+        kmax = max(float(f.abs().max()) for f in adm["K_dd"])
+        a = adm["alpha"][:, mbi.ks:mbi.ke + 1, mbi.js:mbi.je + 1,
+                         mbi.is_:mbi.ie + 1].cpu().numpy()
+        mins = []
+        for gid in range(mesh.nmb_total):
+            x1v, x2v, _ = mesh.cell_centers(gid)
+            k, j, i = np.unravel_index(a[gid].argmin(), a[gid].shape)
+            mins.append((a[gid][k, j, i], x1v[mbi.is_ + i],
+                         x2v[mbi.js + j]))
+        pos = sorted((float(x), float(y)) for _, x, y in sorted(mins)[:2])
+        ok = all(abs(x - wx) < 2.6 and abs(y - wy) < 2.6
+                 for (x, y), (wx, wy) in zip(pos, sorted(want)))
+        out[label] = {"minima": pos, "kmax": kmax}
+        if not (ok and kmax > 1e-5):
+            raise AssertionError(f"phase 23 bbh metric {label}: {out}")
+    return out
+
+
+def dyn_restart(torch, kernels):
+    """tov_cowling as shipped (f64): NCYC_DYN cycles straight against
+    half, a .rst, then -r and the other half: u, w, T, bcc and the face
+    field bitwise equal."""
+    from athenak_tpu_torch import main as cli_main
+    n = NCYC_DYN // 2
+    deck = DYN_SHIPPED["tov_cowling"]
+    common = ["output9/file_type=rst", f"output9/dcycle={n}"]
+    cwd = os.getcwd()
+    os.environ["ATHENAK_DEVICE"] = "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            _, _, _, s1 = cli_main.cli([
+                "-i", deck, "-d", os.path.join(tmp, "straight"), *common,
+                f"time/nlim={2 * n}"])
+            os.chdir(cwd)
+            cli_main.cli(["-i", deck, "-d", os.path.join(tmp, "first"),
+                          *common, f"time/nlim={n}"])
+            os.chdir(cwd)
+            rst = os.path.join(tmp, "first", "tov_cowling.00001.rst")
+            kernels.reset_counts()
+            m2, _, _, s2 = cli_main.cli(["-r", rst, "-d",
+                                         os.path.join(tmp, "first"),
+                                         f"time/nlim={2 * n}"])
+            resumed = {k.name: k.launches for k in kernels.ALL if k.launches}
+        finally:
+            os.chdir(cwd)
+    expect23("restart resumed", resumed, {})
+    if m2.ncycle != 2 * n:
+        raise AssertionError(f"phase 23 restart: {m2.ncycle} cycles")
+    for key in ("u", "w", "T", "bcc"):
+        if not torch.equal(s1[key], s2[key]):
+            raise AssertionError(f"phase 23 restart: {key} not bitwise")
+    for c in s1["bfc"]:
+        if not torch.equal(s1["bfc"][c], s2["bfc"][c]):
+            raise AssertionError(f"phase 23 restart: {c} not bitwise")
+    print(f"phase 23: restart tov_cowling (f64): {2 * n} cycles straight "
+          f"and {n} + -r {n} bitwise equal (u, w, T, bcc, face field; the "
+          f".rst carries T); launches resumed {resumed}")
+    return {"resumed": resumed}
+
+
+def dyn_graph_checks(torch):
+    """The CUDA graphs of the dyngr path against the eager calls they
+    replay, bitwise: the primitive solver on tov_cowling's state (f64) as
+    initialised and perturbed (the capture, then a replay on new
+    values), and the Z4c RHS with the matter source on tov_z4c_smr's
+    (f64, two levels, coupled)."""
+    from athenak_tpu_torch.athinput import ParameterInput
+    from athenak_tpu_torch.main import build
+    out = {}
+    pin = ParameterInput.from_file(DYN_SHIPPED["tov_cowling"])
+    _, phys, _, _, state = build(pin, device="cuda")
+    adm = phys.adm_of(state)
+    ps = phys.ps
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    graphed = ps._c2p_graph
+    for label, u in (("initial", state["u"]),
+                     ("perturbed", state["u"] * (1.0 + 1e-3 * torch.rand(
+                         state["u"].shape, generator=gen, device="cuda",
+                         dtype=state["u"].dtype)))):
+        got = phys.cons_to_prim(u, state["bcc"], adm)
+        ps._c2p_graph = ps._con_to_prim
+        try:
+            ref = phys.cons_to_prim(u, state["bcc"], adm)
+        finally:
+            ps._c2p_graph = graphed
+        same = all(torch.equal(a, b) for a, b in zip(got[:3], ref[:3])) \
+            and all(torch.equal(got[3][k], ref[3][k]) for k in ref[3])
+        if not same:
+            raise AssertionError(f"phase 23 c2p graph {label}: not bitwise "
+                                 "the eager solve")
+    out["c2p"] = {"captures": graphed.captures, "replays": graphed.replays}
+    if out["c2p"] != {"captures": 1, "replays": 2}:
+        raise AssertionError(f"phase 23 c2p graph: {out['c2p']}")
+    pin = ParameterInput.from_file(DYN_SHIPPED["tov_z4c_smr"])
+    _, phys, _, _, state = build(pin, device="cuda")
+    tm = phys.set_tmunu(state["u"], state["w"], state["bcc"],
+                        phys.adm_of(state))
+    z = state["z"]
+    for label, zz in (("initial", z), ("perturbed", z * (1.0 + 1e-6 * (
+            torch.rand(z.shape, generator=gen, device="cuda",
+                       dtype=z.dtype) - 0.5)))):
+        got = phys.z4c._matter_rhs(zz, tm)
+        ref = phys.z4c.rhs(zz, tmunu=tm)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"phase 23 Z4c matter RHS graph {label}: "
+                                 "not bitwise the eager RHS")
+    g = phys.z4c._matter_rhs
+    out["z4c_matter_rhs"] = {"captures": g.captures, "replays": g.replays}
+    if out["z4c_matter_rhs"] != {"captures": 1, "replays": 2}:
+        raise AssertionError(f"phase 23 Z4c matter RHS graph: {out}")
+    print(f"phase 23: the CUDA graphs (the primitive solver on "
+          f"tov_cowling, the Z4c RHS with matter on tov_z4c_smr; f64) "
+          f"bitwise equal to the eager calls, as captured and replayed on "
+          f"new values: {out}")
+    return out
+
+
+def dyn_bars(torch, kernels, card):
+    """Phase 23's runs that time nothing (the CUDA graphs' checks, the
+    shipped decks, the JAX tests' bars, the restart); they run in
+    lanes (``LANES``)."""
+    seconds = {}
+
+    def part(label, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        return res
+
+    graphs = part("graphs", dyn_graph_checks, torch)
+    shipped = part("shipped", dyn_shipped, torch, kernels, card)
+    bars = {"tov": part("tov_bars", tov_bars, torch),
+            "sod_vs_sr": part("sod_bar", sod_bar, torch),
+            "bbh_metric": part("bbh_metric_bar", bbh_metric_bar, torch)}
+    restart = part("restart", dyn_restart, torch, kernels)
+    print(f"phase 23: [{card}] the JAX tests' bars on the card {bars}")
+    return {"shipped": shipped, "bars": bars, "restart": restart,
+            "graphs": graphs, "seconds": seconds}
+
+
+def dyn_stage_parts(torch, phys, state, driver):
+    """ms (events) of the parts of a stage of the coupled dyngr deck on
+    its state: the fluxes, the coordinate sources, Tmunu, the Z4c RHS
+    with the matter source, the fills of u, the faces and z, the c2p
+    (with the ADM refresh), one whole stage and one whole cycle; and the
+    device launches of one stage (``torch.profiler``; None where it
+    records no device time)."""
+    dt = driver.mesh.dt
+    u, w, T, bcc, bfc, z = (state[k] for k in ("u", "w", "T", "bcc", "bfc",
+                                               "z"))
+    saved = phys.save_state(state)
+    adm = phys.adm_of(state)
+    tm = phys.set_tmunu(u, w, bcc, adm)
+    cycle = driver.make_cycle_fn()
+
+    def fills():
+        phys.bvals.fill_ghosts(u.clone())
+        phys.fill_ghosts_fc({k: v.clone() for k, v in bfc.items()})
+        phys.bvals.fill_ghosts(z.clone())
+
+    def stage():
+        return phys.stage_update(state, saved, 0.0, 1.0, dt)
+
+    parts = {
+        "fluxes": cuda_ms(lambda: phys.fluxes(w, T, bcc, bfc, adm), 3),
+        "coord_src": cuda_ms(lambda: phys.coord_src_terms(
+            u.clone(), w, T, bcc, adm, dt), 3),
+        "tmunu": cuda_ms(lambda: phys.set_tmunu(u, w, bcc, adm), 3),
+        "z4c_rhs_matter": cuda_ms(lambda: phys.z4c.rhs(z, tmunu=tm), 3),
+        "fills u+faces+z": cuda_ms(fills, 3),
+        "clones u+faces+z": cuda_ms(lambda: (
+            u.clone(), {k: v.clone() for k, v in bfc.items()}, z.clone()),
+            3),
+        "c2p (adm + c2p)": cuda_ms(lambda: phys.cons_to_prim(
+            u, bcc, phys.adm_of(state)), 3),
+        "stage": cuda_ms(stage, 3),
+        "cycle": cuda_ms(lambda: cycle(state, dt), 2)}
+    return parts, split_launches(device_split(torch, stage, 1), 1)
+
+
+def phase_dyn_wide(torch, kernels, card):
+    """DYN_WIDE: tov_z4c_smr at 64^3 in 32^3 blocks (64 blocks on level
+    1, 2.1 M cells, f32, coupled Z4c) through the CLI for NCYC_DYN_WIDE
+    cycles on both paths (``mhd/use_kernels``): no launch (outflow
+    sides close B and G, the matter closes H), the paths bitwise equal,
+    the state finite with the lapse in (0, 1], peak memory; the ms of a
+    stage's parts and its device launches; both paths' zone-cycles/s in
+    turns (CUDA events, NCYC_DYN_WIDE cycles after a warm-up)."""
+    deck = DYN_SHIPPED["tov_z4c_smr"]
+    n = NCYC_DYN_WIDE
+    out, states, runs = {}, {}, {}
+    for use in ("true", "false"):
+        torch.cuda.reset_peak_memory_stats()
+        got, mesh, phys, driver, state, _ = grav_cli(
+            torch, kernels, deck, DYN_WIDE + [f"mhd/use_kernels={use}"], n)
+        expect23(f"dyn_wide {use}", got, {})
+        dyn_finite(torch, state, "dyn_wide")
+        lapse = state["z"][:, 18]
+        if not (float(lapse.min()) > 0.0 and float(lapse.max()) <= 1.0):
+            raise AssertionError("phase 23 dyn_wide: lapse out of (0, 1]")
+        div = check_levels(torch, mesh, state, "phase 23 dyn_wide")
+        states[use] = state
+        runs[use] = (phys, driver)
+        out[f"dyn_wide {use}"] = {
+            "launches": got, "zcps": driver.zcps, "div_b": div,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        mbi = mesh.mb_indcs
+        print(f"phase 23: dyn_wide use_kernels={use}: {mesh.nmb_total} "
+              f"blocks of {mbi.nx1}^3 on levels "
+              f"{sorted(set(int(v) for v in mesh.mb_lev))}, {n} cycles, "
+              f"launches {got}, peak memory "
+              f"{out[f'dyn_wide {use}']['peak_gib']:.2f} GiB; [{card}] CLI "
+              f"zone-cycles/s {driver.zcps:.6e} (wall clock)")
+    for k in ("u", "w", "T", "z"):
+        if not torch.equal(states["true"][k], states["false"][k]):
+            raise AssertionError(f"phase 23 dyn_wide: {k} differs between "
+                                 "the paths")
+    parts, launches = dyn_stage_parts(torch, *runs["true"][:1],
+                                      states["true"], runs["true"][1])
+    del states, state, runs
+    torch.cuda.empty_cache()
+    rates = {"true": [], "false": []}
+    for use in ("true", "false", "true", "false"):
+        rates[use].append(timed_cycles(torch, use, deck, n, DYN_WIDE,
+                                       "mhd"))
+    out["dyn_wide"] = {"parts_ms": parts, "stage_launches": launches,
+                       "rates": rates}
+    print(f"phase 23: [{card}] dyn_wide: ms of a stage's parts {parts}; "
+          f"device launches a stage {launches}; zone-cycles/s in turns "
+          f"(events, {n} cycles after a warm-up) {rates}")
+    return out
+
+
+# ------------------------------------------------------------ the lanes
+# The runs that time nothing (the JAX tests' bars, the restarts, the
+# Bonnor-Ebert runs, phase 23's shipped decks and graph checks) run in
+# child processes on the card (``chip_smoke.py --lane NAME...``), one a
+# lane, started once the kernels' and DYN_WIDE's timings are done; the
+# main process drives phases 13-22 beside them.  Most are launch-bound,
+# and launch-bound processes hardly slow each other on the card (four
+# copies of the linear wave: 1.08-1.15x, prof_dyn_graphs.py); the
+# longest lane holds the 64-cell linear wave's 5,647 cycles.
+LANES = (("lwave64", "epicycle_bar", "shwave_bar", "mri3d_bar",
+          "drag_bars"),
+         ("lwave32", "be", "diffusion_bars", "jeans_bars", "binary_bars",
+          "hohlraum_bar", "relax_bars", "shadow_bar", "diffusion_bar",
+          "beam_bar"),
+         ("dyn_bars", "slice_restart", "amr_restart", "bbh_restart",
+          "gr_restart", "gr_bars"))
+LANE_TIMEOUT = 1100
+
+
+def lane_parts():
+    """The runs a lane may make: name -> fn(torch, kernels, card), whose
+    result is JSON."""
+    return {"lwave32": lambda t, k, c: lwave_run(32),
+            "lwave64": lambda t, k, c: lwave_run(64),
+            "epicycle_bar": lambda t, k, c: epicycle_bar(t, c),
+            "shwave_bar": lambda t, k, c: shwave_bar(t, c),
+            "mri3d_bar": lambda t, k, c: mri3d_bar(t, c),
+            "drag_bars": lambda t, k, c: drag_bars(t, c),
+            "be": be_runs,
+            "diffusion_bars": diffusion_bars,
+            "jeans_bars": jeans_bars,
+            "binary_bars": lambda t, k, c: binary_bars(t, c),
+            "hohlraum_bar": lambda t, k, c: hohlraum_bar(t),
+            "relax_bars": lambda t, k, c: relax_bars(t),
+            "shadow_bar": lambda t, k, c: shadow_bar(t),
+            "diffusion_bar": lambda t, k, c: diffusion_bar(t),
+            "beam_bar": lambda t, k, c: beam_bar(t),
+            "dyn_bars": dyn_bars,
+            "slice_restart": slice_restart,
+            "amr_restart": lambda t, k, c: amr_restart(t, k),
+            "bbh_restart": lambda t, k, c: bbh_restart(t, k),
+            "gr_restart": lambda t, k, c: gr_restart(t, k),
+            "gr_bars": lambda t, k, c: gr_bars(t, k)}
+
+
+def _json_scalar(obj):
+    """numpy and torch values as JSON (their lists or scalars)."""
+    if hasattr(obj, "tolist"):
+        return obj.tolist()
+    return str(obj)
+
+
+def lane_main(names) -> int:
+    """A lane: the named runs one after the other on the card, their
+    results and seconds as the last line of standard output."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from athenak_tpu_torch import kernels
+    os.environ["ATHENAK_DEVICE"] = "cuda"
+    card = smi()
+    parts = lane_parts()
+    out, seconds = {}, {}
+    for name in names:
+        t = time.perf_counter()
+        out[name] = parts[name](torch, kernels, card)
+        seconds[name] = time.perf_counter() - t
+    print(json.dumps({"lane": out, "seconds": seconds},
+                     default=_json_scalar))
+    return 0
+
+
+def _die_with_parent():
+    """A lane's pre-exec hook: Linux kills it when this process dies
+    (``PR_SET_PDEATHSIG``), so no lane outlives a killed run."""
+    import ctypes
+    import signal
+    ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)
+
+
+def lanes_start():
+    """A child process on the card for every lane of LANES; their output
+    goes to files (a pipe would fill and stall them)."""
+    lanes = []
+    for names in LANES:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        lanes.append((names, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--lane", *names],
+            stdout=out, stderr=err, text=True, preexec_fn=_die_with_parent,
+            env=dict(os.environ, ATHENAK_DEVICE="cuda")), out, err))
+    return lanes
+
+
+def lanes_kill(lanes):
+    for _, proc, _, _ in lanes:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def lanes_finish(lanes):
+    """Wait for every lane, print its lines; raise if one failed (the
+    others killed).  Returns every run's result by name, and the
+    seconds of each under "seconds"."""
+    got, seconds = {}, {}
+    try:
+        for names, proc, out, err in lanes:
+            proc.wait(timeout=LANE_TIMEOUT)
+            out.seek(0)
+            lines = out.read().splitlines()
+            for line in lines[:-1]:
+                print(line)
+            if proc.returncode != 0 or not lines \
+                    or not lines[-1].startswith('{"lane"'):
+                err.seek(0)
+                raise AssertionError(f"lane {names}: exit "
+                                     f"{proc.returncode}\n"
+                                     f"{err.read()[-3000:]}")
+            rec = json.loads(lines[-1])
+            got.update(rec["lane"])
+            seconds.update(rec["seconds"])
+    finally:
+        lanes_kill(lanes)
+    print(f"lanes: seconds a run {seconds}")
+    return dict(got, seconds=seconds)
+
+
+def merge_lanes(card, lanes, slice_, amr, bbh, gr, grav, sbox, rad):
+    """The lanes' results into their phases' records."""
+    res = lanes["slice_restart"]
+    slice_["restart"] = res
+    slice_["launches"].update({f"restart {k} {r}": v[r]
+                               for k, v in res.items()
+                               for r in ("straight", "resumed")})
+    amr["restart"] = lanes["amr_restart"]
+    bbh["restart"] = lanes["bbh_restart"]
+    gr["restart"] = lanes["gr_restart"]
+    gr.update(lanes["gr_bars"])
+    gr["runs"].update({k: gr[k] for k in lanes["gr_bars"]})
+    grav.update(diffusion=lanes["diffusion_bars"],
+                binary_gravity=lanes["binary_bars"], be=lanes["be"])
+    grav["jeans"]["bars"] = lanes["jeans_bars"]
+    grav["runs"] = grav_runs(grav)
+    sbox["bars"] = {"epicycle": lanes["epicycle_bar"],
+                    "mhd_shwave": lanes["shwave_bar"],
+                    "mri3d": lanes["mri3d_bar"],
+                    "drag": lanes["drag_bars"]}
+    rad["bars"].update({"hohlraum": lanes["hohlraum_bar"],
+                        "relax": lanes["relax_bars"],
+                        "shadow": lanes["shadow_bar"],
+                        "diffusion": lanes["diffusion_bar"],
+                        "beam_kerr": lanes["beam_bar"],
+                        "lwave": lwave_bar(lanes)})
+    print(f"phase 20: [{card}] the bars {grav['diffusion']}, "
+          f"{grav['jeans']['bars']}, {grav['binary_gravity']}")
+    print(f"phase 21: [{card}] the JAX tests' bars on the card "
+          f"{sbox['bars']}")
+    print(f"phase 22: [{card}] the JAX tests' bars on the card "
+          f"{rad['bars']}")
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
@@ -5909,16 +6435,28 @@ def main() -> int:
         z4c_res = phase("10", phase_z4c_stage, torch, card, z4c_deck)
         z4c = phase("11", phase_z4c_main, torch, kernels, card, z4c_deck)
         flux_res = phase("12", phase_flux_dir, torch, card)
-        smr = phase("13", phase_smr_main, torch, kernels, card)
-        hydro = phase("14", phase_hydro_main, torch, kernels, card)
-        tail, tail_flux = phase("15", phase_tail_main, torch, kernels, card)
-        slice_ = phase("16", phase_slice, torch, kernels, card)
-        amr = phase("17", phase_amr, torch, kernels, card)
-        bbh = phase("18", phase_bbh, torch, kernels, card, fill)
-        gr = phase("19", phase_gr, torch, kernels, card)
-        grav = phase("20", phase_grav, torch, kernels, card)
-        sbox = phase("21", phase_sbox, torch, kernels, card)
-        rad = phase("22", phase_rad, torch, kernels, card)
+        # DYN_WIDE's rates before the lanes start; the runs that time
+        # nothing go to the lanes, beside phases 13-22
+        wide = phase("23 dyn_wide", phase_dyn_wide, torch, kernels, card)
+        lanes = lanes_start()
+        try:
+            smr = phase("13", phase_smr_main, torch, kernels, card)
+            hydro = phase("14", phase_hydro_main, torch, kernels, card)
+            tail, tail_flux = phase("15", phase_tail_main, torch, kernels,
+                                    card)
+            slice_ = phase("16", phase_slice, torch, kernels, card)
+            amr = phase("17", phase_amr, torch, kernels, card)
+            bbh = phase("18", phase_bbh, torch, kernels, card, fill)
+            gr = phase("19", phase_gr, torch, kernels, card)
+            grav = phase("20", phase_grav, torch, kernels, card)
+            sbox = phase("21", phase_sbox, torch, kernels, card)
+            rad = phase("22", phase_rad, torch, kernels, card)
+            got = phase("lanes (the wait after 22)", lanes_finish, lanes)
+        finally:
+            lanes_kill(lanes)
+    merge_lanes(card, got, slice_, amr, bbh, gr, grav, sbox, rad)
+    dyn = dict(got["dyn_bars"], wide=wide)
+    seconds["lanes"] = got["seconds"]
     print(f"seconds a phase: {seconds}")
 
     def runs(name):
@@ -5939,6 +6477,11 @@ def main() -> int:
                 **{k: v.get(name, 0) for k, v in grav["runs"].items()},
                 **{k: v.get(name, 0) for k, v in sbox["runs"].items()},
                 **{k: v.get(name, 0) for k, v in rad["runs"].items()},
+                **{f"{k} shipped": v["launches"].get(name, 0)
+                   for k, v in dyn["shipped"].items()},
+                **{k: v["launches"].get(name, 0)
+                   for k, v in dyn["wide"].items() if "launches" in v},
+                "dyn_restart": dyn["restart"]["resumed"].get(name, 0),
                 "bbh_restart": bbh["restart"]["resumed"].get(name, 0)}
 
     ft, fe = fill_times, fill_errs
@@ -6068,6 +6611,14 @@ def main() -> int:
         "grav_diff": {k: v for k, v in grav.items() if k != "runs"},
         "sbox": {k: v for k, v in sbox.items() if k != "runs"},
         "rad": {k: v for k, v in rad.items() if k != "runs"},
+        "dyn": {"shipped": {k: {kk: vv for kk, vv in v.items()
+                                if kk != "launches"}
+                            for k, v in dyn["shipped"].items()},
+                "bars": dyn["bars"], "graphs": dyn["graphs"],
+                "seconds": dyn["seconds"],
+                "wide": {k: {kk: vv for kk, vv in v.items()
+                             if kk != "launches"}
+                         for k, v in dyn["wide"].items()}},
         "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
         "build_seconds": kernels.BUILD_INFO.get("source_seconds"),
         "card": card}))
@@ -6078,4 +6629,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lane"]:
+        sys.exit(lane_main(sys.argv[2:]))
     sys.exit(main())

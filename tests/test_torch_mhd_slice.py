@@ -196,7 +196,10 @@ def test_port_never_imports_jax():
               "radiation.radiation", "radiation.coupling",
               "radiation.rad_fluid", "pgen.rad_hohlraum", "pgen.rad_beam",
               "pgen.rad_snake", "pgen.rad_relax", "pgen.rad_shadow",
-              "pgen.rad_linear_wave", "pgen.rad_diffusion"):
+              "pgen.rad_linear_wave", "pgen.rad_diffusion",
+              "eos_ps", "eos_ps.policies", "eos_ps.primitive_solver",
+              "utils_tov", "dyngr", "pgen.dyngr_tov", "pgen.dynbbh",
+              "pgen.import_id", "graphs"):
         assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -359,8 +359,9 @@ def test_rad_coord_outputs_match_jax(pairs, tmp_path):
 # ---------------------------------------------------------------------------
 def test_radiation_decks_through_the_cli(tmp_path, monkeypatch):
     """The shipped radiation-only decks run through ``main.cli`` (the
-    snake at its cut size writes its ``vtk`` of ``rad_coord``); ``<adm>``
-    still raises."""
+    snake at its cut size writes its ``vtk`` of ``rad_coord``); with an
+    ``<adm>`` block beside it a radiation-only deck still builds the
+    radiation physics, as the JAX package's ``make_physics`` does."""
     monkeypatch.setenv("ATHENAK_DEVICE", "cpu")
     cwd = os.getcwd()
     try:
@@ -373,10 +374,16 @@ def test_radiation_decks_through_the_cli(tmp_path, monkeypatch):
             assert mesh.ncycle == 2 and torch.isfinite(state["u"]).all()
         assert any(f.endswith(".rad_coord.00000.vtk")
                    for f in os.listdir(tmp_path / "snake.athinput"))
+        from athenak_tpu.bvals import BoundaryValues as JaxBV
+        from athenak_tpu.mesh import Mesh as JaxMesh
         pin = ParameterInput.from_string(deck_text(HOHLRAUM)
                                          + "\n<adm>\nfoo = 1\n")
-        with pytest.raises(NotImplementedError, match="adm"):
-            torch_main.build(pin, device="cpu")
+        _, phys, _, _, _ = torch_main.build(pin, device="cpu")
+        pj = JaxInput.from_string(deck_text(HOHLRAUM)
+                                  + "\n<adm>\nfoo = 1\n")
+        jm = JaxMesh(pj)
+        jphys = jax_main.make_physics(pj, jm, JaxBV(jm))
+        assert type(phys).__name__ == type(jphys).__name__ == "Radiation"
     finally:
         os.chdir(cwd)
 

@@ -143,8 +143,24 @@ def test_state_carried_across_kernel_path(monkeypatch):
 
 
 def test_dynamical_grmhd_still_raises():
-    """<mhd> together with <z4c> (dynamical GRMHD) is not ported."""
-    pin = _pin("z4c")
-    pin.modify_from_cmdline(["mhd/gamma=1.6666666666666667"])
-    with pytest.raises(NotImplementedError, match="dynamical GRMHD"):
-        torch_main.build(pin, device="cpu")
+    """<mhd> together with <z4c> selects dynamical GRMHD in both
+    packages (the port no longer raises on it); the vacuum puncture
+    generator cannot make its state and raises the same error in both."""
+    from athenak_tpu.bvals import BoundaryValues as JaxBV
+    from athenak_tpu.mesh import Mesh as JaxMesh
+    from athenak_tpu_torch.bvals import BoundaryValues
+    from athenak_tpu_torch.mesh import Mesh
+    extra = ["mhd/gamma=1.6666666666666667", "mhd/eos=ideal"]
+    pin = _pin("z4c", extra=extra)
+    mesh = Mesh(pin)
+    phys = torch_main.make_physics(pin, mesh, BoundaryValues(mesh), "cpu",
+                                   torch.float64)
+    pj = _pin("z4c", cls=JaxInput, extra=extra)
+    jm = JaxMesh(pj)
+    jphys = jax_main.make_physics(pj, jm, JaxBV(jm))
+    assert type(phys).__name__ == type(jphys).__name__ == "DynGRMHD"
+    assert phys.z4c is not None and jphys.z4c is not None
+    for build, cls in ((lambda p: torch_main.build(p, device="cpu"),
+                        ParameterInput), (jax_main.build, JaxInput)):
+        with pytest.raises(AttributeError, match="opt"):
+            build(_pin("z4c", cls=cls, extra=extra))
