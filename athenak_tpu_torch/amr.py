@@ -35,6 +35,7 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from .comm import use_comm
 from .indices import IDN
 from .refinement import prolong_cc, restrict_cc
 
@@ -705,8 +706,10 @@ class AMR:
         if not self.criteria and self.z4c_amr is None:
             raise ValueError("refinement=adaptive requires at least one "
                              "<amr_criterion> block")
-        # pgen-enrolled hook: fn(state, mesh) -> int flags [nmb]
-        # (reference: pgen user_ref_func, src/pgen/pgen.hpp)
+        # pgen-enrolled hook: fn(state, mesh) -> int flags of the state's
+        # blocks, [nmb] or, on one rank's blocks of a group, this rank's
+        # [L] rows, all-gathered as the criteria's are (reference: pgen
+        # user_ref_func, src/pgen/pgen.hpp)
         self.user_ref_func = None
         self.ncyc_since_ref = np.zeros(mesh.nmb_total, dtype=np.int64)
         self.nmb_created = 0
@@ -715,11 +718,23 @@ class AMR:
         self._flag_fn = None
 
     # ------------------------------------------------------------------
-    def check_flags(self, state, mesh, phys) -> np.ndarray:
+    def check_flags(self, state, mesh, phys, comm=None) -> np.ndarray:
+        """The flags [nmb] in gid order.  On one rank's blocks of a group
+        (``comm``) each rank flags its own and the flags are all-gathered,
+        so every rank updates the same tree (JAX amr.py:757)."""
         if self._flag_fn is None:
             self._flag_fn = make_flag_fn(self.criteria, phys, mesh,
                                          z4c_amr=self.z4c_amr)
-        flags = self._flag_fn(state).cpu().numpy()[:mesh.nmb_total].copy()
+
+        def whole(f):
+            if comm is None:
+                return f
+            return comm.ranks.all_gather(f)[
+                torch.as_tensor(comm.layout.slot_of_gid, device=f.device)]
+
+        with use_comm(comm):
+            f = self._flag_fn(state)
+        flags = whole(f).cpu().numpy()[:mesh.nmb_total].copy()
         for crit in self.criteria:
             if crit.method == "location":
                 flags = np.where(location_flags(crit, mesh) > 0, 1, flags)
@@ -727,10 +742,9 @@ class AMR:
                 if self.user_ref_func is None:
                     raise ValueError("<amr_criterion> method=user needs an "
                                      "enrolled user_ref_func")
-                uf = self.user_ref_func(state, mesh)
-                if isinstance(uf, torch.Tensor):
-                    uf = uf.cpu().numpy()
-                uf = np.asarray(uf)[:mesh.nmb_total]
+                with use_comm(comm):
+                    uf = torch.as_tensor(self.user_ref_func(state, mesh))
+                uf = whole(uf).cpu().numpy()[:mesh.nmb_total]
                 flags = np.where(uf != 0, uf, flags)
         if self.z4c_amr is not None:
             flags = self.z4c_amr.host_flags(flags, state, mesh, phys)
@@ -744,13 +758,18 @@ class AMR:
 
     # ------------------------------------------------------------------
     def step(self, driver, state, outputs=()):
-        """One AMR pass after a cycle.  Returns (state, changed)."""
+        """One AMR pass after a cycle.  Returns (state, changed).  Under
+        ranks it is also the blocks' redistribution (JAX amr.py:916-975;
+        reference: RedistAndRefineMeshBlocks): every rank gathers the
+        whole state, remaps it onto the new tree and keeps its rows of
+        the new tree's cost-weighted layout; the routes are the new
+        mesh's."""
         mesh = driver.mesh
         self.ncyc_since_ref += 1
         if mesh.ncycle % self.ncycle_check != 0:
             return state, False
         t0 = _time.perf_counter()
-        flags = self.check_flags(state, mesh, driver.phys)
+        flags = self.check_flags(state, mesh, driver.phys, comm=driver.comm)
         t1 = _time.perf_counter()
         wraps = {ax: mesh.mesh_bcs[f"i{ax}"] in ("periodic",
                                                  "shear_periodic")
@@ -767,7 +786,11 @@ class AMR:
             raise RuntimeError(
                 f"AMR grew to {len(new_leaves)} blocks > "
                 f"<mesh_refinement>/max_nmb_per_rank={self.max_nmb}")
+        if driver.comm is not None:
+            state = driver.comm.collect(state, everywhere=True)
         state = self.rebuild(driver, state, new_leaves, prov, outputs)
+        if driver.comm is not None:
+            state = driver.shard(state)
         n_same = sum(1 for p in prov if p[0] == "same")
         self.nmb_created += len(prov) - n_same
         self.nmb_deleted += len(leaves) - n_same

@@ -131,9 +131,17 @@ class BoundaryValues:
             self._nbr27_dev = torch.as_tensor(self._nbr27, device=device)
         return self._nbr27_dev
 
-    def pool_fill_active(self, t) -> bool:
-        """True when the pool-fill kernel fills ``t``'s ghosts."""
+    def pool_route(self, t) -> bool:
+        """True when ``t``'s ghosts take the pool's fill: kernel G on one
+        rank, the exchange on one rank's blocks of a group."""
         return self.use_pool_fill and kernel_dtype_ok(t)
+
+    def pool_fill_active(self, t) -> bool:
+        """True when the pool-fill kernel fills ``t``'s ghosts: never on
+        one rank's blocks of a group, where the exchange owns block
+        movement (the JAX package's gate, bvals.py:109-115)."""
+        from .comm import current_comm
+        return self.pool_route(t) and current_comm() is None
 
     def local_mask(self, key: str, ndim: int, device):
         """Per-block physical-BC mask of one face, broadcastable."""

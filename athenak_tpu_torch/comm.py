@@ -1,17 +1,43 @@
-"""Donor-slab movement and reductions along the block axis, single
-device.
+"""Donor-slab movement and reductions along the block axis.
 
-Counterpart of ``athenak_tpu/comm.py:27-76`` outside any sharded region:
-a gather along the block axis (``BlockTables.gather``, whose index tables
-each mesh keeps on the device), the identity on per-block tables and on
-all-block sums.  The multi-device exchange (``torch.distributed``) is not
-ported yet.
+Counterpart of ``athenak_tpu/comm.py:23-88``.  The boundary-values and
+physics code asks this module to move donor slabs between blocks
+(``BlockTables.gather``, whose index tables each mesh keeps on the
+device), for a per-block table's rows (``BlockTables.mask``,
+``local_blocks``) and for all-block sums (``global_sum``).  Outside any
+context a gather is one ``index_select`` along the block axis and the
+other two are identities.  Inside ``use_comm(ShardComm(...))``
+(``parallel/shard_comm.py``) the cycle runs on one rank's blocks of a
+``torch.distributed`` group: the same gather becomes the per-peer packed
+point-to-point exchange of the map's route (the reference's rank-packed
+MPI messages, src/bvals/bvals_cc.cpp:42-255), a table gives the rank's
+rows and a sum is an all-reduce.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
+
+_CURRENT = None
+
+
+def current_comm():
+    """The ``ShardComm`` the running cycle uses, or None."""
+    return _CURRENT
+
+
+@contextmanager
+def use_comm(comm):
+    global _CURRENT
+    prev = _CURRENT
+    _CURRENT = comm
+    try:
+        yield comm
+    finally:
+        _CURRENT = prev
 
 
 class BlockTables:
@@ -36,7 +62,9 @@ class BlockTables:
     def gather(self, slab, idx):
         """out[i] = slab[idx[i]] along the block axis; ``idx`` is a gid map
         (not necessarily a bijection).  The identity map returns ``slab``
-        itself."""
+        itself.  Under ``use_comm`` the current exchange moves it."""
+        if _CURRENT is not None:
+            return _CURRENT.gather(slab, idx)
         _, t, identity = self._get(idx, slab.device, torch.long)
         if identity and len(t) == slab.shape[0]:
             return slab
@@ -44,18 +72,67 @@ class BlockTables:
 
     def mask(self, tab, ndim: int, device):
         """A per-block boolean table as a [nmb, 1, ...] tensor of ``ndim``
-        dimensions on ``device``."""
+        dimensions on ``device`` (the rank's rows under ``use_comm``)."""
+        tab = local_blocks(tab)
         return self._get(tab, device, torch.bool)[1].reshape(
             (-1,) + (1,) * (ndim - 1))
 
 
 def local_blocks(tab, pad_edge: bool = False):
-    """Per-block host table -> the rows owned locally: all of them."""
-    return tab
+    """Per-block table [nmb_total, ...] (numpy or a tensor) -> the rows
+    owned locally.  Outside ``use_comm`` the identity; inside, the rank's
+    [L, ...] rows, the pad rows zero (masks: pad blocks take no physical
+    BCs or overrides) or, with ``pad_edge``, row 0 (geometry: pad blocks
+    clone block 0, as ``shard_comm.pad_state`` lays them out).  Scalars
+    and arrays without a block axis pass through unchanged."""
+    if _CURRENT is None or tab is None:
+        return tab
+    if not hasattr(tab, "ndim") or tab.ndim == 0:
+        return tab
+    return _CURRENT.local_rows(tab, pad_edge)
+
+
+def local_tree(x, pad_edge: bool = True):
+    """``local_blocks`` on every table of nested lists, tuples and dicts
+    (a metric's components, the cell sizes of each direction); the
+    identity outside ``use_comm``."""
+    if _CURRENT is None:
+        return x
+    if isinstance(x, dict):
+        return {k: local_tree(v, pad_edge) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(local_tree(v, pad_edge) for v in x)
+    return local_blocks(x, pad_edge)
 
 
 def global_sum(x):
-    """All-block reduction of a partial sum: on one device the identity,
-    since a torch reduction already sees every block (the JAX package
-    psums it inside its shard cycle)."""
-    return x
+    """All-block reduction of a per-block partial sum: the identity on
+    one rank (a torch reduction sees every block), an all-reduce SUM
+    under ``use_comm`` (the reference's ``MPI_Allreduce`` in the
+    turbulence normalisation, turb_driver.cpp:742)."""
+    if _CURRENT is None:
+        return x
+    return _CURRENT.psum(x)
+
+
+class LocalAttr:
+    """A per-block table attribute (tensors, or lists and dicts of them)
+    that a physics builds once for every block and reads as the running
+    cycle's rows: set as usual, read through ``local_tree`` (pads clone
+    block 0's rows)."""
+
+    def __set_name__(self, owner, name) -> None:
+        self.key = "_all_" + name
+        self.name = name
+
+    def __get__(self, obj, cls=None):
+        if obj is None:
+            return self
+        try:
+            tab = obj.__dict__[self.key]
+        except KeyError:
+            raise AttributeError(self.name) from None
+        return local_tree(tab)
+
+    def __set__(self, obj, value) -> None:
+        obj.__dict__[self.key] = value

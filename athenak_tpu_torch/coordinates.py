@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .comm import local_tree
+
 
 class CoordData:
     """GR coordinate parameters
@@ -108,11 +110,11 @@ class GRGeometry:
         one direction (nested 4x4 lists of [nmb, n3, n2, n1] tensors)."""
         if where not in self._metric:
             raise ValueError(where)
-        return self._metric[where]
+        return local_tree(self._metric[where])
 
     def metric_derivatives(self):
         """(dg_dx1, dg_dx2, dg_dx3) of glower at the cell centres."""
-        return self._dg
+        return local_tree(self._dg)
 
     def nbytes(self) -> int:
         """Bytes of the kept metric tensors."""

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .comm import LocalAttr
 from .indices import IDN, IEN, IVX, IVY, IVZ
 
 _HUGE = float(np.finfo(np.float32).max)
@@ -64,11 +65,17 @@ def _dt_limit(mesh, ndim: int, coef: float) -> float:
     return dt
 
 
+class _LocalDx:
+    """The physics' cell sizes as the running cycle's rows."""
+
+    dxs = LocalAttr()
+
+
 def _scalar(v, like):
     return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
-class Viscosity:
+class Viscosity(_LocalDx):
     """Isotropic shear viscosity (reference:
     src/diffusion/viscosity.cpp)."""
 
@@ -137,7 +144,7 @@ class Viscosity:
         return _scalar(_dt_limit(self.mesh, ndim, self.nu_iso), like)
 
 
-class Conduction:
+class Conduction(_LocalDx):
     """Isotropic thermal conduction, q = -alpha rho dT/dx (reference:
     src/diffusion/conduction.cpp:65-152); alpha is a diffusivity, the
     conductivity kappa = rho alpha.  Spitzer conduction is commented out
@@ -184,7 +191,7 @@ def _faces(bfc):
             bfc["x3f"][:, :-1, :, :])
 
 
-class Resistivity:
+class Resistivity(_LocalDx):
     """Ohmic resistivity and ambipolar diffusion with constant
     coefficients (reference: src/diffusion/resistivity.cpp,
     ambipolar.cpp)."""

@@ -148,6 +148,12 @@ class Driver:
         self.ecounters: Dict[str, int] = {}
         self.nmb_updated = 0
         self._cycle_fn = None
+        # a process group (parallel.Ranks) over which the block axis is
+        # split, set before ``initialize`` (the JAX package's dmesh); its
+        # exchange (``comm``) and layout are made there
+        self.ranks = None
+        self.comm = None
+        self._layout = None
         # adaptive mesh refinement (reference: MeshRefinement is attached
         # to the mesh after the physics is built, main.cpp:363-366)
         self.pamr = None
@@ -237,17 +243,85 @@ class Driver:
         return dict(state, u=u, w=w, bfc=bfc, bcc=bcc)
 
     # ------------------------------------------------------------------
+    def shard(self, state):
+        """Under ``ranks``: the layout of the current mesh, the exchange
+        and this rank's rows of the padded global ``state`` (JAX
+        driver.py:377-392).  Raises for a configuration the rank-split
+        cycle does not cover when there is more than one rank."""
+        from .parallel import shard_state
+        from .parallel.shard_comm import ShardComm, pad_state, unsupported
+        why = unsupported(self, state)
+        if why is not None and self.ranks.world > 1:
+            raise NotImplementedError(
+                f"{why} does not run on {self.ranks.world} ranks: the "
+                "port splits the block axis only for the configurations "
+                "of the JAX package's shard cycle (its NamedSharding "
+                "gather path is not ported; ROADMAP item 8b)")
+        ppart = getattr(self.phys, "ppart", None)
+        self.comm = ShardComm(self.mesh, self.ranks,
+                              nprtcl=ppart.nprtcl if ppart else 0)
+        self._layout = self.comm.layout
+        return shard_state(pad_state(state, self._layout), self.comm)
+
+    def _local(self):
+        """The context of a call on this rank's blocks."""
+        from .comm import use_comm
+        return use_comm(self.comm)
+
+    def _dt_from_state(self, state) -> float:
+        """The physics' new-dt bound over every rank's blocks."""
+        with self._local():
+            dtnew = self.phys.dt_from_state(state)
+        if self.comm is not None:
+            dtnew = self.comm.pmin(torch.as_tensor(dtnew,
+                                                   dtype=torch.float64))
+        return float(dtnew)
+
+    def _unpadded(self, state):
+        """The state as outputs read it, in gid order: this rank's under
+        no group; under ``ranks`` the blocks of every rank collected on
+        rank 0 (the other ranks get None)."""
+        with self._local():
+            state = self.phys.unpack_state(state)
+        if self.comm is None:
+            return state
+        return self.comm.collect(state)
+
+    def _build_cycle(self):
+        if self.comm is None:
+            return self.make_cycle_fn()
+        from .parallel.shard_comm import build_shard_cycle
+        return build_shard_cycle(self, self.comm)
+
+    def _write(self, outputs, state, force: bool = False) -> None:
+        """Every output due (all of them with ``force``).  Under ``ranks``
+        every rank collects and keeps the outputs' cadence; rank 0
+        writes."""
+        mesh = self.mesh
+        if not (force or any(out.due(mesh) for out in outputs)):
+            return
+        sv = self._unpadded(state)
+        if sv is None:
+            sv = {k: None for k in state}
+        for out in outputs:
+            out.maybe_write(mesh, sv, force=force)
+
+    # ------------------------------------------------------------------
     def initialize(self, state):
         """Ghost-zone init + first dt, the stored dt kept on a restart
         (reference: Driver::Initialize, src/driver/driver.cpp:314-372).
         A resumed run takes the physics' ``restart_ghosts`` where it has
         one (Z4c: the fill without the projection the stored state already
-        had)."""
+        had).  Under ``ranks`` the state becomes this rank's padded rows
+        first, and dt the MIN over the ranks."""
+        if self.ranks is not None:
+            state = self.shard(state)
         init = getattr(self.phys, "restart_ghosts", None) \
             if self.res_flag else None
-        state = (init or self.phys.init_ghosts)(state)
+        with self._local():
+            state = (init or self.phys.init_ghosts)(state)
         if self.time_evolution != "static" and not self.res_flag:
-            dtnew = float(self.phys.dt_from_state(state))
+            dtnew = self._dt_from_state(state)
             self.mesh.dt = min(self.cfl_no * dtnew, _HUGE)
             if self.mesh.time < self.tlim and \
                     self.mesh.time + self.mesh.dt > self.tlim:
@@ -261,10 +335,21 @@ class Driver:
         if self.time_evolution == "static":
             return state
         if self._cycle_fn is None:
-            self._cycle_fn = self.make_cycle_fn()
+            self._cycle_fn = self._build_cycle()
         mesh = self.mesh
         phys = self.phys
         outputs = outputs or []
+        root = self.ranks is None or self.ranks.rank == 0
+        if self.ranks is not None and self.ranks.world > 1 and any(
+                not hasattr(out, "params") for out in outputs):
+            raise NotImplementedError(
+                "the CCE and horizon dumps are not written under more "
+                "than one rank yet")
+        if not root:
+            # the other ranks keep the outputs' cadence and write nothing
+            for out in outputs:
+                out.write = _no_write
+        verbose = verbose and root
         wall0 = _time.perf_counter()
 
         # the multigrid's defect printout: one verbose solve on the
@@ -275,9 +360,7 @@ class Driver:
             pgrav.solve_verbose(phys.unpack_state(state)["u"])
 
         if outputs and not self.res_flag:
-            sv = phys.unpack_state(state)
-            for out in outputs:
-                out.maybe_write(mesh, sv, force=True)
+            self._write(outputs, state, force=True)
 
         while mesh.time < self.tlim and (self.nlim < 0
                                          or mesh.ncycle < self.nlim):
@@ -298,7 +381,8 @@ class Driver:
             for k, v in counters.items():
                 self.ecounters[k] = self.ecounters.get(k, 0) + int(v)
 
-            # new dt: 2x growth limit, CFL, exact tlim stop
+            # new dt: 2x growth limit, CFL, exact tlim stop (under ranks
+            # the MIN every rank holds, so all take the same dt)
             dtnew = float(dtnew)
             mesh.dtold = mesh.dt
             dt = min(2.0 * mesh.dt, self.cfl_no * dtnew)
@@ -312,16 +396,14 @@ class Driver:
                 state, changed = self.pamr.step(self, state, outputs)
                 if changed:
                     mesh, phys = self.mesh, self.phys
-                    self._cycle_fn = self.make_cycle_fn()
+                    self._cycle_fn = self._build_cycle()
                     # the finer CFL at once (reference: NewTimeStep after
                     # RedistAndRefine)
-                    dtnew = float(phys.dt_from_state(state))
+                    dtnew = self._dt_from_state(state)
                     mesh.dt = min(mesh.dt, self.cfl_no * dtnew)
 
-            if outputs and any(out.due(mesh) for out in outputs):
-                sv = phys.unpack_state(state)
-                for out in outputs:
-                    out.maybe_write(mesh, sv)
+            if outputs:
+                self._write(outputs, state)
 
         if state["u"].is_cuda:
             torch.cuda.synchronize(state["u"].device)
@@ -331,16 +413,32 @@ class Driver:
         self.zone_cycles = self.nmb_updated * (mbi.nx1 * mbi.nx2 * mbi.nx3)
         self.zcps = self.zone_cycles / max(self.wall_seconds, 1e-12)
 
-        state = phys.unpack_state(state)
+        # the final outputs; under ranks rank 0 returns the whole state
+        # and the other ranks None
+        state = self._unpadded(state)
+        view = state if state is not None else {}
         for out in outputs:
-            out.maybe_write(mesh, state, force=True)
+            out.maybe_write(mesh, view, force=True)
         return state
 
     # ------------------------------------------------------------------
     def finalize_report(self) -> str:
-        """zone-cycles/s report (reference: Driver::Finalize,
-        src/driver/driver.cpp:465-525)."""
-        return "\n".join([
-            f"zone-cycles/cpu_second = {self.zcps:.6e}",
-            f"cycles = {self.mesh.ncycle}, wall = "
-            f"{self.wall_seconds:.3f} s"])
+        """zone-cycles/s report and, under ranks, the load-balance line
+        (reference: Driver::Finalize, src/driver/driver.cpp:465-525, and
+        the per-rank cost print, src/mesh/mesh.cpp:392-422)."""
+        lines = [f"zone-cycles/cpu_second = {self.zcps:.6e}",
+                 f"cycles = {self.mesh.ncycle}, wall = "
+                 f"{self.wall_seconds:.3f} s"]
+        lay = self._layout
+        if lay is not None:
+            c = lay.cost_eachrank
+            lines.append(
+                f"ranks = {lay.world}, "
+                f"load balancing efficiency = {lay.lb_efficiency:.3f}, "
+                f"max/min cost = {c.max() / max(c.min(), 1e-30):.3f}, "
+                f"blocks/rank = {lay.nmb_eachrank.tolist()}")
+        return "\n".join(lines)
+
+
+def _no_write(mesh, state) -> None:
+    """An output's ``write`` on a rank other than 0."""

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .bvals import BoundaryValues
+from .comm import LocalAttr, local_tree
 from .eos_ps import (PrimitiveSolverPS, contract, lower, make_policy,
                      spatial_det, spatial_inv, sym6)
 from .indices import IDN, IEN, IVX, RECON_NGHOST
@@ -52,6 +53,12 @@ from .z4c.z4c import adm_from_z4c
 
 class DynGRMHD:
     """Composed physics module: primitive-solver MHD (+ optional Z4c)."""
+
+    # per-block tables read as the running cycle's rows (comm.LocalAttr;
+    # JAX dyngr.py:151-154, 426)
+    dxs = LocalAttr()
+    dirs = LocalAttr()
+    idx = LocalAttr()
 
     is_mhd = True
 
@@ -227,7 +234,8 @@ class DynGRMHD:
             if self._fixed_adm is None:
                 raise RuntimeError("fixed-spacetime DynGRMHD needs the "
                                    "pgen to call set_fixed_adm")
-            return self._fixed_adm
+            # the running cycle's rows (JAX dyngr.py:208-211)
+            return local_tree(self._fixed_adm)
         return adm_from_z4c(self.z4c, state["z"])
 
     # ------------------------------------------------------- prim <-> cons

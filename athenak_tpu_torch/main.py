@@ -135,24 +135,30 @@ def build(pin, device=None, leaves=None):
     return mesh, phys, pgen, driver, state
 
 
-def run(pin, verbose: bool = False, device=None):
+def run(pin, verbose: bool = False, device=None, ranks=None):
     """Full run; returns (mesh, phys, driver, state), the mesh and physics
     of the final tree under AMR.  A problem generator with a ``final``
-    hook (the wave tests' error files) runs it on the final state."""
+    hook (the wave tests' error files) runs it on the final state.  With
+    ``ranks`` (``parallel.Ranks``) the block axis is split over its
+    process group on the ranks' device: rank 0 writes the outputs and
+    gets the whole final state, the other ranks None."""
     from .outputs import make_outputs
 
+    if ranks is not None and device is None:
+        device = ranks.device
     mesh, phys, pgen, driver, state = build(pin, device=device)
+    driver.ranks = ranks
     outputs = make_outputs(pin, mesh, phys, driver)
     state = driver.initialize(state)
     state = driver.execute(state, outputs=outputs, verbose=verbose)
     mesh, phys = driver.mesh, driver.phys
-    if hasattr(pgen, "final"):
+    if hasattr(pgen, "final") and state is not None:
         pgen.final(pin, mesh, phys, state)
     return mesh, phys, driver, state
 
 
 def run_restart(restart_file, overrides=(), verbose: bool = False,
-                device=None):
+                device=None, ranks=None):
     """Resume a run from a ``.rst`` file (reference restart path:
     src/main.cpp:250-277; the JAX package's ``run_restart``): rebuild
     from the stored parameter dump with ``overrides`` on top, replace
@@ -161,7 +167,8 @@ def run_restart(restart_file, overrides=(), verbose: bool = False,
     initial-condition outputs (the CCE and horizon dumps take their
     stored cadence), and run on.  A refined mesh is rebuilt on
     the stored tree (``tree_leaves``) and an adaptive run takes back its
-    cycles since the last refinement (``amr_ncyc_since_ref``).  Returns
+    cycles since the last refinement (``amr_ncyc_since_ref``).  Under
+    ``ranks`` every rank reads the file and keeps its rows.  Returns
     (mesh, phys, driver, state) of the final tree."""
     from .athinput import ParameterInput
     from .outputs import load_restart, make_outputs
@@ -171,8 +178,11 @@ def run_restart(restart_file, overrides=(), verbose: bool = False,
         restart_file, with_extras=True)
     pin = ParameterInput.from_string(params)
     pin.modify_from_cmdline(list(overrides))
+    if ranks is not None and device is None:
+        device = ranks.device
     mesh, phys, pgen, driver, _ = build(
         pin, device=device, leaves=extras.get("tree_leaves"))
+    driver.ranks = ranks
     if driver.pamr is not None and "amr_ncyc_since_ref" in extras:
         driver.pamr.ncyc_since_ref = np.array(extras["amr_ncyc_since_ref"],
                                               dtype=np.int64)
@@ -192,7 +202,7 @@ def run_restart(restart_file, overrides=(), verbose: bool = False,
     state = driver.initialize(state)
     state = driver.execute(state, outputs=outputs, verbose=verbose)
     mesh, phys = driver.mesh, driver.phys
-    if hasattr(pgen, "final"):
+    if hasattr(pgen, "final") and state is not None:
         pgen.final(pin, mesh, phys, state)
     return mesh, phys, driver, state
 

@@ -80,6 +80,44 @@ class RegionIndcs:
         return self.nx3 + 2 * self.ng if self.nx3 > 1 else 1
 
 
+def load_balance(clist: np.ndarray, nranks: int):
+    """Cost-weighted contiguous block assignment (reference:
+    src/mesh/load_balance.cpp:38-90 Mesh::LoadBalance; the JAX package's
+    ``load_balance``).
+
+    Walks the Z-ordered cost list from the end assigning blocks to ranks
+    against a running per-rank cost target, so rank 0 (the reference's
+    master rank) ends up with the lightest load.  Returns
+    (rank_eachmb [nmb], gids_eachrank [nranks], nmb_eachrank [nranks]).
+    """
+    clist = np.asarray(clist, dtype=np.float64)
+    nb = len(clist)
+    if nb < nranks:
+        raise ValueError(f"{nb} blocks cannot cover {nranks} ranks; "
+                         "use smaller meshblocks")
+    rank = np.empty(nb, dtype=np.int64)
+    total = float(clist.sum())
+    j = nranks - 1
+    target = total / nranks
+    mycost = 0.0
+    for i in range(nb - 1, -1, -1):
+        if target <= 0.0:
+            raise ValueError("load_balance: a rank received no blocks")
+        mycost += clist[i]
+        rank[i] = j
+        # close rank j when its target is met, or once only j blocks
+        # remain, so that no rank is left without a block (the reference
+        # aborts in that case instead, load_balance.cpp:55-60)
+        if j > 0 and (mycost >= target or i == j):
+            j -= 1
+            total -= mycost
+            mycost = 0.0
+            target = total / (j + 1)
+    nmb_eachrank = np.bincount(rank, minlength=nranks).astype(np.int64)
+    gids_eachrank = np.concatenate([[0], np.cumsum(nmb_eachrank)[:-1]])
+    return rank, gids_eachrank, nmb_eachrank
+
+
 class Mesh:
     """Global Cartesian mesh decomposed into MeshBlocks: one level, or
     statically or adaptively refined."""
@@ -204,6 +242,15 @@ class Mesh:
             self._build_blocks()
             self.mb_lev = np.zeros(self.nmb_total, dtype=np.int64)
             self.ml = None
+
+        # per-block cost for the ranks' load balance (reference:
+        # build_tree.cpp:236-258 cost_eachmb), weighted by
+        # <mesh>/lb_level_cost^level when set, else uniform as the
+        # reference's default
+        lb_base = pin.get_or_add_real("mesh", "lb_level_cost", 1.0)
+        self.cost_eachmb = np.asarray(
+            lb_base ** self.mb_lev.astype(np.float64), dtype=np.float32) \
+            if lb_base != 1.0 else np.ones(self.nmb_total, dtype=np.float32)
 
         # the gid maps and masks on the device, moved there once
         self.tables = BlockTables()

@@ -96,8 +96,11 @@ def fused_z4c_stage_plain(u, u1, z, gam0, gam1, beta_dt):
 
 
 def _check_stage(u, u1, z) -> None:
-    if u.dim() != 5 or u.shape[1] != NZ4C or tuple(u.shape) != z.shape:
-        raise ValueError(f"z4c_stage: u must be {z.shape}, got "
+    # the block count from the tensor: one rank's blocks of a group are
+    # fewer than the mesh's
+    if u.dim() != 5 or tuple(u.shape[1:]) != tuple(z.shape[1:]):
+        raise ValueError(f"z4c_stage: u must be [nmb, {z.shape[1]}, "
+                         f"{z.shape[2]}, {z.shape[3]}, {z.shape[4]}], got "
                          f"{tuple(u.shape)}")
     if u1.shape != u.shape or u1.dtype != u.dtype \
             or u1.device != u.device:

@@ -35,6 +35,7 @@ import math
 import numpy as np
 import torch
 
+from ..comm import local_blocks, local_tree
 from ..indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 from . import state_from_prims, to_device
 
@@ -261,7 +262,7 @@ def init(pin, mesh, phys):
     fsm = np.where(rc_tab < p["smoothin"], 0.0,
                    sm2 / (sm2 + p["smoothtr"] ** 2))
     gcoe = -p["gm0"] / np.maximum(rc_tab, 1e-12) ** 3 * fsm
-    dev = {k: to_device(phys, v) for k, v in (
+    dev = dev_all = {k: to_device(phys, v) for k, v in (
         ("gx", gcoe * xc_t), ("gy", gcoe * yc_t), ("gz", gcoe * zc_t),
         ("xc", xc_t), ("yc", yc_t), ("zc", zc_t), ("d0", den0),
         ("m0", mom0), ("por", por0), ("floor", _rho_floor(rc_tab, p)))}
@@ -274,7 +275,9 @@ def init(pin, mesh, phys):
 
     def srcterms(u, wprim, beta_dt, bcc=None, t=None):
         """AllSourceTerms: the star, the planets, the rfix reset, the
-        cooling and the floors."""
+        cooling and the floors.  The tables are the running cycle's
+        rows (JAX disk_magnetosphere.py:304)."""
+        dev = local_tree(dev_all)
         u = u.clone()
         den = u[:, IDN].clone()
         ss = [beta_dt * den * dev[c] for c in ("gx", "gy", "gz")]
@@ -349,8 +352,10 @@ def init(pin, mesh, phys):
     u_init = state["u"].clone()
 
     def steady_bc(u, bv):
-        return torch.where(gmask_t, u_init, u, out=u)
+        return torch.where(local_blocks(gmask_t),
+                           local_blocks(u_init, pad_edge=True), u, out=u)
 
+    steady_bc.shard_safe = True
     phys.bvals.user_bc_func = steady_bc
 
     if psys.np_ > 0:

@@ -35,6 +35,8 @@ import math
 import numpy as np
 import torch
 
+from ..comm import LocalAttr, local_tree
+
 _H = 5e-5  # the FD step (reference: #define h 5e-5)
 
 
@@ -141,7 +143,13 @@ def _g4(t, x, y, z, p):
 class SuperposedBBH:
     """adm(t): the numerical 4-metric derivatives and the 3+1 split on
     the cell centres of a mesh, on its device at its dtype
-    (numerical_4metric + four_metric_to_three_metric)."""
+    (numerical_4metric + four_metric_to_three_metric).  The cell
+    centres are read as the running cycle's rows (JAX dynbbh.py:242-245),
+    so on one rank's blocks each rank evaluates its own."""
+
+    X = LocalAttr()
+    Y = LocalAttr()
+    Z = LocalAttr()
 
     def __init__(self, mesh, p, device, dtype) -> None:
         self.p, self.device, self.dtype = p, device, dtype
@@ -236,9 +244,10 @@ class SuperposedBBH:
 
 
 def make_refine(p, device, dtype):
-    """The user refinement flags, fn(state, mesh) -> int64 [nmb]:
-    tracker (the holes' distance to each block) or alpha_min (the
-    lapse's minimum over a block's interior)."""
+    """The user refinement flags of the state's blocks, fn(state, mesh)
+    -> int64 [nmb] (under a group this rank's [L] rows, ``AMR.
+    check_flags``): tracker (the holes' distance to each block) or
+    alpha_min (the lapse's minimum over a block's interior)."""
     if p["amr_condition"] == "alpha_min":
         cache = {}
 
@@ -260,8 +269,8 @@ def make_refine(p, device, dtype):
 
     def refine(state, mesh_now):
         t = float(state.get("t", mesh_now.time))
-        flags = np.full(mesh_now.nmb_total, -1, dtype=np.int64)
-        sz = mesh_now.mb_size
+        sz = local_tree(mesh_now.mb_size)
+        flags = np.full(len(sz["x1min"]), -1, dtype=np.int64)
         for hole in _traj(torch.tensor(t, dtype=torch.float64), p):
             hx, hy, hz = (float(c) for c in hole["xi"])
             cx = np.clip(hx, sz["x1min"], sz["x1max"])

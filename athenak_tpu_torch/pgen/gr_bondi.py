@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..comm import local_blocks
 from ..gr import cks
 from ..indices import IDN, IEN, IM1, IM2, IM3
 from . import errors as err_mod
@@ -192,13 +193,17 @@ def init(pin, mesh, phys):
         u = phys.prim_to_cons(w)
 
     # the fixed-inflow user boundary: the physical boundaries' ghosts
-    # held at the analytic conserved state (FixedBondiInflow)
+    # held at the analytic conserved state (FixedBondiInflow); the
+    # tables are read through local_blocks, so the hook also runs on one
+    # rank's blocks (the JAX gr_bondi.py:202)
     mask = torch.as_tensor(ghost_mask(mesh), device=phys.device)
     u_fixed = u.clone()
 
     def bondi_bc(uu, bv):
-        return torch.where(mask, u_fixed, uu, out=uu)
+        return torch.where(local_blocks(mask),
+                           local_blocks(u_fixed, pad_edge=True), uu, out=uu)
 
+    bondi_bc.shard_safe = True
     phys.bvals.user_bc_func = bondi_bc
     if phys.is_mhd:
         return phys.make_state(u, w, bfc, bcc=bcc)

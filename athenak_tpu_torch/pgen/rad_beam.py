@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from ..comm import local_blocks
+
 
 def side_mask(mesh, keys, device):
     """[nmb, 1, n3, n2, n1] bool on ``device``: the ghost cells of the
@@ -94,12 +96,15 @@ def beam_table(rad, gl, e, dx, dvec, width, spread, dii_dt):
 
 def zero_bc_hook(mesh, rad, axes):
     """A user boundary function that zeroes the ghosts of the user sides
-    of ``axes``, in place (reference: ZeroIntensity)."""
+    of ``axes``, in place (reference: ZeroIntensity).  The mask is read
+    through ``local_blocks`` (pad blocks zero nothing), so the hook also
+    runs on one rank's blocks (JAX rad_beam.py:103-108)."""
     mask = side_mask(mesh, user_sides(mesh, axes), rad.device)
 
     def zero_bc(u, bv):
-        return u.masked_fill_(mask, 0.0)
+        return u.masked_fill_(local_blocks(mask), 0.0)
 
+    zero_bc.shard_safe = True
     return zero_bc
 
 

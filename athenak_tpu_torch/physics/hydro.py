@@ -62,6 +62,7 @@ from ..bvals import BoundaryValues
 from ..diffusion import Conduction, Viscosity
 from ..gravity import make_gravity
 from ..multigrid import MGPoisson
+from ..comm import LocalAttr
 from ..coordinates import Coordinates, GRGeometry, excision_masks
 from ..indices import IDN, IEN, IVX, IVY, IVZ, RECON_NGHOST
 from ..mesh import Mesh
@@ -83,6 +84,13 @@ from ..srcterms import SourceTerms
 
 class Hydro:
     """Hydro configuration and the per-stage update on torch tensors."""
+
+    # per-block tables read as the running cycle's rows (comm.LocalAttr):
+    # the cell sizes of a refined mesh and the GR excision masks
+    dxs = LocalAttr()
+    dirs = LocalAttr()
+    excise_mask = LocalAttr()
+    fofc_excise_mask = LocalAttr()
 
     is_mhd = False
 

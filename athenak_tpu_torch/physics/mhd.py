@@ -108,6 +108,7 @@ import torch
 from ..bvals import _AXIS_OF, BoundaryValues, kernel_dtype_ok
 from ..refinement import flux_correct_cc
 from . import mhd_smr
+from ..comm import LocalAttr
 from ..coordinates import Coordinates, GRGeometry, excision_masks
 from ..indices import IDN, IEN, IVX, IVY, IVZ, RECON_NGHOST
 from ..mesh import Mesh
@@ -308,6 +309,13 @@ def sr_signal_speeds(eos: EOSData, w, bcc):
 
 class MHD:
     """MHD configuration and the per-stage update on torch tensors."""
+
+    # per-block tables read as the running cycle's rows (comm.LocalAttr):
+    # the cell sizes of a refined mesh and the GR excision masks
+    dxs = LocalAttr()
+    dirs = LocalAttr()
+    excise_mask = LocalAttr()
+    fofc_excise_mask = LocalAttr()
 
     is_mhd = True
 
@@ -756,15 +764,18 @@ class MHD:
 
     def aux_route(self, u) -> str:
         """How the v1 route fills u and takes its primitives: "F" (kernel
-        F with the periodic wrap), "G+F" (the pool fill, then F) or
+        F with the periodic wrap), "G+F" (the pool's fill, then F) or
         "general"; a user boundary function closes both kernel routes
-        (the JAX ``mhd.py:1601-1610``)."""
+        (the JAX ``mhd.py:1601-1610``).  On one rank's blocks of a group
+        the pool's fill is the exchange (G closes) and F still takes the
+        primitives: F without its wrap is pointwise, so each rank's run
+        stays bitwise the one-rank run."""
         bv = self.bvals
         if bv.user_bc_func is not None:
             return "general"
         if bv.use_fill_kernel:
             return "F"
-        if bv.pool_fill_active(u):
+        if bv.pool_route(u):
             return "G+F"
         return "general"
 

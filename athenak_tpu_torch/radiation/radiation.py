@@ -40,6 +40,7 @@ import math
 import numpy as np
 import torch
 
+from ..comm import LocalAttr, local_tree
 from .geodesic_grid import GeodesicGrid
 
 _SYM10 = [(0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (1, 3),
@@ -48,6 +49,16 @@ _SYM10 = [(0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (1, 3),
 
 class Radiation:
     """<radiation> transport (reference: the Radiation module)."""
+
+    # per-block geometry read as the running cycle's rows (comm.LocalAttr;
+    # the JAX package's _lb, radiation.py:41-48)
+    dirs = LocalAttr()
+    n0 = LocalAttr()
+    n_0 = LocalAttr()
+    nd_face = LocalAttr()
+    na = LocalAttr()
+    excise_mask = LocalAttr()
+    beam_dii0 = LocalAttr()
 
     is_mhd = False
 
@@ -333,7 +344,8 @@ class Radiation:
             n2t = self._n2t_fn(X[:, 0], Y[:, 0], Z[:, 0])
             self._n2t = [[self._keep(n2t[a][nu], cshape) for nu in range(4)]
                          for a in range(4)]
-        return self.n0, self.n_0, self._n_mu, self._n2t
+        return self.n0, self.n_0, local_tree(self._n_mu), \
+            local_tree(self._n2t)
 
     # ------------------------------------------------------------------
     def fluxes(self, i0):
@@ -510,7 +522,7 @@ class Radiation:
             self._gcc = tuple([[self._keep(g[i][j], cshape)
                                 for j in range(4)] for i in range(4)]
                               for g in (gl, gu))
-        return self._gcc
+        return local_tree(self._gcc)
 
     def fluid_moments(self, i0, w, gl=None):
         """(labels, [nmb, 10, ...]) fluid-frame moments: R^{munu} taken

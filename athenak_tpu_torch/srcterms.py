@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .comm import local_tree
 from .indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 from .units import ATOMIC_MASS_UNIT_CGS, Units
 
@@ -147,11 +148,16 @@ class SourceTerms:
         mbi = mesh.mb_indcs
         p = phi[:, 0]
         if mesh.multilevel:
-            def _dx(name):
-                return torch.as_tensor(
-                    np.asarray(mesh.mb_size[name]).reshape(-1, 1, 1, 1),
+            # per-block cell sizes, made once a dtype and device, read as
+            # the running cycle's rows (JAX srcterms.py:162-166)
+            key = (p.dtype, str(p.device))
+            tabs = self.__dict__.setdefault("_dx_tabs", {})
+            if key not in tabs:
+                tabs[key] = tuple(torch.as_tensor(
+                    np.asarray(mesh.mb_size[n]).reshape(-1, 1, 1, 1),
                     dtype=p.dtype, device=p.device)
-            dx1, dx2, dx3 = _dx("dx1"), _dx("dx2"), _dx("dx3")
+                    for n in ("dx1", "dx2", "dx3"))
+            dx1, dx2, dx3 = local_tree(tabs[key])
         else:
             ms = mesh.mesh_size
             dx1, dx2, dx3 = ms.dx1, ms.dx2, ms.dx3

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from . import prng
-from .comm import global_sum
+from .comm import global_sum, local_blocks
 from .indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 
 
@@ -130,9 +130,10 @@ class TurbulenceDriver:
         b = (b - kv * torch.sum(kv * b, dim=1, keepdim=True) / ksq) \
             * nrm[:, None]
 
-        xc = self._table("xc", dtype)
-        yc = self._table("yc", dtype)
-        zc = self._table("zc", dtype)
+        # the running cycle's blocks (pads clone block 0's coordinates)
+        xc = local_blocks(self._table("xc", dtype), pad_edge=True)
+        yc = local_blocks(self._table("yc", dtype), pad_edge=True)
+        zc = local_blocks(self._table("zc", dtype), pad_edge=True)
         force = torch.zeros((xc.shape[0],) + self.shape[1:], dtype=dtype,
                             device=self.device)
         for m in range(self.nmode):
@@ -164,7 +165,8 @@ class TurbulenceDriver:
         dact = (slice(None), slice(mbi.ks, mbi.ke + 1),
                 slice(mbi.js, mbi.je + 1), slice(mbi.is_, mbi.ie + 1))
         den_a = den[dact]
-        wv = self._table("wvol", dtype)
+        # pad blocks weigh nothing in the integrals
+        wv = local_blocks(self._table("wvol", dtype))
 
         # remove net momentum injection (reference: turb_driver.cpp:717-755)
         t0 = global_sum(torch.sum(wv * den_a))

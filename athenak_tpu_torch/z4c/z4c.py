@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..bvals import kernel_dtype_ok
+from ..comm import LocalAttr, local_blocks
 from ..graphs import Graphed
 from . import fd
 
@@ -132,6 +133,10 @@ class Z4cOptions:
 
 class Z4c:
     """Vacuum Z4c evolution on the block-pool layout."""
+
+    # the inverse cell sizes, per block on a refined mesh, read as the
+    # running cycle's rows (comm.LocalAttr)
+    idx = LocalAttr()
 
     def __init__(self, pin, mesh, bvals, device, dtype) -> None:
         self.mesh = mesh
@@ -476,7 +481,8 @@ class Z4c:
         """[nmb, 5, n3, n2, n1] (mask, r, s_x, s_y, s_z) Sommerfeld
         geometry on ``device`` at ``dtype``: made in float64 on the host
         and cast once, then kept.  The stage kernel and the torch path
-        read the same tensor."""
+        read the same tensor; the running cycle's rows (pads clone
+        block 0's)."""
         key = (str(torch.device(device)), dtype)
         if key not in self._sbc_dev:
             xc, yc, zc = self._sbc_xyz
@@ -490,7 +496,7 @@ class Z4c:
             ch[:, 4] = np.broadcast_to(zc / r, (nmb, n3, n2, n1))
             self._sbc_dev[key] = torch.as_tensor(ch, dtype=dtype,
                                                  device=device)
-        return self._sbc_dev[key]
+        return local_blocks(self._sbc_dev[key], pad_edge=True)
 
     def stage_update(self, state, saved, gam0, gam1, beta_dt, tmunu=None):
         """One RK stage: RHS -> update -> halo -> algebraic constraints

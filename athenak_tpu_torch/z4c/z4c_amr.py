@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..amr import block_interior, centred_diff_sq
+from ..comm import current_comm, global_sum, local_blocks
 from .z4c import I_CHI
 
 
@@ -49,13 +50,22 @@ def device_interp(mesh, u, chans: List[int], pos):
     ``u`` [nmb, nch, n3, n2, n1] (ghosts filled) at the points ``pos``
     [npts, 3], on ``u``'s device; returns [npts, len(chans)].  A point
     belongs to the first block whose half-open box holds it (a point on
-    the mesh's upper faces is pulled inside first)."""
+    the mesh's upper faces is pulled inside first).  On one rank's blocks
+    of a group (``comm.use_comm``) the owning rank interpolates and a SUM
+    all-reduce hands every rank the values (JAX z4c_amr.py:41-100): the
+    boxes are half-open and pads own nothing, so exactly one rank adds
+    each point's values to zeros."""
     mbi = mesh.mb_indcs
     dt = u.dtype
-    lo, hi, dx, top = _interp_tables(mesh, u.device, dt)
+    lo, hi, dx, top = (local_blocks(t, pad_edge=True) for t in
+                       _interp_tables(mesh, u.device, dt))
     pos = torch.minimum(pos.to(dt), top)
     inside = ((pos[:, None, :] >= lo[None]) & (pos[:, None, :] < hi[None])
               ).all(dim=-1)                                     # [np, nmb]
+    cc = current_comm()
+    if cc is not None:
+        inside = inside & torch.as_tensor(cc.local_gids >= 0,
+                                          device=u.device)[None]
     gid = torch.argmax(inside.to(torch.int32), dim=1)           # [np]
     ng = mbi.ng
     ncell = (mbi.ncells1, mbi.ncells2, mbi.ncells3)
@@ -86,6 +96,10 @@ def device_interp(mesh, u, chans: List[int], pos):
                       * (w[1] if dj else 1.0 - w[1])
                       * (w[0] if di else 1.0 - w[0]))
                 out = out + wt[:, None] * c
+    if cc is not None:
+        own = inside.any(dim=1)
+        out = global_sum(torch.where(own[:, None], out,
+                                     torch.zeros_like(out)))
     return out
 
 

@@ -364,9 +364,34 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      Z4c RHS with matter, the fills, the c2p), the device launches of a
      stage, peak memory and zone-cycles/s in turns.
 
+ 24. splits the block axis over ranks (``athenak_tpu_torch.parallel``):
+     the ranks are child processes on the card under ``gloo``, every
+     rank on ``cuda:0`` with its packed slabs staged through pinned host
+     buffers (and the pool deck under ``nccl``, one rank a card, where
+     there are cards enough).  In a lane, each against the one-rank run
+     of the same deck in the lane's process, launch counts set to 0
+     just before each run: ``POOL_DECK`` on 2 and 4 ranks, 10 cycles,
+     kernel A on each rank's blocks twice a cycle and G never (one rank
+     takes A + G), the state, the time and the floor counts bitwise equal
+     (SHA-256 of every leaf); ``blast_smr.athinput`` at ``SMR_FULL`` (120
+     blocks) on 4 ranks, 10 cycles, J 3 a stage on every rank, bitwise;
+     ``one_puncture.athinput`` in float32 at 128^3 in 64^3 blocks (8
+     flat blocks) on 4 ranks, 10 cycles, H 3 a cycle on every rank, I
+     never, bitwise; turb8 on 4 ranks, E and F twice a cycle on every
+     rank, within test_turb_shard.py's 1e-10 relative (its volume
+     integrals are all-reduced in another order; float32 here, so
+     within 1e-5 of the field scale); ``blast_amr.athinput`` with
+     ``block_pool=false`` on 4 ranks, 20 cycles, the same trees and the
+     state bitwise.  In the main process after the lanes: the pool deck
+     timed on 1, 2 and 4 ranks (zone-cycles/s over 10 cycles after a
+     warm-up cycle, CUDA events on each rank, the slowest rank's), the
+     bytes each rank sends a fill of u, the ms of that fill and of one of
+     its exchanges.
+
 The runs that time nothing (the JAX tests' bars of phases 19-23, the
 restarts of phases 16-19, the Bonnor-Ebert runs, phase 23's graph
-checks, shipped decks and restart) run in ``LANES``: child processes on
+checks, shipped decks and restart, phase 24's checks) run in
+``LANES``: child processes on
 the card (``chip_smoke.py --lane NAME...``), started once phases 1-12
 and DYN_WIDE are done and running beside phases 13-22.  So the kernels'
 and DYN_WIDE's times are taken alone, phases 13-22's beside the lanes
@@ -6218,13 +6243,349 @@ def phase_dyn_wide(torch, kernels, card):
 # and launch-bound processes hardly slow each other on the card (four
 # copies of the linear wave: 1.08-1.15x, prof_dyn_graphs.py); the
 # longest lane holds the 64-cell linear wave's 5,647 cycles.
+# ---------------------------------------------------------------------------
+# phase 24: the block axis split over the ranks of a process group
+NCYC_SHARD = 10
+NCYC_SHARD_AMR = 20
+# one_puncture.athinput as 8 flat blocks of 64^3, float32
+Z4C_SHARD = ["job/precision=single", "mesh/nx1=128", "mesh/nx2=128",
+             "mesh/nx3=128", "meshblock/nx1=64", "meshblock/nx2=64",
+             "meshblock/nx3=64"]
+# turb8 on 4 ranks against one rank: the driver's volume integrals are
+# all-reduced in another order (test_turb_shard.py holds float64 to
+# 1e-10); float32 here, of the field's scale
+SHARD_TURB_TOL = 1e-5
+SHARD_TIMEOUT = 600
+# the stage kernels each rank launches once a stage, as one rank does;
+# the fills' kernels G and I close on one rank's blocks of a group
+SHARD_STAGE_KERNELS = ("mega_stage_v2", "mega_stage_v1", "fused_aux3d",
+                       "fused_flux_dir", "z4c_stage")
+SHARD_CLOSED = ("pool_fill", "z4c_outflow_fill")
+
+
+def shard_jobs(tmp):
+    """(label, deck, overrides, cycles, ranks) of phase 24's checks."""
+    pool = os.path.join(tmp, "pool.athinput")
+    turb = os.path.join(tmp, "turb.athinput")
+    for path, text in ((pool, POOL_DECK), (turb, TURB_DECK)):
+        with open(path, "w") as f:
+            f.write(text)
+    return [("pool", pool, [], NCYC_SHARD, 2),
+            ("pool", pool, [], NCYC_SHARD, 4),
+            ("smr", SMR_DECK, ["job/precision=single", *SMR_FULL],
+             NCYC_SHARD, 4),
+            ("z4c", PUNCTURE, Z4C_SHARD, NCYC_SHARD, 4),
+            ("turb8", turb, TURB8, NCYC_SHARD, 4),
+            ("blast_amr", BLAST_AMR, AMR_NOPOOL, NCYC_SHARD_AMR, 4)]
+
+
+def leaf_digests(state, prefix=""):
+    """SHA-256 of the bytes of every tensor of a state, by path."""
+    import hashlib
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(leaf_digests(v, f"{prefix}{k}/"))
+        elif hasattr(v, "detach"):
+            a = v.detach().cpu().contiguous().numpy()
+            out[prefix + k] = hashlib.sha256(a.tobytes()).hexdigest()
+    return out
+
+
+def shard_job(torch, kernels, ranks, deck, extra, ncyc, keep=()):
+    """One deck through ``main.run`` on ``ranks`` (None: no group), the
+    launch counts set to 0 just before and read just after.  Returns the
+    launches and, where the whole state is (one rank, or rank 0), its
+    digests, the time, cycles, floor counts, the trees, the history file
+    and the leaves named in ``keep`` (numpy)."""
+    from athenak_tpu_torch.main import run
+    pin = pin_for(list(extra) + [f"time/nlim={ncyc}"], deck)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        try:
+            mesh, phys, driver, state = run(pin, device="cuda", ranks=ranks)
+            launches = {k.name: k.launches for k in kernels.ALL}
+            hst = {f: open(f).read() for f in sorted(os.listdir("."))
+                   if f.endswith(".hst")}
+        finally:
+            os.chdir(cwd)
+    rec = {"launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if state is None:
+        return rec
+    rec.update(digests=leaf_digests(state), time=mesh.time,
+               ncycle=mesh.ncycle, ecounters=driver.ecounters, hst=hst,
+               nmb=mesh.nmb_total,
+               keep={k: state[k].detach().cpu().numpy() for k in keep})
+    if driver.pamr is not None:
+        rec.update(trees=[u["leaves"] for u in driver.pamr.updates],
+                   created=driver.pamr.nmb_created,
+                   deleted=driver.pamr.nmb_deleted)
+    if ranks is not None:
+        lay = driver._layout
+        rec["layout"] = {"blocks_a_rank": lay.nmb_eachrank.tolist(),
+                         "L": lay.L, "identity": lay.identity}
+    return rec
+
+
+def shard_timed(torch, ranks, deck, extra, ncyc):
+    """zone-cycles/s of ``ncyc`` cycles after a warm-up cycle (CUDA
+    events), and under ``ranks`` the bytes this rank sends a fill of u
+    and the ms of that fill (five fills after one)."""
+    from athenak_tpu_torch.comm import use_comm
+    from athenak_tpu_torch.main import build
+    mesh, phys, _, driver, state = build(pin_for(list(extra), deck),
+                                         device="cuda")
+    driver.ranks = ranks
+    state = driver.initialize(state)
+    cycle = driver._build_cycle()
+    dt = mesh.dt
+    state, dtnew, _ = cycle(state, dt)
+    dt = min(2.0 * dt, driver.cfl_no * float(dtnew))
+    if ranks is not None:
+        ranks.barrier()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(ncyc):
+        state, dtnew, _ = cycle(state, dt)
+        dt = min(2.0 * dt, driver.cfl_no * float(dtnew))
+    t1.record()
+    torch.cuda.synchronize()
+    sec = t0.elapsed_time(t1) / 1e3
+    mbi = mesh.mb_indcs
+    rec = {"sec": sec, "zcps": ncyc * mesh.nmb_total * mbi.nx1 * mbi.nx2
+           * mbi.nx3 / sec}
+    if ranks is not None:
+        u = state["u"].clone()
+        with use_comm(driver.comm):
+            phys.bvals.fill_ghosts(u)
+            torch.cuda.synchronize()
+            b0, e0 = ranks.sent_bytes, ranks.exchanges
+            t = time.perf_counter()
+            for _ in range(5):
+                phys.bvals.fill_ghosts(u)
+            torch.cuda.synchronize()
+        rec.update(fill_ms=1e3 * (time.perf_counter() - t) / 5,
+                   fill_bytes=(ranks.sent_bytes - b0) // 5,
+                   fill_exchanges=(ranks.exchanges - e0) // 5)
+    return rec
+
+
+def shard_rank(ranks, jobs, timed=False):
+    """A rank of phase 24: each job on the group of its first ranks,
+    in turn.  Rank 0 returns the results by "label ranks", with every
+    rank's launches (or timings)."""
+    import torch
+    from athenak_tpu_torch import kernels
+    os.environ["ATHENAK_DEVICE"] = "cuda"
+    out = {}
+    for label, deck, extra, ncyc, world in jobs:
+        sub = ranks.sub(world)
+        if sub is None:
+            continue
+        if timed:
+            rec = shard_timed(torch, sub, deck, extra, ncyc)
+            row = [rec["sec"], rec["fill_ms"], rec["fill_bytes"],
+                   rec["fill_exchanges"]]
+        else:
+            rec = shard_job(torch, kernels, sub, deck, extra, ncyc,
+                            keep=("u",) if label == "turb8" else ())
+            row = [rec["launches"][k.name] for k in kernels.ALL] \
+                + [rec["peak_gib"]]
+        rows = sub.all_gather(torch.tensor([row], dtype=torch.float64,
+                                           device=sub.device)).tolist()
+        if sub.rank == 0:
+            if timed:
+                rec["by_rank"] = [dict(zip(
+                    ("sec", "fill_ms", "fill_bytes", "fill_exchanges"), r))
+                    for r in rows]
+            else:
+                rec["launches_by_rank"] = [
+                    {k.name: int(v) for k, v in zip(kernels.ALL, r)}
+                    for r in rows]
+                rec["peak_gib_by_rank"] = [r[-1] for r in rows]
+            out[f"{label} {world}"] = rec
+    return out if ranks.rank == 0 else None
+
+
+def shard_checks(torch, kernels, card):
+    """Phase 24's checks (a lane): every job of ``shard_jobs`` on its
+    ranks (gloo, all on cuda:0) against its one-rank run here."""
+    from athenak_tpu_torch.parallel import spawn_ranks
+    kernels.library()   # built here, before the ranks load it
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = shard_jobs(tmp)
+        refs = {}
+        for label, deck, extra, ncyc, _ in jobs:
+            if label not in refs:
+                refs[label] = shard_job(
+                    torch, kernels, None, deck, extra, ncyc,
+                    keep=("u",) if label == "turb8" else ())
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"phase 24: [{card}] {free / 2**30:.1f} GiB of "
+              f"{total / 2**30:.1f} free on the card as the ranks start",
+              flush=True)
+        t = time.perf_counter()
+        got = spawn_ranks("chip_smoke:shard_rank", 4, backend="gloo",
+                          device="cuda", args=(jobs,),
+                          timeout=SHARD_TIMEOUT)[0]
+        out["spawn_seconds"] = time.perf_counter() - t
+    for label, deck, extra, ncyc, world in jobs:
+        out[f"{label} on {world} ranks"] = shard_compare(
+            label, refs[label], got[f"{label} {world}"], ncyc, world, card)
+    return out
+
+
+def shard_compare(label, ref, rec, ncyc, world, card, backend="gloo",
+                  stage=True):
+    """Hold phase 24's split run ``rec`` of a deck to its one-rank run
+    ``ref``: the cycles, the state bitwise (turb8: within
+    SHARD_TURB_TOL of its scale), time, counters, history, trees, and
+    every rank's launches as derived (each stage kernel as often as on
+    one rank, the fills' kernels G and I never; with ``stage`` a stage
+    kernel must have run).  Prints and returns the record."""
+    name = f"{label} on {world} ranks ({backend})"
+    if rec["ncycle"] != ncyc or ref["ncycle"] != ncyc:
+        raise AssertionError(f"phase 24 {name}: {rec['ncycle']} and "
+                             f"{ref['ncycle']} cycles, {ncyc} asked")
+    if label == "turb8":
+        u, u0 = rec["keep"]["u"], ref["keep"]["u"]
+        err = float(abs(u - u0).max()) / float(abs(u0).max())
+        if not err <= SHARD_TURB_TOL:
+            raise AssertionError(f"phase 24 {name}: u {err:g} of its "
+                                 f"scale from one rank > "
+                                 f"{SHARD_TURB_TOL}")
+        diff = err
+    else:
+        bad = [k for k in ref["digests"]
+               if rec["digests"].get(k) != ref["digests"][k]]
+        if bad or rec["time"] != ref["time"] \
+                or rec["ecounters"] != ref["ecounters"] \
+                or rec["hst"] != ref["hst"]:
+            raise AssertionError(
+                f"phase 24 {name}: not bitwise one rank's: leaves "
+                f"{bad}, time {rec['time']!r} / {ref['time']!r}, "
+                f"counters {rec['ecounters']} / {ref['ecounters']}")
+        diff = 0.0
+    if "trees" in ref and (rec["trees"] != ref["trees"]
+                           or rec["created"] != ref["created"]
+                           or rec["deleted"] != ref["deleted"]):
+        raise AssertionError(f"phase 24 {name}: other trees than one "
+                             "rank's")
+    # launches per rank as derived: each stage kernel as often as on
+    # one rank, the fills' kernels G and I never
+    one = ref["launches"]
+    for r, lr in enumerate(rec["launches_by_rank"]):
+        for k in SHARD_STAGE_KERNELS:
+            if lr[k] != one[k]:
+                raise AssertionError(
+                    f"phase 24 {name}: rank {r} launched {k} "
+                    f"{lr[k]} times, one rank {one[k]}")
+        for k in SHARD_CLOSED:
+            if lr[k] != 0:
+                raise AssertionError(f"phase 24 {name}: rank {r} "
+                                     f"launched {k} {lr[k]} times")
+    if stage and not any(one[k] for k in SHARD_STAGE_KERNELS):
+        raise AssertionError(f"phase 24 {name}: no stage kernel ran")
+    out = {"max_rel_diff": diff,
+           "layout": rec["layout"],
+           "one_rank_launches": {k: v for k, v in one.items() if v},
+           "launches_by_rank": [{k: v for k, v in lr.items() if v}
+                                for lr in rec["launches_by_rank"]],
+           "trees": len(ref.get("trees", [])),
+           "peak_gib_a_rank": rec["peak_gib_by_rank"]}
+    print(f"phase 24: [{card}] {name}: "
+          + ("bitwise one rank's" if label != "turb8" else
+             f"u within {diff:.3g} of its scale")
+          + f", launches a rank {out['launches_by_rank']}, one "
+          f"rank {out['one_rank_launches']}", flush=True)
+    return out
+
+
+def phase_shard(torch, kernels, card):
+    """Phase 24's timings (main process): the pool deck on 1, 2 and 4
+    ranks under gloo on this card, and on one rank a card under nccl
+    where there are cards enough; there also the Z4c deck and RAD_POOL
+    under nccl against one rank (their dt is a host number, which each
+    rank all-reduces on its card)."""
+    from athenak_tpu_torch.parallel import spawn_ranks
+    kernels.library()   # built here, before the ranks load it
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pool = os.path.join(tmp, "pool.athinput")
+        with open(pool, "w") as f:
+            f.write(POOL_DECK)
+        one = shard_timed(torch, None, pool, [], NCYC_SHARD)
+        out["gloo 1"] = {"zcps": one["zcps"]}
+        jobs = [("pool", pool, [], NCYC_SHARD, 2),
+                ("pool", pool, [], NCYC_SHARD, 4)]
+        # shard_rank's keys are "pool <ranks>"
+        got = {f"gloo {k.split()[1]}": v for k, v in spawn_ranks(
+            "chip_smoke:shard_rank", 4, backend="gloo", device="cuda",
+            args=(jobs, True), timeout=SHARD_TIMEOUT)[0].items()}
+        backends = ["gloo (all ranks on cuda:0, host-staged)"]
+        ncard = torch.cuda.device_count()
+        if ncard >= 2:
+            nj = [j for j in jobs if j[4] <= ncard]
+            got.update({f"nccl {k.split()[1]}": v for k, v in spawn_ranks(
+                "chip_smoke:shard_rank", max(j[4] for j in nj),
+                backend="nccl", args=(nj, True),
+                timeout=SHARD_TIMEOUT)[0].items()})
+            backends.append("nccl (one rank a card)")
+            nw = min(ncard, 4)
+            cj = [("z4c", PUNCTURE, Z4C_SHARD, NCYC_SHARD, nw),
+                  ("rad", RAD_LINWAVE, RAD_POOL, NCYC_RAD, nw)]
+            recs = spawn_ranks("chip_smoke:shard_rank", nw, backend="nccl",
+                               args=(cj,), timeout=SHARD_TIMEOUT)[0]
+            checks = {}
+            for label, deck, extra, ncyc, world in cj:
+                ref = shard_job(torch, kernels, None, deck, extra, ncyc)
+                # RAD_POOL's one kernel on one rank is G, which closes
+                checks[f"{label} on {world} ranks"] = shard_compare(
+                    label, ref, recs[f"{label} {world}"], ncyc, world,
+                    card, backend="nccl", stage=label != "rad")
+                torch.cuda.empty_cache()
+    for name, rec in got.items():
+        # the rate of the slowest rank's cycles
+        slow = max(r["sec"] for r in rec["by_rank"])
+        zc = rec["zcps"] * rec["sec"] / slow
+        out[name] = {"zcps": zc,
+                     "fill_bytes_a_rank": [int(r["fill_bytes"])
+                                           for r in rec["by_rank"]],
+                     "fill_ms_a_rank": [r["fill_ms"]
+                                        for r in rec["by_rank"]],
+                     "exchange_ms_a_rank": [r["fill_ms"] / r["fill_exchanges"]
+                                            for r in rec["by_rank"]]}
+    print(f"phase 24: [{card}] backends run: {backends}"
+          + ("" if len(backends) > 1 else "; nccl not run: "
+             f"{torch.cuda.device_count()} card(s)"))
+    for name, rec in out.items():
+        extra = "" if "fill_ms_a_rank" not in rec else (
+            f", bytes a rank sends a fill of u {rec['fill_bytes_a_rank']}"
+            f", ms of that fill {[round(x, 3) for x in rec['fill_ms_a_rank']]}"
+            f", ms an exchange "
+            f"{[round(x, 3) for x in rec['exchange_ms_a_rank']]}")
+        print(f"phase 24: [{card}] pool 8 x 62^3 on {name} rank(s): "
+              f"{rec['zcps']:.4g} zone-cycles/s{extra}")
+    if ncard >= 2:
+        out["nccl_checks"] = checks
+    return out
+
+
 LANES = (("lwave64", "epicycle_bar", "shwave_bar", "mri3d_bar",
           "drag_bars"),
          ("lwave32", "be", "diffusion_bars", "jeans_bars", "binary_bars",
           "hohlraum_bar", "relax_bars", "shadow_bar", "diffusion_bar",
           "beam_bar"),
-         ("dyn_bars", "slice_restart", "amr_restart", "bbh_restart",
-          "gr_restart", "gr_bars"))
+         ("shard_checks", "dyn_bars", "slice_restart", "amr_restart",
+          "bbh_restart", "gr_restart", "gr_bars"))
 LANE_TIMEOUT = 1100
 
 
@@ -6251,7 +6612,11 @@ def lane_parts():
             "amr_restart": lambda t, k, c: amr_restart(t, k),
             "bbh_restart": lambda t, k, c: bbh_restart(t, k),
             "gr_restart": lambda t, k, c: gr_restart(t, k),
-            "gr_bars": lambda t, k, c: gr_bars(t, k)}
+            "gr_bars": lambda t, k, c: gr_bars(t, k),
+            "shard_checks": shard_checks,
+            # phase 24's timings alone, and on a machine of several
+            # cards its nccl runs: python3 chip_smoke.py --lane phase_shard
+            "phase_shard": phase_shard}
 
 
 def _json_scalar(obj):
@@ -6278,6 +6643,7 @@ def lane_main(names) -> int:
         t = time.perf_counter()
         out[name] = parts[name](torch, kernels, card)
         seconds[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()   # the card is shared with the others
     print(json.dumps({"lane": out, "seconds": seconds},
                      default=_json_scalar))
     return 0
@@ -6409,6 +6775,9 @@ def main() -> int:
         t = time.perf_counter()
         out = fn(*args)
         seconds[label] = time.perf_counter() - t
+        # hand the phase's cached blocks back to the card, which the
+        # lanes and phase 24's ranks share with this process
+        torch.cuda.empty_cache()
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -6454,6 +6823,8 @@ def main() -> int:
             got = phase("lanes (the wait after 22)", lanes_finish, lanes)
         finally:
             lanes_kill(lanes)
+        shard = phase("24", phase_shard, torch, kernels, card)
+    shard["checks"] = got["shard_checks"]
     merge_lanes(card, got, slice_, amr, bbh, gr, grav, sbox, rad)
     dyn = dict(got["dyn_bars"], wide=wide)
     seconds["lanes"] = got["seconds"]
@@ -6482,7 +6853,11 @@ def main() -> int:
                 **{k: v["launches"].get(name, 0)
                    for k, v in dyn["wide"].items() if "launches" in v},
                 "dyn_restart": dyn["restart"]["resumed"].get(name, 0),
-                "bbh_restart": bbh["restart"]["resumed"].get(name, 0)}
+                "bbh_restart": bbh["restart"]["resumed"].get(name, 0),
+                **{f"shard {k} rank {r}": lr.get(name, 0)
+                   for k, v in shard["checks"].items()
+                   if isinstance(v, dict)
+                   for r, lr in enumerate(v["launches_by_rank"])}}
 
     ft, fe = fill_times, fill_errs
     zr = z4c_res["res"]["60^3 ng 2"]
@@ -6619,6 +6994,7 @@ def main() -> int:
                 "wide": {k: {kk: vv for kk, vv in v.items()
                              if kk != "launches"}
                          for k, v in dyn["wide"].items()}},
+        "shard": shard,
         "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
         "build_seconds": kernels.BUILD_INFO.get("source_seconds"),
         "card": card}))

@@ -199,7 +199,8 @@ def test_port_never_imports_jax():
               "pgen.rad_linear_wave", "pgen.rad_diffusion",
               "eos_ps", "eos_ps.policies", "eos_ps.primitive_solver",
               "utils_tov", "dyngr", "pgen.dyngr_tov", "pgen.dynbbh",
-              "pgen.import_id", "graphs"):
+              "pgen.import_id", "graphs", "parallel",
+              "parallel.shard_comm", "parallel.part_comm"):
         assert f"athenak_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

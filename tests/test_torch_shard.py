@@ -1,0 +1,424 @@
+"""The port's block axis split over ``torch.distributed`` ranks (gloo on
+the CPU, each rank a child process; ``athenak_tpu_torch/parallel``).
+
+One spawn of four ranks runs every deck of the module (the decks of
+tests/test_shard_comm.py, test_load_balance.py's weighted layout, the
+outputs and a restart, the configurations that must raise), each on the
+group of its first 2, 3 or 4 ranks, in float64, and then the one-rank
+runs, dealt out among the ranks; this process makes the JAX package's
+runs meanwhile.  Held:
+
+  * the split run, gathered, bitwise the port's one-rank run where the
+    JAX test asserts a bit match (test_shard_comm.py: uniform, padded,
+    SMR hydro and MHD; the weighted layout), at the JAX test's tolerance
+    elsewhere (GR), the same trees and the state bitwise on the AMR deck;
+  * the split run against the JAX package's single-device run to 1e-10,
+    and the uniform blast against the JAX package's own shard cycle on
+    eight virtual devices;
+  * the exchange volume: a fill sends exactly the ng-thick slabs whose
+    receiver lies on another rank, counted here from the mesh's gid maps,
+    and no all-gather runs in a cycle;
+  * ``load_balance`` against the JAX package's on test_load_balance.py's
+    three cost lists;
+  * under more than one rank, each configuration the JAX package leaves
+    to its NamedSharding path raises; nccl with too few cards raises;
+  * ``bin`` and ``rst`` files and a ``-r`` resume on 4 ranks byte-equal
+    to one rank's.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from athenak_tpu.athinput import ParameterInput as JaxInput  # noqa: E402
+from athenak_tpu.main import build as jax_build  # noqa: E402
+from athenak_tpu.mesh import load_balance as jax_load_balance  # noqa: E402
+from athenak_tpu.parallel import make_device_mesh  # noqa: E402
+from athenak_tpu_torch import main as torch_main  # noqa: E402
+from athenak_tpu_torch.mesh import Mesh, load_balance  # noqa: E402
+from athenak_tpu_torch.athinput import ParameterInput  # noqa: E402
+from athenak_tpu_torch.parallel import rank_device, spawn_ranks  # noqa: E402
+from athenak_tpu_torch.parallel.shard_comm import ShardLayout  # noqa: E402
+from test_torch_refinement import one_torch_thread  # noqa: E402,F401
+from torch_deck_parity import (assert_close, assert_states_close,  # noqa: E402
+                               interior, jit_o0)
+import torch_shard_decks as D  # noqa: E402
+
+SMR = D.deck_literal("test_shard_comm.py", "SMR_DECK")
+SMR_H = SMR.format(phys="hydro", rsolver="hllc")
+SMR_M = SMR.format(phys="mhd", rsolver="hlld")
+GR = D.deck_literal("test_shard_comm.py", "GR_DECK")
+AMR = D.deck_literal("test_shard_comm.py", "AMR_DECK")
+# 16 blocks: the first four five times as heavy (test_load_balance.py)
+COST = [5.0] * 4 + [1.0] * 12
+OUT = D.DECK + """
+<output1>
+file_type = bin
+variable = mhd_w
+dcycle = 1
+
+<output2>
+file_type = rst
+dcycle = 2
+"""
+SMALL_BOX = ["meshblock/nx1=8", "meshblock/nx2=8"]
+
+JOBS = {
+    "uni": dict(text=D.DECK, world=4, ncyc=3, fixed_dt=True,
+                fill_bytes=True),
+    "uni3": dict(text=D.DECK, world=3, ncyc=3, fixed_dt=True),
+    "six": dict(text=D.DECK6, world=4, ncyc=3, fixed_dt=True),
+    "cost": dict(text=D.DECK, world=4, ncyc=3, cost=COST),
+    "smr_h": dict(text=SMR_H, world=4, ncyc=3, fixed_dt=True),
+    "smr_m": dict(text=SMR_M, world=4, ncyc=3, fixed_dt=True),
+    "gr": dict(text=GR, world=4, ncyc=3, fixed_dt=True),
+    # the JAX comparisons' decks, shifted off the blast's symmetry (F4)
+    "uni_s": dict(text=D.DECK, overrides=D.shift(D.DECK), world=4,
+                  ncyc=3, fixed_dt=True),
+    "six_s": dict(text=D.DECK6, overrides=D.shift(D.DECK6), world=4,
+                  ncyc=3, fixed_dt=True),
+    "smr_h_s": dict(text=SMR_H, overrides=D.shift(SMR_H), world=4,
+                    ncyc=3, fixed_dt=True),
+    "amr": dict(text=AMR, world=4, ncyc=14),
+    "smr_m_s": dict(text=SMR_M, overrides=D.shift(SMR_M), world=4,
+                    ncyc=3, fixed_dt=True),
+    # the adaptive deck cut from 14 to 2 cycles (one tree update) for the
+    # JAX comparison: the JAX driver compiles a cycle for every tree
+    "amr_s": dict(text=AMR, overrides=D.shift(AMR), world=4, ncyc=2),
+    "out": dict(text=OUT, world=4, ncyc=4, outputs=True,
+                restart=("shardcomm.00001.rst", ["time/nlim=4"])),
+    # what the JAX package leaves to its NamedSharding gather path
+    "sbox": dict(text=open(f"{D.ROOT}/inputs/shearing_box/"
+                           "hydro_orb_adv.athinput").read(), world=2,
+                 expect_error=True,
+                 overrides=["mesh/nx1=16", "mesh/nx2=16", "mesh/nx3=4",
+                            "meshblock/nx1=8", "meshblock/nx2=16",
+                            "meshblock/nx3=4"]),
+    "grav": dict(text=open(f"{D.ROOT}/inputs/tests/jeans_wave.athinput"
+                           ).read(), world=2, expect_error=True,
+                 overrides=["mesh/nx1=16", "mesh/nx2=8", "mesh/nx3=8",
+                            "meshblock/nx1=8", "meshblock/nx2=8",
+                            "meshblock/nx3=8"]),
+    "pool": dict(text=open(f"{D.ROOT}/inputs/mhd/blast_amr.athinput"
+                           ).read(), world=2, expect_error=True,
+                 overrides=["mesh/nx1=16", "mesh/nx2=16", "mesh/nx3=16",
+                            "meshblock/nx1=8", "meshblock/nx2=8",
+                            "meshblock/nx3=8", "job/precision=double"]),
+    "ubc": dict(text=open(f"{D.ROOT}/inputs/radiation/shadow.athinput"
+                          ).read(), world=2, expect_error=True,
+                overrides=["mesh/nx1=16", "mesh/nx2=8", *SMALL_BOX]),
+}
+
+
+def _jax_run(job, ndev=0, ncyc=3):
+    """The JAX test's ``_run`` of a job's deck: ``ncyc`` cycles at the
+    first dt, on one device or the shard cycle on ``ndev`` virtual
+    devices (XLA's backend optimisation level 0)."""
+    pin = JaxInput.from_string(JOBS[job]["text"])
+    pin.modify_from_cmdline(list(JOBS[job].get("overrides", ())))
+    pin.set_value("mesh", "coalesce", "false")
+    pin.set_value("mesh", "pencil_pack", "false")
+    mesh, phys, pgen, driver, state = jax_build(pin)
+    if ndev:
+        driver.dmesh = make_device_mesh(ndev)
+    state = driver.initialize(state)
+    fn = jit_o0(driver.make_shard_cycle_fn(state) if ndev
+                else driver.make_cycle_fn())
+    dt = jnp.asarray(driver.mesh.dt, dtype=state["u"].dtype)
+    for _ in range(ncyc):
+        state, dtnew, _ = fn(state, dt)
+    return jax.tree_util.tree_map(np.asarray, state), float(dtnew)
+
+
+def _jax_amr(job):
+    """The JAX package's ``main.run`` of an adaptive job (its driver and
+    AMR step without the block pool, XLA's backend optimisation level
+    0): every tree update as (cycle, leaves), the blocks created and
+    deleted, the final time and state."""
+    import os
+    import tempfile
+
+    from athenak_tpu import amr as jax_amr
+    from athenak_tpu import main as jax_main
+    from torch_deck_parity import JAX_EXTRA, _jit_o0, _recording
+
+    spec = JOBS[job]
+    trees = []
+    pin = JaxInput.from_string(spec["text"])
+    pin.modify_from_cmdline(JAX_EXTRA + list(spec.get("overrides", ()))
+                            + [f"time/nlim={spec['ncyc']}"])
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, \
+            pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_amr.AMR, "step",
+                   _recording(jax_amr.AMR.step, trees, []))
+        mp.setattr(jax, "jit", _jit_o0(jax.jit))
+        os.chdir(tmp)
+        try:
+            mesh, _, driver, st = jax_main.run(pin)
+        finally:
+            os.chdir(cwd)
+    return {"trees": trees, "created": driver.pamr.nmb_created,
+            "deleted": driver.pamr.nmb_deleted, "time": mesh.time,
+            "state": jax.tree_util.tree_map(np.asarray, st)}
+
+
+#: the JAX package's runs: (function, arguments), the longest first
+JAX_RUNS = {"amr_s": (_jax_amr, ("amr_s",)),
+            "smr_m_s": (_jax_run, ("smr_m_s",)),
+            "shard": (_jax_run, ("uni_s", 8)),
+            "gr": (_jax_run, ("gr",)),
+            "uni_s": (_jax_run, ("uni_s",)),
+            "smr_h_s": (_jax_run, ("smr_h_s",)),
+            "six_s": (_jax_run, ("six_s",))}
+
+
+@pytest.fixture(scope="module")
+def runs(one_torch_thread):
+    """(split runs by job, one-rank runs by job, JAX runs): the ranks make
+    the split runs and then, dealt out among them, the one-rank runs,
+    while four fresh interpreters make the JAX runs."""
+    # the one-rank runs of the decks the JAX comparisons leave unshifted
+    solo = sorted((k for k, v in JOBS.items() if not v.get("expect_error")
+                   and not k.endswith("_s")),
+                  key=lambda k: k not in ("smr_m", "smr_h"))
+    fut = D.split_and_one(JOBS, solo)
+    with D.jax_pool() as pool:
+        jx = {k: pool.submit(fn, *a) for k, (fn, a) in JAX_RUNS.items()}
+        jx = {k: f.result() for k, f in jx.items()}
+    split, one = fut.result()
+    return split, one, jx
+
+
+def _bitwise(got, ref):
+    for k, v in ref.items():
+        if isinstance(v, dict):
+            _bitwise(got[k], v)
+        elif isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("job", ["uni", "uni3", "six", "smr_h", "smr_m"])
+def test_split_cycle_bitwise_one_rank(runs, job):
+    """The decks whose JAX tests assert a bit match: the gathered state
+    and the new dt bitwise the one-rank run's (3 ranks pad 16 blocks to
+    18, 4 ranks pad 6 to 8 with clones of block 0)."""
+    split, one, _ = runs
+    assert split[job]["nmb"] == one[job]["nmb"]
+    assert split[job]["dtnew"] == one[job]["dtnew"]
+    _bitwise(split[job]["state"], one[job]["state"])
+
+
+def test_weighted_layout_bitwise_one_rank(runs):
+    """test_load_balance.py's weighted layout through the driver's loop:
+    uneven block counts a rank, the state, time and dt chain bitwise;
+    the load-balance line of the report."""
+    split, one, _ = runs
+    counts, identity, eff = split["cost"]["lb"]
+    assert not identity and min(counts) < max(counts)
+    assert 0.0 < eff <= 1.0
+    assert split["cost"]["time"] == one["cost"]["time"]
+    assert split["cost"]["dt"] == one["cost"]["dt"]
+    _bitwise(split["cost"]["state"], one["cost"]["state"])
+    assert "load balancing efficiency" in split["cost"]["report"]
+
+
+def test_gr_split_matches(runs):
+    """GR hydro with excision on 4 ranks: the JAX test's tolerance
+    (test_shard_comm.py::test_shard_cycle_gr_matches)."""
+    split, one, _ = runs
+    assert np.isclose(split["gr"]["dtnew"], one["gr"]["dtnew"], rtol=1e-12)
+    for k in ("u", "w"):
+        np.testing.assert_allclose(split["gr"]["state"][k],
+                                   one["gr"]["state"][k], rtol=1e-6,
+                                   atol=1e-7)
+
+
+def test_gr_split_matches_jax(runs):
+    """The GR deck on 4 ranks against the JAX package's one-device run,
+    outside the horizon's neighbourhood r_ks <= 3 (the horizon at 1.95
+    and two cells): u to 1e-10 of its scale, w through the JAX package's
+    p2c image to u's scale (ROADMAP F12(b), as
+    tests/test_torch_gr_slice.py holds w).  Inside it the c2p beside the
+    excision takes the last bits of u: the one-rank port's run sits 5e-9
+    from the JAX package's after three cycles, against 2.1e-9 of the
+    deck's own response to u moved by two units in the last place
+    (ROADMAP F12(d)); beyond r_ks = 3 the gap is some 3e-13."""
+    split, _, jx = runs
+    got, (ref, rdt) = split["gr"], jx["gr"]
+    assert np.isclose(got["dtnew"], rdt, rtol=1e-12)
+    pin = ParameterInput.from_string(GR)
+    _, tphys, _, _, _ = torch_main.build(pin, device="cpu")
+    far = interior(np.broadcast_to(tphys.geom.ks_radius_cc(),
+                                   ref["u"][:, 0].shape)[:, None]) > 3.0
+    pin = JaxInput.from_string(GR)
+    pin.set_value("mesh", "coalesce", "false")
+    _, phys, _, _, _ = jax_build(pin)
+    scale = float(np.abs(interior(ref["u"])).max())
+    for label, a, b in [("u", got["state"]["u"], ref["u"])] + [
+            ("w (p2c)", *(np.asarray(phys.prim_to_cons(jnp.asarray(w)))
+                          for w in (got["state"]["w"], ref["w"])))]:
+        a, b = np.broadcast_arrays(interior(a), interior(b))
+        m = np.broadcast_to(far, a.shape)
+        assert_close(a[m], b[m], 1e-10, label, scale=scale)
+
+
+def test_amr_split_same_trees(runs):
+    """The adaptive deck (refine and derefine over 14 cycles) on 4 ranks:
+    every tree, the created and deleted counts exactly one rank's; the
+    state bitwise (every rank remaps the gathered state in gid order)."""
+    split, one, _ = runs
+    a, b = split["amr"]["amr"], one["amr"]["amr"]
+    assert b["created"] > 0 and b["deleted"] > 0
+    assert a["trees"] == b["trees"] and a["leaves"] == b["leaves"]
+    assert (a["created"], a["deleted"]) == (b["created"], b["deleted"])
+    assert split["amr"]["time"] == one["amr"]["time"]
+    _bitwise(split["amr"]["state"], one["amr"]["state"])
+
+
+@pytest.mark.parametrize("job", ["uni_s", "smr_h_s", "six_s", "smr_m_s"])
+def test_split_cycle_matches_jax(runs, job):
+    """The split run against the JAX package's single-device run of the
+    same deck and cycles, 1e-10 of each field's scale (the domain moved
+    by 0.3 of a root cell, ROADMAP F4)."""
+    split, _, jx = runs
+    ref, rdt = jx[job]
+    assert np.isclose(split[job]["dtnew"], rdt, rtol=1e-12)
+    nmb = split[job]["nmb"]
+    ref = {k: (v[:nmb] if hasattr(v, "shape") else
+               {c: a[:nmb] for c, a in v.items()})
+           for k, v in ref.items() if k in ("u", "w", "bfc")}
+    assert_states_close(split[job]["state"], ref, 1e-10)
+
+
+def test_amr_split_matches_jax(runs):
+    """The adaptive deck, cut to 2 cycles and moved by 0.3 of a root
+    cell (ROADMAP F4), on 4 ranks against the JAX package's one-device
+    driver: every tree update at the same cycle, the created and deleted
+    counts, the time and the state to 1e-10."""
+    split, _, jx = runs
+    a, ref = split["amr_s"], jx["amr_s"]
+    assert len(ref["trees"]) >= 1
+    assert [(c, [tuple(int(v) for v in leaf) for leaf in t])
+            for c, t in a["amr"]["trees"]] == ref["trees"]
+    assert (a["amr"]["created"], a["amr"]["deleted"]) == (
+        ref["created"], ref["deleted"])
+    np.testing.assert_allclose(a["time"], ref["time"], rtol=1e-10)
+    assert_states_close(a["state"], ref["state"], 1e-10)
+
+
+def test_split_cycle_matches_jax_shard_cycle(runs):
+    """The uniform blast on 4 ranks against the JAX package's own
+    shard_map cycle on 8 virtual devices."""
+    split, _, jx = runs
+    ref, rdt = jx["shard"]
+    assert np.isclose(split["uni_s"]["dtnew"], rdt, rtol=1e-12)
+    assert_states_close(split["uni_s"]["state"],
+                        {k: ref[k] for k in ("u", "w", "bfc")}, 1e-10)
+
+
+def test_fill_sends_the_crossing_slabs(runs):
+    """One fill of u on 4 ranks: each rank sends exactly the ng-thick
+    slabs whose receiver is on another rank (counted from the mesh's gid
+    maps and the layout's owners), and no all-gather runs in the cycles."""
+    split, _, _ = runs
+    pin = ParameterInput.from_string(D.DECK)
+    mesh = Mesh(pin)
+    mbi = mesh.mb_indcs
+    lay = ShardLayout(mesh, 4)
+    owner = lay.rank_eachmb
+    cells = {"x1": mbi.ncells2 * mbi.ncells3, "x2": mbi.ncells1
+             * mbi.ncells3, "x3": mbi.ncells1 * mbi.ncells2}
+    nvar = split["uni"]["state"]["u"].shape[1]
+    want = np.zeros(4, dtype=np.int64)
+    for ax in ("x1", "x2", "x3"):
+        for side in ("m", "p"):
+            donor = np.asarray(mesh.nbr_gid[ax + side])
+            for g in range(mesh.nmb_total):
+                if owner[donor[g]] != owner[g]:
+                    # float64 slabs [nvar, ng, the other two extents]
+                    want[owner[donor[g]]] += 8 * nvar * mbi.ng * cells[ax]
+    got = split["uni"]["fill"]
+    assert got["gathers"] == 0 and split["uni"]["gathers_in_run"] == 0
+    assert got["sent"] == want.tolist() and want.min() > 0
+
+
+def test_load_balance_matches_jax():
+    """test_load_balance.py's three cost lists through both packages:
+    the same contiguous assignment."""
+    cases = [(np.ones(16), 8), (np.ones(6), 4),
+             (np.array([1, 1, 1, 1, 4, 4, 4, 4, 1, 1, 1, 1], float), 4),
+             (np.array([100, 1, 1, 1, 1, 1, 1, 1], float), 4)]
+    for cost, n in cases:
+        for a, b in zip(load_balance(cost, n), jax_load_balance(cost, n)):
+            np.testing.assert_array_equal(a, b)
+    rank, _, nmb = load_balance(cases[3][0], 4)
+    assert nmb[0] == 1 and (np.diff(rank) >= 0).all()
+    _, _, nmb = load_balance(np.ones(6), 4)
+    assert nmb.tolist() == [1, 1, 2, 2]
+
+
+@pytest.mark.parametrize("job,what", [
+    ("sbox", "shearing box"), ("grav", "self-gravity"),
+    ("pool", "block pool"), ("ubc", "user boundary function")])
+def test_excluded_configurations_raise(runs, job, what):
+    """Under 2 ranks each configuration of the JAX package's NamedSharding
+    path raises, naming it."""
+    split, _, _ = runs
+    err = split[job]["error"]
+    assert err is not None and what in err and "2 ranks" in err
+
+
+def test_nccl_with_too_few_cards_raises():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match="nccl puts one rank on each"):
+        rank_device("nccl", 0, n + 1)
+    with pytest.raises(RuntimeError, match="nccl puts one rank on each"):
+        spawn_ranks(D.rank_jobs, n + 1, backend="nccl", args=({},))
+
+
+def test_gloo_ranks_default_to_the_card(monkeypatch):
+    """A gloo group's ranks go on the card unless the caller asks for the
+    CPU (``device`` or ATHENAK_DEVICE), as the port's entry points do:
+    without a card that raises, before any rank starts."""
+    monkeypatch.delenv("ATHENAK_DEVICE", raising=False)
+    assert rank_device("gloo", 1, 2, "cpu") == torch.device("cpu")
+    monkeypatch.setenv("ATHENAK_DEVICE", "cpu")
+    assert rank_device("gloo", 1, 2) == torch.device("cpu")
+    monkeypatch.delenv("ATHENAK_DEVICE")
+    if torch.cuda.is_available():
+        assert rank_device("gloo", 1, 2) == torch.device("cuda:0")
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rank_device("gloo", 0, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        spawn_ranks(D.rank_jobs, 2, args=({},))
+
+
+def test_outputs_and_restart_byte_equal(runs):
+    """bin and rst files written by rank 0 of 4 ranks byte-equal to one
+    rank's; a -r resume from the cycle-2 file on 4 ranks bitwise one
+    rank's resume."""
+    split, one, _ = runs
+    a, b = split["out"]["files"], one["out"]["files"]
+    assert sorted(a) == sorted(b)
+    assert any(f.endswith(".bin") for f in a)
+    assert any(f.endswith(".rst") for f in a)
+    for f in b:
+        assert a[f] == b[f], f
+    ra, rb = split["out"]["restart"], one["out"]["restart"]
+    assert (ra["time"], ra["ncycle"]) == (rb["time"], rb["ncycle"])
+    _bitwise(ra["state"], rb["state"])
+
+
+def test_a_failing_rank_fails_the_run():
+    """A rank that raises ends the run: the others are killed and
+    ``spawn_ranks`` raises with the failing rank's error."""
+    bad = {"bad": dict(text="<job>\nbasename = bad\n", world=2)}
+    with pytest.raises(RuntimeError, match=r"rank \d of 2 \(gloo\)"):
+        spawn_ranks(D.rank_jobs, 2, device="cpu", args=(bad,),
+                    timeout=120, group_timeout=30)
