@@ -148,6 +148,14 @@ class Driver:
         self.ecounters: Dict[str, int] = {}
         self.nmb_updated = 0
         self._cycle_fn = None
+        # an ``mhd_jcon`` output needs the previous cycle's (w, bcc, dt)
+        # for its time-centred Faraday tensor (reference:
+        # pmhd->wbcc_saved, derived_variables.cpp:364-390)
+        self.save_wbcc = any(
+            b.startswith("output")
+            and pin.does_parameter_exist(b, "variable")
+            and "jcon" in pin.get_string(b, "variable")
+            for b in pin.blocks)
         # a process group (parallel.Ranks) over which the block axis is
         # split, set before ``initialize`` (the JAX package's dmesh); its
         # exchange (``comm``) and layout are made there
@@ -287,6 +295,14 @@ class Driver:
             return state
         return self.comm.collect(state)
 
+    def _save_wbcc(self, state) -> None:
+        """Keep (w, bcc, dt) of the state before a cycle on the physics
+        for ``mhd_jcon`` (under ranks rank 0 keeps the whole mesh's)."""
+        sv = self._unpadded(state)
+        if sv is not None and "bcc" in sv:
+            self.phys._jcon_prev = (sv["w"].clone(), sv["bcc"].clone(),
+                                    self.mesh.dt)
+
     def _build_cycle(self):
         if self.comm is None:
             return self.make_cycle_fn()
@@ -373,6 +389,8 @@ class Driver:
             if verbose and mesh.ncycle % self.ndiag == 0:
                 print(f"cycle={mesh.ncycle} time={mesh.time:.6e} "
                       f"dt={mesh.dt:.6e}")
+            if self.save_wbcc:
+                self._save_wbcc(state)
 
             state, dtnew, counters = self._cycle_fn(state, mesh.dt)
             mesh.time += mesh.dt

@@ -12,8 +12,9 @@ Counterpart of ``athenak_tpu/main.py`` (reference: src/main.cpp:61-420):
   -w seconds  watchdog hang-abort window
   -r <file>   resume from a restart (.rst) file, the port's or the JAX
               package's
+  -p <dir>    trace the run with ``torch.profiler`` into a directory
 plus block/par=value overrides (applied on top of the restart file's
-parameters under ``-r``).  ``-p`` (profile) is not ported yet.
+parameters under ``-r``).
 
 The device comes from ``ATHENAK_DEVICE`` (default ``cuda``) for the CLI,
 or from the ``device=`` argument of ``build``/``run``.  Asking for CUDA
@@ -135,20 +136,50 @@ def build(pin, device=None, leaves=None):
     return mesh, phys, pgen, driver, state
 
 
-def run(pin, verbose: bool = False, device=None, ranks=None):
+def profiled(profile_dir, device=None, rank=None):
+    """A context that traces what runs inside it with ``torch.profiler``
+    (the host's activity, and the card's under CUDA) and writes the trace
+    into ``profile_dir`` when it ends, as a ``*.pt.trace.json`` file that
+    TensorBoard and Perfetto read (``tensorboard_trace_handler``; the JAX
+    package's ``-p`` writes a ``jax.profiler`` trace).  Under ranks each
+    rank writes its own file, named ``rank<r>``.  No directory: no
+    tracing."""
+    import contextlib
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts, on_trace_ready=tensorboard_trace_handler(
+        profile_dir, worker_name=None if rank is None else f"rank{rank}"))
+
+
+def run(pin, verbose: bool = False, device=None, ranks=None,
+        profile_dir=None):
     """Full run; returns (mesh, phys, driver, state), the mesh and physics
     of the final tree under AMR.  A problem generator with a ``final``
     hook (the wave tests' error files) runs it on the final state.  With
     ``ranks`` (``parallel.Ranks``) the block axis is split over its
     process group on the ranks' device: rank 0 writes the outputs and
-    gets the whole final state, the other ranks None."""
+    gets the whole final state, the other ranks None.  With
+    ``profile_dir`` the whole run is traced there (``profiled``)."""
     from .outputs import make_outputs
 
     if ranks is not None and device is None:
         device = ranks.device
-    mesh, phys, pgen, driver, state = build(pin, device=device)
-    driver.ranks = ranks
-    outputs = make_outputs(pin, mesh, phys, driver)
+    with profiled(profile_dir, device, getattr(ranks, "rank", None)):
+        mesh, phys, pgen, driver, state = build(pin, device=device)
+        driver.ranks = ranks
+        outputs = make_outputs(pin, mesh, phys, driver)
+        return _evolve(pin, pgen, driver, state, outputs, verbose)
+
+
+def _evolve(pin, pgen, driver, state, outputs, verbose):
+    """Initialise and run the built state with its outputs, then the
+    generator's ``final`` hook: (mesh, phys, driver, state) of the final
+    tree."""
     state = driver.initialize(state)
     state = driver.execute(state, outputs=outputs, verbose=verbose)
     mesh, phys = driver.mesh, driver.phys
@@ -158,7 +189,7 @@ def run(pin, verbose: bool = False, device=None, ranks=None):
 
 
 def run_restart(restart_file, overrides=(), verbose: bool = False,
-                device=None, ranks=None):
+                device=None, ranks=None, profile_dir=None):
     """Resume a run from a ``.rst`` file (reference restart path:
     src/main.cpp:250-277; the JAX package's ``run_restart``): rebuild
     from the stored parameter dump with ``overrides`` on top, replace
@@ -168,8 +199,9 @@ def run_restart(restart_file, overrides=(), verbose: bool = False,
     stored cadence), and run on.  A refined mesh is rebuilt on
     the stored tree (``tree_leaves``) and an adaptive run takes back its
     cycles since the last refinement (``amr_ncyc_since_ref``).  Under
-    ``ranks`` every rank reads the file and keeps its rows.  Returns
-    (mesh, phys, driver, state) of the final tree."""
+    ``ranks`` every rank reads the file and keeps its rows; with
+    ``profile_dir`` the run is traced there.  Returns (mesh, phys, driver,
+    state) of the final tree."""
     from .athinput import ParameterInput
     from .outputs import load_restart, make_outputs
     from .state import state_from_numpy
@@ -180,31 +212,27 @@ def run_restart(restart_file, overrides=(), verbose: bool = False,
     pin.modify_from_cmdline(list(overrides))
     if ranks is not None and device is None:
         device = ranks.device
-    mesh, phys, pgen, driver, _ = build(
-        pin, device=device, leaves=extras.get("tree_leaves"))
-    driver.ranks = ranks
-    if driver.pamr is not None and "amr_ncyc_since_ref" in extras:
-        driver.pamr.ncyc_since_ref = np.array(extras["amr_ncyc_since_ref"],
-                                              dtype=np.int64)
-    state = state_from_numpy(rstate, phys.device, phys.dtype)
-    mesh.time, mesh.dt, mesh.ncycle = time, dt, ncycle
-    driver.res_flag = True
-    outputs = make_outputs(pin, mesh, phys, driver)
-    for out in outputs:
-        if hasattr(out, "resume"):       # the CCE and horizon dumps
-            out.resume(extras)
-            continue
-        p = out.params
-        if p.dt > 0.0:
-            nskip = int(math.floor((time + 1e-12) / p.dt)) + 1
-            p.file_number = nskip
-            p.last_time = nskip * p.dt - p.dt
-    state = driver.initialize(state)
-    state = driver.execute(state, outputs=outputs, verbose=verbose)
-    mesh, phys = driver.mesh, driver.phys
-    if hasattr(pgen, "final") and state is not None:
-        pgen.final(pin, mesh, phys, state)
-    return mesh, phys, driver, state
+    with profiled(profile_dir, device, getattr(ranks, "rank", None)):
+        mesh, phys, pgen, driver, _ = build(
+            pin, device=device, leaves=extras.get("tree_leaves"))
+        driver.ranks = ranks
+        if driver.pamr is not None and "amr_ncyc_since_ref" in extras:
+            driver.pamr.ncyc_since_ref = np.array(
+                extras["amr_ncyc_since_ref"], dtype=np.int64)
+        state = state_from_numpy(rstate, phys.device, phys.dtype)
+        mesh.time, mesh.dt, mesh.ncycle = time, dt, ncycle
+        driver.res_flag = True
+        outputs = make_outputs(pin, mesh, phys, driver)
+        for out in outputs:
+            if hasattr(out, "resume"):       # the CCE and horizon dumps
+                out.resume(extras)
+                continue
+            p = out.params
+            if p.dt > 0.0:
+                nskip = int(math.floor((time + 1e-12) / p.dt)) + 1
+                p.file_number = nskip
+                p.last_time = nskip * p.dt - p.dt
+        return _evolve(pin, pgen, driver, state, outputs, verbose)
 
 
 def cli(argv=None):
@@ -226,16 +254,14 @@ def cli(argv=None):
     ap.add_argument("-t", dest="walltime", default=None,
                     help="wall time limit hh:mm:ss")
     ap.add_argument("-p", dest="profile_dir", default=None,
-                    help="profile trace directory (not ported yet)")
+                    help="trace the run into this directory "
+                    "(torch.profiler)")
     ap.add_argument("-w", dest="watchdog", default=None, type=float,
                     help="watchdog hang-abort window in seconds")
     ap.add_argument("overrides", nargs="*",
                     help="block/par=value parameter overrides")
     args = ap.parse_args(argv)
 
-    if args.profile_dir:
-        raise NotImplementedError(
-            "-p is not ported to athenak_tpu_torch yet")
     if args.show_config:
         dev = resolve_device()
         name = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
@@ -251,7 +277,8 @@ def cli(argv=None):
             os.chdir(args.rundir)
 
         def runner():
-            return run_restart(restart_path, args.overrides, verbose=True)
+            return run_restart(restart_path, args.overrides, verbose=True,
+                               profile_dir=args.profile_dir)
     else:
         if not args.input:
             ap.error("an input file is required (-i)")
@@ -281,7 +308,7 @@ def cli(argv=None):
             return None
 
         def runner():
-            return run(pin, verbose=True)
+            return run(pin, verbose=True, profile_dir=args.profile_dir)
 
     from .driver import Driver
     if args.walltime:

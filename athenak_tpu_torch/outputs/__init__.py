@@ -1,18 +1,21 @@
 """Outputs: history sums, reference-format binary dumps, formatted
-tables, restart files, legacy VTK, gravitational waveforms and the CCE
-and horizon dumps.
+tables, restart files, legacy VTK, gravitational waveforms, tracked
+particles, the event log, the coarsened binary dumps, histograms, the
+Cartesian and spherical resamplings, and the CCE and horizon dumps.
 
-Counterpart of ``athenak_tpu/outputs/__init__.py`` (reference:
-src/outputs/ — BaseTypeOutput and the <outputN> factory,
-src/outputs/outputs.cpp:224-260).  ``hst``, ``bin``, ``tab``, ``rst``,
-``vtk``, ``wave`` and ``trk`` are ported; the other file types raise.  A
-Z4c deck also gets its CCE worldtubes from ``<cce>`` and its horizon
-cube dumps from ``<z4c>/dump_horizon_N`` (reference: z4c.cpp:195-233).  Every
+Counterpart of ``athenak_tpu/outputs/__init__.py`` and ``grids.py``
+(reference: src/outputs/ — BaseTypeOutput and the <outputN> factory,
+src/outputs/outputs.cpp:224-260): ``hst``, ``bin``, ``tab``, ``rst``,
+``vtk``, ``wave``, ``trk``, ``log``, ``cbin``, ``pdf``, ``cartgrid`` and
+``sphsurf``, under the JAX package's file names and formats.  A Z4c deck
+also gets its CCE worldtubes from ``<cce>`` and its horizon cube dumps
+from ``<z4c>/dump_horizon_N`` (reference: z4c.cpp:195-233).  Every
 writer reads the state the driver hands it (``phys.unpack_state``: u, w,
 under MHD bfc and bcc, the turbulence driver's entries, the puncture
-trackers' ``co_pos``) and moves what it writes to the host.  ``bin``,
-``tab`` and ``vtk`` take the Z4c variables of ``variables.py`` (z4c,
-adm, con, weyl) besides their hydro and MHD ones.
+trackers' ``co_pos``) and moves what it writes to the host.  ``bin`` and
+the grid outputs take every name of ``variables.resolve``; ``tab`` and
+``vtk`` take the fluid's first five channels and the Z4c and radiation
+families, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -27,9 +30,8 @@ import torch
 
 from ..indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 from ..state import state_to_numpy
-from .variables import (FLUID_NAMES, fluid_name, is_rad_variable,
-                        is_z4c_variable, resolve_fluid, resolve_rad,
-                        resolve_z4c)
+from .variables import (fluid_name, is_rad_variable, is_z4c_variable,
+                        resolve, resolve_rad, resolve_z4c)
 
 
 class OutputParameters:
@@ -156,11 +158,13 @@ class HistoryOutput(BaseOutput):
 
 class BinaryOutput(BaseOutput):
     """Reference-format binary dumps, version 1.1 (reference:
-    src/outputs/binary.cpp:52-260; the layout the reader
-    athenak_tpu.vis.readers.read_binary parses): an ASCII preheader, the
-    athinput dump, then per block 6 int32 output indices, 4 int32
-    logical-location entries, 6 float64 block extents and the float64
-    cell data."""
+    src/outputs/binary.cpp:52-260; the layout ``vis.readers.read_binary``
+    parses): an ASCII preheader, the athinput dump, then per block 6
+    int32 output indices, 4 int32 logical-location entries, 6 float64
+    block extents and the float64 cell data.  The variable is resolved
+    on the device (``variables.resolve``) and only the interior crosses
+    to the host; a name ``resolve`` does not know falls back to the
+    fluid's fields as in the JAX package (``resolve_or_fallback``)."""
 
     _VARIABLES = {
         "hydro_u": ("u", ["dens", "mom1", "mom2", "mom3", "ener"]),
@@ -176,13 +180,10 @@ class BinaryOutput(BaseOutput):
     def __init__(self, pin, mesh, phys, block: str) -> None:
         super().__init__(pin, mesh, phys, block)
         self.pin = pin
-        var = self.params.variable
-        if fluid_name(var) not in FLUID_NAMES and \
-                not is_z4c_variable(var) and not is_rad_variable(var):
-            raise NotImplementedError(
-                f"<{block}>/variable = '{self.params.variable}' is not "
-                f"ported to athenak_tpu_torch yet "
-                f"(ported: {sorted(FLUID_NAMES)})")
+        # read, as the JAX package and the reference read it, so that
+        # the parameter dump in the header holds it (one file a rank is
+        # all the port writes)
+        pin.get_or_add_boolean(block, "single_file_per_rank", False)
 
     def write(self, mesh, state) -> None:
         p = self.params
@@ -191,13 +192,8 @@ class BinaryOutput(BaseOutput):
                     slice(mbi.ks, mbi.ke + 1),
                     slice(mbi.js, mbi.je + 1),
                     slice(mbi.is_, mbi.ie + 1))
-        if is_z4c_variable(p.variable):
-            labels, base = resolve_z4c(p.variable, self.phys, state)
-        elif is_rad_variable(p.variable):
-            labels, base = resolve_rad(p.variable, self.phys, state)
-        else:
-            labels, base = resolve_fluid(fluid_name(p.variable), self.phys,
-                                         state)
+        labels, base = resolve_or_fallback(self.phys, mesh, state,
+                                           p.variable)
         # only the interior crosses to the host
         arr = base[interior].to(device="cpu", dtype=torch.float64).numpy()
         header_bytes = self.pin.dump().encode()
@@ -216,17 +212,39 @@ class BinaryOutput(BaseOutput):
             for gid in range(mesh.nmb_total):
                 f.write(np.array([mbi.is_, mbi.ie, mbi.js, mbi.je,
                                   mbi.ks, mbi.ke], dtype=np.int32).tobytes())
-                loc = mesh.lloc_eachmb[gid]
-                # root-relative level (reference: binary.cpp:193)
-                level = int(mesh.mb_lev[gid])
-                f.write(np.array([loc[0], loc[1], loc[2], level],
-                                 dtype=np.int32).tobytes())
-                f.write(np.array(
-                    [mesh.mb_size["x1min"][gid], mesh.mb_size["x1max"][gid],
-                     mesh.mb_size["x2min"][gid], mesh.mb_size["x2max"][gid],
-                     mesh.mb_size["x3min"][gid], mesh.mb_size["x3max"][gid]],
-                    dtype=np.float64).tobytes())
+                f.write(block_record(mesh, gid))
                 f.write(np.ascontiguousarray(arr[gid]).tobytes())
+
+
+def resolve_or_fallback(phys, mesh, state, variable):
+    """``variables.resolve``; for a name it does not know, as the JAX
+    package's ``bin`` does, the name's ``BinaryOutput._VARIABLES`` row,
+    else w: the first five channels (the ``*_bcc`` rows with the
+    field)."""
+    try:
+        return resolve(variable, phys, state, mesh)
+    except ValueError:
+        pass
+    kind, labels = BinaryOutput._VARIABLES.get(
+        variable, ("w", ["dens", "velx", "vely", "velz", "eint"]))
+    base = state[kind[0]]
+    if kind in ("u", "w"):
+        nvar = min(base.shape[1], 5)
+        return labels[:nvar], base[:, :nvar]
+    return labels, torch.cat([base[:, :5], state["bcc"].to(base.dtype)],
+                             dim=1)
+
+
+def block_record(mesh, gid) -> bytes:
+    """A block's logical location with its root-relative level
+    (reference: binary.cpp:193), then its six float64 extents."""
+    loc = mesh.lloc_eachmb[gid]
+    sz = mesh.mb_size
+    return np.array([loc[0], loc[1], loc[2], int(mesh.mb_lev[gid])],
+                    dtype=np.int32).tobytes() + np.array(
+        [sz["x1min"][gid], sz["x1max"][gid], sz["x2min"][gid],
+         sz["x2max"][gid], sz["x3min"][gid], sz["x3max"][gid]],
+        dtype=np.float64).tobytes()
 
 
 class TabularOutput(BaseOutput):
@@ -653,9 +671,37 @@ class TrackedParticleOutput(BaseOutput):
                                     list(x[p]) + list(v[p])) + "\n")
 
 
+class EventLogOutput(BaseOutput):
+    """The event-counter log (reference: src/outputs/eventlog.cpp:35-71;
+    the JAX package's ``EventLogOutput``): at each write a row of the
+    time, the cycle and the driver's counters summed over the run
+    (``Driver.ecounters``: the floor hits, the c2p failures, ``nfofc``),
+    in sorted order, appended to ``<basename>.log``.  Nothing is written
+    before the first cycle has counted."""
+
+    def maybe_write(self, mesh, state, force: bool = False) -> None:
+        if self.driver is None or not (force or self.due(mesh)):
+            return
+        if not self.driver.ecounters:
+            return
+        super().maybe_write(mesh, state, force=True)
+
+    def write(self, mesh, state) -> None:
+        counters = dict(self.driver.ecounters)
+        fname = self.basename + ".log"
+        new = not os.path.exists(fname)
+        with open(fname, "a") as f:
+            if new:
+                f.write("# time  cycle  " + "  ".join(sorted(counters))
+                        + "\n")
+            f.write(f"{mesh.time:.10e}  {mesh.ncycle:d}  "
+                    + "  ".join(str(counters[k]) for k in sorted(counters))
+                    + "\n")
+
+
 _TYPES = {"hst": HistoryOutput, "bin": BinaryOutput, "tab": TabularOutput,
           "rst": RestartOutput, "vtk": VtkOutput, "wave": WaveformOutput,
-          "trk": TrackedParticleOutput}
+          "trk": TrackedParticleOutput, "log": EventLogOutput}
 
 
 def make_outputs(pin, mesh, phys, driver=None) -> List[BaseOutput]:
@@ -665,9 +711,11 @@ def make_outputs(pin, mesh, phys, driver=None) -> List[BaseOutput]:
             ftype = pin.get_string(block, "file_type")
             cls = _TYPES.get(ftype)
             if cls is None:
-                raise NotImplementedError(
-                    f"<{block}>/file_type = '{ftype}' is not ported to "
-                    f"athenak_tpu_torch yet (ported: {sorted(_TYPES)})")
+                # a deck's typo is an error, as in the reference's
+                # factory (reference: src/outputs/outputs.cpp:224-260)
+                raise ValueError(
+                    f"<{block}>/file_type = '{ftype}' is not a valid "
+                    f"output type (valid: {sorted(_TYPES)})")
             outs.append(cls(pin, mesh, phys, block))
             outs[-1].driver = driver
     # CCE worldtubes and horizon cube dumps come from their own deck
@@ -686,3 +734,15 @@ def make_outputs(pin, mesh, phys, driver=None) -> List[BaseOutput]:
         if isinstance(out, RestartOutput):
             out.outputs = outs
     return outs
+
+
+def _register_grid_outputs():
+    # grids.py subclasses the writers above
+    from .grids import (CartesianGridOutput, CoarsenedBinaryOutput,
+                        PDFOutput, SphericalSurfaceOutput)
+    _TYPES.update(cbin=CoarsenedBinaryOutput, pdf=PDFOutput,
+                  cartgrid=CartesianGridOutput,
+                  sphsurf=SphericalSurfaceOutput)
+
+
+_register_grid_outputs()

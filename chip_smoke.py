@@ -388,9 +388,40 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      bytes each rank sends a fill of u, the ms of that fill and of one of
      its exchanges.
 
+ 25. drives the output tail (the derived-variable registry, ``cbin``,
+     ``pdf``, ``cartgrid``, ``sphsurf``, ``log`` and ``-p``) through the
+     CLI, each deck on the kernel path, the plain path and the kernel
+     path without the new outputs, the launch counts set to 0 before
+     each run: the 124^3 blast (20 cycles; ``bin`` of ``mhd_divb``,
+     ``mhd_j2``, ``mhd_curv`` and ``mhd_sgs``, a ``cbin`` of
+     ``mhd_w_bcc`` with factor 4 and moments, a mass-weighted and a
+     joint ``pdf``, a Chebyshev ``cartgrid``, ``sphsurf`` on a log
+     ladder, ``log``), the pool (``cbin``), smr 128^3 / 32^3
+     (``cartgrid`` and ``sphsurf`` across the levels, ``mhd_divb``),
+     turb1 (``turb_force``) and PART_BLAST (``prtcl_d``), 10 cycles each:
+     every kernel's launches exactly the deck's without the outputs plus
+     one unpack's fills for each extra unpack; the paths' files within
+     SMR_PATH_TOL's tiers of the largest change of their channels
+     (DERIVED_PATH_TOL for the derived variables), a pdf within
+     PDF_PATH_TOL of its weight, the logs' counters equal; on each path
+     the pdf weights summing to the domain's volume or mass, the
+     sphsurf weights to 4 pi r^2, the cbin block means equal to the bin
+     dump's, the cartgrid at eight points equal to a host trilinear
+     interpolation of the bin dump, sum(prtcl_d) vol the particle count,
+     mhd_divb dx / max|B| <= 1e-5 on every level and equal to
+     ``check_levels``', the log's last row the driver's counters; the
+     pool on 2 gloo ranks with ``cbin``, a joint ``pdf`` and
+     ``mhd_jcon``, rank 0's files byte-equal to one rank's, a trace a
+     rank; ``-p`` on the blast for 3 cycles in a fresh process (its trace
+     names kernel A's ``stage_kernel`` 6 times and kernel B's
+     ``periodic_fill_kernel`` as often as B's wrappers counted).  In the
+     main process: the host ms of one write of each of the blast's
+     outputs, the card synchronised around it.
+
 The runs that time nothing (the JAX tests' bars of phases 19-23, the
 restarts of phases 16-19, the Bonnor-Ebert runs, phase 23's graph
-checks, shipped decks and restart, phase 24's checks) run in
+checks, shipped decks and restart, phase 24's checks, phase 25's
+decks, split pool and ``-p``) run in
 ``LANES``: child processes on
 the card (``chip_smoke.py --lane NAME...``), started once phases 1-12
 and DYN_WIDE are done and running beside phases 13-22.  So the kernels'
@@ -414,6 +445,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -6579,13 +6611,760 @@ def phase_shard(torch, kernels, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the output tail on the card (the derived-variable registry,
+# cbin, pdf, cartgrid, sphsurf, log and -p)
+NCYC_OUT = NCYC              # the blast, 20 cycles as phase 4
+NCYC_OUT_DECK = 10
+OUT_EVERY = 5                # cycles between the grid outputs' writes
+# a pdf of the kernel path may move at most this share of its weight
+# between bins against the plain path's (the paths' cells differ at the
+# tiers of SMR_PATH_TOL, so cells next to a bin edge may change bins);
+# the bins put no edge at the ambient density 1 or field 0.1
+PDF_PATH_TOL = 1e-3
+# the invariants: float64 sums of float32 cells (pdf weights, prtcl_d),
+# float32 payloads (sphsurf weights, cbin means, cartgrid values)
+OUT_SUM_TOL = 1e-6
+OUT_F32_TOL = 1e-6
+# the families of the state itself (and their resamplings): the paths'
+# tolerance; the derived variables (curvature divides by B^2 and
+# differences the field's unit vector, the SGS moments are cubic) amplify
+# the state's difference: their loose tier is ten times the state's
+OUT_STATE_VARS = ("mhd_w", "mhd_u", "mhd_w_bcc", "mhd_u_bcc", "mhd_bcc",
+                  "turb_force", "prtcl_d")
+DERIVED_PATH_TOL = (SMR_PATH_TOL[0], 10 * SMR_PATH_TOL[1])
+OUT_BINS = ("mhd_divb", "mhd_j2", "mhd_curv", "mhd_sgs")
+
+
+def out_blocks(specs, first=2):
+    """<outputN>/key=value overrides of ``specs`` (dicts), from
+    <output``first``> on."""
+    return [f"output{n}/{k}={v}" for n, spec in enumerate(specs, first)
+            for k, v in spec.items()]
+
+
+OUT_BLAST = out_blocks(
+    [{"file_type": "bin", "variable": v} for v in OUT_BINS]
+    + [{"file_type": "cbin", "variable": "mhd_w_bcc", "coarsen_factor": 4,
+        "compute_moments": "true", "dcycle": OUT_EVERY},
+       {"file_type": "pdf", "variable": "mhd_w_d", "mass_weighted": "true",
+        "bin_min": 0.01, "bin_max": 100.0, "nbin": 39,
+        "dcycle": OUT_EVERY},
+       {"file_type": "pdf", "variable": "mhd_w_d", "variable_2": "mhd_bmag",
+        "bin_min": 0.01, "bin_max": 100.0, "nbin": 39, "bin2_min": 1e-3,
+        "bin2_max": 10.0, "nbin2": 19, "dcycle": OUT_EVERY},
+       {"file_type": "cartgrid", "variable": "mhd_w", "chebyshev": "true",
+        "extent_x": 0.9, "extent_y": 0.9, "extent_z": 0.9,
+        "dcycle": OUT_EVERY},
+       {"file_type": "sphsurf", "variable": "mhd_w_bcc", "nradii": 4,
+        "r_min": 0.1, "r_max": 0.8, "r_spacing": "log",
+        "dcycle": OUT_EVERY},
+       {"file_type": "log", "dcycle": OUT_EVERY}])
+OUT_POOL = out_blocks(
+    [{"file_type": "cbin", "variable": "mhd_w_bcc", "coarsen_factor": 2,
+      "compute_moments": "true", "dcycle": OUT_EVERY},
+     {"file_type": "bin", "variable": "mhd_w_bcc"}])
+OUT_SPLIT = out_blocks(
+    [{"file_type": "cbin", "variable": "mhd_w_bcc", "coarsen_factor": 2,
+      "dcycle": OUT_EVERY},
+     {"file_type": "pdf", "variable": "mhd_w_d", "bin_min": 0.01,
+      "bin_max": 100.0, "nbin": 39, "variable_2": "mhd_bmag",
+      "bin2_min": 1e-3, "bin2_max": 10.0, "nbin2": 19,
+      "dcycle": OUT_EVERY},
+     {"file_type": "bin", "variable": "mhd_jcon", "dcycle": OUT_EVERY}])
+OUT_SMR = out_blocks(
+    [{"file_type": "cartgrid", "variable": "mhd_w", "extent_x": 0.9,
+      "extent_y": 0.9, "extent_z": 0.9, "dcycle": OUT_EVERY},
+     {"file_type": "sphsurf", "variable": "mhd_w_bcc", "nradii": 4,
+      "r_min": 0.1, "r_max": 0.8, "dcycle": OUT_EVERY},
+     {"file_type": "bin", "variable": "mhd_divb"}])
+OUT_TURB = out_blocks([{"file_type": "bin", "variable": "turb_force"}])
+OUT_PART = out_blocks([{"file_type": "bin", "variable": "prtcl_d"}])
+OUT_PROFILE_CYCLES = 3
+
+
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def out_decks(tmp):
+    """label -> (deck, overrides, cycles, the new outputs) of phase 25."""
+    paths = {}
+    with open(DECK) as f:
+        part = f.read() + "\n" + particles_block()
+    for name, text in (("pool", POOL_DECK), ("turb", TURB_DECK),
+                       ("part_blast", part)):
+        paths[name] = os.path.join(tmp, f"{name}.athinput")
+        with open(paths[name], "w") as f:
+            f.write(text)
+    return {"blast": (DECK, [], NCYC_OUT, OUT_BLAST),
+            "pool": (paths["pool"], [], NCYC_OUT_DECK, OUT_POOL),
+            "smr": (SMR_DECK, ["job/precision=single", *SMR_FULL],
+                    NCYC_OUT_DECK, OUT_SMR),
+            "turb1": (paths["turb"], [], NCYC_OUT_DECK, OUT_TURB),
+            "part_blast": (paths["part_blast"], [], NCYC_OUT_DECK,
+                           OUT_PART)}
+
+
+class OutputClock:
+    """Within the context: the host seconds and calls of every output
+    class's ``write`` and of ``MHD.unpack_state``, the card synchronised
+    around each."""
+
+    def __init__(self, torch):
+        from athenak_tpu_torch import outputs
+        from athenak_tpu_torch.physics.mhd import MHD
+        self.torch = torch
+        self.targets = [(cls, "write") for cls in set(outputs._TYPES.values())
+                        if "write" in cls.__dict__]
+        self.targets.append((MHD, "unpack_state"))
+        self.seconds, self.calls, self._saved = {}, {}, []
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            _sync(self.torch)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _sync(self.torch)
+                self.seconds[name] = self.seconds.get(name, 0.0) \
+                    + time.perf_counter() - t
+                self.calls[name] = self.calls.get(name, 0) + 1
+        return timed
+
+    def __enter__(self):
+        for cls, attr in self.targets:
+            fn = cls.__dict__[attr]
+            self._saved.append((cls, attr, fn))
+            setattr(cls, attr, self._wrap(
+                "unpack" if attr == "unpack_state" else cls.__name__, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, attr, fn in self._saved:
+            setattr(cls, attr, fn)
+
+
+def out_cli(torch, kernels, deck, extra, ncyc, rundir):
+    """``main.cli`` on ``deck`` in ``rundir`` for ``ncyc`` cycles, the
+    launch counts set to 0 just before and read just after, under an
+    ``OutputClock``: (launches, mesh, phys, driver, state, clock, the
+    seconds of the call)."""
+    from athenak_tpu_torch import main as cli_main
+    cwd = os.getcwd()
+    kernels.reset_counts()
+    with OutputClock(torch) as clock:
+        t = time.perf_counter()
+        try:
+            mesh, phys, driver, state = cli_main.cli(
+                ["-i", deck, "-d", rundir, f"time/nlim={ncyc}", *extra])
+        finally:
+            os.chdir(cwd)
+        _sync(torch)
+        sec = time.perf_counter() - t
+    launches = {k.name: k.launches for k in kernels.ALL}
+    if mesh.ncycle != ncyc:
+        raise AssertionError(f"phase 25 {deck}: {mesh.ncycle} cycles, "
+                             f"{ncyc} asked")
+    if not bool(torch.isfinite(state["u"]).all()):
+        raise AssertionError(f"phase 25 {deck} {extra}: non-finite state")
+    return launches, mesh, phys, driver, state, clock, sec
+
+
+def unpack_launches(torch, kernels, deck, extra):
+    """The launches of one ``unpack_state`` of a kernel-path state after
+    initialisation: the fills an output's unpack costs."""
+    from athenak_tpu_torch.main import build
+    _, phys, _, driver, state = build(pin_for(list(extra), deck))
+    state = driver.initialize(state)
+    _sync(torch)
+    kernels.reset_counts()
+    phys.unpack_state(state)
+    _sync(torch)
+    return {k.name: k.launches for k in kernels.ALL}
+
+
+# -- the files -------------------------------------------------------------
+def out_listing(root):
+    """Every file under ``root`` by its relative path."""
+    out = []
+    for d, _, files in os.walk(root):
+        out += [os.path.relpath(os.path.join(d, f), root) for f in files]
+    return sorted(out)
+
+
+def read_cart(path):
+    """A ``cartgrid`` file: (cycle, labels, float32 [nvar, nz, ny, nx])."""
+    import struct
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    head = struct.calcsize("=if3f3f3i?3xi")
+    vals = struct.unpack("=if3f3f3i?3xi", data[:head])
+    npts, nvar = vals[8:11], vals[12]
+    ln, = struct.unpack("=i", data[head:head + 4])
+    labels = data[head + 4:head + 4 + ln].decode().split()
+    arr = np.frombuffer(data[head + 4 + ln:], dtype=np.float32)
+    return vals[0], labels, arr.reshape(nvar, npts[2], npts[1], npts[0])
+
+
+def read_sph(path):
+    """A ``sphsurf`` file: (cycle, radii, weights [nang, nrad], labels ->
+    [nang, nrad]), its big-endian records as float64."""
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    dims = re.search(rb"DIMENSIONS (\d+) (\d+) (\d+)\n", data)
+    nrad, nt, nph = (int(x) for x in dims.groups())
+    npts = nrad * nt * nph
+    cyc = int(re.search(rb" cycle=(\d+)", data).group(1))
+    i = data.index(b"RADII 1 ") + data[data.index(b"RADII 1 "):].index(
+        b"\n") + 1
+    radii = np.frombuffer(data[i:i + 4 * nrad], ">f4").astype(np.float64)
+    recs = {}
+    for m in re.finditer(rb"SCALARS (\S+) float 1\nLOOKUP_TABLE default\n",
+                         data):
+        recs[m.group(1).decode()] = np.frombuffer(
+            data[m.end():m.end() + 4 * npts], ">f4").astype(
+            np.float64).reshape(nt * nph, nrad)
+    return cyc, radii, recs.pop("weights"), recs
+
+
+def read_pdf(path):
+    import numpy as np
+    return np.atleast_2d(np.loadtxt(path))
+
+
+def out_arrays(path):
+    """(cycle, labels -> float64 array) of a file of phase 25: bin and
+    cbin by ``vis.readers.read_binary``, cartgrid, sphsurf (weights
+    under "weights"), pdf (the table under "pdf")."""
+    import numpy as np
+    from athenak_tpu_torch.vis.readers import read_binary
+    if path.endswith(".pdf"):
+        return None, {"pdf": read_pdf(path)}
+    if os.sep + "cart" + os.sep in path:
+        cyc, labels, arr = read_cart(path)
+        return cyc, {lab: arr[n].astype(np.float64)
+                     for n, lab in enumerate(labels)}
+    if os.sep + "sph" + os.sep in path:
+        cyc, _, wts, recs = read_sph(path)
+        return cyc, dict(recs, weights=wts)
+    f = read_binary(path)
+    return f["cycle"], {k: v.astype(np.float64)
+                        for k, v in f["mb_data"].items()}
+
+
+def tiers(got, ref, scale):
+    """(share of finite cells within SMR_PATH_TOL[0], max) of
+    |got - ref| over ``scale``; NaN masks must be equal."""
+    import numpy as np
+    if not np.array_equal(np.isnan(got), np.isnan(ref)):
+        return 0.0, float("inf")
+    fin = np.isfinite(ref)
+    if not fin.any():
+        return 1.0, 0.0
+    rel = np.abs(got[fin] - ref[fin]) / scale
+    return float((rel < SMR_PATH_TOL[0]).mean()), float(rel.max())
+
+
+def file_variable(name):
+    """The output variable in a file name of phase 25."""
+    m = re.search(r"\.([A-Za-z]\w*)\.\d{5}\.\w+$", name)
+    return m.group(1) if m else None
+
+
+def file_scale(ref, ref0):
+    """The largest change of any channel of a file from the first file of
+    its name (the scale ``change_diff`` takes for u), or its largest
+    value where nothing changed."""
+    import numpy as np
+    scale = 0.0
+    for k in ref:
+        fin = np.isfinite(ref[k]) & np.isfinite(ref0[k])
+        if fin.any():
+            scale = max(scale, float(np.abs(ref[k][fin]
+                                            - ref0[k][fin]).max()))
+    if scale == 0.0:
+        scale = max(float(np.nanmax(np.abs(v))) if v.size else 0.0
+                    for v in ref.values())
+    return max(scale, 1e-30)
+
+
+def compare_logs(kp, pp):
+    """Two paths' ``log`` files: the same columns, cycles and counters,
+    the times within dtmin's rtol of 1e-4 (each path has its own dt
+    chain)."""
+    a = open(kp).read().splitlines()
+    b = open(pp).read().splitlines()
+    if a[0] != b[0] or len(a) != len(b):
+        return False
+    for x, y in zip(a[1:], b[1:]):
+        x, y = x.split(), y.split()
+        if x[1:] != y[1:] or abs(float(x[0]) - float(y[0])) \
+                > 1e-4 * abs(float(y[0])):
+            return False
+    return True
+
+
+def compare_paths(label, kdir, pdir):
+    """The kernel path's files against the plain path's: the same names;
+    a ``log`` with the same cycles and counters; a pdf within
+    PDF_PATH_TOL of its weight; every other file within SMR_PATH_TOL's
+    tiers of the largest change of its channels from its first file of
+    the same name (``file_scale``, the scale phases 16 and 21 hold u
+    to); a derived variable's within DERIVED_PATH_TOL (``mhd_divb`` is
+    round-off: ``out_invariants`` bounds it).  NaN masks equal.  Returns
+    (per-file record, failures)."""
+    import numpy as np
+    names = out_listing(kdir)
+    if names != out_listing(pdir):
+        return {}, [f"{label}: the paths wrote other files: "
+                    f"{sorted(set(names) ^ set(out_listing(pdir)))}"]
+    rec, bad = {}, []
+    firsts = {}
+    for name in names:
+        firsts.setdefault(re.sub(r"\.\d{5}\.", ".", name), name)
+    for name in names:
+        kp, pp = os.path.join(kdir, name), os.path.join(pdir, name)
+        if name.endswith(".log"):
+            same = compare_logs(kp, pp)
+            rec[name] = "equal counters" if same else "differs"
+            if not same:
+                bad.append(f"{label} {name}: the logs differ")
+            continue
+        if name.endswith(".bins.pdf"):
+            if open(kp).read() != open(pp).read():
+                bad.append(f"{label} {name}: the bins differ")
+            continue
+        _, got = out_arrays(kp)
+        _, ref = out_arrays(pp)
+        if name.endswith(".pdf"):
+            g, r = got["pdf"], ref["pdf"]
+            moved = float(np.abs(g - r).sum()) / max(float(r.sum()), 1e-300)
+            rec[name] = moved
+            if not moved <= PDF_PATH_TOL:
+                bad.append(f"{label} {name}: {moved:g} of the weight "
+                           f"moved > {PDF_PATH_TOL}")
+            continue
+        var = file_variable(name)
+        if var == "mhd_divb":
+            continue
+        _, ref0 = out_arrays(os.path.join(
+            pdir, firsts[re.sub(r"\.\d{5}\.", ".", name)]))
+        ref.pop("weights", None)
+        scale = file_scale(ref, ref0)
+        tol = SMR_PATH_TOL if var in OUT_STATE_VARS else DERIVED_PATH_TOL
+        worst = (1.0, 0.0)
+        for k in ref:
+            t = tiers(got[k], ref[k], scale)
+            worst = (min(worst[0], t[0]), max(worst[1], t[1]))
+        rec[name] = worst
+        if not (worst[0] > 0.95 and worst[1] < tol[1]):
+            bad.append(f"{label} {name}: paths apart {worst} of "
+                       f"{scale:g}")
+    return rec, bad
+
+
+def trilinear(data, geom, pt):
+    """The host trilinear interpolation of a block's interior cells
+    ``data`` [n3, n2, n1] (extents ``geom``) at ``pt`` (x, y, z)."""
+    import numpy as np
+    n3, n2, n1 = data.shape
+    fr, idx = [], []
+    for d, n in zip(range(3), (n1, n2, n3)):
+        lo, hi = geom[2 * d], geom[2 * d + 1]
+        dx = (hi - lo) / n
+        f = (pt[d] - (lo + 0.5 * dx)) / dx
+        i = int(np.clip(np.floor(f), 0, n - 2))
+        idx.append(i)
+        fr.append(f - i)
+    (i, j, k), (a, b, c) = idx, fr
+    cube = data[k:k + 2, j:j + 2, i:i + 2]
+    w = np.array([[[(1 - c) * (1 - b) * (1 - a), (1 - c) * (1 - b) * a],
+                   [(1 - c) * b * (1 - a), (1 - c) * b * a]],
+                  [[c * (1 - b) * (1 - a), c * (1 - b) * a],
+                   [c * b * (1 - a), c * b * a]]])
+    return float((cube * w).sum())
+
+
+def out_invariants(torch, label, rundir, mesh, phys, driver, state):
+    """The invariants the files of a run must hold (each deck those of
+    its outputs); returns (record, failures)."""
+    import numpy as np
+    from athenak_tpu_torch.vis.readers import read_binary
+    rec, bad = {}, []
+    names = out_listing(rundir)
+    sz = mesh.mb_size
+    vol = np.asarray(sz["dx1"]) * np.asarray(sz["dx2"]) \
+        * np.asarray(sz["dx3"])
+    ms = mesh.mesh_size
+    domain = (ms.x1max - ms.x1min) * (ms.x2max - ms.x2min) \
+        * (ms.x3max - ms.x3min)
+    wbcc = [n for n in names if re.search(r"^\w+\.mhd_w_bcc\.\d+\.bin$", n)]
+    final = read_binary(os.path.join(rundir, wbcc[-1])) if wbcc else None
+    pdfs = {os.path.relpath(o.dname, "."): o for o in driver_outputs(driver)
+            if o.params.file_type == "pdf"}
+    for name in names:
+        path = os.path.join(rundir, name)
+        if name.endswith(".pdf") and not name.endswith(".bins.pdf"):
+            o = pdfs[os.path.dirname(name)]
+            dumps = [n for n in names if n.startswith(os.path.dirname(name))
+                     and not n.endswith(".bins.pdf")]
+            if not o.mass_weighted:
+                want = domain
+            elif name == dumps[-1] and final is not None:
+                # the last dump and the final bin are of the final state
+                want = float((final["mb_data"]["dens"].sum(axis=(1, 2, 3))
+                              * vol).sum())
+            else:
+                continue
+            tot = float(read_pdf(path).sum())
+            err = abs(tot - want) / want
+            rec["pdf_sum_err"] = max(rec.get("pdf_sum_err", 0.0), err)
+            if not err <= OUT_SUM_TOL:
+                bad.append(f"{label} {name}: weights sum {tot!r}, want "
+                           f"{want!r}")
+        elif name.startswith("sph" + os.sep):
+            _, radii, wts, _ = read_sph(path)
+            err = float(np.abs(wts.sum(axis=0) / (4 * np.pi * radii ** 2)
+                               - 1).max())
+            rec["sph_weight_err"] = max(rec.get("sph_weight_err", 0.0), err)
+            if not err <= OUT_F32_TOL:
+                bad.append(f"{label} {name}: weights sum {wts.sum(axis=0)}"
+                           f" at r {radii}, not 4 pi r^2")
+    if final is not None:
+        cb = [n for n in names if n.endswith(".cbin")]
+        if cb:
+            c = read_binary(os.path.join(rundir, cb[-1]))
+            err = 0.0
+            for v, data in final["mb_data"].items():
+                mom = c["mb_data"].get(v + "_1st", c["mb_data"].get(v))
+                a = mom.mean(axis=(1, 2, 3))
+                b = data.mean(axis=(1, 2, 3))
+                err = max(err, float(np.abs(a - b).max())
+                          / max(float(np.abs(data).max()), 1e-30))
+            rec["cbin_mean_err"] = err
+            if c["cycle"] != final["cycle"] or not err <= OUT_F32_TOL:
+                bad.append(f"{label} cbin: block means {err:g} from the "
+                           f"bin's (cycles {c['cycle']}, {final['cycle']})")
+        carts = [n for n in names if n.startswith("cart" + os.sep)]
+        if carts and mesh.nmb_total == 1:
+            cyc, labels, arr = read_cart(os.path.join(rundir, carts[-1]))
+            out = [o for o in driver_outputs(driver)
+                   if o.params.file_type == "cartgrid"][0]
+            xs, ys, zs = out.axis(0), out.axis(1), out.axis(2)
+            geom = final["mb_geometry"][0]
+            err = 0.0
+            for s in range(8):
+                i, j, k = (s * 5 + 1) % len(xs), (s * 3 + 2) % len(ys), \
+                    (s * 7 + 3) % len(zs)
+                for n, lab in enumerate(labels):
+                    want = trilinear(final["mb_data"][lab][0], geom,
+                                     (xs[i], ys[j], zs[k]))
+                    scale = max(float(np.abs(final["mb_data"][lab]).max()),
+                                1e-30)
+                    err = max(err, abs(float(arr[n, k, j, i]) - want)
+                              / scale)
+            rec["cart_interp_err"] = err
+            if cyc != final["cycle"] or not err <= OUT_F32_TOL:
+                bad.append(f"{label} cartgrid: {err:g} from the host "
+                           "interpolation of the bin dump")
+    pd = [n for n in names if ".prtcl_d." in n]
+    if pd:
+        f = read_binary(os.path.join(rundir, pd[-1]))
+        tot = float((f["mb_data"]["prtcl_d"].sum(axis=(1, 2, 3))
+                     * vol).sum())
+        nprt = int(state["prtcl_x"].shape[0])
+        err = abs(tot - nprt) / nprt
+        rec["prtcl_d_count_err"] = err
+        if not err <= OUT_SUM_TOL:
+            bad.append(f"{label} prtcl_d: sum times the volume {tot!r}, "
+                       f"{nprt} particles")
+    dv = [n for n in names if ".mhd_divb." in n]
+    if dv:
+        f = read_binary(os.path.join(rundir, dv[-1]))
+        bmax = max(max(float(v.abs().max()) for v in state["bfc"].values()),
+                   1e-30)
+        lev = np.asarray(mesh.mb_lev)
+        per = np.abs(f["mb_data"]["divb"]).max(axis=(1, 2, 3)) \
+            * np.asarray(sz["dx1"])
+        got = [float(per[lev == n].max()) / bmax for n in sorted(set(lev))]
+        want = check_levels(torch, mesh, state, f"phase 25 {label}")
+        rec["divb_by_level"] = got
+        if max(got) > 1e-5 or any(abs(a - b) > 1e-5 * max(a, b, 1e-30)
+                                  for a, b in zip(got, want)):
+            bad.append(f"{label} mhd_divb by level {got}, the script's "
+                       f"{want}")
+    logs = [n for n in names if n.endswith(".log")]
+    if logs:
+        lines = open(os.path.join(rundir, logs[-1])).read().splitlines()
+        cols = lines[0].lstrip("#").split()[2:]
+        last = lines[-1].split()
+        want = {k: int(v) for k, v in driver.ecounters.items()}
+        got = dict(zip(cols, (int(v) for v in last[2:])))
+        rec["log_last_row"] = got
+        if got != want or int(last[1]) != mesh.ncycle:
+            bad.append(f"{label} log: last row {last}, counters {want}")
+    return rec, bad
+
+
+def driver_outputs(driver):
+    """The outputs of the run the driver made (``make_outputs`` on its
+    parameters)."""
+    from athenak_tpu_torch.outputs import make_outputs
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            return make_outputs(driver.pin, driver.mesh, driver.phys)
+        finally:
+            os.chdir(cwd)
+
+
+def outputs_decks(torch, kernels, card):
+    """Phase 25's runs (a lane): each deck of ``out_decks`` with its new
+    outputs on the kernel path and the plain path, and on the kernel path
+    without them; the files of the paths against each other, the
+    invariants, and the launches exact: each kernel as often as without
+    the new outputs, plus what the extra unpacks cost (the fills of one
+    unpack, ``unpack_launches``, times the unpacks more)."""
+    out, bad = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        decks = out_decks(tmp)
+        for label, (deck, extra, ncyc, blocks) in decks.items():
+            rec = {}
+            base = out_cli(torch, kernels, deck, extra, ncyc,
+                           os.path.join(tmp, f"{label}_base"))
+            per = unpack_launches(torch, kernels, deck, extra)
+            runs = {}
+            for use in ("true", "false"):
+                rundir = os.path.join(tmp, f"{label}_{use}")
+                runs[use] = out_cli(torch, kernels, deck,
+                                    [*extra, *blocks,
+                                     f"mhd/use_kernels={use}"],
+                                    ncyc, rundir)
+            got, clock, sec = (runs["true"][i] for i in (0, 5, 6))
+            extra_unpacks = clock.calls.get("unpack", 0) \
+                - base[5].calls.get("unpack", 0)
+            want = {k: base[0][k] + extra_unpacks * per[k] for k in got}
+            if got != want:
+                bad.append(f"{label}: launches {got}, want {want} (without "
+                           f"the outputs {base[0]}, {extra_unpacks} "
+                           f"unpacks more of {per})")
+            if any(runs["false"][0].values()):
+                bad.append(f"{label}: the plain path launched "
+                           f"{runs['false'][0]}")
+            rec["launches"] = {k: v for k, v in got.items() if v}
+            rec["launches_without_outputs"] = {k: v for k, v in
+                                               base[0].items() if v}
+            rec["unpack_launches"] = {k: v for k, v in per.items() if v}
+            rec["extra_unpacks"] = extra_unpacks
+            rec["paths"], b = compare_paths(
+                label, os.path.join(tmp, f"{label}_true"),
+                os.path.join(tmp, f"{label}_false"))
+            bad += b
+            for use in ("true", "false"):
+                _, m, p, d, s, _, _ = runs[use]
+                inv, b = out_invariants(torch, f"{label} {use}",
+                                        os.path.join(tmp, f"{label}_{use}"),
+                                        m, p, d, s)
+                rec[f"invariants {use}"] = inv
+                bad += b
+            rec["write_seconds"] = clock.seconds
+            rec["writes"] = clock.calls
+            rec["run_seconds"] = sec
+            rec["base_run_seconds"] = base[6]
+            rec["output_share"] = (sum(clock.seconds.values())
+                                   / max(sec, 1e-30))
+            out[label] = rec
+            print(f"phase 25: [{card}] {label} ({ncyc} cycles): launches "
+                  f"{rec['launches']} (without the new outputs "
+                  f"{rec['launches_without_outputs']}, {extra_unpacks} "
+                  f"unpacks more of {rec['unpack_launches']}); paths "
+                  f"{rec['paths']}; invariants {rec['invariants true']}; "
+                  f"host s in writes {clock.seconds}, "
+                  f"{rec['output_share']:.3f} of the {sec:.2f} s run",
+                  flush=True)
+            for use in ("base", "true", "false"):
+                shutil.rmtree(os.path.join(tmp, f"{label}_{use}"))
+    if bad:
+        raise AssertionError("phase 25: " + "; ".join(bad))
+    return out
+
+
+def outputs_rank(ranks, deck, extra, ncyc, rundir, profdir):
+    """A rank of phase 25's split pool: ``main.run`` with the outputs in
+    ``rundir``, traced into ``profdir``."""
+    import torch
+    from athenak_tpu_torch import kernels
+    from athenak_tpu_torch.main import run
+    os.makedirs(rundir, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(rundir)
+    kernels.reset_counts()
+    try:
+        mesh, _, _, _ = run(pin_for(list(extra) + [f"time/nlim={ncyc}"],
+                                    deck), ranks=ranks, profile_dir=profdir)
+    finally:
+        os.chdir(cwd)
+    _sync(torch)
+    return {"ncycle": mesh.ncycle,
+            "launches": {k.name: k.launches for k in kernels.ALL
+                         if k.launches}}
+
+
+def outputs_split(torch, kernels, card):
+    """The pool deck split over 2 gloo ranks on this card with ``cbin``,
+    a joint ``pdf`` and a ``bin`` of ``mhd_jcon`` (the 4-current reads the
+    whole mesh's prior state, collected on rank 0), each rank traced
+    (``-p``'s ``profile_dir``): rank 0's files byte-equal to the one-rank
+    run's, one trace a rank, named by rank."""
+    from athenak_tpu_torch.main import run
+    from athenak_tpu_torch.parallel import spawn_ranks
+    dev = os.environ.get("ATHENAK_DEVICE", "cuda")
+    if dev == "cuda":
+        kernels.library()   # built here, before the ranks load it
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = os.path.join(tmp, "pool.athinput")
+        with open(deck, "w") as f:
+            f.write(POOL_DECK)
+        ncyc = NCYC_OUT_DECK
+        one = os.path.join(tmp, "one")
+        os.makedirs(one)
+        cwd = os.getcwd()
+        os.chdir(one)
+        try:
+            run(pin_for(OUT_SPLIT + [f"time/nlim={ncyc}"], deck),
+                device=dev)
+        finally:
+            os.chdir(cwd)
+        split, prof = os.path.join(tmp, "split"), os.path.join(tmp, "prof")
+        t = time.perf_counter()
+        recs = spawn_ranks("chip_smoke:outputs_rank", 2, backend="gloo",
+                           device=dev, args=(deck, OUT_SPLIT, ncyc,
+                                                split, prof),
+                           timeout=SHARD_TIMEOUT)
+        spawn_s = time.perf_counter() - t
+        names = out_listing(one)
+        if names != out_listing(split):
+            raise AssertionError(f"phase 25 split pool: files {names} and "
+                                 f"{out_listing(split)}")
+        differ = [n for n in names
+                  if open(os.path.join(one, n), "rb").read()
+                  != open(os.path.join(split, n), "rb").read()]
+        if differ:
+            raise AssertionError(f"phase 25 split pool: rank 0's {differ} "
+                                 "differ from one rank's")
+        traces = sorted(os.listdir(prof))
+        if [t.split(".")[0] for t in traces] != ["rank0", "rank1"]:
+            raise AssertionError(f"phase 25 split pool: traces {traces}")
+        sizes = {t: os.path.getsize(os.path.join(prof, t)) for t in traces}
+    out = {"files": names, "byte_equal": True, "traces": sizes,
+           "launches_by_rank": [r["launches"] for r in recs],
+           "spawn_seconds": spawn_s}
+    print(f"phase 25: [{card}] pool on 2 gloo ranks: {len(names)} files "
+          f"byte-equal to one rank's ({names}); traces {sizes}; launches "
+          f"a rank {out['launches_by_rank']}", flush=True)
+    return out
+
+
+def outputs_profile(torch, kernels, card):
+    """``-p``, in a fresh process: the blast through ``main.cli -p DIR``
+    for OUT_PROFILE_CYCLES cycles; the trace parses as JSON and names
+    kernel A's and B's CUDA functions as often as their wrappers counted
+    (A twice a cycle)."""
+    from athenak_tpu_torch import main as cli_main
+    n = OUT_PROFILE_CYCLES
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_counts()
+        try:
+            cli_main.cli(["-i", DECK, "-d", tmp, "-p", "prof",
+                          f"time/nlim={n}"])
+        finally:
+            os.chdir(cwd)
+        _sync(torch)
+        traces = [f for f in os.listdir(os.path.join(tmp, "prof"))
+                  if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            raise AssertionError(f"phase 25 -p: traces {traces}")
+        path = os.path.join(tmp, "prof", traces[0])
+        size = os.path.getsize(path)
+        with open(path) as f:
+            trace = json.load(f)
+    kern = [e.get("name", "") for e in trace.get("traceEvents", [])
+            if e.get("cat") == "kernel"]
+    a = sum("stage_kernel" in k for k in kern)
+    b = sum("periodic_fill_kernel" in k for k in kern)
+    want_b = kernels.PERIODIC_FILL_CC.launches \
+        + kernels.PERIODIC_FILL_FC.launches
+    rec = {"trace_bytes": size, "kernel_events": len(kern),
+           "stage_kernel": a, "periodic_fill_kernel": b,
+           "launches": {k.name: k.launches for k in kernels.ALL
+                        if k.launches}}
+    print(f"phase 25: [{card}] -p on the blast, {n} cycles: a "
+          f"{size}-byte trace, {len(kern)} kernel events, kernel A's "
+          f"stage_kernel {a} (counted {kernels.MEGA_STAGE_V2.launches}), "
+          f"kernel B's periodic_fill_kernel {b} (counted {want_b})",
+          flush=True)
+    if not (a == 2 * n == kernels.MEGA_STAGE_V2.launches and b == want_b
+            and b > 0):
+        raise AssertionError(f"phase 25 -p: the trace names A {a} times "
+                             f"and B {b} times, want {2 * n} and {want_b}")
+    return rec
+
+
+def phase_outputs(torch, kernels, card):
+    """Phase 25's timings (main process): the host ms of one write of
+    each of the blast's outputs at 124^3 (kernel path, after one cycle),
+    the card synchronised around it, and of the unpack they read."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.outputs import make_outputs
+    pin = pin_for(OUT_BLAST)
+    mesh, phys, _, driver, state = build(pin)
+    state = driver.initialize(state)
+    state, _, counters = driver.make_cycle_fn()(state, mesh.dt)
+    mesh.ncycle, mesh.time = 1, mesh.dt
+    driver.ecounters = {k: int(v) for k, v in counters.items()}
+    out = {"unpack": host_ms(torch, lambda: phys.unpack_state(state))}
+    view = phys.unpack_state(state)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for o in make_outputs(pin, mesh, phys, driver):
+                p = o.params
+                key = "log" if p.file_type == "log" else \
+                    f"{p.file_type} {p.variable}"
+                if getattr(o, "var2", None):
+                    key += f" x {o.var2}"
+                out[key] = host_ms(torch, lambda: o.write(mesh, view),
+                                   reps=1)
+                for d, _, files in os.walk(tmp):
+                    for f in files:
+                        os.remove(os.path.join(d, f))
+        finally:
+            os.chdir(cwd)
+    print(f"phase 25: [{card}] host ms of one write on the 124^3 blast "
+          f"(the card synchronised): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out.items()), flush=True)
+    return out
+
+
 LANES = (("lwave64", "epicycle_bar", "shwave_bar", "mri3d_bar",
           "drag_bars"),
          ("lwave32", "be", "diffusion_bars", "jeans_bars", "binary_bars",
           "hohlraum_bar", "relax_bars", "shadow_bar", "diffusion_bar",
           "beam_bar"),
          ("shard_checks", "dyn_bars", "slice_restart", "amr_restart",
-          "bbh_restart", "gr_restart", "gr_bars"))
+          "bbh_restart", "gr_restart", "gr_bars"),
+         ("outputs_decks", "outputs_split"),
+         # -p in a fresh process: late in a long one the profiler drops
+         # records
+         ("outputs_profile",))
 LANE_TIMEOUT = 1100
 
 
@@ -6614,6 +7393,9 @@ def lane_parts():
             "gr_restart": lambda t, k, c: gr_restart(t, k),
             "gr_bars": lambda t, k, c: gr_bars(t, k),
             "shard_checks": shard_checks,
+            "outputs_decks": outputs_decks,
+            "outputs_split": outputs_split,
+            "outputs_profile": outputs_profile,
             # phase 24's timings alone, and on a machine of several
             # cards its nccl runs: python3 chip_smoke.py --lane phase_shard
             "phase_shard": phase_shard}
@@ -6824,7 +7606,10 @@ def main() -> int:
         finally:
             lanes_kill(lanes)
         shard = phase("24", phase_shard, torch, kernels, card)
+        write_ms = phase("25", phase_outputs, torch, kernels, card)
     shard["checks"] = got["shard_checks"]
+    outs = {"decks": got["outputs_decks"], "split": got["outputs_split"],
+            "profile": got["outputs_profile"], "write_ms": write_ms}
     merge_lanes(card, got, slice_, amr, bbh, gr, grav, sbox, rad)
     dyn = dict(got["dyn_bars"], wide=wide)
     seconds["lanes"] = got["seconds"]
@@ -6857,7 +7642,10 @@ def main() -> int:
                 **{f"shard {k} rank {r}": lr.get(name, 0)
                    for k, v in shard["checks"].items()
                    if isinstance(v, dict)
-                   for r, lr in enumerate(v["launches_by_rank"])}}
+                   for r, lr in enumerate(v["launches_by_rank"])},
+                **{f"outputs {k}": v["launches"].get(name, 0)
+                   for k, v in outs["decks"].items()},
+                "outputs -p blast": outs["profile"]["launches"].get(name, 0)}
 
     ft, fe = fill_times, fill_errs
     zr = z4c_res["res"]["60^3 ng 2"]
@@ -6995,6 +7783,7 @@ def main() -> int:
                              if kk != "launches"}
                          for k, v in dyn["wide"].items()}},
         "shard": shard,
+        "outputs": outs,
         "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
         "build_seconds": kernels.BUILD_INFO.get("source_seconds"),
         "card": card}))

@@ -218,7 +218,8 @@ def test_jax_reads_port_restart(tmp_path, monkeypatch):
 
 def test_restart_cli_flags(tmp_path, monkeypatch):
     """``-r`` with a path relative to the caller's directory and ``-d``
-    (the file is found before the directory changes); ``-p`` raises."""
+    (the file is found before the directory changes); ``-p`` traces the
+    run into a directory of the run directory."""
     monkeypatch.setenv("ATHENAK_DEVICE", "cpu")
     _port_cli(str(tmp_path / "a"), ["-i", TURB, *TURB_CUT, *RST,
                                     "time/nlim=3"])
@@ -227,8 +228,10 @@ def test_restart_cli_flags(tmp_path, monkeypatch):
                                     "time/nlim=4"])
     assert mesh.ncycle == 4 and os.getcwd() == str(tmp_path / "b")
     assert os.path.exists(tmp_path / "b" / "Turb.hst")
-    with pytest.raises(NotImplementedError, match="-p"):
-        torch_main.cli(["-i", TURB, "-p", "prof"])
+    monkeypatch.chdir(tmp_path)
+    torch_main.cli(["-i", TURB, "-d", "c", "-p", "prof", *TURB_CUT,
+                    "time/nlim=1"])
+    assert len(os.listdir(tmp_path / "c" / "prof")) == 1
 
 
 # ------------------------------------------------------------ bin (F14)

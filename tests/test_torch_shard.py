@@ -89,6 +89,8 @@ JOBS = {
     # the adaptive deck cut from 14 to 2 cycles (one tree update) for the
     # JAX comparison: the JAX driver compiles a cycle for every tree
     "amr_s": dict(text=AMR, overrides=D.shift(AMR), world=4, ncyc=2),
+    # -p under ranks: a trace a rank
+    "prof": dict(text=D.DECK, world=2, ncyc=1, profile=True),
     "out": dict(text=OUT, world=4, ncyc=4, outputs=True,
                 restart=("shardcomm.00001.rst", ["time/nlim=4"])),
     # what the JAX package leaves to its NamedSharding gather path
@@ -184,7 +186,7 @@ def runs(one_torch_thread):
     while four fresh interpreters make the JAX runs."""
     # the one-rank runs of the decks the JAX comparisons leave unshifted
     solo = sorted((k for k, v in JOBS.items() if not v.get("expect_error")
-                   and not k.endswith("_s")),
+                   and not v.get("profile") and not k.endswith("_s")),
                   key=lambda k: k not in ("smr_m", "smr_h"))
     fut = D.split_and_one(JOBS, solo)
     with D.jax_pool() as pool:
@@ -397,6 +399,16 @@ def test_gloo_ranks_default_to_the_card(monkeypatch):
         rank_device("gloo", 0, 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         spawn_ranks(D.rank_jobs, 2, args=({},))
+
+
+def test_profile_writes_a_trace_a_rank(runs):
+    """``-p`` under two gloo ranks (``main.profiled``): one trace file a
+    rank, named by its rank, each parsing as JSON with events."""
+    split, _, _ = runs
+    traces = split["prof"]["traces"]
+    assert [t.split(".")[0] for t in traces] == ["rank0", "rank1"]
+    assert all(t.endswith(".pt.trace.json") for t in traces)
+    assert all(n > 0 for n in traces.values())
 
 
 def test_outputs_and_restart_byte_equal(runs):

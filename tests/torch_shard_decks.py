@@ -171,6 +171,16 @@ def run_spec(spec, ranks=None):
                 state, dtnew, _ = cycle(state, dt)
             extra["dtnew"] = float(dtnew)
             state = driver._unpadded(state)
+        elif spec.get("profile"):
+            # -p under ranks: each rank traces its run into one file
+            prof = os.path.join(tmp, "prof")
+            with torch_main.profiled(prof, driver.phys.device,
+                                     None if ranks is None else ranks.rank):
+                state = driver.execute(state, outputs=outputs)
+            if ranks is not None:
+                ranks.barrier()
+            extra["traces"] = {f: _trace_events(os.path.join(prof, f))
+                               for f in sorted(os.listdir(prof))}
         else:
             state = driver.execute(state, outputs=outputs)
             extra["report"] = driver.finalize_report()
@@ -213,6 +223,14 @@ def run_spec(spec, ranks=None):
             ranks.barrier()
         if ranks is None or ranks.rank == 0:
             shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _trace_events(path):
+    """The number of events of a ``torch.profiler`` trace file (parsed
+    as JSON)."""
+    import json
+    with open(path) as f:
+        return len(json.load(f)["traceEvents"])
 
 
 def _shared_dir(ranks):
