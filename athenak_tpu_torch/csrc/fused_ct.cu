@@ -65,10 +65,13 @@ struct CtArgs {
 };
 
 // The update's scalars and the cell sizes, each converted once to the
-// working type as the first design converted them.
+// working type as the first design converted them; the step is read
+// from device memory (a 0-d tensor), once a thread.
 template <typename T>
 struct CtCoef {
-  T gam0, gam1, bdt, dx1, dx2, dx3;
+  T gam0, gam1;
+  const T* bdt;
+  T dx1, dx2, dx3;
 };
 
 // a / b, bitwise, without the slow path of a zero dividend: for a = +-0
@@ -93,6 +96,7 @@ __global__ void __launch_bounds__(NT, MINB)
   constexpr int RAW = CT_NCH * WC;  // one plane of the window ring
   static_assert(WC <= NT && H.nf1 <= NT && H.nf2 <= NT && H.nf3 <= NT,
                 "one thread a window cell and a face of each array");
+  const T bdt = __ldg(cf.bdt);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const raw = reinterpret_cast<T*>(smem_raw);  // [3][15][WC]
   T* const fst = raw + kCtRing * RAW;             // [2][2][NF]
@@ -191,14 +195,14 @@ __global__ void __launch_bounds__(NT, MINB)
     };
     T v = cf.gam0 * b + cf.gam1 * bo;
     if constexpr (Q == 0) {
-      v = v - cf.bdt * div_nz(E(0) - E(1), cf.dx2);
-      v = v + cf.bdt * div_nz(E(2) - E(3), cf.dx3);
+      v = v - bdt * div_nz(E(0) - E(1), cf.dx2);
+      v = v + bdt * div_nz(E(2) - E(3), cf.dx3);
     } else if constexpr (Q == 1) {
-      v = v + cf.bdt * div_nz(E(0) - E(1), cf.dx1);
-      v = v - cf.bdt * div_nz(E(2) - E(3), cf.dx3);
+      v = v + bdt * div_nz(E(0) - E(1), cf.dx1);
+      v = v - bdt * div_nz(E(2) - E(3), cf.dx3);
     } else {
-      v = v - cf.bdt * div_nz(E(0) - E(1), cf.dx1);
-      v = v + cf.bdt * div_nz(E(2) - E(3), cf.dx2);
+      v = v - bdt * div_nz(E(0) - E(1), cf.dx1);
+      v = v + bdt * div_nz(E(2) - E(3), cf.dx2);
     }
     a.nb[Q][fblock(q) + k * fplane(q) + foff[Q]] = v;
   };
@@ -303,13 +307,13 @@ int launch_kind(const CtArgs<T>& a, int nmb, int n3, int n2, int n1,
 
 template <typename T>
 int launch(const CtArgs<T>& a, int nmb, int n3, int n2, int n1, bool is_sr,
-           double gam0, double gam1, double beta_dt, double dx1, double dx2,
+           double gam0, double gam1, const T* beta_dt, double dx1, double dx2,
            double dx3, cudaStream_t s) {
   // offsets inside a MeshBlock's channel or face array are 32-bit
   if (static_cast<long long>(n3 + 1) * (n2 + 1) * (n1 + 1) >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const CtCoef<T> cf{static_cast<T>(gam0), static_cast<T>(gam1),
-                     static_cast<T>(beta_dt), static_cast<T>(dx1),
+                     beta_dt, static_cast<T>(dx1),
                      static_cast<T>(dx2), static_cast<T>(dx3)};
   return is_sr ? launch_kind<T, true>(a, nmb, n3, n2, n1, cf, s)
                : launch_kind<T, false>(a, nmb, n3, n2, n1, cf, s);
@@ -325,7 +329,8 @@ int launch(const CtArgs<T>& a, int nmb, int n3, int n2, int n1, bool is_sr,
       const void* e3x2, const void* e2x3, const void* e1x3, const void* b1,   \
       const void* b2, const void* b3, const void* b1o, const void* b2o,       \
       const void* b3o, void* nb1, void* nb2, void* nb3, int nmb, int n3,      \
-      int n2, int n1, int is_sr, double gam0, double gam1, double beta_dt,    \
+      int n2, int n1, int is_sr, double gam0, double gam1,                    \
+      const void* beta_dt,                                                    \
       double dx1, double dx2, double dx3, void* stream) {                     \
     using namespace athenak;                                                  \
     const CtArgs<T> a{                                                        \
@@ -341,7 +346,8 @@ int launch(const CtArgs<T>& a, int nmb, int n3, int n2, int n1, bool is_sr,
         {static_cast<const T*>(b1o), static_cast<const T*>(b2o),              \
          static_cast<const T*>(b3o)},                                         \
         {static_cast<T*>(nb1), static_cast<T*>(nb2), static_cast<T*>(nb3)}};  \
-    return launch<T>(a, nmb, n3, n2, n1, is_sr != 0, gam0, gam1, beta_dt,     \
+    return launch<T>(a, nmb, n3, n2, n1, is_sr != 0, gam0, gam1,              \
+                     static_cast<const T*>(beta_dt),                          \
                      dx1, dx2, dx3, static_cast<cudaStream_t>(stream));       \
   }
 

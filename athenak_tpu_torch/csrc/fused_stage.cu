@@ -90,10 +90,13 @@ struct SplitArgs {
 };
 
 // The register's scalars and the cell sizes, each converted once to the
-// working type as the first design converted them.
+// working type as the first design converted them; the step is read
+// from device memory (a 0-d tensor), once a thread.
 template <typename T>
 struct SplitCoef {
-  T gam0, gam1, bdt, dx1, dx2, dx3;
+  T gam0, gam1;
+  const T* bdt;
+  T dx1, dx2, dx3;
   int read_u0;
 };
 
@@ -106,6 +109,7 @@ __global__ void __launch_bounds__(NT, MINB)
                 NIT = H.nit;
   constexpr int RING = kSplitRing;
   static_assert(N3 <= NT, "one thread a cell of the tile's plane");
+  const T bdt = __ldg(cf.bdt);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const ring = reinterpret_cast<T*>(smem_raw);  // [RING][8][WC]
   T* const nfr = ring + RING * 8 * WC;             // [RING][NIT]
@@ -259,7 +263,7 @@ __global__ void __launch_bounds__(NT, MINB)
         divf = divf + (g3u[v * N3] - g3l[v * N3]) / cf.dx3;
         const T reg = cf.read_u0 ? cf.gam0 * v0[v] + cf.gam1 * v1[v]
                                  : cf.gam1 * v1[v];
-        a.acc[o + v * ncell] = reg - cf.bdt * divf;
+        a.acc[o + v * ncell] = reg - bdt * divf;
       }
     }
   }
@@ -296,10 +300,10 @@ int launch_solver(const SplitArgs<T>& a, int nmb, int n3, int n2, int n1,
 
 template <typename T>
 int launch(const SplitArgs<T>& a, int nmb, int n3, int n2, int n1,
-           int solver, double gam0, double gam1, double beta_dt, double dx1,
+           int solver, double gam0, double gam1, const T* beta_dt, double dx1,
            double dx2, double dx3, const Eos<T>& eos, cudaStream_t s) {
   const SplitCoef<T> cf{static_cast<T>(gam0), static_cast<T>(gam1),
-                        static_cast<T>(beta_dt), static_cast<T>(dx1),
+                        beta_dt, static_cast<T>(dx1),
                         static_cast<T>(dx2), static_cast<T>(dx3),
                         gam0 != 0.0};
   switch (solver) {
@@ -322,7 +326,8 @@ int launch(const SplitArgs<T>& a, int nmb, int n3, int n2, int n1,
                       const void* b2, const void* b3, const void* u0,         \
                       const void* u1, void* acc, void* fden, void* femf,      \
                       int nmb, int n3, int n2, int n1, int solver,            \
-                      double gam0, double gam1, double beta_dt, double dx1,   \
+                      double gam0, double gam1, const void* beta_dt,          \
+                      double dx1,                                             \
                       double dx2, double dx3, double gamma, double dfloor,    \
                       double pfloor, void* stream) {                          \
     using namespace athenak;                                                  \
@@ -332,7 +337,8 @@ int launch(const SplitArgs<T>& a, int nmb, int n3, int n2, int n1,
         static_cast<const T*>(b3), static_cast<const T*>(u0),                 \
         static_cast<const T*>(u1), static_cast<T*>(acc),                      \
         static_cast<T*>(fden),     static_cast<T*>(femf)};                    \
-    return launch<T>(a, nmb, n3, n2, n1, solver, gam0, gam1, beta_dt, dx1,    \
+    return launch<T>(a, nmb, n3, n2, n1, solver, gam0, gam1,                  \
+                     static_cast<const T*>(beta_dt), dx1,                     \
                      dx2, dx3,                                                \
                      make_eos<T>(gamma, dfloor, pfloor, 0.0, 0.0, 1.0),       \
                      static_cast<cudaStream_t>(stream));                      \

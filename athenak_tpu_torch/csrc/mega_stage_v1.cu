@@ -225,7 +225,7 @@ __global__ void __launch_bounds__(NT, MINB)
   };
 
   const T gam0 = static_cast<T>(cf.gam0), gam1 = static_cast<T>(cf.gam1);
-  const T bdt = static_cast<T>(cf.beta_dt);
+  const T bdt = __ldg(static_cast<const T*>(cf.beta_dt));
   const T dx1 = static_cast<T>(cf.dx1), dx2 = static_cast<T>(cf.dx2),
           dx3 = static_cast<T>(cf.dx3);
 
@@ -533,7 +533,7 @@ int launch(const StageV1Args<T>& a, int nmb, int n3, int n2, int n1, int ng,
       const void* b3, const void* u0, const void* u1, const void* b1o,        \
       const void* b2o, const void* b3o, void* uo, void* b1n, void* b2n,       \
       void* b3n, int nmb, int n3, int n2, int n1, int ng, int skip_old,       \
-      double gam0, double gam1, double beta_dt, double dx1, double dx2,       \
+      double gam0, double gam1, const void* beta_dt, double dx1, double dx2,  \
       double dx3, double gamma, double dfloor, double pfloor, double tfloor,  \
       double sfloor, double sigma_max, void* stream) {                        \
     using namespace athenak;                                                  \

@@ -2,7 +2,8 @@
 // mega_stage_v2.cu; kernel E, mega_stage_v1.cu) and the post-stage
 // bcc + c2p kernel (fused_aux.cu, kernel F, which takes max_bits alone):
 //
-//   Coef:     the RK and CT coefficients;
+//   Coef:     the RK and CT coefficients, the step read from device
+//             memory;
 //   max_bits: a positive float as bits that order like it.
 //
 // The stage kernels take hlld.cuh and stencil.cuh through this header.
@@ -17,9 +18,14 @@
 namespace athenak {
 namespace {
 
-// RK and CT coefficients, converted to the working type in the kernels
+// RK and CT coefficients, converted to the working type in the kernels.
+// beta_dt points at the stage's step in the working type on the card (a
+// 0-d tensor), so that a CUDA graph replays the launch on whatever step
+// the tensor holds; each thread reads it once.
 struct Coef {
-  double gam0, gam1, beta_dt, dx1, dx2, dx3;
+  double gam0, gam1;
+  const void* beta_dt;
+  double dx1, dx2, dx3;
 };
 
 template <typename T>

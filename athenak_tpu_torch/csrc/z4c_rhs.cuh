@@ -802,7 +802,8 @@ template <typename T, int NG>
 __global__ void __launch_bounds__(Z4cTile<T, NG>::NC, Z4cTile<T, NG>::MINB)
     z4c_tile_kernel(const T* __restrict__ u, const T* __restrict__ u1,
                     const T* __restrict__ sbc, T* __restrict__ out,
-                    Z4cGeom geo, Z4cPrm<T> P) {
+                    Z4cGeom geo, Z4cPrm<T> P, const T* __restrict__ bdt) {
+  P.bdt = __ldg(bdt);
   using Sh = Z4cTile<T, NG>;
   constexpr int NC = Sh::NC, WIN = Sh::WIN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -910,7 +911,7 @@ int z4c_stage_launch(const Z4cArgs& a) {
   kernel<<<static_cast<unsigned int>(geo.blocks), Sh::NC, smem, a.stream>>>(
       static_cast<const T*>(a.u), static_cast<const T*>(a.u1),
       static_cast<const T*>(a.sbc), static_cast<T*>(a.out), geo,
-      make_z4c_prm<T>(a.prm));
+      make_z4c_prm<T>(a.prm), static_cast<const T*>(a.bdt));
   return static_cast<int>(cudaGetLastError());
 }
 #endif  // __CUDACC__

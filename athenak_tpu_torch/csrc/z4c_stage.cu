@@ -29,8 +29,9 @@ namespace {
 
 template <typename T>
 int stage(const void* u, const void* u1, const void* sbc, void* out, int nmb,
-          int n3, int n2, int n1, int ng, const double* prm, void* stream) {
-  const Z4cArgs a{u, u1, sbc, out, nmb, n3, n2, n1, prm,
+          int n3, int n2, int n1, int ng, const double* prm, const void* bdt,
+          void* stream) {
+  const Z4cArgs a{u, u1, sbc, out, nmb, n3, n2, n1, prm, bdt,
                   static_cast<cudaStream_t>(stream)};
   switch (ng) {
     case 2: return z4c_stage_launch<T, 2>(a);
@@ -115,8 +116,9 @@ int outflow_fill(void* a, long long nouter, int n3, int n2, int n1, int ng,
 #define ATHENAK_Z4C_ENTRIES(SUFFIX, T)                                       \
   extern "C" int athenak_z4c_stage_##SUFFIX(                                 \
       const void* u, const void* u1, const void* sbc, void* out, int nmb,    \
-      int n3, int n2, int n1, int ng, const double* prm, void* stream) {     \
-    return athenak::stage<T>(u, u1, sbc, out, nmb, n3, n2, n1, ng, prm,      \
+      int n3, int n2, int n1, int ng, const double* prm, const void* bdt,    \
+      void* stream) {                                                        \
+    return athenak::stage<T>(u, u1, sbc, out, nmb, n3, n2, n1, ng, prm, bdt, \
                              stream);                                        \
   }                                                                          \
   extern "C" int athenak_z4c_outflow_fill_##SUFFIX(                          \

@@ -16,8 +16,11 @@ constexpr int kNZ4C = 22;
 // The stage's scalars, in the order of ops/z4c_stage.py _PRM_NAMES: the
 // host passes them as doubles, already combined where the Python code
 // combines Python floats before it meets a tensor (e.g. k1 * (1 - k2)).
+// The step is not among them: the kernel reads it from device memory
+// (Z4cArgs::bdt), so that a CUDA graph replays the launch on whatever
+// step the tensor holds.
 enum Z4cPrmIndex {
-  P_GAM0, P_GAM1, P_BETA_DT,
+  P_GAM0, P_GAM1,
   P_IDX1, P_IDX2, P_IDX3,
   P_IDX1SQ, P_IDX2SQ, P_IDX3SQ,
   P_DISS, P_CHI_DIV_FLOOR, P_CHI_MIN_FLOOR,
@@ -30,7 +33,8 @@ enum Z4cPrmIndex {
 };
 
 // The scalars in the working type, each converted once from its double,
-// as torch converts a Python float to the tensor's dtype.
+// as torch converts a Python float to the tensor's dtype; bdt is the step
+// as the kernel read it from device memory (make_z4c_prm leaves it 0).
 template <typename T>
 struct Z4cPrm {
   T gam0, gam1, bdt;
@@ -48,7 +52,7 @@ inline Z4cPrm<T> make_z4c_prm(const double* p) {
   Z4cPrm<T> q;
   q.gam0 = static_cast<T>(p[P_GAM0]);
   q.gam1 = static_cast<T>(p[P_GAM1]);
-  q.bdt = static_cast<T>(p[P_BETA_DT]);
+  q.bdt = T(0);
   for (int d = 0; d < 3; ++d) {
     q.idx[d] = static_cast<T>(p[P_IDX1 + d]);
     q.idx2[d] = static_cast<T>(p[P_IDX1SQ + d]);
@@ -84,6 +88,7 @@ struct Z4cArgs {
   void* out;        // fresh buffer, same shape as u; interior written
   int nmb, n3, n2, n1;
   const double* prm;  // P_COUNT doubles
+  const void* bdt;    // the step: one T on the card
   cudaStream_t stream;
 };
 

@@ -72,7 +72,9 @@ class _LocalDx:
 
 
 def _scalar(v, like):
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    """A host number as a 0-d tensor beside ``like``, filled in on the
+    device (no host copy, which a CUDA graph of the cycle cannot hold)."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 class Viscosity(_LocalDx):

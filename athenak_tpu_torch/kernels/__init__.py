@@ -10,7 +10,11 @@ and linked with ``nvcc -shared`` into
 ``athenak_tpu_torch/_build/<hash of the sources>/libathenak_kernels.so``,
 which is loaded with ctypes.  The library has a plain C interface:
 every entry point takes device pointers, sizes, scalars and the CUDA
-stream, launches on that stream and returns ``cudaGetLastError()``.
+stream, launches on that stream and returns ``cudaGetLastError()``.  The
+stage kernels that take a step (A, C, D, E, H) take it as a device
+pointer to a 0-d tensor of the working type (``step``), never as a host
+double, so that a CUDA graph of a cycle replays them on the step the
+tensor holds at replay.
 Nothing is built or loaded when this module is imported; the CPU tests
 never reach ``library()``.
 """
@@ -45,13 +49,19 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     "athenak_periodic_fill": [_P] * 3 + [_I] + [_P] + [_I] * 2 + [_P],
-    "athenak_mega_stage_v2": [_P] * 13 + [_I] * 5 + [_D] * 12 + [_P],
-    "athenak_fused_stage": [_P] * 10 + [_I] * 5 + [_D] * 9 + [_P],
-    "athenak_fused_ct": [_P] * 20 + [_I] * 5 + [_D] * 6 + [_P],
-    "athenak_mega_stage_v1": [_P] * 14 + [_I] * 6 + [_D] * 12 + [_P],
+    # gam0, gam1, the step's pointer, the cell sizes, ...
+    "athenak_mega_stage_v2": [_P] * 13 + [_I] * 5 + [_D] * 2 + [_P]
+    + [_D] * 9 + [_P],
+    "athenak_fused_stage": [_P] * 10 + [_I] * 5 + [_D] * 2 + [_P]
+    + [_D] * 6 + [_P],
+    "athenak_fused_ct": [_P] * 20 + [_I] * 5 + [_D] * 2 + [_P] + [_D] * 3
+    + [_P],
+    "athenak_mega_stage_v1": [_P] * 14 + [_I] * 6 + [_D] * 2 + [_P]
+    + [_D] * 9 + [_P],
     "athenak_fused_aux": [_P] * 10 + [_I] * 7 + [_D] * 9 + [_P],
     "athenak_pool_fill": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P],
-    "athenak_z4c_stage": [_P] * 4 + [_I] * 5 + [_P] * 2,
+    # ..., the parameter block, the step's pointer, the stream
+    "athenak_z4c_stage": [_P] * 4 + [_I] * 5 + [_P] * 3,
     "athenak_z4c_outflow_fill": [_P, ctypes.c_longlong] + [_I] * 4 + [_P],
     "athenak_flux_dir": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_P],
 }
@@ -61,7 +71,9 @@ class Kernel:
     """A wrapper's C entry point and its launch count.
 
     ``launches`` is a plain integer that the wrapper raises by one where
-    it launches the kernel, and nowhere else."""
+    it launches the kernel, and nowhere else; a replay of a CUDA graph
+    runs no wrapper, so ``graphs.py`` adds the launches its capture
+    recorded at every replay."""
 
     def __init__(self, name: str, entry_base: str) -> None:
         self.name = name
@@ -189,6 +201,21 @@ def stream_ptr(device) -> int:
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def step(beta_dt, like):
+    """The stage's step as the 0-d tensor whose address a kernel takes:
+    ``beta_dt`` itself where it is a 0-d tensor of ``like``'s dtype on
+    its card, else a converted copy (a Python number is filled in on the
+    card, rounded to the dtype as torch rounds it).  The caller keeps the
+    result alive until the launch is queued."""
+    if isinstance(beta_dt, torch.Tensor):
+        if beta_dt.dim() != 0:
+            raise ValueError(f"the step must be a 0-d tensor, got shape "
+                             f"{tuple(beta_dt.shape)}")
+        return beta_dt.to(device=like.device, dtype=like.dtype)
+    return torch.full((), float(beta_dt), dtype=like.dtype,
+                      device=like.device)
 
 
 def reset_counts() -> None:

@@ -170,8 +170,10 @@ def mega_stage_v2_plain(u, bfc, u1, bfc_old, eos: EOSData, gam0, gam1,
 def mega_stage_v2(u, bfc, u1, bfc_old, eos: EOSData, gam0, gam1, beta_dt,
                   dxs):
     """One RK stage: the CUDA kernel for tensors on the card, the plain
-    version for tensors on the CPU.  ``gam0``, ``gam1`` and ``beta_dt``
-    are Python numbers; ``dxs`` maps x1/x2/x3 to the cell size."""
+    version for tensors on the CPU.  ``gam0`` and ``gam1`` are Python
+    numbers; ``beta_dt`` is the step, a 0-d tensor of u's dtype (the
+    driver's) or a Python number, which the kernel reads from device
+    memory; ``dxs`` maps x1/x2/x3 to the cell size."""
     if not u.is_cuda:
         return mega_stage_v2_plain(u, bfc, u1, bfc_old, eos, gam0, gam1,
                                    beta_dt, dxs)
@@ -194,6 +196,7 @@ def mega_stage_v2(u, bfc, u1, bfc_old, eos: EOSData, gam0, gam1, beta_dt,
     uo = torch.empty_like(u)
     bn = {c: torch.empty_like(bfc[c]) for c in fshape}
     red = torch.empty(6, dtype=torch.int64, device=u.device)
+    bdt = _k.step(beta_dt, u)
     fn = _k.MEGA_STAGE_V2.entry(u.dtype)
     rc = fn(u.data_ptr(), bfc["x1f"].data_ptr(), bfc["x2f"].data_ptr(),
             bfc["x3f"].data_ptr(), u1.data_ptr(),
@@ -201,7 +204,7 @@ def mega_stage_v2(u, bfc, u1, bfc_old, eos: EOSData, gam0, gam1, beta_dt,
             bfc_old["x3f"].data_ptr(), uo.data_ptr(),
             bn["x1f"].data_ptr(), bn["x2f"].data_ptr(),
             bn["x3f"].data_ptr(), red.data_ptr(), nmb, n3, n2, n1, NG,
-            float(gam0), float(gam1), float(beta_dt),
+            float(gam0), float(gam1), bdt.data_ptr(),
             float(dxs["x1"]), float(dxs["x2"]), float(dxs["x3"]),
             eos.gamma, eos.dfloor, eos.pfloor, eos.tfloor, eos.sfloor,
             eos.sigma_max, _k.stream_ptr(u.device))

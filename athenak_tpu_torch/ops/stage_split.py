@@ -105,8 +105,10 @@ def _cell_shape(name, w):
 def fused_stage3d(w, bcc, bfc, u0, u1, eos: EOSData, gam0, gam1, beta_dt,
                   dxs, solver: str = "hlld"):
     """Kernel C for tensors on the card, its plain version for tensors on
-    the CPU.  ``gam0``, ``gam1`` and ``beta_dt`` are Python numbers,
-    ``dxs`` maps x1/x2/x3 to the cell size and ``solver`` is a key of
+    the CPU.  ``gam0`` and ``gam1`` are Python numbers, ``beta_dt`` the
+    step (a 0-d tensor of w's dtype or a Python number; the kernel reads
+    it from device memory), ``dxs`` maps x1/x2/x3 to the cell size and
+    ``solver`` is a key of
     ``SOLVERS``.  Returns (acc, fden, emf): fden maps x1/x2/x3 to the
     mass flux and emf the six reference EMF names to the face EMFs, each
     [nmb, n3, n2, n1] and contiguous."""
@@ -135,12 +137,13 @@ def fused_stage3d(w, bcc, bfc, u0, u1, eos: EOSData, gam0, gam1, beta_dt,
     acc = torch.empty_like(w)
     fden = empty(3, nmb, n3, n2, n1)
     femf = empty(3, 2, nmb, n3, n2, n1)
+    bdt = _k.step(beta_dt, w)
     rc = _k.FUSED_STAGE3D.entry(w.dtype)(
         w.data_ptr(), bcc.data_ptr(), bfc["x1f"].data_ptr(),
         bfc["x2f"].data_ptr(), bfc["x3f"].data_ptr(), u0.data_ptr(),
         u1.data_ptr(), acc.data_ptr(), fden.data_ptr(), femf.data_ptr(),
         nmb, n3, n2, n1, SOLVERS[solver][0],
-        float(gam0), float(gam1), float(beta_dt), float(dxs["x1"]),
+        float(gam0), float(gam1), bdt.data_ptr(), float(dxs["x1"]),
         float(dxs["x2"]), float(dxs["x3"]), eos.gamma, eos.dfloor,
         eos.pfloor, _k.stream_ptr(w.device))
     _k.check(rc, name)
@@ -157,7 +160,8 @@ _EMF_NAMES = ("e3x1", "e2x1", "e1x2", "e3x2", "e2x3", "e1x3")
 def fused_ct3d(w, bcc, fden, emf, bfc, bfc_old, gam0, gam1, beta_dt, dxs,
                is_sr: bool = False):
     """Kernel D for tensors on the card, its plain version for tensors on
-    the CPU.  Returns the new face fields as fresh tensors."""
+    the CPU; ``beta_dt`` as for ``fused_stage3d``.  Returns the new face
+    fields as fresh tensors."""
     if not w.is_cuda:
         return fused_ct3d_plain(w, bcc, fden, emf, bfc, bfc_old, gam0, gam1,
                                 beta_dt, dxs, is_sr)
@@ -175,6 +179,7 @@ def fused_ct3d(w, bcc, fden, emf, bfc, bfc_old, gam0, gam1, beta_dt, dxs,
         check_tensor(name, f"bfc[{c}]", bfc[c], s, w)
         check_tensor(name, f"bfc_old[{c}]", bfc_old[c], s, w)
     nb = {c: torch.empty_like(bfc[c]) for c in fshape}
+    bdt = _k.step(beta_dt, w)
     rc = _k.FUSED_CT3D.entry(w.dtype)(
         w.data_ptr(), bcc.data_ptr(),
         *[fden[d].data_ptr() for d in ("x1", "x2", "x3")],
@@ -183,7 +188,7 @@ def fused_ct3d(w, bcc, fden, emf, bfc, bfc_old, gam0, gam1, beta_dt, dxs,
         *[bfc_old[c].data_ptr() for c in fshape],
         *[nb[c].data_ptr() for c in fshape],
         nmb, n3, n2, n1, int(is_sr), float(gam0), float(gam1),
-        float(beta_dt), float(dxs["x1"]), float(dxs["x2"]),
+        bdt.data_ptr(), float(dxs["x1"]), float(dxs["x2"]),
         float(dxs["x3"]), _k.stream_ptr(w.device))
     _k.check(rc, name)
     _k.FUSED_CT3D.launches += 1

@@ -52,8 +52,10 @@ def fused_mega_stage3d_plain(w, bcc, bfc, u0, u1, bfc_old, eos: EOSData,
 def fused_mega_stage3d(w, bcc, bfc, u0, u1, bfc_old, eos: EOSData, gam0,
                        gam1, beta_dt, dxs):
     """One RK stage: the CUDA kernel for tensors on the card, the plain
-    version for tensors on the CPU.  ``gam0``, ``gam1`` and ``beta_dt``
-    are Python numbers; ``dxs`` maps x1/x2/x3 to the cell size."""
+    version for tensors on the CPU.  ``gam0`` and ``gam1`` are Python
+    numbers; ``beta_dt`` is the step, a 0-d tensor of w's dtype or a
+    Python number, which the kernel reads from device memory; ``dxs``
+    maps x1/x2/x3 to the cell size."""
     if not w.is_cuda:
         return fused_mega_stage3d_plain(w, bcc, bfc, u0, u1, bfc_old, eos,
                                         gam0, gam1, beta_dt, dxs)
@@ -83,13 +85,14 @@ def fused_mega_stage3d(w, bcc, bfc, u0, u1, bfc_old, eos: EOSData, gam0,
                                bfc_old["x3f"])]
     uo = torch.empty_like(u0)
     bn = {c: torch.empty_like(bfc[c]) for c in fshape}
+    bdt = _k.step(beta_dt, w)
     fn = _k.MEGA_STAGE_V1.entry(w.dtype)
     rc = fn(w.data_ptr(), bcc.data_ptr(), bfc["x1f"].data_ptr(),
             bfc["x2f"].data_ptr(), bfc["x3f"].data_ptr(), u0.data_ptr(),
             *old, uo.data_ptr(),
             bn["x1f"].data_ptr(), bn["x2f"].data_ptr(), bn["x3f"].data_ptr(),
             nmb, n3, n2, n1, NG, int(skip_old), float(gam0), float(gam1),
-            float(beta_dt), float(dxs["x1"]), float(dxs["x2"]),
+            bdt.data_ptr(), float(dxs["x1"]), float(dxs["x2"]),
             float(dxs["x3"]),
             eos.gamma, eos.dfloor, eos.pfloor, eos.tfloor, eos.sfloor,
             eos.sigma_max, _k.stream_ptr(w.device))

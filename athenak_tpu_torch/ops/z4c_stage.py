@@ -34,8 +34,9 @@ from .. import kernels as _k
 from ..z4c.z4c import NZ4C
 
 # the stage's scalars, in the order of csrc/z4c_stage.cuh Z4cPrmIndex
+# (the step is not one: the kernel reads it from device memory)
 _PRM_NAMES = (
-    "gam0", "gam1", "beta_dt", "idx1", "idx2", "idx3", "idx1sq", "idx2sq",
+    "gam0", "gam1", "idx1", "idx2", "idx3", "idx1sq", "idx2sq",
     "idx3sq", "diss", "chi_div_floor", "chi_min_floor", "npow",
     "oopsi4_pow", "c6n", "k1", "k1f", "k2f", "use_z4c", "f0",
     "lapse_harmonic", "lapse_advect", "shift_ggamma", "shift_advect",
@@ -63,14 +64,14 @@ def fold_bc_supported(bvals) -> bool:
             and bvals.user_bc_func is None)
 
 
-def stage_params(z, gam0, gam1, beta_dt):
+def stage_params(z, gam0, gam1):
     """The kernel's scalars as doubles, combined as the Python code
     combines them before they meet a tensor (rhs_core.py)."""
     o = z.opt
     k1, k2 = o.damp_kappa1, o.damp_kappa2
     idx = tuple(float(i) for i in z.idx)
     vals = {
-        "gam0": gam0, "gam1": gam1, "beta_dt": beta_dt,
+        "gam0": gam0, "gam1": gam1,
         "idx1": idx[0], "idx2": idx[1], "idx3": idx[2],
         "idx1sq": idx[0] * idx[0], "idx2sq": idx[1] * idx[1],
         "idx3sq": idx[2] * idx[2],
@@ -117,8 +118,9 @@ def _check_stage(u, u1, z) -> None:
 def fused_z4c_stage(u, u1, z, gam0, gam1, beta_dt):
     """u' = AlgConstr(gam0 u + gam1 u1 + beta_dt RHS(u)); ``z`` is the
     Z4c physics object (options, dissipation, nghost, 1/dx and the
-    Sommerfeld geometry).  Interior cells only on the card; see the
-    module docstring."""
+    Sommerfeld geometry); ``beta_dt`` the step, a 0-d tensor of u's dtype
+    or a Python number, which the kernel reads from device memory.
+    Interior cells only on the card; see the module docstring."""
     if not u.is_cuda:
         return fused_z4c_stage_plain(u, u1, z, gam0, gam1, beta_dt)
     _check_stage(u, u1, z)
@@ -126,12 +128,13 @@ def fused_z4c_stage(u, u1, z, gam0, gam1, beta_dt):
         else None
     out = torch.empty_like(u)
     prm = (ctypes.c_double * len(_PRM_NAMES))(
-        *stage_params(z, gam0, gam1, beta_dt))
+        *stage_params(z, gam0, gam1))
+    bdt = _k.step(beta_dt, u)
     nmb, _, n3, n2, n1 = u.shape
     fn = _k.Z4C_STAGE.entry(u.dtype)
     rc = fn(u.data_ptr(), u1.data_ptr(),
             None if sbc is None else sbc.data_ptr(), out.data_ptr(),
-            nmb, n3, n2, n1, z.ng, ctypes.addressof(prm),
+            nmb, n3, n2, n1, z.ng, ctypes.addressof(prm), bdt.data_ptr(),
             _k.stream_ptr(u.device))
     _k.check(rc, _k.Z4C_STAGE.name)
     _k.Z4C_STAGE.launches += 1

@@ -345,13 +345,14 @@ def unsupported(driver, state):
 def build_shard_cycle(driver, comm):
     """The driver's cycle on one rank's blocks: ``fn(state, dt) -> (state,
     dtnew, counters)`` with the exchange of ``comm``, dtnew the MIN over
-    the ranks and the counters their SUM."""
+    the ranks in the state's dtype (JAX's ``lax.pmin`` keeps its dtype)
+    and the counters their SUM."""
     inner = driver.make_cycle_fn()
 
     def cycle(state, dt):
         with use_comm(comm):
             state, dtnew, counters = inner(state, dt)
-        dtnew = comm.pmin(torch.as_tensor(dtnew, dtype=torch.float64))
+        dtnew = comm.pmin(torch.as_tensor(dtnew, dtype=state["u"].dtype))
         if counters:
             keys = sorted(counters)
             tot = comm.psum(torch.stack([

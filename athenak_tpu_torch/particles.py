@@ -90,15 +90,15 @@ class Particles:
         }
 
     # ------------------------------------------------------------------
-    def push(self, state, dt: float):
+    def push(self, state, dt):
         """Drift with the periodic wrap.  The reference's two half drifts
         around the particle communication compose into one full drift
         when migration is a gather."""
         x, v = state["prtcl_x"], state["prtcl_v"]
         # x + dt v as one fused multiply-add, as XLA's fused loop forms it
         # on the CPU and nvcc forms addcmul's on the card
-        x = torch.addcmul(x, v, torch.tensor(dt, dtype=x.dtype,
-                                             device=x.device))
+        x = torch.addcmul(x, v, torch.as_tensor(dt, dtype=x.dtype,
+                                                device=x.device))
         x = self._xmin_t + _fmod_floor(x - self._xmin_t, self._span_t)
         return dict(state, prtcl_x=x)
 

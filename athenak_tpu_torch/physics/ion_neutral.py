@@ -164,13 +164,15 @@ class IonNeutral:
         return dict(state, w=wn, u=un, wi=wi, ui=ui)
 
     # ---------------------------------------------------------------- cycle
-    def imex_cycle(self, state, dt: float, integ):
+    def imex_cycle(self, state, dt, integ):
         """One ImEx cycle (reference: FirstTwoImpRK, then ImpRKUpdate
-        after each explicit update).  Returns (state, dtnew, counters)."""
-        dtype = state["u"].dtype
-        dtt = torch.tensor(dt, dtype=dtype, device=state["u"].device)
+        after each explicit update); ``dt`` a 0-d tensor in the state's
+        dtype (or a Python float, converted).  Returns (state, dtnew,
+        counters)."""
+        dtt = torch.as_tensor(dt, dtype=state["u"].dtype,
+                              device=state["u"].device)
         if self.pturb is not None:
-            state = self.pturb.apply(state, dt, self.phydro)
+            state = self.pturb.apply(state, dtt, self.phydro)
         # the registers are copied before the implicit pre-stages
         # (reference: FirstTwoImpRK, ion-neutral_tasks.cpp:103-108)
         saved_h = self.phydro.save_state(self._hyd(state))
@@ -180,8 +182,7 @@ class IonNeutral:
         state = self._prims(state)
         counters_tot = None
         for s in range(integ.nexp_stages):
-            bdt = float(torch.tensor(integ.beta[s], dtype=dtype)
-                        * torch.tensor(dt, dtype=dtype))
+            bdt = integ.beta[s] * dtt
             hs, ch = self.phydro.stage_update(
                 self._hyd(state), saved_h, integ.gam0[s], integ.gam1[s], bdt)
             ms, cm = self.pmhd.stage_update(

@@ -474,8 +474,9 @@ class Radiation:
         else:
             ms = self.mesh.mesh_size
             dt = min(getattr(ms, f"d{n}") for n in names)
-        return torch.tensor(dt, dtype=state["u"].dtype,
-                            device=state["u"].device)
+        # filled in on the device: no host copy in the cycle
+        return torch.full((), dt, dtype=state["u"].dtype,
+                          device=state["u"].device)
 
     # ------------------------------------------------------------- moments
     def moments(self, i0):

@@ -288,11 +288,13 @@ class ShearingBox:
         qo = nt(-(self.qshear * self.omega0))
         return (qo * x1 * nt(dt)) / self.dyb.astype(nt)[:, None]
 
-    def check_shift(self, dt: float) -> None:
+    def check_shift(self, dt) -> None:
         """Raise unless this cycle's integer shift lies where the gathers
         of ``orbital_advect`` stay inside the extended profile: from
         -(maxjshift + 1) to maxjshift cells (``_eff_emf``'s truncated
-        shift is bounded by the same)."""
+        shift is bounded by the same).  ``dt`` may be a tensor: this
+        check reads it on the host (it closes the window's graph)."""
+        dt = float(dt)
         jo = np.floor(self._shift_cells(dt))
         m = self.maxjshift
         if jo.min() < -(m + 1) or jo.max() > m:
@@ -305,7 +307,7 @@ class ShearingBox:
                 f"maxjshift={m} (time/cfl_number and the x1 extent set "
                 "it)")
 
-    def orbital_advect(self, u, dt: float):
+    def orbital_advect(self, u, dt):
         """Advect every x1-column by the orbital displacement
         dy = -q Om x1 dt (reference: orbital_advection_cc.cpp:240-290);
         the profile is extended by maxjshift+2 neighbour cells first, so
@@ -321,7 +323,7 @@ class ShearingBox:
         pad = self.maxjshift + 2
         ja = u.ndim - 2
         ext = self._y_extended(u.narrow(-1, is_, nx1), pad)
-        dtt = torch.tensor(dt, dtype=u.dtype, device=u.device)
+        dtt = torch.as_tensor(dt, dtype=u.dtype, device=u.device)
         shift = (-(self.qshear * self.omega0)
                  * self._xc[..., is_:is_ + nx1] * dtt) / self._dyb[:, None]
         jo = torch.floor(shift).to(torch.int64)
@@ -374,7 +376,7 @@ class ShearingBox:
         c_lo = torch.gather(csum, ja, (tgt - jo - 1).expand(shp))
         return f_sh + (c_hi - c_lo)
 
-    def orbital_advect_fc(self, bfc, dt: float):
+    def orbital_advect_fc(self, bfc, dt):
         """EMF-form orbital advection of the face field (reference:
         orbital_advection_fc.cpp:180-361, after Stone & Gardiner 2010
         eqs. 49-52): the y-remaps of B1 and B3 become effective
@@ -391,7 +393,7 @@ class ShearingBox:
         is_, nx1, nx2 = mbi.is_, mbi.nx1, mbi.nx2
         ms = mesh.mesh_size
         x1f, x2f, x3f = bfc["x1f"], bfc["x2f"], bfc["x3f"]
-        dtt = torch.tensor(dt, dtype=x1f.dtype, device=x1f.device)
+        dtt = torch.as_tensor(dt, dtype=x1f.dtype, device=x1f.device)
         # emfz = +Vy Bx at the x1 faces (the B1 profile):
         # [nmb, n3c, nx2+1, nx1+1], y index 0..nx2 <-> faces js..je+1
         emfz = self._eff_emf(x1f.narrow(-1, is_, nx1 + 1),

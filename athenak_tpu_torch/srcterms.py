@@ -180,8 +180,9 @@ class SourceTerms:
     def new_dt(self, w):
         """The cooling time limit over the interior (reference:
         srcterms_newdt.cpp:25-111); float32's largest value when no
-        cooling is on."""
-        dt = torch.tensor(_HUGE, dtype=w.dtype, device=w.device)
+        cooling is on (filled in on the device: no host copy, which a
+        CUDA graph of the cycle could not hold)."""
+        dt = torch.full((), _HUGE, dtype=w.dtype, device=w.device)
         if not (self.ism_cooling or self.rel_cooling):
             return dt
         mbi = self.mesh.mb_indcs

@@ -191,7 +191,8 @@ class TurbulenceDriver:
         if self.tcorr <= 1e-6:
             force = ftmp
         else:
-            fcorr = math.exp(-dt / self.tcorr)
+            # on the host in float64, from dt as the cycle holds it
+            fcorr = math.exp(-float(dt) / self.tcorr)
             gcorr = math.sqrt(1.0 - fcorr * fcorr)
             force = fcorr * state["turb_force"] + gcorr * ftmp
 

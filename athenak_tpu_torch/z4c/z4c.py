@@ -437,7 +437,7 @@ class Z4c:
         of dx/dt = -beta(x) with the cycle's final shift (reference:
         CompactObjectTracker::InterpolateShift + EvolveTracker,
         compact_object_tracker.cpp:100-150), on the device; ``dt`` is the
-        cycle's dt rounded to the state's dtype."""
+        cycle's dt, a 0-d tensor in the state's dtype."""
         if self.nco == 0:
             return state
         if "co_pos" not in state:

@@ -417,11 +417,41 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      ``periodic_fill_kernel`` as often as B's wrappers counted).  In the
      main process: the host ms of one write of each of the blast's
      outputs, the card synchronised around it.
+ 26. the batched cycle window (``Driver._run_window``) on the blast
+     124^3, the pool 8 x 62^3, z4c 60^3, the puncture 64^3, smr 128^3 /
+     32^3 (f32) and the SR blast, each without its outputs
+     (``WIN_DECKS``).  In a lane (``window_checks``): 32 cycles (two
+     batches) on each path, the launch counts set to 0 before each run:
+     the graphed window one capture and a replay a batch, every kernel's
+     launches in the window the replays times the capture's and the
+     eager window's, bitwise the eager window
+     (SHA-256 of every leaf, time, dt, cycles, counters, launches); the
+     SR blast's window eager (its Illinois c2p reads the host); the
+     window against the per-cycle loop, float32 within the repo's path
+     tiers (SMR_PATH_TOL of the largest change of the state, as phase
+     25 scales a file; Z4C_PATH_TOL) and time and dt within
+     WIN_TIME_RTOL of the host's float64 chain (F32), float64 bitwise;
+     kernels A (blast, pool), E (blast), C and D (SR blast) and H (z4c,
+     puncture) given the step as a 0-d tensor on the card against their
+     plain versions at the tiers above, and each captured in a CUDA
+     graph and replayed on an overwritten step, bitwise its eager launch.
+     In the main process: each deck's zone-cycles/s on the per-cycle
+     loop, the eager window and the graphed window (16 cycles after a
+     warm-up cycle, or batch on the graph path, CUDA events), the
+     captures and replays, the ms of
+     the copy of the state into the capture's buffers and out of them,
+     and the peak memory of each run.
+
+A run without outputs, verbose, AMR, driving or particles takes the
+batched window (``athenak_tpu_torch/driver.py``), from a CUDA graph
+where ``Driver.graph_window`` admits it: the launch counts of such runs
+in every phase are the graph replays' (each capture's launches added at
+every replay), equal to an eager run's.
 
 The runs that time nothing (the JAX tests' bars of phases 19-23, the
 restarts of phases 16-19, the Bonnor-Ebert runs, phase 23's graph
 checks, shipped decks and restart, phase 24's checks, phase 25's
-decks, split pool and ``-p``) run in
+decks, split pool and ``-p``, phase 26's checks) run in
 ``LANES``: child processes on
 the card (``chip_smoke.py --lane NAME...``), started once phases 1-12
 and DYN_WIDE are done and running beside phases 13-22.  So the kernels'
@@ -1146,6 +1176,13 @@ def faces(t):
     return t[tuple(sl)]
 
 
+def card_step(torch, x, like):
+    """The stage's step as the driver passes it to the kernels (A, C, D,
+    E, H read it from device memory): a 0-d tensor of ``like``'s dtype on
+    its card."""
+    return torch.full((), float(x), dtype=like.dtype, device=like.device)
+
+
 def pin_for(overrides, deck=DECK):
     from athenak_tpu_torch.main import read_deck
     return read_deck(deck, overrides)
@@ -1297,9 +1334,10 @@ def phase_stage(torch, card, pool_deck):
         inp_u, inp_b = u0, b0
         for s, (g0, g1, beta) in enumerate(((0.0, 1.0, 1.0),
                                             (0.5, 0.5, 0.5))):
-            bdt = float(torch.tensor(beta, dtype=u0.dtype)
-                        * torch.tensor(dt, dtype=u0.dtype))
-            args = (inp_u, inp_b, u0, b0, eos, g0, g1, bdt, dxs)
+            bdt = torch.tensor(beta, dtype=u0.dtype) \
+                * torch.tensor(dt, dtype=u0.dtype)
+            args = (inp_u, inp_b, u0, b0, eos, g0, g1,
+                    card_step(torch, bdt, u0), dxs)
             uk, bk, ck = stage.mega_stage_v2(*args)
             up, bp, cp = stage.mega_stage_v2_plain(*args)
             torch.cuda.synchronize()
@@ -1335,7 +1373,8 @@ def phase_stage(torch, card, pool_deck):
             # next stage from the plain result, ghosts filled
             inp_u, inp_b = fill_plain(phys, up, bp)
         if prec == "single":
-            args = (u0, b0, u0, b0, eos, 0.0, 1.0, dt, dxs)
+            args = (u0, b0, u0, b0, eos, 0.0, 1.0,
+                    card_step(torch, dt, u0), dxs)
             ms = cuda_ms(lambda: stage.mega_stage_v2(*args), 10)
             if deck == DECK:
                 plain_ms = cuda_ms(
@@ -1504,8 +1543,9 @@ def phase_split(torch, card, sr_deck):
             u0, b0 = state["u"], state["bfc"]
             inp = (state["w"], state["bcc"], b0, u0)
             for s, (g0, g1, beta) in enumerate(RK2):
-                bdt = float(torch.tensor(beta, dtype=u0.dtype)
-                            * torch.tensor(mesh.dt, dtype=u0.dtype))
+                bdt = card_step(torch, torch.tensor(beta, dtype=u0.dtype)
+                                * torch.tensor(mesh.dt, dtype=u0.dtype),
+                                u0)
                 w, bcc, bfc, u = inp
                 sargs = (w, bcc, bfc, u, u0, phys.eos, g0, g1, bdt,
                          phys.dxs, solver)
@@ -1579,6 +1619,7 @@ def time_split(torch, stage_split, phys, state, dt):
     """Times of kernels C and D, their plain versions and the SR c2p on
     the first RK2 stage of the SR blast, with each kernel's bound."""
     w, bcc, bfc, u = state["w"], state["bcc"], state["bfc"], state["u"]
+    dt = card_step(torch, dt, u)
     sargs = (w, bcc, bfc, u, u, phys.eos, 0.0, 1.0, dt, phys.dxs,
              "sr_hlle")
     acc, fden, emf = stage_split.fused_stage3d(*sargs)
@@ -1704,7 +1745,7 @@ def phase_mega_v1(torch, card):
         f32 = dtype == torch.float32
         for s, (g0, g1, beta) in enumerate(RK2):
             args = (w, bcc, bfc, u0, u1, bfc1, eos, g0, g1,
-                    beta * 0.1 / nx, dxs)
+                    card_step(torch, beta * 0.1 / nx, u0), dxs)
             uk, bk = stage_v1.fused_mega_stage3d(*args)
             up, bp = stage_v1.fused_mega_stage3d_plain(*args)
             torch.cuda.synchronize()
@@ -1940,12 +1981,13 @@ def stage_parts(torch, phys, state, mesh) -> dict:
             lambda: phys.pturb.apply(state, dt, phys), 5)
         parts["mega_stage_v1"] = cuda_ms(lambda: stage_v1.fused_mega_stage3d(
             state["w"], state["bcc"], bfc, u, u, bfc, phys.eos, 0.5, 0.5,
-            0.5 * dt, phys.dxs), 10)
+            card_step(torch, 0.5 * dt, u), phys.dxs), 10)
         parts["fused_aux3d"] = cuda_ms(lambda: aux.fused_aux3d(
             u, bfc, phys.eos, dxs=phys.dxs, wrap=bv.use_fill_kernel), 20)
     else:
         parts["mega_stage_v2"] = cuda_ms(lambda: stage.mega_stage_v2(
-            u, bfc, u, bfc, phys.eos, 0.5, 0.5, 0.5 * dt, phys.dxs), 10)
+            u, bfc, u, bfc, phys.eos, 0.5, 0.5, card_step(torch, 0.5 * dt, u),
+            phys.dxs), 10)
     if not bv.use_fill_kernel:
         parts["fill_cc"] = cuda_ms(lambda: bv.fill_ghosts(u), 20)
     return parts
@@ -2032,12 +2074,14 @@ def z4c_inputs(torch, deck, extra, prec):
 
 def rk4_sets(torch, dtype, dt):
     """(gam0, gam1, beta * dt) of the four RK4 stages, beta * dt rounded
-    to ``dtype`` as the driver rounds it."""
+    to ``dtype`` as the driver rounds it and passed as it passes it: a
+    0-d tensor on the card."""
     from athenak_tpu_torch.driver import make_integrator
     rk = make_integrator("rk4")
     return [(rk.gam0[s], rk.gam1[s],
-             float(torch.tensor(rk.beta[s], dtype=dtype)
-                   * torch.tensor(dt, dtype=dtype))) for s in range(4)]
+             torch.full((), float(rk.beta[s]), dtype=dtype, device="cuda")
+             * torch.full((), float(dt), dtype=dtype, device="cuda"))
+            for s in range(4)]
 
 
 def z4c_bound(phys, u):
@@ -2233,8 +2277,9 @@ def phase_z4c_main(torch, kernels, card, z4c_deck):
         # the split of a cycle: ms per call on the run's own state
         u = state["u"]
         dt = mesh.dt
+        step = card_step(torch, 0.5 * dt, u)
         parts = {"z4c_stage": cuda_ms(lambda: zs.fused_z4c_stage(
-                     u, u, phys, 0.5, 0.5, 0.5 * dt), 20),
+                     u, u, phys, 0.5, 0.5, step), 20),
                  "z4c_outflow_fill": cuda_ms(
                      lambda: zs.outflow_fill(u, phys.bvals), 50)}
         if nstage == 4:
@@ -3326,9 +3371,10 @@ def amr_flat_checks(torch, card):
         inp_u, inp_b = u0, b0
         for s, (g0, g1, beta) in enumerate(((0.0, 1.0, 1.0),
                                             (0.5, 0.5, 0.5))):
-            bdt = float(torch.tensor(beta, dtype=u0.dtype)
-                        * torch.tensor(dt, dtype=u0.dtype))
-            args = (inp_u, inp_b, u0, b0, phys.eos, g0, g1, bdt, phys.dxs)
+            bdt = torch.tensor(beta, dtype=u0.dtype) \
+                * torch.tensor(dt, dtype=u0.dtype)
+            args = (inp_u, inp_b, u0, b0, phys.eos, g0, g1,
+                    card_step(torch, bdt, u0), phys.dxs)
             uk, bk, ck = stage.mega_stage_v2(*args)
             up, bp, cp = stage.mega_stage_v2_plain(*args)
             torch.cuda.synchronize()
@@ -3368,7 +3414,8 @@ def amr_flat_checks(torch, card):
                 raise AssertionError(f"{tag} dtmin {dk!r} vs {dp!r}")
             inp_u, inp_b = fill_plain(phys, up, bp)
         if prec == "single":
-            args = (u0, b0, u0, b0, phys.eos, 0.0, 1.0, dt, phys.dxs)
+            args = (u0, b0, u0, b0, phys.eos, 0.0, 1.0,
+                    card_step(torch, dt, u0), phys.dxs)
             out["stage_ms"] = cuda_ms(lambda: stage.mega_stage_v2(*args), 20)
             out["stage_plain_ms"] = cuda_ms(
                 lambda: stage.mega_stage_v2_plain(*args), 3)
@@ -7354,6 +7401,473 @@ def phase_outputs(torch, kernels, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 26
+# the batched cycle window: two batches of 16 cycles on the six decks;
+# the timed batch after a warm-up batch
+NCYC_WIN = 32
+NCYC_WIN_TIME = 16
+WIN_DECKS = {
+    "blast": (DECK, []),
+    "pool": (POOL_DECK, []),
+    "z4c": (Z4C_DECK, []),
+    "puncture": (PUNCTURE, ["job/precision=single"]),
+    "smr": (SMR_DECK, SMR_FULL + ["job/precision=single"]),
+    "sr_blast": (SR_DECK, []),
+}
+# the decks whose window must replay from a CUDA graph (the SR blast's
+# Illinois c2p keeps its window eager) and the kernels each must launch
+WIN_GRAPHED = ("blast", "pool", "z4c", "puncture", "smr")
+WIN_KERNELS = {"blast": ("mega_stage_v2", "periodic_fill_cc",
+                         "periodic_fill_fc"),
+               "pool": ("mega_stage_v2", "pool_fill"),
+               "z4c": ("z4c_stage", "z4c_outflow_fill"),
+               "puncture": ("z4c_stage", "z4c_outflow_fill"),
+               "smr": ("fused_flux_dir",),
+               "sr_blast": ("fused_stage3d", "fused_ct3d")}
+# the window's float32 time and dt against the host's float64 chain
+# after NCYC_WIN cycles (ROADMAP F32): each step rounds once in float32
+WIN_TIME_RTOL = 1e-5
+
+
+def strip_outputs(text: str) -> str:
+    """A deck's text without its ``<outputN>`` blocks."""
+    out, skip = [], False
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith("<") and s.endswith(">"):
+            skip = s.startswith("<output")
+        if not skip:
+            out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def window_pin(label, extra=()):
+    """A deck of WIN_DECKS without its outputs (the window's condition),
+    with its overrides and ``extra``."""
+    from athenak_tpu_torch.athinput import ParameterInput
+    src, base = WIN_DECKS[label]
+    if "\n" not in src:
+        with open(src) as f:
+            src = f.read()
+    pin = ParameterInput.from_string(strip_outputs(src))
+    pin.modify_from_cmdline(list(base) + list(extra))
+    return pin
+
+
+def window_run(torch, kernels, label, ncyc, path, prec=None):
+    """``label`` for ncyc cycles through build, initialize and execute on
+    one of three paths: "graph" (the window as the predicate sends it),
+    "eager" (the window with ``Driver.window_graphs`` off) or "loop"
+    (the per-cycle loop, reached as the JAX package's tests reach it:
+    ``verbose``), the launch counts set to 0 just before execute."""
+    import contextlib
+    import io
+    from athenak_tpu_torch.main import build
+    extra = [f"time/nlim={ncyc}"] + (
+        [f"job/precision={prec}"] if prec else [])
+    mesh, phys, _, driver, state = build(window_pin(label, extra),
+                                         device="cuda")
+    state = driver.initialize(state)
+    init = {k: v.clone() for k, v in state.items() if hasattr(v, "clone")}
+    init.update({k: {c: t.clone() for c, t in v.items()}
+                 for k, v in state.items() if isinstance(v, dict)})
+    driver.window_graphs = path == "graph"
+    kernels.reset_counts()
+    if path == "loop":
+        with contextlib.redirect_stdout(io.StringIO()):
+            state = driver.execute(state, verbose=True)
+    else:
+        state = driver.execute(state)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.ALL}
+    per = None
+    if driver._window_graph is not None:
+        per = dict(zip([k.name for k in kernels.ALL],
+                       driver._window_graph[1].launched))
+    return {"state": state, "init": init, "mesh": mesh, "phys": phys,
+            "driver": driver,
+            "launches": launches, "window": driver.window,
+            "per_capture": per, "time": mesh.time, "dt": mesh.dt,
+            "ncycle": mesh.ncycle, "counters": dict(driver.ecounters)}
+
+
+def window_same(a, b, label):
+    """Two runs bitwise equal: every leaf's bytes, time, dt, cycles,
+    counters and launches."""
+    da, db = leaf_digests(a["state"]), leaf_digests(b["state"])
+    diff = [k for k in da if da[k] != db.get(k)]
+    if diff or set(da) != set(db):
+        raise AssertionError(f"{label}: leaves {diff} differ")
+    for key in ("time", "dt", "ncycle", "counters", "launches"):
+        if a[key] != b[key]:
+            raise AssertionError(f"{label}: {key} {a[key]} != {b[key]}")
+
+
+def window_tiers(torch, a, b, label):
+    """The window's float32 run against the per-cycle loop's, with the
+    repo's path tiers: every cell and face array of an MHD state with
+    more than 95% of its interior within SMR_PATH_TOL[0] and all of it
+    within SMR_PATH_TOL[1] of the largest change the loop's run made to
+    any of its arrays (phase 25's scale: the blast barely changes its
+    field, where a rounding-level difference flips GS07 upwind selects,
+    ROADMAP F4), a Z4c state within Z4C_PATH_TOL (``z4c_paths_apart``);
+    time and dt within WIN_TIME_RTOL; cycles, counters and launches
+    equal.  Returns each leaf's (share, max)."""
+    out = {}
+
+    def leaves(st, prefix=""):
+        for k, v in st.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            elif hasattr(v, "is_floating_point") and v.is_floating_point() \
+                    and v.dim() >= 4:
+                yield prefix + k, v
+
+    ref = dict(leaves(b["state"]))
+    init = dict(leaves(b["init"]))
+    z4c = a["phys"].__class__.__name__ == "Z4c"
+    ng = a["mesh"].mb_indcs.ng
+    keys = [k for k, _ in leaves(a["state"]) if k in init]
+    scale = max(float((interior(ref[k], ng).double()
+                       - interior(init[k], ng).double()).abs().max())
+                for k in keys)
+    for k, v in leaves(a["state"]):
+        if z4c:
+            err = z4c_paths_apart(interior(v, ng), interior(ref[k], ng))
+            ok = err <= Z4C_PATH_TOL
+            out[k] = err
+        else:
+            rel = ((interior(v, ng).double() - interior(ref[k], ng).double())
+                   .abs() / max(scale, 1e-30))
+            out[k] = (float((rel < SMR_PATH_TOL[0]).double().mean()),
+                      float(rel.max()))
+            ok = out[k][0] > 0.95 and out[k][1] < SMR_PATH_TOL[1]
+        if not ok:
+            raise AssertionError(f"{label} {k}: {out[k]}")
+    for key in ("time", "dt"):
+        if not math.isclose(a[key], b[key], rel_tol=WIN_TIME_RTOL):
+            raise AssertionError(f"{label}: {key} {a[key]!r} against "
+                                 f"{b[key]!r}")
+    for key in ("ncycle", "counters", "launches"):
+        if a[key] != b[key]:
+            raise AssertionError(f"{label}: {key} {a[key]} != {b[key]}")
+    out["scale"] = scale
+    out["time_rel"] = abs(a["time"] - b["time"]) / abs(b["time"])
+    out["dt_rel"] = abs(a["dt"] - b["dt"]) / abs(b["dt"])
+    return out
+
+
+def window_deck_checks(torch, kernels, label):
+    """Phase 26's runs of one deck (see ``window_checks``)."""
+    rec = {}
+    eager = window_run(torch, kernels, label, NCYC_WIN, "eager")
+    loop = window_run(torch, kernels, label, NCYC_WIN, "loop")
+    graph = window_run(torch, kernels, label, NCYC_WIN, "graph")
+    w = graph["window"]
+    rec["window"] = w
+    if label in WIN_GRAPHED:
+        if not (w["graph"] and w["captures"] == 1
+                and w["replays"] == w["batches"] == NCYC_WIN // 16):
+            raise AssertionError(f"phase 26 {label}: window {w}")
+        per = graph["per_capture"]
+        got = {k: w["launches"].get(k, 0) for k in per}
+        if got != {k: w["replays"] * n for k, n in per.items()} \
+                or w["launches"] != eager["window"]["launches"]:
+            raise AssertionError(f"phase 26 {label}: the window's launches "
+                                 f"{w['launches']}, {w['replays']} replays "
+                                 f"of {per}, the eager window's "
+                                 f"{eager['window']['launches']}")
+        rec["per_capture"] = {k: v for k, v in per.items() if v}
+    elif w["graph"] or w["captures"]:
+        raise AssertionError(f"phase 26 {label}: the window should stay "
+                             f"eager, got {w}")
+    for name in WIN_KERNELS[label]:
+        if not graph["launches"][name] > 0:
+            raise AssertionError(f"phase 26 {label}: {name} not launched")
+    window_same(graph, eager, f"phase 26 {label} graph vs eager")
+    rec["launches"] = {k: v for k, v in graph["launches"].items() if v}
+    rec["vs_loop_f32"] = window_tiers(torch, eager, loop,
+                                      f"phase 26 {label} window vs loop")
+    del eager, loop, graph
+    torch.cuda.empty_cache()
+    w64 = window_run(torch, kernels, label, NCYC_WIN, "graph", "double")
+    l64 = window_run(torch, kernels, label, NCYC_WIN, "loop", "double")
+    window_same(w64, l64, f"phase 26 {label} f64 window vs loop")
+    rec["f64_window"] = w64["window"]
+    rec["f64_launches"] = {k: v for k, v in w64["launches"].items() if v}
+    return rec
+
+
+def step_checks(torch, kernels, card):
+    """Kernels A, C, D, E and H given the step as a 0-d tensor on the
+    card: against their plain versions on the same tensor at the
+    existing tiers (A, C, D two-tier, dtmin rtol 1e-4, counts equal; E
+    1e-6 of the field scale; H 2e-5 of max(|value|, 1)), and each
+    captured in a CUDA graph, replayed after the step tensor was
+    overwritten, bitwise its eager launch on the new step (the cells
+    the kernels write)."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import stage, stage_split, stage_v1
+    from athenak_tpu_torch.ops import z4c_stage as zs
+
+    def flat(x):
+        if isinstance(x, dict):
+            return [t for k in sorted(x) for t in flat(x[k])]
+        if isinstance(x, (list, tuple)):
+            return [t for v in x for t in flat(v)]
+        return [x] if hasattr(x, "data_ptr") else []
+
+    def captured(label, fn, step):
+        fn(step)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fn(step)
+        step.mul_(0.75)
+        g.replay()
+        ref = fn(step)
+        torch.cuda.synchronize()
+        for a, b in zip(flat(out), flat(ref)):
+            # the kernels leave their outputs' ghost cells unwritten:
+            # compare three cells in from every face (ng 2 and 3)
+            if a.dim() >= 3:
+                a, b = interior(a, 3), interior(b, 3)
+            if not torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                               b.reshape(-1).contiguous().view(torch.uint8)):
+                raise AssertionError(f"phase 26 {label}: the replay on a "
+                                     "new step differs from its eager "
+                                     "launch")
+        return True
+
+    def deck(label):
+        mesh, phys, _, driver, st = build(window_pin(label), device="cuda")
+        # w and bcc too (kernel A's route drops them)
+        st = phys.unpack_state(driver.initialize(st))
+        return mesh, phys, st
+
+    res = {}
+    for label in ("blast", "pool"):
+        mesh, phys, st = deck(label)
+        step = torch.full((), 0.5 * mesh.dt, dtype=st["u"].dtype,
+                          device="cuda")
+
+        def run_a(s, plain=False):
+            fn = stage.mega_stage_v2_plain if plain else stage.mega_stage_v2
+            return fn(st["u"], st["bfc"], st["u"], st["bfc"], phys.eos, 0.5,
+                      0.5, s, phys.dxs)
+
+        # phase 3's measures: u per channel, the faces on the largest
+        # interior face value
+        got, want = run_a(step), run_a(step, plain=True)
+        uscale = interior(want[0]).abs().amax(dim=(-3, -2, -1),
+                                              keepdim=True)
+        bscale = max(float(interior(v).abs().max()) for v in want[1].values())
+        err = two_tier(interior(got[0]), interior(want[0]), uscale,
+                       f"phase 26 A {label}")
+        for c in ("x1f", "x2f", "x3f"):
+            err = max(err, two_tier(interior(got[1][c]),
+                                    interior(want[1][c]), bscale,
+                                    f"phase 26 A {label} {c}"))
+        for key in ("neos_dfloor", "neos_efloor", "neos_tfloor"):
+            if int(got[2][key]) != int(want[2][key]):
+                raise AssertionError(f"phase 26 A {label}: {key}")
+        if not math.isclose(float(got[2]["dtmin"]), float(want[2]["dtmin"]),
+                            rel_tol=1e-4):
+            raise AssertionError(f"phase 26 A {label}: dtmin")
+        res[f"A {label}"] = {"max_abs_err": err,
+                             "graph": captured(f"A {label}", run_a, step)}
+        if label == "blast":
+            def run_e(s, plain=False):
+                fn = stage_v1.fused_mega_stage3d_plain if plain else \
+                    stage_v1.fused_mega_stage3d
+                return fn(st["w"], st["bcc"], st["bfc"], st["u"], st["u"],
+                          st["bfc"], phys.eos, 0.5, 0.5, s, phys.dxs)
+
+            # phase 7's measure: within 1e-6 of the field's scale
+            got, want = run_e(step), run_e(step, plain=True)
+            err = check_pair(torch, interior(got[0]), interior(want[0]),
+                             interior(want[0]).abs().amax(
+                                 dim=(-3, -2, -1), keepdim=True),
+                             "phase 26 E blast", True)
+            for c in ("x1f", "x2f", "x3f"):
+                err = max(err, check_pair(
+                    torch, interior(got[1][c]), interior(want[1][c]),
+                    max(float(interior(v).abs().max())
+                        for v in want[1].values()),
+                    f"phase 26 E blast {c}", True))
+            res["E blast"] = {"max_abs_err": err,
+                              "graph": captured("E blast", run_e, step)}
+        del st
+    mesh, phys, st = deck("sr_blast")
+    step = torch.full((), 0.5 * mesh.dt, dtype=st["u"].dtype, device="cuda")
+    solver = stage_split.solver_for(phys)
+
+    def run_c(s, plain=False):
+        fn = stage_split.fused_stage3d_plain if plain else \
+            stage_split.fused_stage3d
+        return fn(st["w"], st["bcc"], st["bfc"], st["u"], st["u"], phys.eos,
+                  0.5, 0.5, s, phys.dxs, solver)
+
+    # phase 5's measures: acc per channel, the mass fluxes and face EMFs
+    # on their largest face value, the new faces on the largest field
+    got, want = run_c(step), run_c(step, plain=True)
+    err = two_tier(interior(got[0]), interior(want[0]),
+                   interior(want[0]).abs().amax(dim=(-3, -2, -1),
+                                                keepdim=True),
+                   "phase 26 C sr_blast acc")
+    for i, name in ((1, "fden"), (2, "emf")):
+        sc = max(max(float(faces(v).abs().max())
+                     for v in want[i].values()), 1e-30)
+        for k in want[i]:
+            err = max(err, two_tier(faces(got[i][k]), faces(want[i][k]), sc,
+                                    f"phase 26 C sr_blast {name}[{k}]"))
+    res["C sr_blast"] = {"max_abs_err": err,
+                         "graph": captured("C sr_blast", run_c, step)}
+    acc, fden, emf = want
+    fden = {k: v.contiguous() for k, v in fden.items()}
+    emf = {k: v.contiguous() for k, v in emf.items()}
+
+    def run_d(s, plain=False):
+        fn = stage_split.fused_ct3d_plain if plain else stage_split.fused_ct3d
+        return fn(st["w"], st["bcc"], fden, emf, st["bfc"], st["bfc"], 0.5,
+                  0.5, s, phys.dxs, is_sr=True)
+
+    got, want = run_d(step), run_d(step, plain=True)
+    bscale = max(float(interior(v).abs().max()) for v in want.values())
+    err = max(two_tier(interior(got[c]), interior(want[c]), bscale,
+                       f"phase 26 D sr_blast {c}") for c in want)
+    res["D sr_blast"] = {"max_abs_err": err,
+                         "graph": captured("D sr_blast", run_d, step)}
+    del st, acc, fden, emf
+    for label in ("z4c", "puncture"):
+        mesh, phys, st = deck(label)
+        u = st["u"]
+        u1 = (u.double() * 1.001).to(u.dtype)
+        step = torch.full((), 0.25 * mesh.dt, dtype=u.dtype, device="cuda")
+
+        def run_h(s, plain=False):
+            fn = zs.fused_z4c_stage_plain if plain else zs.fused_z4c_stage
+            return fn(u, u1, phys, 0.5, 0.5, s)
+
+        got, want = run_h(step), run_h(step, plain=True)
+        a = interior(got, phys.ng).double()
+        b = interior(want, phys.ng).double()
+        rel = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        if not rel <= 2e-5:
+            raise AssertionError(f"phase 26 H {label}: {rel:g}")
+        res[f"H {label}"] = {"max_rel_err": rel,
+                             "graph": captured(f"H {label}", run_h, step)}
+        del st, u, u1
+    print(f"phase 26: [{card}] the step from device memory: {res}")
+    return res
+
+
+def window_checks(torch, kernels, card):
+    """Phase 26's untimed checks (a lane): on every deck of WIN_DECKS,
+    the graphed window bitwise the eager window over two batches (one
+    capture, a replay a batch, every kernel's launches replays x the
+    capture's), the eager window against the per-cycle loop (float32
+    within the path tiers, float64 bitwise), and the stage kernels'
+    step from device memory (``step_checks``)."""
+    res = {label: window_deck_checks(torch, kernels, label)
+           for label in WIN_DECKS}
+    res["step"] = step_checks(torch, kernels, card)
+    print(f"phase 26: [{card}] window checks {res}")
+    return res
+
+
+def window_rate(torch, kernels, label, path):
+    """zone-cycles/s of ``label`` on one path (see ``window_run``) over
+    NCYC_WIN_TIME cycles after a warm-up (one cycle; on the graph path a
+    batch, which captures the window the timed run replays), CUDA events;
+    the captures and replays, the launches of both runs, the peak memory
+    of the run, and on the graph path the ms of the copy of the state
+    into the capture's buffers and out of them."""
+    import contextlib
+    import io
+    from athenak_tpu_torch.main import build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm_cycles = NCYC_WIN_TIME if path == "graph" else 1
+    mesh, phys, _, driver, state = build(
+        window_pin(label, [f"time/nlim={warm_cycles}"]), device="cuda")
+    # unpacked as execute returns it (kernel A's route drops w and bcc),
+    # so the timed window reuses the warm-up's capture
+    state = phys.unpack_state(driver.initialize(state))
+    driver.window_graphs = path == "graph"
+    kernels.reset_counts()
+
+    def run(state):
+        if path == "loop":
+            with contextlib.redirect_stdout(io.StringIO()):
+                return driver.execute(state, verbose=True)
+        return driver.execute(state)
+
+    state = run(state)
+    warm = dict(driver.window or {})
+    driver.nlim = mesh.ncycle + NCYC_WIN_TIME
+    n0 = mesh.ncycle
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    state = run(state)
+    e1.record()
+    torch.cuda.synchronize()
+    sec = e0.elapsed_time(e1) / 1e3
+    mbi = mesh.mb_indcs
+    cells = mesh.nmb_total * mbi.nx1 * mbi.nx2 * mbi.nx3
+    rec = {"zcps": (mesh.ncycle - n0) * cells / sec, "cycles": mesh.ncycle,
+           "warm_window": warm, "window": driver.window,
+           "launches": {k.name: k.launches for k in kernels.ALL},
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    if path == "graph" and driver._window_graph is not None:
+        g = driver._window_graph[1]
+        scalars = [t.clone() for t in g.static[1]]
+        ms_in, ms_out = [], []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            c = torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.load(state, scalars)
+            b.record()
+            out = g.state()
+            c.record()
+            torch.cuda.synchronize()
+            ms_in.append(a.elapsed_time(b))
+            ms_out.append(b.elapsed_time(c))
+            del out
+        rec["copy_in_ms"], rec["copy_out_ms"] = min(ms_in), min(ms_out)
+        rec["state_mb"] = sum(t.numel() * t.element_size()
+                              for t in g.static[0].values()
+                              if hasattr(t, "numel")) / 2**20
+    return rec
+
+
+def phase_window(torch, kernels, card):
+    """Phase 26's timings (the main process): every deck of WIN_DECKS on
+    the per-cycle loop, the eager window and (where the predicate admits
+    it) the graphed window."""
+    res = {}
+    for label in WIN_DECKS:
+        paths = ("loop", "eager") + (("graph",) if label in WIN_GRAPHED
+                                     else ())
+        res[label] = {p: window_rate(torch, kernels, label, p)
+                      for p in paths}
+        torch.cuda.empty_cache()
+        r = res[label]
+        print(f"phase 26: [{card}] {label} zone-cycles/s "
+              + ", ".join(f"{p} {r[p]['zcps']:.4g}" for p in paths)
+              + f"; peak GB {[round(r[p]['peak_gb'], 3) for p in paths]}"
+              + (f"; copy in/out ms {r['graph']['copy_in_ms']:.4f} / "
+                 f"{r['graph']['copy_out_ms']:.4f} of "
+                 f"{r['graph']['state_mb']:.1f} MB; window "
+                 f"{r['graph']['window']}" if "graph" in r else
+                 f"; window {r['eager']['window']}"))
+    return res
+
+
 LANES = (("lwave64", "epicycle_bar", "shwave_bar", "mri3d_bar",
           "drag_bars"),
          ("lwave32", "be", "diffusion_bars", "jeans_bars", "binary_bars",
@@ -7364,7 +7878,8 @@ LANES = (("lwave64", "epicycle_bar", "shwave_bar", "mri3d_bar",
          ("outputs_decks", "outputs_split"),
          # -p in a fresh process: late in a long one the profiler drops
          # records
-         ("outputs_profile",))
+         ("outputs_profile",),
+         ("window_checks",))
 LANE_TIMEOUT = 1100
 
 
@@ -7396,6 +7911,7 @@ def lane_parts():
             "outputs_decks": outputs_decks,
             "outputs_split": outputs_split,
             "outputs_profile": outputs_profile,
+            "window_checks": window_checks,
             # phase 24's timings alone, and on a machine of several
             # cards its nccl runs: python3 chip_smoke.py --lane phase_shard
             "phase_shard": phase_shard}
@@ -7554,11 +8070,14 @@ def main() -> int:
         print("  ptxas:", line)
 
     def phase(label, fn, *args):
+        import gc
         t = time.perf_counter()
         out = fn(*args)
         seconds[label] = time.perf_counter() - t
         # hand the phase's cached blocks back to the card, which the
-        # lanes and phase 24's ranks share with this process
+        # lanes and phase 24's ranks share with this process (the
+        # drivers it dropped first: a driver holds its window's capture)
+        gc.collect()
         torch.cuda.empty_cache()
         return out
 
@@ -7607,6 +8126,7 @@ def main() -> int:
             lanes_kill(lanes)
         shard = phase("24", phase_shard, torch, kernels, card)
         write_ms = phase("25", phase_outputs, torch, kernels, card)
+        win = phase("26", phase_window, torch, kernels, card)
     shard["checks"] = got["shard_checks"]
     outs = {"decks": got["outputs_decks"], "split": got["outputs_split"],
             "profile": got["outputs_profile"], "write_ms": write_ms}
@@ -7645,7 +8165,9 @@ def main() -> int:
                    for r, lr in enumerate(v["launches_by_rank"])},
                 **{f"outputs {k}": v["launches"].get(name, 0)
                    for k, v in outs["decks"].items()},
-                "outputs -p blast": outs["profile"]["launches"].get(name, 0)}
+                "outputs -p blast": outs["profile"]["launches"].get(name, 0),
+                **{f"window {k} {p}": r["launches"].get(name, 0)
+                   for k, v in win.items() for p, r in v.items()}}
 
     ft, fe = fill_times, fill_errs
     zr = z4c_res["res"]["60^3 ng 2"]
@@ -7784,6 +8306,11 @@ def main() -> int:
                          for k, v in dyn["wide"].items()}},
         "shard": shard,
         "outputs": outs,
+        "window": {"rates": {k: {p: {kk: vv for kk, vv in r.items()
+                                     if kk != "launches"}
+                                 for p, r in v.items()}
+                             for k, v in win.items()},
+                   "checks": got["window_checks"]},
         "sr_c2p_ms": split_res["c2p_ms"], "phase_seconds": seconds,
         "build_seconds": kernels.BUILD_INFO.get("source_seconds"),
         "card": card}))

@@ -144,12 +144,18 @@ CASES = (
 
 def _port_run(text, overrides, ncyc):
     """The deck through the port's driver for ``ncyc`` cycles (no output
-    written); (mesh, phys, driver, state of host-ready tensors)."""
+    written) on its per-cycle loop, which keeps the prior (w, bcc, dt)
+    that ``mhd_jcon`` reads (the batched window keeps none, as the JAX
+    driver's does not), reached as the JAX tests reach it: ``verbose``;
+    (mesh, phys, driver, state of host-ready tensors)."""
+    import contextlib
+    import io
     pin = ParameterInput.from_string(text)
     pin.modify_from_cmdline(list(overrides) + [f"time/nlim={ncyc}"])
     mesh, phys, _, driver, state = torch_main.build(pin, device="cpu")
     state = driver.initialize(state)
-    state = driver.execute(state)
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = driver.execute(state, verbose=True)
     return mesh, driver.phys, driver, state
 
 

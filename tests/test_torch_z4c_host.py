@@ -206,7 +206,9 @@ long long run(FILE* f, FILE* o, const int* h, const double* prm) {
   std::vector<T> u = rd<T>(f, n), u1 = rd<T>(f, n), sbc;
   if (has_sbc) sbc = rd<T>(f, ns);
   std::vector<T> out(n, T(0.0));
-  const Z4cPrm<T> P = make_z4c_prm<T>(prm);
+  Z4cPrm<T> P = make_z4c_prm<T>(prm);
+  P.bdt = static_cast<T>(prm[P_COUNT]);  // the step, which the kernel reads
+                                         // from device memory
   long long ops;
   if constexpr (std::is_same<T, cnt::Op>::value)
     ops = run_tiles<T, Z4cShape<1, 1, 1, NG, 2>>(u, u1, sbc, out, h, P);
@@ -231,8 +233,8 @@ int main(int argc, char** argv) {
   int h[7];  // type (0 float, 1 double, 2 counting), ng, nmb, n3, n2, n1,
              // Sommerfeld geometry given
   if (fread(h, 4, 7, f) != 7) return 1;
-  double prm[P_COUNT];
-  if (fread(prm, 8, P_COUNT, f) != P_COUNT) return 1;
+  double prm[P_COUNT + 1];  // the parameter block, then the step
+  if (fread(prm, 8, P_COUNT + 1, f) != P_COUNT + 1) return 1;
   long long ops = 0;
   switch (h[1]) {
     case 2: ops = dispatch<2>(f, o, h, prm); break;
@@ -315,7 +317,7 @@ def test_host_build_matches_plain_stage(harness, case, prec):
         want = want.double().numpy()[core]
         got, _ = run_harness(harness, 0 if prec == "single" else 1, phys,
                              ut.double().numpy(), u1t.double().numpy(), sbc,
-                             z4c_stage.stage_params(phys, g0, g1, bdt))
+                             z4c_stage.stage_params(phys, g0, g1) + [bdt])
         got = got[core]
         if case == "outflow_ng2":
             # chi^1 is a copy in both; the other decks' chi^p is a pow,
@@ -337,7 +339,7 @@ def test_operation_counts(harness, ng):
     n = 2 * ng + 1                                  # one interior cell
     u = np.zeros((1, 22, n, n, n))
     u[:, [0, 1, 4, 6, 18]] = 1.0                    # chi, g = 1, alpha
-    prm = z4c_stage.stage_params(phys, 0.5, 0.5, 0.1)
+    prm = z4c_stage.stage_params(phys, 0.5, 0.5) + [0.1]
     sbc = np.ones((1, 5, n, n, n))
     _, plain = run_harness(harness, 2, phys, u, u, None, prm)
     _, somm = run_harness(harness, 2, phys, u, u, sbc, prm)
