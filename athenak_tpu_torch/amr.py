@@ -727,10 +727,7 @@ class AMR:
                                          z4c_amr=self.z4c_amr)
 
         def whole(f):
-            if comm is None:
-                return f
-            return comm.ranks.all_gather(f)[
-                torch.as_tensor(comm.layout.slot_of_gid, device=f.device)]
+            return f if comm is None else comm.whole_blocks(f)
 
         with use_comm(comm):
             f = self._flag_fn(state)
@@ -841,11 +838,17 @@ class AMR:
         act_axes = _act_axes(mbi)
         tbl = _prov_tables(prov)
         refined = tbl["mode"] == 1
-        # the state's other entries ride along as they are: a multigrid
-        # run's potential ``phi`` stays on the old tree, and the first
-        # solve on the new one reads it at the new gids (clamped), as the
-        # JAX package's rebuild and warm start do
+        # the state's other entries ride along as they are.  A multigrid
+        # run's potential ``phi`` is the first guess of the first solve on
+        # the new tree, which reads the old tree's potential at the new
+        # gids (clamped), as the JAX package's rebuild and warm start do:
+        # that gather is made here, so that ``phi`` has the new tree's
+        # blocks and is redistributed with the state under ranks
         new_state = dict(state)
+        if "phi" in state:
+            old = state["phi"]
+            new_state["phi"] = old[torch.clamp(torch.arange(
+                mesh.nmb_total, device=old.device), max=old.shape[0] - 1)]
         for key in ("u", "w", "z", "i0"):
             if key in state:
                 new_state[key] = remap_cc(state[key], tbl, mbi, act_axes)

@@ -4,14 +4,18 @@ Counterpart of ``athenak_tpu/comm.py:23-88``.  The boundary-values and
 physics code asks this module to move donor slabs between blocks
 (``BlockTables.gather``, whose index tables each mesh keeps on the
 device), for a per-block table's rows (``BlockTables.mask``,
-``local_blocks``) and for all-block sums (``global_sum``).  Outside any
-context a gather is one ``index_select`` along the block axis and the
-other two are identities.  Inside ``use_comm(ShardComm(...))``
+``local_blocks``), for all-block sums (``global_sum``) and for the whole
+mesh's blocks of a module that solves on all of them (``whole_blocks``,
+``own_blocks``: the self-gravity solves).  Outside any context a gather
+is one ``index_select`` along the block axis and the others are
+identities.  Inside ``use_comm(ShardComm(...))``
 (``parallel/shard_comm.py``) the cycle runs on one rank's blocks of a
 ``torch.distributed`` group: the same gather becomes the per-peer packed
 point-to-point exchange of the map's route (the reference's rank-packed
 MPI messages, src/bvals/bvals_cc.cpp:42-255), a table gives the rank's
-rows and a sum is an all-reduce.
+rows, a sum is an all-reduce, and the whole mesh's blocks are one
+all-gather (the JAX package's NamedSharding gather path, where XLA
+inserts it).
 """
 
 from __future__ import annotations
@@ -78,31 +82,48 @@ class BlockTables:
             (-1,) + (1,) * (ndim - 1))
 
 
-def local_blocks(tab, pad_edge: bool = False):
+def local_blocks(tab):
     """Per-block table [nmb_total, ...] (numpy or a tensor) -> the rows
     owned locally.  Outside ``use_comm`` the identity; inside, the rank's
-    [L, ...] rows, the pad rows zero (masks: pad blocks take no physical
-    BCs or overrides) or, with ``pad_edge``, row 0 (geometry: pad blocks
-    clone block 0, as ``shard_comm.pad_state`` lays them out).  Scalars
-    and arrays without a block axis pass through unchanged."""
+    rows.  Scalars and arrays without a block axis pass through
+    unchanged."""
     if _CURRENT is None or tab is None:
         return tab
     if not hasattr(tab, "ndim") or tab.ndim == 0:
         return tab
-    return _CURRENT.local_rows(tab, pad_edge)
+    return _CURRENT.local_rows(tab)
 
 
-def local_tree(x, pad_edge: bool = True):
+def local_tree(x):
     """``local_blocks`` on every table of nested lists, tuples and dicts
     (a metric's components, the cell sizes of each direction); the
     identity outside ``use_comm``."""
     if _CURRENT is None:
         return x
     if isinstance(x, dict):
-        return {k: local_tree(v, pad_edge) for k, v in x.items()}
+        return {k: local_tree(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
-        return type(x)(local_tree(v, pad_edge) for v in x)
-    return local_blocks(x, pad_edge)
+        return type(x)(local_tree(v) for v in x)
+    return local_blocks(x)
+
+
+def whole_blocks(x):
+    """This rank's rows -> the [nmb, ...] array of every block in gid
+    order, on every rank (one all-gather under ``use_comm``); the
+    identity outside it.  A module that solves on the whole
+    mesh (the FFT, the multigrid) reads its source through this, so
+    every rank does the same float work on the same data as one rank."""
+    if _CURRENT is None:
+        return x
+    return _CURRENT.whole_blocks(x)
+
+
+def own_blocks(x):
+    """The [nmb, ...] array of every block in gid order -> this rank's
+    rows; the identity outside ``use_comm``."""
+    if _CURRENT is None:
+        return x
+    return _CURRENT.own_blocks(x)
 
 
 def global_sum(x):
@@ -118,8 +139,7 @@ def global_sum(x):
 class LocalAttr:
     """A per-block table attribute (tensors, or lists and dicts of them)
     that a physics builds once for every block and reads as the running
-    cycle's rows: set as usual, read through ``local_tree`` (pads clone
-    block 0's rows)."""
+    cycle's rows: set as usual, read through ``local_tree``."""
 
     def __set_name__(self, owner, name) -> None:
         self.key = "_all_" + name

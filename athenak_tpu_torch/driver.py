@@ -277,23 +277,23 @@ class Driver:
     # ------------------------------------------------------------------
     def shard(self, state):
         """Under ``ranks``: the layout of the current mesh, the exchange
-        and this rank's rows of the padded global ``state`` (JAX
-        driver.py:377-392).  Raises for a configuration the rank-split
-        cycle does not cover when there is more than one rank."""
+        and this rank's rows of the global ``state`` (JAX
+        driver.py:377-392).  Raises, when there is more than one rank,
+        for a physics class the rank-split cycle does not know
+        (``shard_comm.unsupported``)."""
         from .parallel import shard_state
-        from .parallel.shard_comm import ShardComm, pad_state, unsupported
+        from .parallel.shard_comm import ShardComm, unsupported
         why = unsupported(self, state)
         if why is not None and self.ranks.world > 1:
             raise NotImplementedError(
                 f"{why} does not run on {self.ranks.world} ranks: the "
-                "port splits the block axis only for the configurations "
-                "of the JAX package's shard cycle (its NamedSharding "
-                "gather path is not ported; ROADMAP item 8b)")
+                "rank-split cycle covers the physics classes that "
+                "main.make_physics builds")
         ppart = getattr(self.phys, "ppart", None)
         self.comm = ShardComm(self.mesh, self.ranks,
                               nprtcl=ppart.nprtcl if ppart else 0)
         self._layout = self.comm.layout
-        return shard_state(pad_state(state, self._layout), self.comm)
+        return shard_state(state, self.comm)
 
     def _local(self):
         """The context of a call on this rank's blocks."""
@@ -353,7 +353,7 @@ class Driver:
         (reference: Driver::Initialize, src/driver/driver.cpp:314-372).
         A resumed run takes the physics' ``restart_ghosts`` where it has
         one (Z4c: the fill without the projection the stored state already
-        had).  Under ``ranks`` the state becomes this rank's padded rows
+        had).  Under ``ranks`` the state becomes this rank's rows
         first, and dt the MIN over the ranks."""
         if self.ranks is not None:
             state = self.shard(state)
@@ -381,13 +381,9 @@ class Driver:
         phys = self.phys
         outputs = outputs or []
         root = self.ranks is None or self.ranks.rank == 0
-        if self.ranks is not None and self.ranks.world > 1 and any(
-                not hasattr(out, "params") for out in outputs):
-            raise NotImplementedError(
-                "the CCE and horizon dumps are not written under more "
-                "than one rank yet")
         if not root:
-            # the other ranks keep the outputs' cadence and write nothing
+            # the other ranks keep the outputs' cadence (the CCE and
+            # horizon dumps' counts too) and write nothing
             for out in outputs:
                 out.write = _no_write
         # every rank takes the same loop: chosen before verbose is masked
@@ -400,7 +396,8 @@ class Driver:
         # every solve, multigrid_driver.cpp:788-860)
         pgrav = getattr(phys, "pgrav", None)
         if pgrav is not None and getattr(pgrav, "show_defect", 0) > 0:
-            pgrav.solve_verbose(phys.unpack_state(state)["u"])
+            with self._local():
+                pgrav.solve_verbose(phys.unpack_state(state)["u"])
 
         if outputs and not self.res_flag:
             self._write(outputs, state, force=True)

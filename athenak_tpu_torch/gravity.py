@@ -23,6 +23,8 @@ import math
 import numpy as np
 import torch
 
+from .comm import own_blocks, whole_blocks
+
 
 def make_gravity(pin, mesh, device, dtype):
     """The solver of a ``<gravity>`` block (reference: MGGravityDriver,
@@ -106,16 +108,20 @@ class SelfGravity:
 
     def solve(self, u, bvals, phi0=None):
         """phi [nmb, 1, n3, n2, n1] with its ghosts filled: lap(phi) =
-        four_pi_G (rho - <rho>) on the global grid."""
+        four_pi_G (rho - <rho>) on the global grid.  On one rank's blocks
+        the density of every block comes through one all-gather
+        (``comm.whole_blocks``), every rank transforms the whole grid and
+        keeps its own blocks' potential, whose ghosts the rank exchange
+        fills: the float work of one rank, on the same data."""
         mbi = self.mesh.mb_indcs
         act = (slice(mbi.ks, mbi.ke + 1), slice(mbi.js, mbi.je + 1),
                slice(mbi.is_, mbi.ie + 1))
-        g = self._to_global(u[(slice(None), 0) + act])
+        g = self._to_global(whole_blocks(u[(slice(None), 0) + act]))
         src = self.four_pi_G * (g - torch.mean(g))
         phi_k = torch.fft.fftn(src) * self._inv_lam.to(src.dtype)
         phi_g = torch.fft.ifftn(phi_k).real.to(u.dtype)
         phi = torch.zeros((u.shape[0], 1) + tuple(u.shape[2:]),
                           dtype=u.dtype, device=u.device)
-        phi[(slice(None), 0) + act] = self._to_blocks(phi_g)
+        phi[(slice(None), 0) + act] = own_blocks(self._to_blocks(phi_g))
         self.nsolve += 1
         return bvals.fill_ghosts(phi)

@@ -39,6 +39,8 @@ from typing import List
 import numpy as np
 import torch
 
+from .comm import current_comm, own_blocks, whole_blocks
+
 
 def _repeat(n, fn, x):
     for _ in range(max(n, 0)):
@@ -961,7 +963,20 @@ class MGPoisson:
     def solve(self, u, bvals, phi0=None):
         """phi [nmb, 1, n3, n2, n1] with its ghosts filled.  ``phi0``, the
         previous stage's potential, is the first guess; without it the
-        full-multigrid start (``full_multigrid``) or zeros."""
+        full-multigrid start (``full_multigrid``) or zeros.  On one
+        rank's blocks the density and ``phi0`` of every block come
+        through an all-gather each (``comm.whole_blocks``), every rank
+        solves on the whole mesh (so each reads the same defect and takes
+        the same V-cycles) and keeps its own blocks' potential, whose
+        ghosts the rank exchange fills."""
+        u = whole_blocks(u[:, :1])
+        if phi0 is not None:
+            phi0 = whole_blocks(phi0)
+        phi = self._solve_whole(u, phi0)
+        return bvals.fill_ghosts(own_blocks(phi))
+
+    def _solve_whole(self, u, phi0):
+        """The solve on every block: phi [nmb, 1, ...], ghosts zero."""
         if self.mg_bc == "multipole":
             self._multipole_setup(u)
         rhs_levels = self._make_rhs_levels(u)
@@ -980,7 +995,7 @@ class MGPoisson:
                 / self.total_vol
             phi = phi - mean
         self.nsolve += 1
-        return bvals.fill_ghosts(phi)
+        return phi
 
     def _zero_levels(self, dtype):
         return [torch.zeros(self.glevels[0][0], dtype=dtype,
@@ -992,7 +1007,11 @@ class MGPoisson:
         """A solve that prints the reference's defect lines (reference:
         SolveIterative, multigrid_driver.cpp:788-860); returns the
         defect history and keeps the interior potential in
-        ``_last_phi``."""
+        ``_last_phi``.  On one rank's blocks every rank solves on the
+        whole mesh (``comm.whole_blocks``) and rank 0 prints."""
+        cur = current_comm()
+        loud = cur is None or cur.rank == 0
+        u = whole_blocks(u[:, :1])
         if self.mg_bc == "multipole":
             self._multipole_setup(u)
         rhs_levels = self._make_rhs_levels(u)
@@ -1001,18 +1020,21 @@ class MGPoisson:
         top = len(self.boxes)
         d = float(self._composite_defect(levels, rhs_levels))
         hist = [d]
-        print(f"MG initial defect = {d:.15e}")
+        if loud:
+            print(f"MG initial defect = {d:.15e}")
         n = 0
         max_it = self.niter if self.niter > 0 else 40
         while n < max_it:
             levels = self._vcycle_box(top, levels, rhs_levels)
             d = float(self._composite_defect(levels, rhs_levels))
             hist.append(d)
-            if self.show_defect >= 2:
+            if self.show_defect >= 2 and loud:
                 print(f"MG iteration {n}: defect = {d:.15e}")
             n += 1
             if self.eps >= 0.0 and d <= self.eps:
                 break
-        print(f"MGGravityDriver::Solve: Final defect norm = {d:.15e}")
+        if loud:
+            print("MGGravityDriver::Solve: Final defect norm = "
+                  f"{d:.15e}")
         self._last_phi = self._levels_to_blocks(levels, u.dtype)
         return hist

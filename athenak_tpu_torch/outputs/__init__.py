@@ -574,9 +574,14 @@ class CCEOutput:
     def maybe_write(self, mesh, state, force: bool = False) -> None:
         if not (force or self.due(mesh)):
             return
+        self.write(mesh, state)
+        self.last = float(np.float32(mesh.time))
+
+    def write(self, mesh, state) -> None:
+        """Every worldtube's dump of the whole state (under ranks rank
+        0's collected one; the other ranks' ``write`` does nothing)."""
         for wt in self.worldtubes:
             wt.dump(mesh, self.phys, state["u"])
-        self.last = float(np.float32(mesh.time))
 
     def restart_record(self):
         return {"cce_last": np.float64(self.last)}
@@ -616,13 +621,22 @@ class HorizonDumpOutput:
     def maybe_write(self, mesh, state, force: bool = False) -> None:
         if not (force or self.due(mesh)):
             return
+        counts = [hd.output_count for hd in self.dumps]
+        self.write(mesh, state)
+        # the dump counts advance on every rank, written or not
+        for hd, n in zip(self.dumps, counts):
+            hd.output_count = n + 1
+        self.last = float(np.float32(mesh.time))
+
+    def write(self, mesh, state) -> None:
+        """Every horizon's cube of the whole state (under ranks rank 0's
+        collected one; the other ranks' ``write`` does nothing)."""
         if self.nco > 0:
             pos = state["co_pos"].detach().to(
                 device="cpu", dtype=torch.float64).numpy()
         for n, hd in enumerate(self.dumps):
             hd.dump(mesh, self.phys, state["u"],
                     center=pos[n] if n < self.nco else None)
-        self.last = float(np.float32(mesh.time))
 
     def restart_record(self):
         return {"horizon_last": np.float64(self.last),

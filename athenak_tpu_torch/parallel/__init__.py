@@ -5,8 +5,8 @@ Counterpart of ``athenak_tpu/parallel/__init__.py`` (reference:
 src/mesh/load_balance.cpp:38-90, src/bvals/bvals_cc.cpp:42-289).  The
 reference's only parallelism is MPI ranks over MeshBlocks; the JAX
 package maps it to ``shard_map`` over a 1-D device mesh, and the port to
-one process a rank.  Each rank holds its own blocks, padded to an equal
-count L (``shard_comm.ShardLayout``), runs the driver's cycle on them and
+one process a rank.  Each rank holds its own blocks
+(``shard_comm.ShardLayout``), runs the driver's cycle on them and
 moves donor slabs to the ranks that need them as per-peer packed
 point-to-point messages (``shard_comm.ShardComm``); dt is an all-reduce
 MIN and the counters an all-reduce SUM.
@@ -67,10 +67,11 @@ class Ranks:
         self.staged = backend == "gloo" and self.device.type == "cuda"
         self._pinned: Dict[tuple, torch.Tensor] = {}
         # what moved: bytes this rank sent point to point, the exchanges
-        # it took part in and its all-gathers
+        # it took part in, its all-gathers and the bytes it gave them
         self.sent_bytes = 0
         self.exchanges = 0
         self.gathers = 0
+        self.gathered_bytes = 0
 
     # -- construction ----------------------------------------------------
     @classmethod
@@ -178,12 +179,14 @@ class Ranks:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Concatenate every rank's equal-shaped ``t`` along axis 0, in
-        rank order, on every rank (a tree update's redistribution and the
-        AMR flags; never inside a cycle)."""
+        rank order, on every rank (a tree update's redistribution, the
+        AMR flags, and in a cycle the source of a whole-mesh solve,
+        ``comm.whole_blocks``)."""
         src = self._wire(t)
         parts = [torch.empty_like(src) for _ in range(self.world)]
         dist.all_gather(parts, src, group=self.group)
         self.gathers += 1
+        self.gathered_bytes += src.numel() * src.element_size()
         return torch.cat(parts, 0).to(t.device)
 
     def barrier(self) -> None:
@@ -220,8 +223,9 @@ def rank_device(backend: str, rank: int, world: int,
 def check_divisible(nmb_total: int, world: int) -> None:
     """Every rank needs a block (reference: src/mesh/load_balance.cpp:
     55-63 imposes nmb >= nranks).  The JAX package's check asks for a
-    count the devices divide, for its NamedSharding path; the port pads
-    any count to a multiple (``shard_comm.ShardLayout``)."""
+    count the devices divide, for its NamedSharding path; the port gives
+    the ranks counts that differ by at most one
+    (``shard_comm.ShardLayout``)."""
     if nmb_total < world:
         raise ValueError(
             f"nmb_total={nmb_total} blocks cannot cover {world} ranks; "
@@ -238,25 +242,31 @@ def tree_map(fn, tree):
 
 def block_leaf(key, a, n) -> bool:
     """Whether state entry ``key``'s tensor ``a`` is split along the
-    block axis (its leading extent ``n``)."""
+    block axis (its leading extent ``n``).  The particle arrays
+    (``prtcl_*``) and ``REPLICATED_KEYS`` never are, by key, so a
+    particle count equal to a block count is no ambiguity."""
     return (key not in REPLICATED_KEYS and isinstance(a, torch.Tensor)
             and a.ndim >= 1 and a.shape[0] == n
             and not key.startswith("prtcl_"))
 
 
 def shard_state(state, comm):
-    """The rank's rows of every block leaf of a padded state and its
-    share of the particle arrays (``prtcl_*``, split evenly); the small
-    leaves (the tracker positions ``co_pos``, the turbulence key, the
-    time) stay whole on every rank."""
-    lo = comm.rank * comm.L
-
+    """The rank's rows of every block leaf of a global state in gid order
+    (``comm.local_gids``) and its share of the particle arrays
+    (``prtcl_*``: ``comm.Lp`` = ceil(nprtcl / world) slots a rank in
+    particle order; where the ranks do not divide the count, the last
+    rank's tail slots clone particle 0 and are dead,
+    ``comm.prtcl_alive``); the small leaves (the tracker positions
+    ``co_pos``, the turbulence key, the time) stay whole on every rank.
+    Particle arrays are told from block arrays by their key, whatever
+    their length."""
     def keep(key, a):
-        if block_leaf(key, a, comm.nmb_pad):
-            return a[lo:lo + comm.L].clone()
         if key.startswith("prtcl_"):
-            n = comm.nprtcl // comm.world
-            return a[comm.rank * n:(comm.rank + 1) * n].clone()
+            p0, n = comm.rank * comm.Lp, comm.Lp
+            rows = torch.arange(p0, p0 + n, device=a.device)
+            return a[torch.where(rows < a.shape[0], rows, 0)]
+        if block_leaf(key, a, comm.nmb):
+            return a[torch.as_tensor(comm.local_gids, device=a.device)]
         return a
 
     return {k: tree_map(lambda a, k=k: keep(k, a), v)

@@ -4,13 +4,13 @@ Counterpart of ``athenak_tpu/parallel/shard_comm.py`` (reference: the
 rank-packed MPI messages of src/bvals/bvals_cc.cpp:42-255,
 bvals.hpp:104-172).  Design:
 
-  * Blocks are Z-ordered and assigned contiguously: rank r owns the pool
-    slots ``[r*L, (r+1)*L)`` (the reference's ``Mesh::LoadBalance``
-    ranges, load_balance.cpp:38-90).  With uniform costs gid g sits in
-    slot g and the pool's tail is padding; with ``mesh.cost_eachmb``
-    uneven, the cost-weighted assignment decides each rank's count and
-    every rank's range is padded to the largest, L.  Pad slots clone
-    block 0 and evolve as isolated periodic boxes.
+  * Blocks are Z-ordered and assigned contiguously in gid order (the
+    reference's ``Mesh::LoadBalance`` ranges, load_balance.cpp:38-90):
+    as evenly as the count allows for uniform costs, by the cost-weighted
+    assignment with ``mesh.cost_eachmb`` uneven.  A rank holds its own
+    blocks and no pad (the JAX package pads every rank to the largest
+    count for ``shard_map``; here a pad's dt and floor counts would enter
+    the MIN and the SUM), so a rank's count may differ from another's.
   * Every block-axis movement of the port is a gather with a host gid map
     (``comm.BlockTables.gather``: same-level halo donors, the
     mixed-level fine and coarse donors, EMF and flux-correction
@@ -23,6 +23,13 @@ bvals.hpp:104-172).  Design:
     device.  Duplicated donors are packed twice, unused slabs never sent.
   * Per-block tables (physical-BC masks, parity tables, dx, geometry) are
     read through ``comm.local_blocks``, which hands each rank its rows.
+  * A module that solves on the whole mesh (the self-gravity FFT and
+    multigrid) reads its source through ``comm.whole_blocks``, one
+    all-gather of every rank's rows into gid order, and keeps its own
+    rows of the result (``comm.own_blocks``): what XLA's SPMD
+    partitioner inserts on the JAX package's NamedSharding gather path,
+    written out.  Every rank does the same float work on the same data,
+    so a split run stays bitwise its one-rank run.
 
 The volume a fill moves is one ng-thick slab a block face whose neighbour
 lies on another rank, the reference's MPI traffic.
@@ -40,15 +47,16 @@ from ..comm import use_comm
 from . import block_leaf, check_divisible, tree_map
 
 
-def padded_nmb(nmb_total: int, world: int) -> int:
-    """Pool capacity: the smallest multiple of ``world`` >= nmb_total."""
-    return world * math.ceil(nmb_total / world)
-
-
 class ShardLayout:
-    """gid <-> pool-slot map for one world size (the JAX package's
-    ``ShardLayout``): the identity layout for uniform costs, else the
-    cost-weighted contiguous assignment padded to the largest rank."""
+    """gid <-> slot map for one world size.  Blocks are assigned
+    contiguously in gid order: for uniform costs as evenly as the count
+    allows (the first ``nmb % world`` ranks one block more), else by the
+    cost-weighted assignment of ``mesh.load_balance``.  Rank r holds
+    ``nmb_eachrank[r]`` blocks, gids from ``first_gid[r]`` on; its slots
+    are ``r * L + [0, nmb_eachrank[r])``, L the largest count, so that an
+    all-gather of every rank's rows padded to L reads back by
+    ``slot_of_gid``.  No rank computes on a pad: a rank holds its own
+    blocks and nothing else."""
 
     def __init__(self, mesh, world: int) -> None:
         from ..mesh import load_balance
@@ -60,24 +68,19 @@ class ShardLayout:
                           dtype=np.float64)
         self.nmb = nmb
         self.world = world
-        if bool(np.all(cost == cost[0])):
-            self.rank_eachmb = np.minimum(
-                np.arange(nmb) // math.ceil(nmb / world), world - 1)
-            self.L = math.ceil(nmb / world)
-            self.slot_of_gid = np.arange(nmb, dtype=np.int64)
-            self.identity = True
+        self.uniform = bool(np.all(cost == cost[0]))
+        if self.uniform:
+            counts = nmb // world + (np.arange(world) < nmb % world)
+            self.rank_eachmb = np.repeat(np.arange(world), counts)
         else:
-            self.rank_eachmb, gids_each, nmb_each = load_balance(cost,
-                                                                 world)
-            self.L = int(nmb_each.max())
-            self.slot_of_gid = (self.rank_eachmb * self.L
-                                + np.arange(nmb, dtype=np.int64)
-                                - gids_each[self.rank_eachmb])
-            self.identity = False
-        self.nmb_pad = self.L * world
-        self.gid_of_slot = np.full(self.nmb_pad, -1, dtype=np.int64)
-        self.gid_of_slot[self.slot_of_gid] = np.arange(nmb)
+            self.rank_eachmb = load_balance(cost, world)[0]
         self.nmb_eachrank = np.bincount(self.rank_eachmb, minlength=world)
+        self.first_gid = np.concatenate(
+            [[0], np.cumsum(self.nmb_eachrank)[:-1]]).astype(np.int64)
+        self.L = int(self.nmb_eachrank.max())
+        self.slot_of_gid = (self.rank_eachmb * self.L
+                            + np.arange(nmb, dtype=np.int64)
+                            - self.first_gid[self.rank_eachmb])
         self.cost_eachrank = np.bincount(self.rank_eachmb, weights=cost,
                                          minlength=world)
         # the reference's load-balance figure (driver.cpp:425-432): the
@@ -85,6 +88,10 @@ class ShardLayout:
         total = float(self.cost_eachrank.sum())
         self.lb_efficiency = total / (world * float(
             self.cost_eachrank.max())) if total > 0 else 1.0
+
+    def gids(self, rank: int) -> np.ndarray:
+        """The gids rank ``rank`` holds, in order."""
+        return self.first_gid[rank] + np.arange(self.nmb_eachrank[rank])
 
 
 def shard_layout(mesh, world: int) -> ShardLayout:
@@ -96,47 +103,14 @@ def shard_layout(mesh, world: int) -> ShardLayout:
     return lay
 
 
-def pad_state(state, layout: ShardLayout):
-    """Every [nmb, ...] leaf arranged into the [nmb_pad] pool, pad slots
-    cloning block 0."""
-    if layout.nmb_pad == layout.nmb and layout.identity:
-        return state
-    rows = np.where(layout.gid_of_slot >= 0, layout.gid_of_slot, 0)
-
-    def pad(key, a):
-        if not block_leaf(key, a, layout.nmb):
-            return a
-        return torch.index_select(a, 0, torch.as_tensor(rows,
-                                                        device=a.device))
-
-    return {k: tree_map(lambda a, k=k: pad(k, a), v)
-            for k, v in state.items()}
-
-
-def unpad_state(state, layout: ShardLayout):
-    """A [nmb_pad] pool state back in gid order."""
-    if layout.nmb_pad == layout.nmb and layout.identity:
-        return state
-    idx = layout.slot_of_gid
-
-    def unpad(key, a):
-        if not block_leaf(key, a, layout.nmb_pad):
-            return a
-        return torch.index_select(a, 0, torch.as_tensor(idx,
-                                                        device=a.device))
-
-    return {k: tree_map(lambda a, k=k: unpad(k, a), v)
-            for k, v in state.items()}
-
-
 class _Route:
     """The packed exchange of one gid map ``idx`` (out[g] = in[idx[g]])
     seen from rank ``rank``.
 
-    send[p]   local slab indices packed for peer p, in the order of the
-              receiving slots
+    send[p]   local block indices packed for peer p, in the order of its
+              receiving blocks
     recv[q]   how many slabs peer q sends here
-    src_slot  [L]: where local slot i finds its donor in
+    src_slot  [n]: where local block i finds its donor in
               cat([local slabs] + [received from q, ascending q])
     """
 
@@ -145,29 +119,24 @@ class _Route:
         if idx.shape != (layout.nmb,):
             raise ValueError(f"a block gid map has shape ({layout.nmb},), "
                              f"got {idx.shape}")
-        L, world = layout.L, layout.world
-        # gid-space donor map -> slot space; pads donate to themselves
-        perm = np.arange(layout.nmb_pad, dtype=np.int64)
-        real = layout.gid_of_slot >= 0
-        perm[real] = layout.slot_of_gid[idx[layout.gid_of_slot[real]]]
-        owner = perm // L
+        owner = layout.rank_eachmb[idx]          # the donor's rank
+        local = idx - layout.first_gid[owner]    # its index there
         self.send = {}
-        for p in range(world):
+        for p in range(layout.world):
             if p == rank:
                 continue
-            sl = slice(p * L, (p + 1) * L)
-            mine = owner[sl] == rank
+            recv = layout.gids(p)
+            mine = owner[recv] == rank
             if mine.any():
-                self.send[p] = (perm[sl][mine] % L).astype(np.int64)
-        sl = slice(rank * L, (rank + 1) * L)
-        own, dn = owner[sl], perm[sl] % L
+                self.send[p] = local[recv][mine].astype(np.int64)
+        own = layout.gids(rank)
         self.recv = {}
-        src = np.empty(L, dtype=np.int64)
-        off = L
-        for q in range(world):
-            pick = own == q
+        src = np.empty(len(own), dtype=np.int64)
+        off = len(own)
+        for q in range(layout.world):
+            pick = owner[own] == q
             if q == rank:
-                src[pick] = dn[pick]
+                src[pick] = local[own][pick]
                 continue
             n = int(pick.sum())
             if n:
@@ -176,7 +145,7 @@ class _Route:
                 off += n
         self.src_slot = src
         self.identity = (not self.recv and not self.send
-                         and np.array_equal(src, np.arange(L)))
+                         and np.array_equal(src, np.arange(len(own))))
         self._dev = {}
 
     def tensors(self, device):
@@ -201,14 +170,17 @@ class ShardComm:
         self.rank = ranks.rank
         self.world = ranks.world
         self.nmb = mesh.nmb_total
-        self.nmb_pad = self.layout.nmb_pad
         self.L = self.layout.L
+        # the blocks this rank holds
+        self.local_gids = self.layout.gids(self.rank)
+        self.n = len(self.local_gids)
+        # the particle axis: ceil(nprtcl / world) slots a rank, the last
+        # rank's tail dead (``prtcl_alive``)
         self.nprtcl = nprtcl
-        gos = self.layout.gid_of_slot[self.rank * self.L:
-                                      (self.rank + 1) * self.L]
-        self.local_gids = gos            # -1 in pad slots
+        self.Lp = math.ceil(nprtcl / self.world)
         self._routes: Dict[int, tuple] = {}
-        self._rows: Dict[tuple, tuple] = {}
+        self._rows: Dict[int, tuple] = {}
+        self._idx: Dict[tuple, torch.Tensor] = {}
 
     # -- arbitrary block gather ------------------------------------------
     def route(self, idx) -> _Route:
@@ -220,8 +192,8 @@ class ShardComm:
         return hit[1]
 
     def gather(self, slab, idx):
-        """slab: this rank's donor slabs [L, ...]; returns [L, ...] with
-        out[slot of gid g] = global_slab[idx[g]]."""
+        """slab: this rank's donor slabs [n, ...]; returns [n, ...] with
+        out[local index of gid g] = global_slab[idx[g]]."""
         route = self.route(idx)
         if route.identity:
             return slab
@@ -237,33 +209,54 @@ class ShardComm:
         return torch.index_select(allbuf, 0, src)
 
     # -- per-block host tables -------------------------------------------
-    def local_rows(self, tab, pad_edge: bool):
-        """This rank's [L, ...] rows of a [nmb, ...] table (numpy or a
-        tensor), made once a table; pad rows copy row 0 (``pad_edge``,
-        geometry) or are zero (masks: pads take no physical BCs)."""
+    def local_rows(self, tab):
+        """This rank's [n, ...] rows of a [nmb, ...] table (numpy or a
+        tensor), made once a table."""
         if tab.ndim < 1 or tab.shape[0] != self.nmb:
             return tab
-        key = (id(tab), pad_edge)
-        hit = self._rows.get(key)
+        hit = self._rows.get(id(tab))
         if hit is not None:
             return hit[1]
-        gos = self.local_gids
-        rows = np.where(gos >= 0, gos, 0)
         if isinstance(tab, torch.Tensor):
             out = torch.index_select(tab, 0, torch.as_tensor(
-                rows, device=tab.device))
-            if not pad_edge and (gos < 0).any():
-                keep = torch.as_tensor(gos >= 0, device=tab.device)
-                out = torch.where(keep.reshape((-1,) + (1,) * (
-                    out.ndim - 1)), out, torch.zeros_like(out))
+                self.local_gids, device=tab.device))
         else:
-            out = np.asarray(tab)[rows]
-            if not pad_edge:
-                out = np.where((gos >= 0).reshape(
-                    (-1,) + (1,) * (out.ndim - 1)), out,
-                    np.zeros_like(out))
-        self._rows[key] = (tab, out)
+            out = np.asarray(tab)[self.local_gids]
+        self._rows[id(tab)] = (tab, out)
         return out
+
+    def _index(self, name, make, device):
+        """A host index array (``make()``) on ``device``, copied once."""
+        key = (name, str(device))
+        hit = self._idx.get(key)
+        if hit is None:
+            hit = self._idx[key] = torch.as_tensor(make(), device=device)
+        return hit
+
+    def whole_blocks(self, x):
+        """This rank's [n, ...] rows -> every block's [nmb, ...] rows in
+        gid order on every rank (``comm.whole_blocks``): one all-gather
+        of every rank's rows padded to L, read back by ``slot_of_gid``."""
+        if self.n < self.L:
+            x = torch.cat([x, x.new_zeros((self.L - self.n,)
+                                          + tuple(x.shape[1:]))], 0)
+        allx = self.ranks.all_gather(x)
+        return torch.index_select(allx, 0, self._index(
+            "gid", lambda: self.layout.slot_of_gid, allx.device))
+
+    def own_blocks(self, x):
+        """Every block's [nmb, ...] rows in gid order -> this rank's
+        [n, ...] rows (``comm.own_blocks``)."""
+        return torch.index_select(x, 0, self._index(
+            "own", lambda: self.local_gids, x.device))
+
+    def prtcl_alive(self, device):
+        """[Lp] bool: the particle slots of this rank that hold a
+        particle (the last rank's tail is padding when the ranks do not
+        divide the count)."""
+        return self._index("alive", lambda: (
+            self.rank * self.Lp + np.arange(self.Lp)) < self.nprtcl,
+            device)
 
     # -- reductions --------------------------------------------------------
     def pmin(self, x):
@@ -276,25 +269,35 @@ class ShardComm:
     def collect(self, state, everywhere: bool = False):
         """The global state in gid order: on rank 0 (the others get None)
         or, with ``everywhere``, on every rank.  Used for outputs, the
-        returned state and a tree update, never inside a cycle."""
+        returned state and a tree update, never inside a cycle.  The
+        ranks' blocks in rank order are the blocks in gid order (the
+        assignment is contiguous)."""
+        counts = self.layout.nmb_eachrank
+
         def whole(key, a):
-            if not (block_leaf(key, a, self.L) or key.startswith("prtcl_")):
+            if key.startswith("prtcl_"):
+                # the particle slots in rank order, the dead tail dropped
+                a = self.ranks.all_gather(a) if everywhere \
+                    else self._to_root(a, [self.Lp] * self.world)
+                return None if a is None else a[:self.nprtcl]
+            if not block_leaf(key, a, self.n):
                 return a
-            return self.ranks.all_gather(a) if everywhere \
-                else self._to_root(a)
+            return self.whole_blocks(a) if everywhere \
+                else self._to_root(a, counts)
 
         out = {k: tree_map(lambda a, k=k: whole(k, a), v)
                for k, v in state.items()}
-        if not everywhere and self.rank != 0:
-            return None
-        return unpad_state(out, self.layout)
+        return out if everywhere or self.rank == 0 else None
 
-    def _to_root(self, a):
+    def _to_root(self, a, rows):
+        """Every rank's ``a`` concatenated in rank order on rank 0 (peer
+        q's has ``rows[q]`` rows); None elsewhere."""
         ranks = self.ranks
         if self.rank != 0:
             ranks.exchange({0: a}, {}, a.dtype, a.device)
             return None
-        got = ranks.exchange({}, {q: tuple(a.shape)
+        rest = tuple(a.shape[1:])
+        got = ranks.exchange({}, {q: (int(rows[q]),) + rest
                                   for q in range(1, self.world)},
                              a.dtype, a.device)
         return torch.cat([a] + [got[q] for q in range(1, self.world)], 0)
@@ -302,43 +305,23 @@ class ShardComm:
 
 # ---------------------------------------------------------------------------
 def unsupported(driver, state):
-    """None where the rank-split cycle covers the configuration (the JAX
-    package's ``supports_shard_cycle``: Hydro, MHD, Z4c, DynGRMHD,
-    Radiation, RadiationFluid and IonNeutral; uniform, SMR, and AMR
-    without the block pool; Newtonian, SR and GR, with diffusion, source
-    terms, FOFC, turbulence and drift particles), else what it does not
-    cover.  The JAX package runs those on its NamedSharding gather path;
-    PyTorch has no SPMD partitioner to stand in for XLA's, so under more
-    than one rank the port raises for them."""
-    phys = driver.phys
-    name = type(phys).__name__
+    """None where the rank-split cycle covers the configuration, else
+    what it does not cover.  It covers every physics that
+    ``main.make_physics`` builds (Hydro, MHD, Z4c, DynGRMHD, Radiation,
+    RadiationFluid, IonNeutral) with every module the JAX package runs
+    on more than one device: the ones of its shard cycle, and the ones
+    it leaves to its NamedSharding gather path, which the port writes
+    out as explicit collectives: self-gravity (the FFT and the multigrid
+    solve on the whole mesh, ``comm.whole_blocks``), the shearing box
+    (its ring remap through the exchange), the AMR block pool (a route
+    choice; a tree update redistributes as without it), user boundary
+    functions (each reads its tables through ``comm.local_blocks``), and
+    drift particles of any count (``shard_state``).  What is left is a
+    physics class this list does not name."""
+    name = type(driver.phys).__name__
     if name not in ("Hydro", "MHD", "Z4c", "DynGRMHD", "Radiation",
                     "RadiationFluid", "IonNeutral"):
         return f"the {name} physics"
-    if getattr(driver.mesh, "adaptive", False) \
-            and getattr(driver.mesh, "amr_pool", False):
-        return "the AMR block pool (mesh_refinement/block_pool = true)"
-    for mod, what in (("psbox", "the shearing box"),
-                      ("pgrav", "self-gravity")):
-        if getattr(phys, mod, None) is not None:
-            return what
-    bvals = getattr(phys, "bvals", None)
-    if bvals is None:
-        return "a physics without block boundaries"
-    ubc = bvals.user_bc_func
-    if ubc is not None and not getattr(ubc, "shard_safe", False):
-        # user BCs closing over [nmb] arrays must read them through
-        # comm.local_blocks and say so with `fn.shard_safe = True`
-        return "a user boundary function without shard_safe"
-    ppart = getattr(phys, "ppart", None)
-    if ppart is not None:
-        world = driver.ranks.world
-        nmb = driver.mesh.nmb_total
-        if ppart.nprtcl % world != 0 or ppart.nprtcl in (
-                nmb, padded_nmb(nmb, world)):
-            return (f"{ppart.nprtcl} particles on {world} ranks (the "
-                    "particle axis splits evenly and apart from the "
-                    "block axis)")
     return None
 
 

@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from ..comm import local_blocks
 from ..indices import IDN, IEN, IM1, IM2, IM3
 from . import state_from_prims
 
@@ -122,7 +123,9 @@ def init(pin, mesh, phys):
 
     def jeans_refinement(state, mesh):
         """Flags from the Jeans number of each block (over the whole
-        block, ghosts included, as the JAX package reads it)."""
+        block, ghosts included, as the JAX package reads it), for the
+        state's blocks (one rank's rows under ranks: the cell sizes are
+        read through ``local_blocks``)."""
         rho = state["u"][:, IDN]
         rho_max = rho.amax(dim=(1, 2, 3)).cpu().numpy()
         v_eff = np.full(rho.shape[0], cs)
@@ -130,7 +133,7 @@ def init(pin, mesh, phys):
             bsq = (state["bcc"] ** 2).sum(dim=1)
             v_eff = cs + np.sqrt(
                 (bsq / rho).amax(dim=(1, 2, 3)).cpu().numpy())
-        dx = np.asarray(mesh.mb_size["dx1"])
+        dx = np.asarray(local_blocks(mesh.mb_size["dx1"]))
         nj = v_eff / np.sqrt(np.maximum(rho_max, 1e-300)) \
             * (2.0 * math.pi / dx)
         flags = np.zeros(rho.shape[0], dtype=np.int64)
@@ -157,7 +160,8 @@ def _barotropic(mesh, gm1, rhocrit, rc, centre, needs_bcc):
 
     def outside(like):
         """[nmb, n3, n2, n1] True outside the cloud, on ``like``'s device
-        (made once a tree)."""
+        (made once a tree for every block, read as the running cycle's
+        rows)."""
         key = (str(like.device), like.dtype)
         if key not in bound["outside"]:
             m = bound["mesh"]
@@ -175,7 +179,7 @@ def _barotropic(mesh, gm1, rhocrit, rc, centre, needs_bcc):
                                        device=like.device)
             r2 = (t(xv) - xc) ** 2 + (t(yv) - yc) ** 2 + (t(zv) - zc) ** 2
             bound["outside"][key] = r2 > rc * rc
-        return bound["outside"][key]
+        return local_blocks(bound["outside"][key])
 
     def barotropic(u, wprim, beta_dt, bcc=None):
         out = outside(u)

@@ -353,7 +353,7 @@ def init(pin, mesh, phys):
 
     def steady_bc(u, bv):
         return torch.where(local_blocks(gmask_t),
-                           local_blocks(u_init, pad_edge=True), u, out=u)
+                           local_blocks(u_init), u, out=u)
 
     steady_bc.shard_safe = True
     phys.bvals.user_bc_func = steady_bc

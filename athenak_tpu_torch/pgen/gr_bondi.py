@@ -201,7 +201,7 @@ def init(pin, mesh, phys):
 
     def bondi_bc(uu, bv):
         return torch.where(local_blocks(mask),
-                           local_blocks(u_fixed, pad_edge=True), uu, out=uu)
+                           local_blocks(u_fixed), uu, out=uu)
 
     bondi_bc.shard_safe = True
     phys.bvals.user_bc_func = bondi_bc

@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from ..comm import local_blocks
 from ..indices import IDN, IEN, IVX, IVY, IVZ
 from . import to_device
 
@@ -110,15 +111,17 @@ def init(pin, mesh, phys):
 def _jeans_refinement(state, mesh):
     """nJ = 2 pi cs / (dx sqrt(4 pi G rho_max)) a block: refine below
     problem/njeans_amr, derefine above njeans_amr * njeans_derefine
-    (jeans_wave.cpp JeansWaveRefinement)."""
+    (jeans_wave.cpp JeansWaveRefinement).  The flags of the state's
+    blocks (one rank's rows under ranks: the cell sizes are read through
+    ``local_blocks``)."""
     mbi = mesh.mb_indcs
     rho = state["u"][:, IDN, mbi.ks:mbi.ke + 1, mbi.js:mbi.je + 1,
                      mbi.is_:mbi.ie + 1]
     rho_max = rho.amax(dim=(1, 2, 3)).cpu().numpy()
-    dx = np.asarray(mesh.mb_size["dx1"])
+    dx = np.asarray(local_blocks(mesh.mb_size["dx1"]))
     nj = 2.0 * math.pi * _P["cs"] / (dx * np.sqrt(_P["four_pi_G"]
                                                   * rho_max))
-    flags = np.zeros(mesh.nmb_total, dtype=np.int64)
+    flags = np.zeros(rho.shape[0], dtype=np.int64)
     flags[nj < _P["njeans_amr"]] = 1
     flags[nj > _P["njeans_amr"] * _P["njeans_deref"]] = -1
     return flags

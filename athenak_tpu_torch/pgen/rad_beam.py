@@ -97,7 +97,7 @@ def beam_table(rad, gl, e, dx, dvec, width, spread, dii_dt):
 def zero_bc_hook(mesh, rad, axes):
     """A user boundary function that zeroes the ghosts of the user sides
     of ``axes``, in place (reference: ZeroIntensity).  The mask is read
-    through ``local_blocks`` (pad blocks zero nothing), so the hook also
+    through ``local_blocks``, so the hook also
     runs on one rank's blocks (JAX rad_beam.py:103-108)."""
     mask = side_mask(mesh, user_sides(mesh, axes), rad.device)
 

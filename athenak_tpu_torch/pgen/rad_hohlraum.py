@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..comm import local_blocks
 from .rad_beam import side_mask
 
 
@@ -22,8 +23,12 @@ def init(pin, mesh, phys):
     mask = side_mask(mesh, ("x1m",), phys.device) & nx_pos
     beam_i0 = phys.n0 * phys.n_0 * ibeam
 
+    # the [nmb, ...] tables are read through local_blocks, so the hook
+    # also runs on one rank's blocks
     def hohlraum_bc(u, bv):
-        return torch.where(mask, beam_i0, u, out=u)
+        return torch.where(local_blocks(mask),
+                           local_blocks(beam_i0), u, out=u)
 
+    hohlraum_bc.shard_safe = True
     phys.bvals.user_bc_func = hohlraum_bc
     return phys.make_state(i0)

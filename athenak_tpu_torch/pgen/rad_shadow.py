@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..comm import local_blocks
 from ..indices import IDN, IEN, IVX, IVY, IVZ
 from . import to_device
 from .rad_beam import side_mask
@@ -53,13 +54,17 @@ def init(pin, mesh, phys):
 
     def shadow_bc(q, bv):
         # every filled array comes here: the channel count tells them
-        # apart
+        # apart; the [nmb, ...] tables are read through local_blocks, so
+        # the hook also runs on one rank's blocks
         if q.dim() == 5 and q.shape[1] == rad.nangles:
-            return torch.where(gmask, beam_i0, q, out=q)
+            return torch.where(local_blocks(gmask),
+                               local_blocks(beam_i0), q,
+                               out=q)
         if q.dim() == 5 and q.shape[1] == phys.nvar:
-            return torch.where(ghosts, uin, q, out=q)
+            return torch.where(local_blocks(ghosts), uin, q, out=q)
         return q
 
+    shadow_bc.shard_safe = True
     phys.bvals.user_bc_func = shadow_bc
     wt = to_device(phys, w)
     return phys.make_state(phys.prim_to_cons(wt), wt, i0)

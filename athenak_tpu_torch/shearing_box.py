@@ -45,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .comm import LocalAttr, local_blocks
 from .indices import IDN, IEN, IM1, IM2, IM3, IVX, IVY, IVZ
 
 _TINY = 1.0e-300
@@ -95,7 +96,20 @@ def _remap_flux(ext, eps, axis: int):
 
 
 class ShearingBox:
-    """The ``<shearing_box>`` block of a hydro or MHD deck."""
+    """The ``<shearing_box>`` block of a hydro or MHD deck.  On one
+    rank's blocks of a group the per-block tables are read as the rank's
+    rows (``comm.LocalAttr``, ``comm.local_blocks``), the remaps' donor
+    slabs come through the rank exchange (every ring column and x2
+    neighbour is a gid map, ``BlockTables.gather``), and the host check
+    of the shift reads every block's table, so each rank raises alike."""
+
+    # per-block tables [nmb, ...], read as the running cycle's rows
+    _xc = LocalAttr()
+    _xf = LocalAttr()
+    _zc = LocalAttr()
+    _dyb = LocalAttr()
+    _qo_xv = LocalAttr()
+    _qo_xf = LocalAttr()
 
     def __init__(self, pin, mesh, device, dtype) -> None:
         self.mesh = mesh
@@ -182,7 +196,10 @@ class ShearingBox:
                         l3 = int(mesh.lloc_eachmb[g][2])
                         for yi in range(n2b):
                             ring[g, yi] = loc2gid[(lv, src_lx1, yi, l3)]
-                    cols = [np.ascontiguousarray(ring[:, yi])
+                    # the gathers' maps: a block off this level's
+                    # boundary column reads its own slab (masked out
+                    # after), so under ranks no slab moves for it
+                    cols = [np.where(lmask, ring[:, yi], np.arange(nmb))
                             for yi in range(n2b)]
                     groups.append((lv, ring, lmask, cols))
                 if groups:
@@ -424,7 +441,8 @@ class ShearingBox:
                 device):
         """Each block's window [lx2*nx2 + lo, lx2*nx2 + hi) of global-y
         samples of a ring of ``n2b`` blocks (periodic), shaped for a
-        gather along ``ja``; made once a shape and device."""
+        gather along ``ja``; made once a shape and device for every
+        block, read as the running cycle's rows."""
         key = (lo, hi, n2b, ndim, ja, str(device))
         if key not in self._win:
             nx2 = self.mesh.mb_indcs.nx2
@@ -435,7 +453,7 @@ class ShearingBox:
                 + (1,) * (ndim - 1 - ja)
             self._win[key] = torch.as_tensor(
                 win, dtype=torch.int64, device=device).reshape(shape)
-        return self._win[key]
+        return local_blocks(self._win[key])
 
     def _ring_remap(self, u, side: str, s_phys, slab, ja: int,
                     win_lo: int, win_hi: int):

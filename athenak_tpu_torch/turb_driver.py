@@ -130,10 +130,10 @@ class TurbulenceDriver:
         b = (b - kv * torch.sum(kv * b, dim=1, keepdim=True) / ksq) \
             * nrm[:, None]
 
-        # the running cycle's blocks (pads clone block 0's coordinates)
-        xc = local_blocks(self._table("xc", dtype), pad_edge=True)
-        yc = local_blocks(self._table("yc", dtype), pad_edge=True)
-        zc = local_blocks(self._table("zc", dtype), pad_edge=True)
+        # the running cycle's blocks
+        xc = local_blocks(self._table("xc", dtype))
+        yc = local_blocks(self._table("yc", dtype))
+        zc = local_blocks(self._table("zc", dtype))
         force = torch.zeros((xc.shape[0],) + self.shape[1:], dtype=dtype,
                             device=self.device)
         for m in range(self.nmode):
@@ -165,7 +165,6 @@ class TurbulenceDriver:
         dact = (slice(None), slice(mbi.ks, mbi.ke + 1),
                 slice(mbi.js, mbi.je + 1), slice(mbi.is_, mbi.ie + 1))
         den_a = den[dact]
-        # pad blocks weigh nothing in the integrals
         wv = local_blocks(self._table("wvol", dtype))
 
         # remove net momentum injection (reference: turb_driver.cpp:717-755)

@@ -496,7 +496,7 @@ class Z4c:
             ch[:, 4] = np.broadcast_to(zc / r, (nmb, n3, n2, n1))
             self._sbc_dev[key] = torch.as_tensor(ch, dtype=dtype,
                                                  device=device)
-        return local_blocks(self._sbc_dev[key], pad_edge=True)
+        return local_blocks(self._sbc_dev[key])
 
     def stage_update(self, state, saved, gam0, gam1, beta_dt, tmunu=None):
         """One RK stage: RHS -> update -> halo -> algebraic constraints

@@ -53,19 +53,15 @@ def device_interp(mesh, u, chans: List[int], pos):
     the mesh's upper faces is pulled inside first).  On one rank's blocks
     of a group (``comm.use_comm``) the owning rank interpolates and a SUM
     all-reduce hands every rank the values (JAX z4c_amr.py:41-100): the
-    boxes are half-open and pads own nothing, so exactly one rank adds
-    each point's values to zeros."""
+    boxes are half-open and each block is on one rank, so exactly one
+    rank adds each point's values to zeros."""
     mbi = mesh.mb_indcs
     dt = u.dtype
-    lo, hi, dx, top = (local_blocks(t, pad_edge=True) for t in
+    lo, hi, dx, top = (local_blocks(t) for t in
                        _interp_tables(mesh, u.device, dt))
     pos = torch.minimum(pos.to(dt), top)
     inside = ((pos[:, None, :] >= lo[None]) & (pos[:, None, :] < hi[None])
               ).all(dim=-1)                                     # [np, nmb]
-    cc = current_comm()
-    if cc is not None:
-        inside = inside & torch.as_tensor(cc.local_gids >= 0,
-                                          device=u.device)[None]
     gid = torch.argmax(inside.to(torch.int32), dim=1)           # [np]
     ng = mbi.ng
     ncell = (mbi.ncells1, mbi.ncells2, mbi.ncells3)
@@ -96,7 +92,7 @@ def device_interp(mesh, u, chans: List[int], pos):
                       * (w[1] if dj else 1.0 - w[1])
                       * (w[0] if di else 1.0 - w[0]))
                 out = out + wt[:, None] * c
-    if cc is not None:
+    if current_comm() is not None:
         own = inside.any(dim=1)
         out = global_sum(torch.where(own[:, None], out,
                                      torch.zeros_like(out)))

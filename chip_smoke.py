@@ -121,8 +121,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      HLLC, three ghost cells: no kernel).  The state must be finite and
      keep its mass to 1e-5, one more forcing must leave a net momentum
      below 1e-6 of |M|, and the two paths must be bitwise equal.  It
-     reports each path's zone-cycles/s (CUDA events, in turns) and the
-     parts of a cycle;
+     reports each path's zone-cycles/s (CUDA events over NCYC_TURNS
+     cycles, in turns) and the parts of a cycle;
  15. holds kernel J against its plain version on the 1-D ``bw`` row
      (``inputs/mhd/bw.athinput``, 260 cells with ghosts, with the
      Brio-Wu field under the keys the shock tube reads; as initialised
@@ -173,7 +173,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      one ``vtk`` dump.
  17. drives the adaptive decks through the CLI, kernel path and plain
      path (``<block>/use_kernels``), with the launch counts set to 0
-     just before each run and every tree update recorded:
+     just before each run and every tree update recorded, each run one
+     or two cycles past its last tree update (``AMR_RUNS``):
      ``inputs/mhd/blast_amr.athinput`` as shipped (64^3 root of 16^3
      blocks, the block-pool route: kernel J three times a stage and no
      other kernel, exact), with ``mesh_refinement/block_pool=false``
@@ -194,8 +195,8 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      state (f32 two-tier, f64 1e-10) and kernel H on the flat 64 x 8^3
      ng 4 pool (f32 2e-5, f64 1e-10); a ``-r`` restart of
      ``blast_amr`` (28 cycles straight against 14 + ``-r`` 14, bitwise;
-     the deck refines first at cycle 12); zone-cycles/s of both paths in
-     turns, the host ms of ``check_flags``, ``update_tree``, the
+     the deck refines first at cycle 12); zone-cycles/s of both paths
+     (wall clock of the CLI runs), the host ms of ``check_flags``, ``update_tree``, the
      rebuild and the remap of every tree update, and one stage's parts
      on the refined tree (``smr_stage_parts``).
  18. drives the binary-black-hole decks and the other Z4c decks of
@@ -208,17 +209,18 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      reads, BBH_FLAT; f32): kernel H against its plain version on the
      initialised state with noise at [1, 22, 136^3] (f32 2e-5, f64
      1e-10), kernel I bitwise, the ms of ``weyl_scalars`` and
-     ``adm_constraints``, 10 cycles on both paths (H and I 4 a cycle on
+     ``adm_constraints``, 4 cycles on both paths (H and I 4 a cycle on
      the kernel path, nothing on the plain one; the paths within
      Z4C_PATH_TOL, the trackers within 1e-4 of the separation and moved,
      ||H||_2 finite and grown less than 10x); ``bbh_amr`` (the deck as
-     shipped in f32, 5 cycles, a waveform row every 0.1): the same
+     shipped in f32, 2 cycles and two tree updates, a waveform row
+     every 0.1): the same
      trees on both paths, each
      update one level finer at both trackers, H 4 a cycle while flat,
      the paths within Z4C_PATH_TOL, at least two waveform rows; a ``-r``
      restart of the binary at 64^3 (10 straight against 5 + 5, u and
      co_pos bitwise); ``kerr_schild`` and ``one_puncture_ahf`` as
-     shipped in f32 (H and I once a stage) and ``FastFlow`` on
+     shipped in f32 for 4 cycles (H and I once a stage) and ``FastFlow`` on
      ``one_puncture_ahf``'s initial data at ``tests/test_ahf.py``'s
      64^3 on [-2, 2]^3 (M_irr within 0.01 of 1, mean radius within 0.03
      of 1/2); kernel B bitwise on 22 channels at [1, 22, 12, 12, 72]
@@ -441,6 +443,25 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      captures and replays, the ms of
      the copy of the state into the capture's buffers and out of them,
      and the peak memory of each run.
+ 27. the configurations the JAX package runs on its NamedSharding
+     gather path, split over ranks at the widths their decks are timed
+     at on one card, each as 8 blocks (``gather_jobs``): JEANS_BIG (the
+     FFT, 128 x 64 x 64 blocks), selfgravity 128^3 in float64 (the
+     multigrid, 64^3 blocks, 4 cycles), SBOX_WIDE (the shearing box,
+     64^3 blocks), AMR_WIDE with its block pool (20 cycles, two tree
+     updates), the shipped shadow (the user boundary, 16 x 64 blocks),
+     each on 2 gloo ranks on the card, and PART_BLAST (62^3 blocks,
+     190,471 particles) on 3.  In a lane (``split_gather``): each run
+     bitwise its one-rank run here (SHA-256 of every leaf, time,
+     counters, history, trees), every rank's gravity solves and
+     V-cycles the one-rank run's, every rank's launches as derived (J
+     on the shearing box and the pool, E and F on PART_BLAST as often
+     as on one rank; G and I never).  In the main process: each deck's
+     zone-cycles/s on one rank and on 2 gloo ranks (NCYC_GATHER_TIMED
+     cycles after a warm-up cycle, the slowest rank's), the bytes a rank
+     sends a cycle point to point and into all-gathers; with two cards
+     or more the decks on one rank a card under nccl, timed and bitwise
+     their one-rank runs.
 
 A run without outputs, verbose, AMR, driving or particles takes the
 batched window (``athenak_tpu_torch/driver.py``), from a CUDA graph
@@ -451,7 +472,7 @@ every replay), equal to an eager run's.
 The runs that time nothing (the JAX tests' bars of phases 19-23, the
 restarts of phases 16-19, the Bonnor-Ebert runs, phase 23's graph
 checks, shipped decks and restart, phase 24's checks, phase 25's
-decks, split pool and ``-p``, phase 26's checks) run in
+decks, split pool and ``-p``, phase 26's and phase 27's checks) run in
 ``LANES``: child processes on
 the card (``chip_smoke.py --lane NAME...``), started once phases 1-12
 and DYN_WIDE are done and running beside phases 13-22.  So the kernels'
@@ -526,6 +547,8 @@ HTURB8 = HTURB1 + ["meshblock/nx1=64", "meshblock/nx2=64",
 HBLAST = ["job/precision=single", "mesh/nx1=256", "mesh/nx2=256",
           "mesh/nx3=256"]
 NCYC_HYDRO = 10
+# the timed turns of phases 13 and 14 (after a warm-up cycle)
+NCYC_TURNS = 5
 # phase 15: the Newtonian MHD test decks at their shipped sizes, float32
 TAIL_DECKS = {
     "bw": os.path.join(ROOT, "inputs", "mhd", "bw.athinput"),
@@ -582,20 +605,23 @@ HYDRO_AMR = os.path.join(ROOT, "inputs", "hydro", "blast_hydro_amr.athinput")
 Z4C_AMR = os.path.join(ROOT, "inputs", "z4c", "one_puncture_amr.athinput")
 AMR_WIDE = ["mesh/nx1=128", "mesh/nx2=128", "mesh/nx3=128",
             "meshblock/nx1=32", "meshblock/nx2=32", "meshblock/nx3=32"]
-NCYC_AMR = 20
+NCYC_AMR = 16
 AMR_NOPOOL = ["mesh_refinement/block_pool=false"]
 # blast_amr's flat tree, where kernels A and G are checked: 4 cycles in
 AMR_FLAT_CYCLES = 4
 # (label, deck, physics block, cycles, overrides); blast_amr's density
-# passes value_max 1.5 at cycle 12 at 64^3 and later at 128^3
+# passes value_max 1.5 at cycle 12 at 64^3 (updates at cycles 12 and 14)
+# and at cycle 18 at 128^3 (18 and 20): those runs end two cycles after
+# their second update; hydro_amr_0.5 refines at cycle 5, z4c_amr at
+# cycles 1 and 2: those end one cycle after their last update
 AMR_RUNS = [
     ("blast_amr", BLAST_AMR, "mhd", NCYC_AMR, []),
     ("blast_amr_nopool", BLAST_AMR, "mhd", NCYC_AMR, AMR_NOPOOL),
-    ("blast_amr_128", BLAST_AMR, "mhd", 30, AMR_WIDE),
-    ("hydro_amr", HYDRO_AMR, "hydro", NCYC_AMR, ["job/precision=single"]),
-    ("hydro_amr_0.5", HYDRO_AMR, "hydro", NCYC_AMR,
+    ("blast_amr_128", BLAST_AMR, "mhd", 22, AMR_WIDE),
+    ("hydro_amr", HYDRO_AMR, "hydro", 6, ["job/precision=single"]),
+    ("hydro_amr_0.5", HYDRO_AMR, "hydro", 6,
      ["job/precision=single", "amr_criterion1/value_max=0.5"]),
-    ("z4c_amr", Z4C_AMR, "z4c", 6, ["job/precision=single"])]
+    ("z4c_amr", Z4C_AMR, "z4c", 3, ["job/precision=single"])]
 # phase 18: binary black holes and the other Z4c decks of inputs/z4c
 BBH = os.path.join(ROOT, "inputs", "z4c", "two_puncture_trackers.athinput")
 KERR = os.path.join(ROOT, "inputs", "z4c", "kerr_schild.athinput")
@@ -616,12 +642,16 @@ BBH_RST = [o for o in BBH_FLAT if "nx" not in o] + [
     f"{b}/nx{d}=64" for b in ("mesh", "meshblock") for d in (1, 2, 3)]
 # the shipped deck (tracker AMR to level 4), a waveform row every 0.1
 BBH_AMR = ["job/precision=single", "output1/dt=0.1"]
-NCYC_BBH = 10
-NCYC_BBH_AMR = 5
+NCYC_BBH = 4
+# the tracker AMR updates at every cycle: two updates
+NCYC_BBH_AMR = 2
 NCYC_BBH_RST = 10
-NCYC_Z4C_SLICE = 10
+NCYC_Z4C_SLICE = 4
+# the AwA decks: robust stability's noise is held to its bound after 10
+# cycles (it starts above it in f64: 1.1e-8 of 1e-8 after 6)
+NCYC_AWA = 10
 # numpy's half-sweeps of the SOR timed on the host (30 ms each at 64^3)
-BBH_SOR_HOST_ITERS = 200
+BBH_SOR_HOST_ITERS = 100
 # tests/test_ahf.py's mesh for the horizon finder: 64^3 on [-2, 2]^3
 AHF_FIND = ["mesh/nghost=4"] + [
     f"{b}/nx{d}=64" for b in ("mesh", "meshblock") for d in (1, 2, 3)] + [
@@ -1122,6 +1152,25 @@ def split_launches(split, calls: int):
     drops a few records: 19 of 20, 48 of 50), or None."""
     return None if split is None else sum(round(c / calls)
                                           for _, c, _ in split)
+
+
+def one_launch_split(torch, fn, calls: int, label: str, tries: int = 3):
+    """``device_split`` of fn where each call must be one device launch.
+    A profile that shows another count is taken again, up to ``tries``
+    times in all, since the profiler can drop or misattribute records of
+    a whole profile; the check fails if none shows one launch a call,
+    with every profile's rows in the message."""
+    seen = []
+    for _ in range(tries):
+        split = device_split(torch, fn, calls)
+        if split_launches(split, calls) in (None, 1):
+            if seen:
+                print(f"{label}: one device launch a call on profile "
+                      f"{len(seen) + 1}; earlier profiles {seen}")
+            return split
+        seen.append(split)
+    raise AssertionError(f"{label}: not one device launch a call in "
+                         f"{tries} profiles of {calls} calls: {seen}")
 
 
 def split_us(split, calls: int):
@@ -2186,11 +2235,9 @@ def phase_z4c_stage(torch, card, z4c_deck):
                 if not torch.equal(pad(ai, (ng,) * 6, mode="replicate"), a):
                     raise AssertionError("replicate pad differs from the "
                                          "outflow fill")
-                fill_split = device_split(
-                    torch, lambda: zs.outflow_fill(a, phys.bvals), 50)
-                if split_launches(fill_split, 50) not in (None, 1):
-                    raise AssertionError("z4c_outflow_fill: not one device "
-                                         "launch a call")
+                fill_split = one_launch_split(
+                    torch, lambda: zs.outflow_fill(a, phys.bvals), 50,
+                    "z4c_outflow_fill")
                 r["fill"] = {
                     "device_us": split_us(fill_split, 50),
                     "ms": cuda_ms(lambda: zs.outflow_fill(a, phys.bvals), 50),
@@ -2513,13 +2560,13 @@ def phase_smr_main(torch, kernels, card):
         rates = {}
         for use in ("true", "false", "true", "false"):
             rates.setdefault(use, []).append(
-                timed_cycles(torch, use, deck, NCYC_SMR, extra))
+                timed_cycles(torch, use, deck, NCYC_TURNS, extra))
         mbi = mesh.mb_indcs
         zones = mesh.nmb_total * mbi.nx1 * mbi.nx2 * mbi.nx3
         cycle_ms = [zones / r * 1e3 for r in rates["true"]]
         print(f"phase 13: [{card}] {label} kernel vs plain path after "
               f"{NCYC_SMR} cycles (share within {SMR_PATH_TOL[0]}, max "
-              f"scale-relative) {diff}; zone-cycles/s over {NCYC_SMR} "
+              f"scale-relative) {diff}; zone-cycles/s over {NCYC_TURNS} "
               f"cycles after a warm-up, kernel path {rates['true']}, plain "
               f"path {rates['false']} (CUDA events); kernel-path cycle "
               f"{cycle_ms} ms; one stage's parts, ms {parts}")
@@ -2599,13 +2646,13 @@ def phase_hydro_main(torch, kernels, card):
         rates = {}
         for use in ("true", "false", "true", "false"):
             rates.setdefault(use, []).append(timed_cycles(
-                torch, use, deck, NCYC_HYDRO, extra, block="hydro"))
+                torch, use, deck, NCYC_TURNS, extra, block="hydro"))
         mbi = mesh.mb_indcs
         zones = mesh.nmb_total * mbi.nx1 * mbi.nx2 * mbi.nx3
         cycle_ms = [zones / r * 1e3 for r in rates["true"]]
         print(f"phase 14: [{card}] {label} kernel and plain path bitwise "
               f"equal after {NCYC_HYDRO} cycles; zone-cycles/s over "
-              f"{NCYC_HYDRO} cycles after a warm-up, kernel path "
+              f"{NCYC_TURNS} cycles after a warm-up, kernel path "
               f"{rates['true']}, plain path {rates['false']} (CUDA "
               f"events); kernel-path cycle {cycle_ms} ms; ms per call on "
               f"the deck's state {parts}")
@@ -3640,14 +3687,9 @@ def phase_amr(torch, kernels, card):
                   f"fill, first dt, history rows before the first update)")
             kchecks.update(flat=amr_flat_checks(torch, card))
         rates = {"true": [ki["zcps"]], "false": [pi["zcps"]]}
-        if label == "blast_amr":
-            for use in ("true", "false"):
-                *_, d, _, _ = amr_cli(torch, kernels, deck, n, extra + [
-                    f"{block}/use_kernels={use}"])
-                rates[use].append(d.zcps)
         print(f"phase 17: [{card}] {label} kernel vs plain path {diff}; "
-              f"zone-cycles/s in turns (true, false, true, false; wall "
-              f"clock of the CLI run) kernel {rates['true']}, plain "
+              f"zone-cycles/s (wall clock of the CLI runs) kernel "
+              f"{rates['true']}, plain "
               f"{rates['false']}; one stage's parts on the final tree, ms "
               f"{parts}")
         out[label] = {"launches": ki["launches"], "rates": rates,
@@ -4097,9 +4139,9 @@ def awa_decks(torch, kernels, card, fill):
             ("robust_stability_f32", ROBUST, "single", "true", 3),
             ("robust_stability_f32", ROBUST, "single", "false", 3)):
         launches, mesh, phys, driver, state, _ = cli_run(
-            torch, kernels, deck, NCYC_Z4C_SLICE,
+            torch, kernels, deck, NCYC_AWA,
             [f"job/precision={prec}", f"z4c/use_kernels={use}"])
-        n = NCYC_Z4C_SLICE
+        n = NCYC_AWA
         expect = {}
         if use == "true" and prec == "single":
             expect["z4c_stage"] = nstage * n
@@ -4148,7 +4190,7 @@ def awa_decks(torch, kernels, card, fill):
           f"{h['bound'][0]:.6f}")
     for label in ("gauge_wave", "robust_stability_f32", "robust_stability"):
         r = out[label]
-        print(f"phase 18: {label} {NCYC_Z4C_SLICE} cycles, launches "
+        print(f"phase 18: {label} {NCYC_AWA} cycles, launches "
               f"{r['launches']}, kernel vs plain path "
               f"{r.get('path_diff', 'f64: plain path only')}, max|u - "
               f"Minkowski| {r['dev']}; [{card}] CLI zone-cycles/s "
@@ -6377,21 +6419,36 @@ def shard_job(torch, kernels, ranks, deck, extra, ncyc, keep=()):
     launches and, where the whole state is (one rank, or rank 0), its
     digests, the time, cycles, floor counts, the trees, the history file
     and the leaves named in ``keep`` (numpy)."""
+    from athenak_tpu_torch.driver import Driver
     from athenak_tpu_torch.main import run
     pin = pin_for(list(extra) + [f"time/nlim={ncyc}"], deck)
     cwd = os.getcwd()
+    # the gravity solves of the run's cycles (the generator's final
+    # report solves again, on rank 0 alone)
+    made = {}
+    execute = Driver.execute
+
+    def counted(self, *args, **kw):
+        out = execute(self, *args, **kw)
+        made["solves"] = solves(self)
+        return out
+
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
+        Driver.execute = counted
         try:
             mesh, phys, driver, state = run(pin, device="cuda", ranks=ranks)
             launches = {k.name: k.launches for k in kernels.ALL}
             hst = {f: open(f).read() for f in sorted(os.listdir("."))
                    if f.endswith(".hst")}
         finally:
+            Driver.execute = execute
             os.chdir(cwd)
-    rec = {"launches": launches,
+    rec = {"launches": launches, "solves": made["solves"],
+           # a captured window solves once more in its warm-up cycle
+           "captured": bool(driver.window and driver.window["captures"]),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     if state is None:
         return rec
@@ -6406,8 +6463,15 @@ def shard_job(torch, kernels, ranks, deck, extra, ncyc, keep=()):
     if ranks is not None:
         lay = driver._layout
         rec["layout"] = {"blocks_a_rank": lay.nmb_eachrank.tolist(),
-                         "L": lay.L, "identity": lay.identity}
+                         "L": lay.L, "uniform": lay.uniform}
     return rec
+
+
+def solves(driver):
+    """[solves, V-cycles] of the driver's gravity solver ([0, 0] without
+    one; the FFT takes no V-cycles)."""
+    pg = getattr(driver.phys, "pgrav", None)
+    return [getattr(pg, "nsolve", 0), getattr(pg, "ncycles", 0)]
 
 
 def shard_timed(torch, ranks, deck, extra, ncyc):
@@ -6426,6 +6490,7 @@ def shard_timed(torch, ranks, deck, extra, ncyc):
     dt = min(2.0 * dt, driver.cfl_no * float(dtnew))
     if ranks is not None:
         ranks.barrier()
+        b0, g0 = ranks.sent_bytes, ranks.gathered_bytes
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -6440,6 +6505,10 @@ def shard_timed(torch, ranks, deck, extra, ncyc):
     rec = {"sec": sec, "zcps": ncyc * mesh.nmb_total * mbi.nx1 * mbi.nx2
            * mbi.nx3 / sec}
     if ranks is not None:
+        # the bytes this rank sent a cycle: point to point (the slab
+        # exchange) and into all-gathers (a whole-mesh solve's source)
+        rec.update(cycle_sent_bytes=(ranks.sent_bytes - b0) / ncyc,
+                   cycle_gathered_bytes=(ranks.gathered_bytes - g0) / ncyc)
         u = state["u"].clone()
         with use_comm(driver.comm):
             phys.bvals.fill_ghosts(u)
@@ -6452,7 +6521,22 @@ def shard_timed(torch, ranks, deck, extra, ncyc):
         rec.update(fill_ms=1e3 * (time.perf_counter() - t) / 5,
                    fill_bytes=(ranks.sent_bytes - b0) // 5,
                    fill_exchanges=(ranks.exchanges - e0) // 5)
+        # one all-gather of the density of every block (what a gravity
+        # solve reads first, ``comm.whole_blocks``): five after one
+        rho = state["u"][:, :1].contiguous()
+        driver.comm.whole_blocks(rho)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            driver.comm.whole_blocks(rho)
+        torch.cuda.synchronize()
+        rec["gather_ms"] = 1e3 * (time.perf_counter() - t) / 5
     return rec
+
+
+#: what each rank reports of a timed run (``shard_timed``)
+TIMED_KEYS = ("sec", "fill_ms", "fill_bytes", "fill_exchanges",
+              "cycle_sent_bytes", "cycle_gathered_bytes", "gather_ms")
 
 
 def shard_rank(ranks, jobs, timed=False):
@@ -6469,24 +6553,23 @@ def shard_rank(ranks, jobs, timed=False):
             continue
         if timed:
             rec = shard_timed(torch, sub, deck, extra, ncyc)
-            row = [rec["sec"], rec["fill_ms"], rec["fill_bytes"],
-                   rec["fill_exchanges"]]
+            row = [rec[k] for k in TIMED_KEYS]
         else:
             rec = shard_job(torch, kernels, sub, deck, extra, ncyc,
                             keep=("u",) if label == "turb8" else ())
             row = [rec["launches"][k.name] for k in kernels.ALL] \
-                + [rec["peak_gib"]]
+                + rec["solves"] + [rec["peak_gib"]]
         rows = sub.all_gather(torch.tensor([row], dtype=torch.float64,
                                            device=sub.device)).tolist()
         if sub.rank == 0:
             if timed:
-                rec["by_rank"] = [dict(zip(
-                    ("sec", "fill_ms", "fill_bytes", "fill_exchanges"), r))
-                    for r in rows]
+                rec["by_rank"] = [dict(zip(TIMED_KEYS, r)) for r in rows]
             else:
                 rec["launches_by_rank"] = [
                     {k.name: int(v) for k, v in zip(kernels.ALL, r)}
                     for r in rows]
+                rec["solves_by_rank"] = [[int(v) for v in r[-3:-1]]
+                                         for r in rows]
                 rec["peak_gib_by_rank"] = [r[-1] for r in rows]
             out[f"{label} {world}"] = rec
     return out if ranks.rank == 0 else None
@@ -6523,22 +6606,24 @@ def shard_checks(torch, kernels, card):
 
 
 def shard_compare(label, ref, rec, ncyc, world, card, backend="gloo",
-                  stage=True):
-    """Hold phase 24's split run ``rec`` of a deck to its one-rank run
-    ``ref``: the cycles, the state bitwise (turb8: within
-    SHARD_TURB_TOL of its scale), time, counters, history, trees, and
-    every rank's launches as derived (each stage kernel as often as on
-    one rank, the fills' kernels G and I never; with ``stage`` a stage
+                  stage=True, phase="24"):
+    """Hold phase 24's (or 27's) split run ``rec`` of a deck to its
+    one-rank run ``ref``: the cycles, the state bitwise (turb8: within
+    SHARD_TURB_TOL of its scale), time, counters, history, trees, every
+    rank's gravity solves and V-cycles equal to each other's and to one
+    rank's (its graph's warm-up cycle solves too), and every
+    rank's launches as derived (each stage kernel as often as on one
+    rank, the fills' kernels G and I never; with ``stage`` a stage
     kernel must have run).  Prints and returns the record."""
     name = f"{label} on {world} ranks ({backend})"
     if rec["ncycle"] != ncyc or ref["ncycle"] != ncyc:
-        raise AssertionError(f"phase 24 {name}: {rec['ncycle']} and "
+        raise AssertionError(f"phase {phase} {name}: {rec['ncycle']} and "
                              f"{ref['ncycle']} cycles, {ncyc} asked")
     if label == "turb8":
         u, u0 = rec["keep"]["u"], ref["keep"]["u"]
         err = float(abs(u - u0).max()) / float(abs(u0).max())
         if not err <= SHARD_TURB_TOL:
-            raise AssertionError(f"phase 24 {name}: u {err:g} of its "
+            raise AssertionError(f"phase {phase} {name}: u {err:g} of its "
                                  f"scale from one rank > "
                                  f"{SHARD_TURB_TOL}")
         diff = err
@@ -6549,14 +6634,14 @@ def shard_compare(label, ref, rec, ncyc, world, card, backend="gloo",
                 or rec["ecounters"] != ref["ecounters"] \
                 or rec["hst"] != ref["hst"]:
             raise AssertionError(
-                f"phase 24 {name}: not bitwise one rank's: leaves "
+                f"phase {phase} {name}: not bitwise one rank's: leaves "
                 f"{bad}, time {rec['time']!r} / {ref['time']!r}, "
                 f"counters {rec['ecounters']} / {ref['ecounters']}")
         diff = 0.0
     if "trees" in ref and (rec["trees"] != ref["trees"]
                            or rec["created"] != ref["created"]
                            or rec["deleted"] != ref["deleted"]):
-        raise AssertionError(f"phase 24 {name}: other trees than one "
+        raise AssertionError(f"phase {phase} {name}: other trees than one "
                              "rank's")
     # launches per rank as derived: each stage kernel as often as on
     # one rank, the fills' kernels G and I never
@@ -6565,22 +6650,30 @@ def shard_compare(label, ref, rec, ncyc, world, card, backend="gloo",
         for k in SHARD_STAGE_KERNELS:
             if lr[k] != one[k]:
                 raise AssertionError(
-                    f"phase 24 {name}: rank {r} launched {k} "
+                    f"phase {phase} {name}: rank {r} launched {k} "
                     f"{lr[k]} times, one rank {one[k]}")
         for k in SHARD_CLOSED:
             if lr[k] != 0:
-                raise AssertionError(f"phase 24 {name}: rank {r} "
+                raise AssertionError(f"phase {phase} {name}: rank {r} "
                                      f"launched {k} {lr[k]} times")
+    # every rank solves alike; as often as one rank, whose window, where
+    # a graph captured it, solved in its warm-up cycle too
+    sv = rec["solves_by_rank"]
+    if any(v != sv[0] for v in sv) or sv[0][1] != ref["solves"][1] or (
+            sv[0][0] != ref["solves"][0] and not ref["captured"]):
+        raise AssertionError(f"phase {phase} {name}: [solves, V-cycles] "
+                             f"a rank {sv}, one rank {ref['solves']}")
     if stage and not any(one[k] for k in SHARD_STAGE_KERNELS):
-        raise AssertionError(f"phase 24 {name}: no stage kernel ran")
+        raise AssertionError(f"phase {phase} {name}: no stage kernel ran")
     out = {"max_rel_diff": diff,
            "layout": rec["layout"],
            "one_rank_launches": {k: v for k, v in one.items() if v},
            "launches_by_rank": [{k: v for k, v in lr.items() if v}
                                 for lr in rec["launches_by_rank"]],
            "trees": len(ref.get("trees", [])),
+           "solves": ref["solves"],
            "peak_gib_a_rank": rec["peak_gib_by_rank"]}
-    print(f"phase 24: [{card}] {name}: "
+    print(f"phase {phase}: [{card}] {name}: "
           + ("bitwise one rank's" if label != "turb8" else
              f"u within {diff:.3g} of its scale")
           + f", launches a rank {out['launches_by_rank']}, one "
@@ -7868,6 +7961,148 @@ def phase_window(torch, kernels, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the configurations the JAX package runs on its NamedSharding
+# gather path, split over the ranks of a process group at the widths their
+# decks are timed at on one card, each as several blocks
+NCYC_GATHER = 10
+# the AMR pool refines at cycle 18 at 128^3 (phase 17's blast_amr_128)
+NCYC_GATHER_AMR = 20
+# the multigrid at 128^3 in float64: two solves a cycle
+NCYC_GATHER_MG = 4
+NCYC_GATHER_TIMED = 3
+BLOCKS64 = ["meshblock/nx1=64", "meshblock/nx2=64", "meshblock/nx3=64"]
+# 0.0999 particles a cell of 124^3: 190,471, which neither 2 nor 3
+# divides
+PART_UNEVEN = ["meshblock/nx1=62", "meshblock/nx2=62", "meshblock/nx3=62",
+               "particles/ppc=0.0999"]
+# the decks whose stage kernels run on one rank (J; E and F): each rank
+# launches them as often as one rank does
+GATHER_STAGE = ("sbox_wide", "amr_wide", "part_blast")
+
+
+def gather_jobs(tmp, world=2):
+    """(label, deck, overrides, cycles, ranks) of phase 27: JEANS_BIG
+    (the FFT) in 8 blocks of 128 x 64 x 64, selfgravity 128^3 in float64
+    (the multigrid) in 8 of 64^3, SBOX_WIDE (the shearing box, J) in 8
+    of 64^3, AMR_WIDE with its block pool (J), the shipped shadow (the
+    user boundary) in 8 blocks of 16 x 64, each on ``world`` ranks, and
+    PART_BLAST in 8 blocks of 62^3 with 190,471 particles on
+    ``world + 1``."""
+    part = os.path.join(tmp, "part_blast.athinput")
+    with open(DECK) as f, open(part, "w") as g:
+        g.write(f.read() + "\n" + particles_block())
+    return [("jeans_big", JEANS, JEANS_BIG + [
+                "meshblock/nx1=128", "meshblock/nx2=64",
+                "meshblock/nx3=64"], NCYC_GATHER, world),
+            ("selfgrav_128", SELFGRAV, SELFGRAV_BIG + BLOCKS64,
+             NCYC_GATHER_MG, world),
+            ("sbox_wide", SBOX_UNSTRAT, SINGLE + SBOX_WIDE + BLOCKS64,
+             NCYC_GATHER, world),
+            ("amr_wide", BLAST_AMR, AMR_WIDE, NCYC_GATHER_AMR, world),
+            ("shadow", RAD_SHIPPED["shadow"], ["meshblock/nx1=16",
+                                               "meshblock/nx2=64"],
+             NCYC_GATHER, world),
+            ("part_blast", part, PART_UNEVEN, NCYC_GATHER, world + 1)]
+
+
+def split_gather(torch, kernels, card):
+    """Phase 27's checks (a lane): every job of ``gather_jobs`` on its
+    gloo ranks on this card against its one-rank run here, bitwise, the
+    solves and V-cycles of every rank one rank's, the launches a rank
+    as derived (``shard_compare``)."""
+    from athenak_tpu_torch.parallel import spawn_ranks
+    kernels.library()   # built here, before the ranks load it
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = gather_jobs(tmp)
+        refs = {}
+        for label, deck, extra, ncyc, _ in jobs:
+            refs[label] = shard_job(torch, kernels, None, deck, extra, ncyc)
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        got = spawn_ranks("chip_smoke:shard_rank", max(j[4] for j in jobs),
+                          backend="gloo", device="cuda", args=(jobs,),
+                          timeout=SHARD_TIMEOUT)[0]
+        out["spawn_seconds"] = time.perf_counter() - t
+    for label, deck, extra, ncyc, world in jobs:
+        rec = shard_compare(label, refs[label], got[f"{label} {world}"],
+                            ncyc, world, card, stage=label in GATHER_STAGE,
+                            phase="27")
+        if label == "selfgrav_128" and not rec["solves"][1] > 0:
+            raise AssertionError("phase 27 selfgrav_128: no V-cycle ran")
+        out[f"{label} on {world} ranks"] = rec
+    return out
+
+
+def phase_split_gather(torch, kernels, card):
+    """Phase 27's timings (main process): each deck of ``gather_jobs`` on
+    one rank and on 2 gloo ranks on this card (zone-cycles/s of
+    NCYC_GATHER_TIMED cycles after a warm-up cycle, the slowest rank's;
+    the bytes a rank sends a cycle, point to point and into
+    all-gathers).  With two cards or more, also on one rank a card under
+    nccl (at most 4), each deck's run there bitwise its one-rank run."""
+    from athenak_tpu_torch.parallel import spawn_ranks
+    kernels.library()   # built here, before the ranks load it
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = [(lb, d, e, NCYC_GATHER_TIMED, 2)
+                for lb, d, e, _, _ in gather_jobs(tmp)]
+        for label, deck, extra, ncyc, _ in jobs:
+            out[f"{label} 1"] = {"zcps": shard_timed(
+                torch, None, deck, extra, ncyc)["zcps"]}
+            torch.cuda.empty_cache()
+        got = spawn_ranks("chip_smoke:shard_rank", 2, backend="gloo",
+                          device="cuda", args=(jobs, True),
+                          timeout=SHARD_TIMEOUT)[0]
+        runs = {f"{k} gloo": v for k, v in got.items()}
+        ncard = torch.cuda.device_count()
+        if ncard >= 2:
+            nw = min(ncard, 4)
+            njobs = [(lb, d, e, n, nw)
+                     for lb, d, e, n, _ in gather_jobs(tmp)]
+            runs.update({f"{k} nccl": v for k, v in spawn_ranks(
+                "chip_smoke:shard_rank", nw, backend="nccl",
+                args=([(lb, d, e, NCYC_GATHER_TIMED, w)
+                       for lb, d, e, _, w in njobs], True),
+                timeout=SHARD_TIMEOUT)[0].items()})
+            recs = spawn_ranks("chip_smoke:shard_rank", nw, backend="nccl",
+                               args=(njobs,), timeout=SHARD_TIMEOUT)[0]
+            checks = {}
+            for label, deck, extra, ncyc, world in njobs:
+                ref = shard_job(torch, kernels, None, deck, extra, ncyc)
+                checks[f"{label} on {world} ranks"] = shard_compare(
+                    label, ref, recs[f"{label} {world}"], ncyc, world,
+                    card, backend="nccl", stage=label in GATHER_STAGE,
+                    phase="27")
+                torch.cuda.empty_cache()
+            out["nccl_checks"] = checks
+    for name, rec in runs.items():
+        slow = max(r["sec"] for r in rec["by_rank"])
+        out[name] = {
+            "zcps": rec["zcps"] * rec["sec"] / slow,
+            "cycle_sent_bytes_a_rank": [int(r["cycle_sent_bytes"])
+                                        for r in rec["by_rank"]],
+            "cycle_gathered_bytes_a_rank": [
+                int(r["cycle_gathered_bytes"]) for r in rec["by_rank"]],
+            "fill_ms_a_rank": [r["fill_ms"] for r in rec["by_rank"]],
+            "density_gather_ms_a_rank": [r["gather_ms"]
+                                         for r in rec["by_rank"]]}
+    for name, rec in out.items():
+        if name == "nccl_checks":
+            continue
+        extra = "" if "fill_ms_a_rank" not in rec else (
+            f", bytes a rank sends a cycle: exchange "
+            f"{rec['cycle_sent_bytes_a_rank']}, all-gathers "
+            f"{rec['cycle_gathered_bytes_a_rank']}; ms of a fill of u "
+            f"{[round(x, 3) for x in rec['fill_ms_a_rank']]}, of an "
+            f"all-gather of the density "
+            f"{[round(x, 3) for x in rec['density_gather_ms_a_rank']]}")
+        print(f"phase 27: [{card}] {name} rank(s): {rec['zcps']:.4g} "
+              f"zone-cycles/s{extra}")
+    return out
+
+
 LANES = (("lwave64", "epicycle_bar", "shwave_bar", "mri3d_bar",
           "drag_bars"),
          ("lwave32", "be", "diffusion_bars", "jeans_bars", "binary_bars",
@@ -7876,9 +8111,9 @@ LANES = (("lwave64", "epicycle_bar", "shwave_bar", "mri3d_bar",
          ("shard_checks", "dyn_bars", "slice_restart", "amr_restart",
           "bbh_restart", "gr_restart", "gr_bars"),
          ("outputs_decks", "outputs_split"),
-         # -p in a fresh process: late in a long one the profiler drops
-         # records
-         ("outputs_profile",),
+         # -p in a fresh process (late in a long one the profiler drops
+         # records), then phase 27's checks
+         ("outputs_profile", "split_gather"),
          ("window_checks",))
 LANE_TIMEOUT = 1100
 
@@ -7912,6 +8147,11 @@ def lane_parts():
             "outputs_split": outputs_split,
             "outputs_profile": outputs_profile,
             "window_checks": window_checks,
+            "split_gather": split_gather,
+            # phase 27's timings alone, and on a machine of several
+            # cards its nccl runs: python3 chip_smoke.py --lane
+            # phase_split_gather
+            "phase_split_gather": phase_split_gather,
             # phase 24's timings alone, and on a machine of several
             # cards its nccl runs: python3 chip_smoke.py --lane phase_shard
             "phase_shard": phase_shard}
@@ -8127,7 +8367,9 @@ def main() -> int:
         shard = phase("24", phase_shard, torch, kernels, card)
         write_ms = phase("25", phase_outputs, torch, kernels, card)
         win = phase("26", phase_window, torch, kernels, card)
+        gather = phase("27", phase_split_gather, torch, kernels, card)
     shard["checks"] = got["shard_checks"]
+    gather["checks"] = got["split_gather"]
     outs = {"decks": got["outputs_decks"], "split": got["outputs_split"],
             "profile": got["outputs_profile"], "write_ms": write_ms}
     merge_lanes(card, got, slice_, amr, bbh, gr, grav, sbox, rad)
@@ -8161,6 +8403,10 @@ def main() -> int:
                 "bbh_restart": bbh["restart"]["resumed"].get(name, 0),
                 **{f"shard {k} rank {r}": lr.get(name, 0)
                    for k, v in shard["checks"].items()
+                   if isinstance(v, dict)
+                   for r, lr in enumerate(v["launches_by_rank"])},
+                **{f"gather {k} rank {r}": lr.get(name, 0)
+                   for k, v in gather["checks"].items()
                    if isinstance(v, dict)
                    for r, lr in enumerate(v["launches_by_rank"])},
                 **{f"outputs {k}": v["launches"].get(name, 0)
@@ -8305,6 +8551,7 @@ def main() -> int:
                              if kk != "launches"}
                          for k, v in dyn["wide"].items()}},
         "shard": shard,
+        "split_gather": gather,
         "outputs": outs,
         "window": {"rates": {k: {p: {kk: vv for kk, vv in r.items()
                                      if kk != "launches"}

@@ -11,8 +11,8 @@ spec's ``world`` ranks; rank 0 returns the results by name.
   ncyc              cycles (``time/nlim``)
   world             ranks (the group's first ``world``)
   cost              per-block costs set on the mesh before the layout
-  outputs           return the bytes of every file the run wrote (each
-                    run is made in a fresh directory)
+  outputs           return the bytes of every file the run wrote, by
+                    its path (each run is made in a fresh directory)
   restart           (file name, overrides): after the run, resume from
                     that file of the run's directory with ``-r``
   fill_bytes        also measure one ghost fill of ``u``: the bytes each
@@ -20,10 +20,10 @@ spec's ``world`` ranks; rank 0 returns the results by name.
   fixed_dt          run the cycle function ``ncyc`` times at the first
                     dt, as the JAX package's shard tests do, instead of
                     the driver's loop; the last new dt is returned
-  expect_error      the run must raise NotImplementedError (its text is
-                    returned)
   kind = "part"     the particle exchange of ``part_job`` instead of a
                     deck
+  kind = "blocks"   ``blocks_job``: the whole-mesh all-gather and its
+                    inverse on ranks of unequal counts
 """
 
 from __future__ import annotations
@@ -99,12 +99,14 @@ prat = 100.0
 b_amb = 0.1
 """
 
-def shift(text, frac=0.3):
-    """Overrides moving a deck's domain by ``frac`` of a root cell along
-    every axis of more than one cell: a blast at rest centred on block
-    faces cannot be held against the JAX package cycle by cycle on the
-    CPU (ROADMAP F4), so the JAX comparisons run the shifted deck."""
+def shift(text, frac=0.3, overrides=()):
+    """Overrides moving a deck's domain (after ``overrides``) by ``frac``
+    of a root cell along every axis of more than one cell: a blast at
+    rest centred on block faces cannot be held against the JAX package
+    cycle by cycle on the CPU (ROADMAP F4), so the JAX comparisons run
+    the shifted deck."""
     pin = ParameterInput.from_string(text)
+    pin.modify_from_cmdline(list(overrides))
     out = []
     for d in (1, 2, 3):
         n = pin.get_integer("mesh", f"nx{d}")
@@ -116,7 +118,7 @@ def shift(text, frac=0.3):
     return out
 
 
-#: 6 blocks on 4 ranks: the pool pads to 8
+#: 6 blocks on 4 ranks: 2, 2, 1 and 1
 DECK6 = DECK.replace("nx1 = 32", "nx1 = 48").replace(
     "nx2 = 16", "nx2 = 8").replace("nx3 = 16", "nx3 = 8")
 
@@ -167,9 +169,13 @@ def run_spec(spec, ranks=None):
         if spec.get("fixed_dt"):
             cycle = driver._build_cycle()
             dt = driver.mesh.dt
+            tot = {}
             for _ in range(spec.get("ncyc", 3)):
-                state, dtnew, _ = cycle(state, dt)
+                state, dtnew, counters = cycle(state, dt)
+                for k, v in (counters or {}).items():
+                    tot[k] = tot.get(k, 0) + int(v)
             extra["dtnew"] = float(dtnew)
+            extra["counters"] = tot
             state = driver._unpadded(state)
         elif spec.get("profile"):
             # -p under ranks: each rank traces its run into one file
@@ -184,11 +190,18 @@ def run_spec(spec, ranks=None):
         else:
             state = driver.execute(state, outputs=outputs)
             extra["report"] = driver.finalize_report()
+        pgrav = getattr(driver.phys, "pgrav", None)
+        if pgrav is not None:
+            # each rank's solves and V-cycles (every rank solves on the
+            # whole mesh, so all must count alike)
+            n = torch.tensor([pgrav.nsolve, getattr(pgrav, "ncycles", 0)])
+            extra["vcycles"] = (ranks.all_gather(n[None]) if ranks
+                                is not None else n[None]).tolist()
         if ranks is not None:
             extra["gathers_in_run"] = driver.ranks.gathers - g0
             extra["sent_bytes"] = driver.ranks.sent_bytes
             extra["lb"] = (driver._layout.nmb_eachrank.tolist(),
-                           driver._layout.identity,
+                           driver._layout.uniform,
                            driver._layout.lb_efficiency)
         if spec.get("restart"):
             fname, over = spec["restart"]
@@ -213,9 +226,9 @@ def run_spec(spec, ranks=None):
                           "trees": [(u["ncycle"], u["leaves"])
                                     for u in pamr.updates]}
         if spec.get("outputs"):
-            rec["files"] = {os.path.basename(f): open(f, "rb").read()
-                            for f in sorted(glob.glob("*"))
-                            if os.path.isfile(f)}
+            # every file the run wrote, by its path in the run directory
+            rec["files"] = {f: open(f, "rb").read() for f in sorted(
+                glob.glob("**", recursive=True)) if os.path.isfile(f)}
         return rec
     finally:
         os.chdir(cwd)
@@ -293,12 +306,49 @@ def part_job(ranks, spec):
             ovfs.numpy(), "x0": x, "dest": dest, "alive0": alive}
 
 
+def blocks_job(ranks, spec):
+    """``comm.whole_blocks`` and ``comm.own_blocks`` on DECK's 16 blocks
+    split over the group (3 ranks: 6, 5 and 5 blocks): each rank's rows
+    hold 10 gid + [0, 1]; returns, on rank 0, every rank's whole array,
+    its own rows of the gid-ordered table 100 + gid and its gids (both
+    padded with -1 to the largest count, for the gather here), the
+    identity of both outside ``use_comm``, and each rank's live particle
+    slots of 17 particles (``prtcl_alive``)."""
+    from athenak_tpu_torch.comm import own_blocks, use_comm, whole_blocks
+    from athenak_tpu_torch.mesh import Mesh
+    from athenak_tpu_torch.parallel.shard_comm import ShardComm
+
+    def comm_mesh():
+        return Mesh(ParameterInput.from_string(DECK))
+
+    comm = ShardComm(comm_mesh(), ranks)
+    g = torch.as_tensor(comm.local_gids, dtype=torch.float64)
+    rows = 10.0 * g[:, None] + torch.tensor([0.0, 1.0])
+    table = 100.0 + torch.arange(comm.nmb, dtype=torch.float64)
+    outside = (whole_blocks(rows) is rows, own_blocks(table) is table)
+    with use_comm(comm):
+        whole = whole_blocks(rows)
+        own = own_blocks(table)
+    fill = torch.full((comm.L - comm.n,), -1.0, dtype=torch.float64)
+    got = ranks.all_gather(torch.cat([whole.flatten(), own, fill])[None])
+    gids = ranks.all_gather(torch.cat([g, fill])[None])
+    # 17 particles on the group: ceil(17 / world) slots a rank
+    alive = ranks.all_gather(ShardComm(
+        comm_mesh(), ranks, nprtcl=17).prtcl_alive("cpu")[None])
+    if ranks.rank != 0:
+        return None
+    n = 2 * comm.nmb
+    return {"whole": got[:, :n].reshape(ranks.world, comm.nmb, 2).numpy(),
+            "own": got[:, n:].numpy(), "gids": gids.numpy(),
+            "nmb": comm.nmb, "L": comm.L, "outside": outside,
+            "alive": alive.numpy()}
+
+
 def rank_jobs(ranks, jobs, solo=()):
     """Every job on its subgroup, in order; then the one-rank runs of the
     jobs named in ``solo``, dealt out over the ranks, each with no group.
     Returns (the split results by name on rank 0, else None; this rank's
-    one-rank results by name).  A job that must raise gives its
-    exception's text under "error"."""
+    one-rank results by name)."""
     out = {}
     for name, spec in jobs.items():
         sub = ranks.sub(spec.get("world", ranks.world))
@@ -307,13 +357,8 @@ def rank_jobs(ranks, jobs, solo=()):
         if spec.get("kind") == "part":
             out[name] = part_job(sub, spec)
             continue
-        if spec.get("expect_error"):
-            try:
-                run_spec(spec, sub)
-            except NotImplementedError as e:
-                out[name] = {"error": str(e)}
-            else:
-                out[name] = {"error": None}
+        if spec.get("kind") == "blocks":
+            out[name] = blocks_job(sub, spec)
             continue
         out[name] = run_spec(spec, sub)
     mine = {name: run_spec(jobs[name])
