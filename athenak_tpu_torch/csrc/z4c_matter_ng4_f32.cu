@@ -1,0 +1,9 @@
+// Kernel H with the matter source for nghost 4 in float; see
+// z4c_rhs.cuh.  One file for each (nghost, type, matter), so that the
+// parallel build compiles the sixteen at once.
+
+#include "z4c_rhs.cuh"
+
+namespace athenak {
+template int z4c_stage_launch<float, 4, true>(const Z4cArgs&);
+}  // namespace athenak

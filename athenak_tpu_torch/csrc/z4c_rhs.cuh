@@ -9,6 +9,16 @@
 // layer of outflow faces; AlgConstr (z4c.py:279-295) projects to
 // det(conformal g) = 1 and tr A = 0 and applies the chi floor.
 //
+// With the matter source (the instances with MAT, the branch of
+// pallas_z4c.py:384 that takes tmunu, stacked at :432-436): the ten
+// stress-energy channels (E, S_d, S_dd; undensitised, cell-centred, as
+// DynGRMHD.set_tmunu returns them) are read pointwise at the cell, one
+// load each in the algebra, and their terms (rhs_core.py:274-298) are
+// added to Khat, Theta, Gam^a and A_ab after the gauge and before the
+// Sommerfeld rows and the Kreiss-Oliger term, in rhs_core's order.  They
+// need no stencil, so the derivative pass, the window and the shared
+// memory are the vacuum kernel's; the vacuum instances read no matter.
+//
 // What bounds it on the H100: operations and memory alike.
 // tests/test_torch_z4c_host.py counts 5,563 operations a cell at
 // nghost 2 and 7,471 at nghost 3 (chip_smoke.py Z4C_OPS): at 60^3,
@@ -369,8 +379,14 @@ struct Z4cCell {
   const T* __restrict__ u;  // u at the cell, channel 0
   long long cs;             // u's channel stride
   bool somm;                // the cell is on the Sommerfeld mask
+  // the stress-energy at the cell, channel 0 (channel stride cs); read
+  // only by the instances with the matter source
+  const T* __restrict__ m = nullptr;
 
   __device__ __forceinline__ T v(int c) const { return __ldg(u + c * cs); }
+  __device__ __forceinline__ T mat(int c) const {
+    return __ldg(m + c * cs);
+  }
   __device__ __forceinline__ T d1(int c, int d) const {
     return b[(kZ4cD1 + 3 * z4c_d1_row(c) + d) * NC];
   }
@@ -396,8 +412,8 @@ struct Z4cCell {
 };
 
 // rhs_core.rhs_core at one cell from its buffer column and the inverse
-// metric gu, into r[22]
-template <typename T, class D>
+// metric gu, into r[22]; MAT adds the matter source (F.mat)
+template <typename T, bool MAT, class D>
 __device__ __forceinline__ void z4c_rhs(const D& F, const Z4cPrm<T>& P,
                                         const T gu[3][3], T r[kNZ4C]) {
   // centred values
@@ -725,6 +741,50 @@ __device__ __forceinline__ void z4c_rhs(const D& F, const Z4cPrm<T>& P,
     r[I_BETAX + a] = v;
   }
 
+  // matter coupling (reference: z4c_calcrhs.cpp:364, 490-532): each
+  // term as rhs_core writes it, 4 pi as the double 4.0 * math.pi and its
+  // multiples (2.0 * fourpi, 4.0 * fourpi: exact) met in the working
+  // type
+  if constexpr (MAT) {
+    const T fourpi = T(12.566370614359172);
+    const T eightpi = T(25.132741228718345);
+    const T sixteenpi = T(50.26548245743669);
+    const T E = F.mat(0);
+    T Sd[3], Sdd[6];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) Sd[a] = F.mat(1 + a);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) Sdd[q] = F.mat(4 + q);
+    T Sm = T(0);
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      const T t = gu[q / 3][q % 3] * Sdd[S(q / 3, q % 3)];
+      Sm = q == 0 ? t : Sm + t;
+    }
+    Sm = oopsi4 * Sm;
+    r[I_KHAT] = r[I_KHAT] + (fourpi * alpha) * (Sm + E);
+    r[I_THETA] = r[I_THETA] - ((eightpi * alpha) * E) * P.use_z4c;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      T s = T(0);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const T t = gu[a][b] * Sd[b];
+        s = b == 0 ? t : s + t;
+      }
+      r[I_GAMX + a] = r[I_GAMX + a] - (sixteenpi * alpha) * s;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = a; b < 3; ++b) {
+        const int c = I_AXX + S(a, b);
+        r[c] = r[c] - (eightpi * alpha) *
+                          (oopsi4 * Sdd[S(a, b)] -
+                           (T(1.0 / 3.0) * Sm) * g[a][b]);
+      }
+  }
+
   // Sommerfeld radiative RHS on the outer active layer, from z4c_derivs
   if (F.somm) {
     r[I_KHAT] = F.somm_rhs(I_KHAT);
@@ -744,14 +804,14 @@ __device__ __forceinline__ void z4c_rhs(const D& F, const Z4cPrm<T>& P,
 
 // The RK combine and AlgConstr of one cell from its buffer column and
 // the inverse metric: writes u' of the cell through o (channel stride
-// cs); u1 at the cell.
-template <typename T, class D>
+// cs); u1 at the cell.  MAT: with the matter source.
+template <typename T, bool MAT = false, class D>
 __device__ __forceinline__ void z4c_update(const D& F, const Z4cPrm<T>& P,
                                            const T ginv[3][3],
                                            const T* __restrict__ u1,
                                            long long cs, T* __restrict__ o) {
   T r[kNZ4C];
-  z4c_rhs<T>(F, P, ginv, r);
+  z4c_rhs<T, MAT>(F, P, ginv, r);
 
   // RK combine: (gam0 u + gam1 u1) + bdt rhs
   T un[kNZ4C];
@@ -798,11 +858,12 @@ __device__ __forceinline__ void z4c_update(const D& F, const Z4cPrm<T>& P,
 // tests that build the code above with g++, tests/test_torch_z4c_host.py
 // and tests/test_torch_z4c_tiles.py) stops here.
 #ifdef __CUDACC__
-template <typename T, int NG>
+template <typename T, int NG, bool MAT>
 __global__ void __launch_bounds__(Z4cTile<T, NG>::NC, Z4cTile<T, NG>::MINB)
     z4c_tile_kernel(const T* __restrict__ u, const T* __restrict__ u1,
-                    const T* __restrict__ sbc, T* __restrict__ out,
-                    Z4cGeom geo, Z4cPrm<T> P, const T* __restrict__ bdt) {
+                    const T* __restrict__ sbc, const T* __restrict__ mat,
+                    T* __restrict__ out, Z4cGeom geo, Z4cPrm<T> P,
+                    const T* __restrict__ bdt) {
   P.bdt = __ldg(bdt);
   using Sh = Z4cTile<T, NG>;
   constexpr int NC = Sh::NC, WIN = Sh::WIN;
@@ -893,14 +954,18 @@ __global__ void __launch_bounds__(Z4cTile<T, NG>::NC, Z4cTile<T, NG>::MINB)
   if (box.k0 + pos.z >= box.k1 || box.j0 + pos.y >= box.j1 ||
       box.i0 + pos.x >= box.i1)
     return;
-  z4c_update<T>(Z4cCell<T, NC>{b, um + cell, cs, sb.on}, P, gu,
-                u1 + mb + cell, cs, out + mb + cell);
+  const T* const mc =
+      MAT ? mat + static_cast<long long>(box.m) * kNMat * cs + cell : nullptr;
+  z4c_update<T, MAT>(Z4cCell<T, NC>{b, um + cell, cs, sb.on, mc}, P, gu,
+                     u1 + mb + cell, cs, out + mb + cell);
 }
 
-template <typename T, int NG>
+template <typename T, int NG, bool MAT>
 int z4c_stage_launch(const Z4cArgs& a) {
+  if (MAT != (a.mat != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   using Sh = Z4cTile<T, NG>;
-  auto kernel = z4c_tile_kernel<T, NG>;
+  auto kernel = z4c_tile_kernel<T, NG, MAT>;
   const size_t smem = static_cast<size_t>(Sh::SMEM) * sizeof(T);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -910,8 +975,9 @@ int z4c_stage_launch(const Z4cArgs& a) {
                                Sh::TZ);
   kernel<<<static_cast<unsigned int>(geo.blocks), Sh::NC, smem, a.stream>>>(
       static_cast<const T*>(a.u), static_cast<const T*>(a.u1),
-      static_cast<const T*>(a.sbc), static_cast<T*>(a.out), geo,
-      make_z4c_prm<T>(a.prm), static_cast<const T*>(a.bdt));
+      static_cast<const T*>(a.sbc), static_cast<const T*>(a.mat),
+      static_cast<T*>(a.out), geo, make_z4c_prm<T>(a.prm),
+      static_cast<const T*>(a.bdt));
   return static_cast<int>(cudaGetLastError());
 }
 #endif  // __CUDACC__

@@ -1,4 +1,5 @@
-// Entry points of kernel H (the Z4c stage, z4c_rhs.cuh) and kernel I, the
+// Entry points of kernel H (the Z4c stage, z4c_rhs.cuh; in vacuum, or with
+// the matter source where the stress-energy is given) and kernel I, the
 // outflow ghost fill that the stage folds in on a single block.
 //
 // Kernel I replaces the outflow fill folded into
@@ -27,19 +28,25 @@
 namespace athenak {
 namespace {
 
-template <typename T>
-int stage(const void* u, const void* u1, const void* sbc, void* out, int nmb,
-          int n3, int n2, int n1, int ng, const double* prm, const void* bdt,
-          void* stream) {
-  const Z4cArgs a{u, u1, sbc, out, nmb, n3, n2, n1, prm, bdt,
-                  static_cast<cudaStream_t>(stream)};
+template <typename T, bool MAT>
+int stage_ng(const Z4cArgs& a, int ng) {
   switch (ng) {
-    case 2: return z4c_stage_launch<T, 2>(a);
-    case 3: return z4c_stage_launch<T, 3>(a);
-    case 4: return z4c_stage_launch<T, 4>(a);
-    case 5: return z4c_stage_launch<T, 5>(a);
+    case 2: return z4c_stage_launch<T, 2, MAT>(a);
+    case 3: return z4c_stage_launch<T, 3, MAT>(a);
+    case 4: return z4c_stage_launch<T, 4, MAT>(a);
+    case 5: return z4c_stage_launch<T, 5, MAT>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// the instance with the matter source where mat is given, else vacuum
+template <typename T>
+int stage(const void* u, const void* u1, const void* sbc, const void* mat,
+          void* out, int nmb, int n3, int n2, int n1, int ng,
+          const double* prm, const void* bdt, void* stream) {
+  const Z4cArgs a{u, u1, sbc, out, mat, nmb, n3, n2, n1, prm, bdt,
+                  static_cast<cudaStream_t>(stream)};
+  return mat != nullptr ? stage_ng<T, true>(a, ng) : stage_ng<T, false>(a, ng);
 }
 
 // vec elements of T as one aligned access
@@ -115,11 +122,11 @@ int outflow_fill(void* a, long long nouter, int n3, int n2, int n1, int ng,
 
 #define ATHENAK_Z4C_ENTRIES(SUFFIX, T)                                       \
   extern "C" int athenak_z4c_stage_##SUFFIX(                                 \
-      const void* u, const void* u1, const void* sbc, void* out, int nmb,    \
-      int n3, int n2, int n1, int ng, const double* prm, const void* bdt,    \
-      void* stream) {                                                        \
-    return athenak::stage<T>(u, u1, sbc, out, nmb, n3, n2, n1, ng, prm, bdt, \
-                             stream);                                        \
+      const void* u, const void* u1, const void* sbc, const void* mat,       \
+      void* out, int nmb, int n3, int n2, int n1, int ng, const double* prm, \
+      const void* bdt, void* stream) {                                       \
+    return athenak::stage<T>(u, u1, sbc, mat, out, nmb, n3, n2, n1, ng, prm, \
+                             bdt, stream);                                   \
   }                                                                          \
   extern "C" int athenak_z4c_outflow_fill_##SUFFIX(                          \
       void* a, long long nouter, int n3, int n2, int n1, int ng,             \

@@ -1,10 +1,11 @@
 // Declarations shared by the Z4c stage kernel's entry points
-// (z4c_stage.cu) and its instances (z4c_stage_ng{2,3,4,5}_f{32,64}.cu).
+// (z4c_stage.cu) and its instances (z4c_stage_ng{2,3,4,5}_f{32,64}.cu in
+// vacuum, z4c_matter_ng{2,3,4,5}_f{32,64}.cu with the matter source).
 //
-// The stage kernel is one template per (float type, nghost).  Its
-// definition (z4c_rhs.cuh) is large, so each instance is compiled in a
-// file of its own and the parallel build compiles the eight at once; the
-// entry points see only the declaration below.
+// The stage kernel is one template per (float type, nghost, matter).
+// Its definition (z4c_rhs.cuh) is large, so each instance is compiled in
+// a file of its own and the parallel build compiles the sixteen at once;
+// the entry points see only the declaration below.
 #pragma once
 
 #include "common.cuh"
@@ -12,6 +13,9 @@
 namespace athenak {
 
 constexpr int kNZ4C = 22;
+// The stress-energy channels of the matter source, undensitised and
+// cell-centred (DynGRMHD.set_tmunu): E, S_d (3), S_dd (xx xy xz yy yz zz)
+constexpr int kNMat = 10;
 
 // The stage's scalars, in the order of ops/z4c_stage.py _PRM_NAMES: the
 // host passes them as doubles, already combined where the Python code
@@ -86,14 +90,17 @@ struct Z4cArgs {
   const void* u1;   // the RK register, same shape
   const void* sbc;  // [nmb, 5, n3, n2, n1] Sommerfeld geometry, or null
   void* out;        // fresh buffer, same shape as u; interior written
+  const void* mat;  // [nmb, kNMat, n3, n2, n1] stress-energy, or null
   int nmb, n3, n2, n1;
   const double* prm;  // P_COUNT doubles
   const void* bdt;    // the step: one T on the card
   cudaStream_t stream;
 };
 
-// Launches the stage on args.stream; returns cudaGetLastError().
-template <typename T, int NG>
+// Launches the stage on args.stream; returns cudaGetLastError().  MAT:
+// the instance with the matter source, which reads args.mat (the vacuum
+// instance never does).
+template <typename T, int NG, bool MAT>
 int z4c_stage_launch(const Z4cArgs& args);
 
 }  // namespace athenak

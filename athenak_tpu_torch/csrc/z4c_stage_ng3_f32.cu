@@ -1,8 +1,9 @@
-// Kernel H for nghost 3 in float; see z4c_rhs.cuh.  One file for each
-// (nghost, type), so that the parallel build compiles the eight at once.
+// Kernel H in vacuum for nghost 3 in float; see z4c_rhs.cuh.  One file
+// for each (nghost, type, matter), so that the parallel build compiles
+// the sixteen at once (z4c_matter_ng*_f*.cu: the matter source).
 
 #include "z4c_rhs.cuh"
 
 namespace athenak {
-template int z4c_stage_launch<float, 3>(const Z4cArgs&);
+template int z4c_stage_launch<float, 3, false>(const Z4cArgs&);
 }  // namespace athenak

@@ -1,8 +1,9 @@
-// Kernel H for nghost 4 in double; see z4c_rhs.cuh.  One file for each
-// (nghost, type), so that the parallel build compiles the eight at once.
+// Kernel H in vacuum for nghost 4 in double; see z4c_rhs.cuh.  One file
+// for each (nghost, type, matter), so that the parallel build compiles
+// the sixteen at once (z4c_matter_ng*_f*.cu: the matter source).
 
 #include "z4c_rhs.cuh"
 
 namespace athenak {
-template int z4c_stage_launch<double, 4>(const Z4cArgs&);
+template int z4c_stage_launch<double, 4, false>(const Z4cArgs&);
 }  // namespace athenak

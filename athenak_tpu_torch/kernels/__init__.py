@@ -61,7 +61,8 @@ _SIGNATURES = {
     "athenak_fused_aux": [_P] * 10 + [_I] * 7 + [_D] * 9 + [_P],
     "athenak_pool_fill": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P],
     # ..., the parameter block, the step's pointer, the stream
-    "athenak_z4c_stage": [_P] * 4 + [_I] * 5 + [_P] * 3,
+    # u, u1, sbc, the stress-energy (or null), out, ...
+    "athenak_z4c_stage": [_P] * 5 + [_I] * 5 + [_P] * 3,
     "athenak_z4c_outflow_fill": [_P, ctypes.c_longlong] + [_I] * 4 + [_P],
     "athenak_flux_dir": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_P],
 }
@@ -94,11 +95,14 @@ MEGA_STAGE_V1 = Kernel("mega_stage_v1", "athenak_mega_stage_v1")
 FUSED_AUX3D = Kernel("fused_aux3d", "athenak_fused_aux")
 POOL_FILL = Kernel("pool_fill", "athenak_pool_fill")
 Z4C_STAGE = Kernel("z4c_stage", "athenak_z4c_stage")
+# kernel H's matter source: the same entry given the stress-energy, its
+# own instances and its own count
+Z4C_STAGE_MATTER = Kernel("z4c_stage_matter", "athenak_z4c_stage")
 Z4C_OUTFLOW_FILL = Kernel("z4c_outflow_fill", "athenak_z4c_outflow_fill")
 FLUX_DIR = Kernel("fused_flux_dir", "athenak_flux_dir")
 ALL = (MEGA_STAGE_V2, PERIODIC_FILL_CC, PERIODIC_FILL_FC, FUSED_STAGE3D,
        FUSED_CT3D, MEGA_STAGE_V1, FUSED_AUX3D, POOL_FILL, Z4C_STAGE,
-       Z4C_OUTFLOW_FILL, FLUX_DIR)
+       Z4C_STAGE_MATTER, Z4C_OUTFLOW_FILL, FLUX_DIR)
 
 _LIB = None
 BUILD_INFO = {}

@@ -5,7 +5,10 @@ Counterpart of ``athenak_tpu/ops/pallas_z4c.py``.  ``fused_z4c_stage``
 computes u' = AlgConstr(gam0 u + gam1 u1 + beta_dt RHS(u)) over the 22
 Z4c channels in one launch of ``csrc/z4c_rhs.cuh`` (one instance file
 a nghost and type, ``csrc/z4c_stage_ng*_f*.cu``), with the Sommerfeld
-rows and the Kreiss-Oliger dissipation; ``outflow_fill`` fills every
+rows and the Kreiss-Oliger dissipation, and given the fluid's
+stress-energy ``tmunu`` with its matter source (the instances
+``csrc/z4c_matter_ng*_f*.cu``, counted apart as
+``kernels.Z4C_STAGE_MATTER``); ``outflow_fill`` fills every
 ghost of a block whose six faces are outflow in one launch of
 ``csrc/z4c_stage.cu``.  A
 tensor on the card goes to the CUDA kernel, which raises on anything it
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import kernels as _k
@@ -64,12 +68,31 @@ def fold_bc_supported(bvals) -> bool:
             and bvals.user_bc_func is None)
 
 
+def inverse_spacing(z):
+    """The one inverse spacing (1/dx1, 1/dx2, 1/dx3) the kernel takes for
+    every block: ``z.idx`` on a mesh of one level; on a refined mesh each
+    block's own (``z.idx`` is then a tensor a block), which must be the
+    same for all, as where every leaf lies on one level (the coupled TOV
+    decks); raises where a block's spacing differs."""
+    if not z.multilevel:
+        return tuple(float(i) for i in z.idx)
+    out = []
+    for d in (1, 2, 3):
+        dx = np.asarray(z.mesh.mb_size[f"dx{d}"], dtype=np.float64)
+        if not (dx == dx[0]).all():
+            raise ValueError(f"z4c_stage: the blocks' dx{d} differ "
+                             f"({sorted(set(dx.tolist()))}); the kernel "
+                             "takes one spacing for every block")
+        out.append(float(1.0 / dx[0]))
+    return tuple(out)
+
+
 def stage_params(z, gam0, gam1):
     """The kernel's scalars as doubles, combined as the Python code
     combines them before they meet a tensor (rhs_core.py)."""
     o = z.opt
     k1, k2 = o.damp_kappa1, o.damp_kappa2
-    idx = tuple(float(i) for i in z.idx)
+    idx = inverse_spacing(z)
     vals = {
         "gam0": gam0, "gam1": gam1,
         "idx1": idx[0], "idx2": idx[1], "idx3": idx[2],
@@ -90,13 +113,21 @@ def stage_params(z, gam0, gam1):
     return [float(vals[n]) for n in _PRM_NAMES]
 
 
-def fused_z4c_stage_plain(u, u1, z, gam0, gam1, beta_dt):
-    """rhs -> RK combine -> alg_constr on whole arrays."""
-    rhs = z.rhs(u)
+def _stack_tmunu(tmunu):
+    """The stress-energy as the kernel reads it: E, S_d (3) and S_dd (xx
+    xy xz yy yz zz), the order of ``pallas_z4c.py:434``, stacked into one
+    contiguous [nmb, 10, n3, n2, n1] tensor."""
+    return torch.stack([tmunu["E"], *tmunu["S_d"], *tmunu["S_dd"]], dim=1)
+
+
+def fused_z4c_stage_plain(u, u1, z, gam0, gam1, beta_dt, tmunu=None):
+    """rhs -> RK combine -> alg_constr on whole arrays; ``tmunu`` (a dict
+    as ``DynGRMHD.set_tmunu`` returns it) adds the matter source."""
+    rhs = z.rhs(u, tmunu=tmunu)
     return z.alg_constr(gam0 * u + gam1 * u1 + beta_dt * rhs)
 
 
-def _check_stage(u, u1, z) -> None:
+def _check_stage(u, u1, z, mat=None) -> None:
     # the block count from the tensor: one rank's blocks of a group are
     # fewer than the mesh's
     if u.dim() != 5 or tuple(u.shape[1:]) != tuple(z.shape[1:]):
@@ -109,21 +140,39 @@ def _check_stage(u, u1, z) -> None:
                          "device")
     if not (u.is_contiguous() and u1.is_contiguous()):
         raise ValueError("z4c_stage: u and u1 must be contiguous")
+    if mat is not None and (
+            tuple(mat.shape) != (u.shape[0], 10) + tuple(u.shape[2:])
+            or mat.dtype != u.dtype or mat.device != u.device
+            or not mat.is_contiguous()):
+        raise ValueError(f"z4c_stage: the stress-energy must be a "
+                         f"contiguous [nmb, 10, n3, n2, n1] tensor of u's "
+                         f"dtype and device, got {tuple(mat.shape)} "
+                         f"{mat.dtype} on {mat.device}")
     if z.ng not in (2, 3, 4, 5):
         raise ValueError(f"z4c_stage: nghost {z.ng} not in 2..5")
     if any(n < 2 * z.ng + 1 for n in u.shape[-3:]):
         raise ValueError(f"z4c_stage: shape {tuple(u.shape)} too small")
 
 
-def fused_z4c_stage(u, u1, z, gam0, gam1, beta_dt):
+def fused_z4c_stage(u, u1, z, gam0, gam1, beta_dt, tmunu=None):
     """u' = AlgConstr(gam0 u + gam1 u1 + beta_dt RHS(u)); ``z`` is the
     Z4c physics object (options, dissipation, nghost, 1/dx and the
     Sommerfeld geometry); ``beta_dt`` the step, a 0-d tensor of u's dtype
-    or a Python number, which the kernel reads from device memory.
-    Interior cells only on the card; see the module docstring."""
+    or a Python number, which the kernel reads from device memory;
+    ``tmunu`` the fluid's stress-energy, a dict as ``DynGRMHD.set_tmunu``
+    returns it, stacked here into the ten channels the matter instance
+    reads cell by cell.  Interior cells only on the card; see the module
+    docstring."""
     if not u.is_cuda:
-        return fused_z4c_stage_plain(u, u1, z, gam0, gam1, beta_dt)
-    _check_stage(u, u1, z)
+        return fused_z4c_stage_plain(u, u1, z, gam0, gam1, beta_dt, tmunu)
+    mat = None if tmunu is None else _stack_tmunu(tmunu)
+    return _launch_stage(u, u1, z, gam0, gam1, beta_dt, mat)
+
+
+def _launch_stage(u, u1, z, gam0, gam1, beta_dt, mat):
+    """One launch of the vacuum instance (``mat`` None) or the matter
+    instance (``mat`` the stacked channels, ``_stack_tmunu``)."""
+    _check_stage(u, u1, z, mat)
     sbc = z.sbc_channels(u.device, u.dtype) if z.sbc_mask is not None \
         else None
     out = torch.empty_like(u)
@@ -131,13 +180,15 @@ def fused_z4c_stage(u, u1, z, gam0, gam1, beta_dt):
         *stage_params(z, gam0, gam1))
     bdt = _k.step(beta_dt, u)
     nmb, _, n3, n2, n1 = u.shape
-    fn = _k.Z4C_STAGE.entry(u.dtype)
+    kern = _k.Z4C_STAGE if mat is None else _k.Z4C_STAGE_MATTER
+    fn = kern.entry(u.dtype)
     rc = fn(u.data_ptr(), u1.data_ptr(),
-            None if sbc is None else sbc.data_ptr(), out.data_ptr(),
+            None if sbc is None else sbc.data_ptr(),
+            None if mat is None else mat.data_ptr(), out.data_ptr(),
             nmb, n3, n2, n1, z.ng, ctypes.addressof(prm), bdt.data_ptr(),
             _k.stream_ptr(u.device))
-    _k.check(rc, _k.Z4C_STAGE.name)
-    _k.Z4C_STAGE.launches += 1
+    _k.check(rc, kern.name)
+    kern.launches += 1
     return out
 
 

@@ -715,6 +715,14 @@ class MHD:
     def save_state(self, state):
         return {"u1": state["u"], "bfc1": state["bfc"]}
 
+    def accumulate_rk4(self, saved, state, delta):
+        """The 2S register of RK4()4[2S] (the driver calls it before
+        every stage after the first): u1 + delta u, and each face array
+        alike."""
+        return {"u1": saved["u1"] + delta * state["u"],
+                "bfc1": {k: saved["bfc1"][k] + delta * state["bfc"][k]
+                         for k in saved["bfc1"]}}
+
     def _fill_and_prims(self, state):
         """Fill the ghosts of (u, bfc), then bcc and c2p."""
         u = self.bvals.fill_ghosts(state["u"])

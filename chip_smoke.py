@@ -462,6 +462,27 @@ Run from the root of a checkout, on a machine with one CUDA card.  It
      sends a cycle point to point and into all-gathers; with two cards
      or more the decks on one rank a card under nccl, timed and bitwise
      their one-rank runs.
+ 28. MHD under RK4 (ROADMAP F33).  In a lane (``rk4_checks``): the
+     124^3 blast (``inputs/mhd/blast.athinput`` with
+     ``time/integrator=rk4``, f32) through the CLI for NCYC_RK4 cycles
+     on both paths, kernel A exactly 4 a cycle and B 4 n + 4, the paths
+     within the tiers phases 25 and 26 hold the blast to; its window
+     (NCYC_WIN cycles: one capture, A 64 a capture) bitwise the eager
+     window and within phase 26's tiers of the per-cycle loop; the SR
+     blast under RK4 for NCYC_RK4_SR cycles on both paths (C and D 4 a
+     cycle) and in its window, which stays eager.  In the main process
+     (before the lanes start): the blast's zone-cycles/s under RK2 and
+     RK4 on the loop in turns and on the graphed window.
+ 29. kernel H's matter source (its gate stays the JAX package's, so no
+     CLI path launches it; called directly here).  In the main process
+     (before the lanes start): DYN_WIDE after one coupled cycle (every
+     leaf on level 1, one inverse spacing for every block), H with and
+     without the fluid's stress-energy against its plain version on
+     the four RK4 stages (2e-5 of max(|value|, 1)), one launch a call,
+     its ms beside the vacuum call's on the same state, the plain
+     stage's, the eager RHS with matter's (``Z4c._matter_rhs``) and the
+     bound; in a lane (``matter_f64``) the same checks in float64 on the
+     shipped tov_z4c_smr deck (1e-10).
 
 A run without outputs, verbose, AMR, driving or particles takes the
 batched window (``athenak_tpu_torch/driver.py``), from a CUDA graph
@@ -472,11 +493,12 @@ every replay), equal to an eager run's.
 The runs that time nothing (the JAX tests' bars of phases 19-23, the
 restarts of phases 16-19, the Bonnor-Ebert runs, phase 23's graph
 checks, shipped decks and restart, phase 24's checks, phase 25's
-decks, split pool and ``-p``, phase 26's and phase 27's checks) run in
+decks, split pool and ``-p``, phase 26's to 29's checks) run in
 ``LANES``: child processes on
-the card (``chip_smoke.py --lane NAME...``), started once phases 1-12
-and DYN_WIDE are done and running beside phases 13-22.  So the kernels'
-and DYN_WIDE's times are taken alone, phases 13-22's beside the lanes
+the card (``chip_smoke.py --lane NAME...``), started once phases 1-12,
+DYN_WIDE and phases 29's and 28's timings are done and running beside
+phases 13-22.  So the kernels', DYN_WIDE's and phases 28-29's times are
+taken alone, phases 13-22's beside the lanes
 (launch-bound processes slow each other little on one card: four
 copies of the linear wave ran 1.08-1.15x slower than one,
 ``prof_dyn_graphs.py``).
@@ -665,6 +687,10 @@ Z4C_POOL = ["mesh/nghost=4", "mesh/nx1=64", "mesh/nx2=32", "mesh/nx3=32",
 # cbrt count one) by nghost: (a cell, the extra on a Sommerfeld cell),
 # counted from csrc/z4c_rhs.cuh by tests/test_torch_z4c_host.py
 Z4C_OPS = {2: (5563, 264), 3: (7471, 264), 4: (9907, 264), 5: (12871, 264)}
+# the operations kernel H's matter source adds a cell (on the Sommerfeld
+# mask too: its terms are formed before the rows replace them), counted
+# by tests/test_torch_z4c_host.py
+Z4C_MATTER_OPS = 92
 # channels whose mixed second derivatives kernel H takes (chi, the metric,
 # alpha, the shift): the only reads of u's edge ghosts
 Z4C_MIXED = 11
@@ -2133,7 +2159,7 @@ def rk4_sets(torch, dtype, dt):
             for s in range(4)]
 
 
-def z4c_bound(phys, u):
+def z4c_bound(phys, u, matter=False):
     """Kernel H's bound on ``u``, each value it needs moved once: u on
     the interior and the face ghost slabs (the dissipation and advection
     stencils reach nghost along each axis) and, for the Z4C_MIXED
@@ -2141,7 +2167,9 @@ def z4c_bound(phys, u):
     derivatives reach; u1 read and u' written on the interior; the
     Sommerfeld mask read on the interior and the other four geometry
     channels on the mask's cells.  Z4C_OPS operations a cell, and the
-    Sommerfeld rows' extra on the mask's cells."""
+    Sommerfeld rows' extra on the mask's cells.  With ``matter`` the
+    matter source's ten channels read on the interior and its
+    Z4C_MATTER_OPS a cell too."""
     mbi = phys.mesh.mb_indcs
     nx, ng = (mbi.nx1, mbi.nx2, mbi.nx3), phys.ng
     nmb, nch = u.shape[0], u.shape[1]
@@ -2155,6 +2183,9 @@ def z4c_bound(phys, u):
         n_mask = int(phys.sbc_mask.sum())
         values += nmb * cells + 4 * n_mask
     base, somm = Z4C_OPS[ng]
+    if matter:
+        values += 10 * nmb * cells
+        base += Z4C_MATTER_OPS
     return bound(values * u.element_size(),
                  base * nmb * cells + somm * n_mask)
 
@@ -7547,16 +7578,17 @@ def window_pin(label, extra=()):
     return pin
 
 
-def window_run(torch, kernels, label, ncyc, path, prec=None):
+def window_run(torch, kernels, label, ncyc, path, prec=None, extra=()):
     """``label`` for ncyc cycles through build, initialize and execute on
     one of three paths: "graph" (the window as the predicate sends it),
     "eager" (the window with ``Driver.window_graphs`` off) or "loop"
     (the per-cycle loop, reached as the JAX package's tests reach it:
-    ``verbose``), the launch counts set to 0 just before execute."""
+    ``verbose``), the launch counts set to 0 just before execute;
+    ``extra`` overrides the deck."""
     import contextlib
     import io
     from athenak_tpu_torch.main import build
-    extra = [f"time/nlim={ncyc}"] + (
+    extra = [f"time/nlim={ncyc}", *extra] + (
         [f"job/precision={prec}"] if prec else [])
     mesh, phys, _, driver, state = build(window_pin(label, extra),
                                          device="cuda")
@@ -7869,13 +7901,14 @@ def window_checks(torch, kernels, card):
     return res
 
 
-def window_rate(torch, kernels, label, path):
+def window_rate(torch, kernels, label, path, extra=()):
     """zone-cycles/s of ``label`` on one path (see ``window_run``) over
     NCYC_WIN_TIME cycles after a warm-up (one cycle; on the graph path a
     batch, which captures the window the timed run replays), CUDA events;
     the captures and replays, the launches of both runs, the peak memory
     of the run, and on the graph path the ms of the copy of the state
-    into the capture's buffers and out of them."""
+    into the capture's buffers and out of them; ``extra`` overrides the
+    deck."""
     import contextlib
     import io
     from athenak_tpu_torch.main import build
@@ -7883,7 +7916,8 @@ def window_rate(torch, kernels, label, path):
     torch.cuda.reset_peak_memory_stats()
     warm_cycles = NCYC_WIN_TIME if path == "graph" else 1
     mesh, phys, _, driver, state = build(
-        window_pin(label, [f"time/nlim={warm_cycles}"]), device="cuda")
+        window_pin(label, [f"time/nlim={warm_cycles}", *extra]),
+        device="cuda")
     # unpacked as execute returns it (kernel A's route drops w and bcc),
     # so the timed window reuses the warm-up's capture
     state = phys.unpack_state(driver.initialize(state))
@@ -8103,18 +8137,288 @@ def phase_split_gather(torch, kernels, card):
     return out
 
 
-LANES = (("lwave64", "epicycle_bar", "shwave_bar", "mri3d_bar",
-          "drag_bars"),
-         ("lwave32", "be", "diffusion_bars", "jeans_bars", "binary_bars",
+# ---------------------------------------------------------------------------
+# phase 28: MHD under RK4 (ROADMAP F33): the 124^3 blast on kernel A and
+# the SR blast on kernels C + D, four stages a cycle
+# ---------------------------------------------------------------------------
+RK4 = ["time/integrator=rk4"]
+NCYC_RK4 = 10
+NCYC_RK4_SR = 5
+# the fills of the blast outside its stages (phase 4's RK2 run: 2 n + 4):
+# the initial fill and the unpacks of its bin output
+BLAST_FILLS = 4
+
+
+def rk4_paths(torch, kernels, label, deck, ncyc, expect):
+    """``deck`` under RK4 through the CLI for ncyc cycles on both paths
+    (``mhd/use_kernels``), the counts set to 0 just before each run: the
+    kernel path's launches exactly ``expect(n)`` and the plain path's
+    none, each state finite with div B and the mass kept
+    (``check_state``), u and every face array within SMR_PATH_TOL's tiers
+    of the largest change the plain path made to any of them (the scale
+    phases 25 and 26 hold the blast's paths to: the blast barely changes
+    its field, where a rounding-level difference flips GS07 upwind
+    selects, ROADMAP F4); each array's share and max on its own change
+    (``change_diff``) recorded beside."""
+    from athenak_tpu_torch.main import build
+    _, _, _, _, st0 = build(pin_for(RK4, deck), device="cuda")
+    init = {"u": st0["u"], **st0["bfc"]}
+    del st0
+    states, rec = {}, {}
+    for use in ("true", "false"):
+        got, mesh, phys, driver, state, dmass, _ = run_cli(
+            torch, kernels, deck, ncyc, RK4 + [f"mhd/use_kernels={use}"])
+        got = {k: v for k, v in got.items() if v}
+        want = expect(mesh.ncycle) if use == "true" else {}
+        if got != want or driver.integrator.name != "rk4":
+            raise AssertionError(f"phase 28 {label} use_kernels={use}: "
+                                 f"launches {got}, expected {want} "
+                                 f"({driver.integrator.name})")
+        divb = check_state(torch, phys, state, dmass,
+                           f"phase 28 {label} {use}")
+        states[use] = state
+        rec[use] = {"launches": got, "div_b": divb, "mass_drift": dmass,
+                    "counters": dict(driver.ecounters),
+                    "window": driver.window}
+    k, p = states["true"], states["false"]
+    pairs = [("u", k["u"], p["u"])] + [(c, k["bfc"][c], p["bfc"][c])
+                                       for c in k["bfc"]]
+    scale = max(float((interior(b) - interior(init[key])).abs().max())
+                for key, _, b in pairs)
+    diff, own = {}, {}
+    for key, a, b in pairs:
+        rel = ((interior(a) - interior(b)).abs() / scale).double()
+        diff[key] = (float((rel < SMR_PATH_TOL[0]).double().mean()),
+                     float(rel.max()))
+        own[key] = change_diff(a, b, init[key])
+        if not (diff[key][0] > 0.95 and diff[key][1] < SMR_PATH_TOL[1]):
+            raise AssertionError(f"phase 28 {label}: kernel and plain path "
+                                 f"apart in {key}: {diff[key]} of {scale}")
+    rec.update(path_diff=diff, path_scale=scale, path_diff_own_scale=own)
+    return rec
+
+
+def rk4_window(torch, kernels):
+    """The RK4 blast's window, NCYC_WIN cycles (two batches, no inactive
+    cycle: ROADMAP F32's RK3/RK4 note): the graph path one capture
+    replayed a batch with A 4 a cycle (64 a capture) and every kernel's
+    launches replays x the capture's, bitwise the eager window, which is
+    within phase 26's path tiers of the per-cycle loop."""
+    runs = {p: window_run(torch, kernels, "blast", NCYC_WIN, p, extra=RK4)
+            for p in ("eager", "loop", "graph")}
+    graph, w = runs["graph"], runs["graph"]["window"]
+    per = graph["per_capture"] or {}
+    if not (w["graph"] and w["captures"] == 1
+            and w["replays"] == w["batches"] == NCYC_WIN // 16
+            and per.get("mega_stage_v2") == 4 * 16):
+        raise AssertionError(f"phase 28 window: {w}, a capture {per}")
+    if {k: w["launches"].get(k, 0) for k in per} != \
+            {k: w["replays"] * n for k, n in per.items()}:
+        raise AssertionError(f"phase 28 window: launches {w['launches']}, "
+                             f"{w['replays']} replays of {per}")
+    window_same(graph, runs["eager"], "phase 28 RK4 window graph vs eager")
+    tiers = window_tiers(torch, runs["eager"], runs["loop"],
+                         "phase 28 RK4 window vs loop")
+    return {"window": w, "per_capture": {k: v for k, v in per.items() if v},
+            "vs_loop_f32": tiers}
+
+
+def rk4_checks(torch, kernels, card):
+    """Phase 28's untimed checks (a lane): the 124^3 blast under RK4 on
+    both paths through the CLI (the per-cycle loop; A 4 a cycle, B 1 a
+    stage), its window against the loop, the SR blast under RK4 on both
+    paths (C and D 4 a cycle) and in its window, which stays eager (the
+    Illinois c2p reads the host)."""
+    res = {"blast": rk4_paths(
+        torch, kernels, "blast", DECK, NCYC_RK4,
+        lambda n: {"mega_stage_v2": 4 * n,
+                   "periodic_fill_cc": 4 * n + BLAST_FILLS,
+                   "periodic_fill_fc": 4 * n + BLAST_FILLS})}
+    res["window"] = rk4_window(torch, kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        sr_deck = os.path.join(tmp, "sr_blast.athinput")
+        with open(sr_deck, "w") as f:
+            f.write(SR_DECK)
+        res["sr_blast"] = rk4_paths(
+            torch, kernels, "sr_blast", sr_deck, NCYC_RK4_SR,
+            lambda n: {"fused_stage3d": 4 * n, "fused_ct3d": 4 * n,
+                       "periodic_fill_cc": 4 * n + 1,
+                       "periodic_fill_fc": 4 * n + 1})
+    # the SR blast's window under RK4 stays eager (its Illinois c2p
+    # reads the host), C and D 4 a cycle there too
+    sr = window_run(torch, kernels, "sr_blast", NCYC_RK4_SR, "graph",
+                    extra=RK4)
+    w = sr["window"]
+    got = {k: sr["launches"][k] for k in ("fused_stage3d", "fused_ct3d")}
+    if w["graph"] or w["captures"] or "Illinois" not in (w["closed"] or "") \
+            or got != {k: 4 * sr["ncycle"] for k in got}:
+        raise AssertionError(f"phase 28 sr_blast window: {w}, {got}")
+    res["sr_window"] = {"window": w, "launches": got}
+    print(f"phase 28: [{card}] RK4 checks {res}")
+    return res
+
+
+def phase_rk4(torch, kernels, card):
+    """Phase 28's timings (the main process): the 124^3 blast's
+    zone-cycles/s under RK2 and RK4 on the kernel path, the per-cycle
+    loop in turns (NCYC_RK4 cycles after a warm-up) and the graphed
+    window (NCYC_WIN_TIME cycles after a captured batch)."""
+    rates = {}
+    for integ in ("rk2", "rk4", "rk2", "rk4"):
+        rates.setdefault(f"{integ} loop", []).append(timed_cycles(
+            torch, "true", DECK, NCYC_RK4, [f"time/integrator={integ}"]))
+    for integ in ("rk2", "rk4"):
+        r = window_rate(torch, kernels, "blast", "graph",
+                        [f"time/integrator={integ}"])
+        rates[f"{integ} graph"] = [r["zcps"]]
+        rates[f"{integ} graph launches"] = r["launches"]
+    print(f"phase 28: [{card}] blast zone-cycles/s {rates}")
+    return rates
+
+
+# ---------------------------------------------------------------------------
+# phase 29: kernel H's matter source, on the coupled TOV's Z4c state and
+# the fluid's stress-energy
+# ---------------------------------------------------------------------------
+def matter_state(torch, deck, extra):
+    """The coupled deck built on the card, every leaf on level 1 (and so
+    one inverse spacing for every block, ``inverse_spacing``: it raises
+    where a block's differs), initialised and one coupled cycle on: its
+    Z4c physics, the Z4c state before the cycle (the register) and after
+    it, set_tmunu's channels of the state after it (the dict, and the
+    ten channels stacked as the wrapper stacks them, to time the launch
+    alone) and dt."""
+    from athenak_tpu_torch.main import build
+    from athenak_tpu_torch.ops import z4c_stage as zs
+    mesh, phys, _, driver, st = build(pin_for(extra, deck), device="cuda")
+    levels = sorted(set(int(v) for v in mesh.mb_lev))
+    if levels != [1]:
+        raise AssertionError(f"phase 29 {deck}: leaves on levels {levels}")
+    idx = zs.inverse_spacing(phys.z4c)
+    st = driver.initialize(st)
+    z0 = st["z"].clone()
+    st, _, _ = driver.make_cycle_fn()(st, mesh.dt)
+    dyn_finite(torch, st, "phase 29")
+    tm = phys.set_tmunu(st["u"], st["w"], st["bcc"], phys.adm_of(st))
+    mat = zs._stack_tmunu(tm)
+    return {"z4c": phys.z4c, "mesh": mesh, "z0": z0,
+            "z": st["z"].contiguous(), "tm": tm, "mat": mat, "dt": mesh.dt,
+            "idx": idx, "levels": levels}
+
+
+def matter_checks(torch, kernels, rec, tol):
+    """H with and without the matter source against its plain version
+    on the four RK4 stages of ``rec`` (``matter_state``), to ``tol`` of
+    max(|value|, 1) on the interior (phase 10's tiers), each call with
+    matter one launch of the matter instance; the source moves the
+    stage.
+    Returns the worst errors and the largest absolute one."""
+    from athenak_tpu_torch.ops import z4c_stage as zs
+    Z, z, z0 = rec["z4c"], rec["z"], rec["z0"]
+    ng = Z.ng
+    worst, err, moved = {"matter": 0.0, "vacuum": 0.0}, 0.0, 0.0
+    sets = rk4_sets(torch, z.dtype, rec["dt"])
+    n0 = kernels.Z4C_STAGE_MATTER.launches
+    for g0, g1, bdt in sets:
+        got = {}
+        for kind, t in (("matter", rec["tm"]), ("vacuum", None)):
+            got[kind] = zs.fused_z4c_stage(z, z0, Z, g0, g1, bdt, tmunu=t)
+            want = zs.fused_z4c_stage_plain(z, z0, Z, g0, g1, bdt, tmunu=t)
+            torch.cuda.synchronize()
+            a = interior(got[kind], ng).double()
+            b = interior(want, ng).double()
+            rel = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+            if not rel <= tol:             # NaN fails too
+                raise AssertionError(f"phase 29 z4c_stage {kind}: {rel:g} "
+                                     f"> {tol:g}")
+            worst[kind] = max(worst[kind], rel)
+            if kind == "matter":
+                err = max(err, float((a - b).abs().max()))
+        moved = max(moved, float((interior(got["matter"], ng)
+                                  - interior(got["vacuum"], ng))
+                                 .abs().max()))
+    if kernels.Z4C_STAGE_MATTER.launches - n0 != len(sets):
+        raise AssertionError("phase 29: the matter instance launched "
+                             f"{kernels.Z4C_STAGE_MATTER.launches - n0} "
+                             f"times in {len(sets)} calls")
+    if not moved > 0.0:
+        raise AssertionError("phase 29: the matter source moved nothing")
+    return {"worst": worst, "max_abs_err": err, "moved": moved}
+
+
+def matter_f64(torch, kernels, card):
+    """Phase 29's float64 checks (a lane): the shipped tov_z4c_smr deck
+    (64 blocks of 24^3 on level 1, ng 4), H with and without matter
+    against its plain version to 1e-10."""
+    rec = matter_state(torch, DYN_SHIPPED["tov_z4c_smr"],
+                       ["job/precision=double"])
+    res = matter_checks(torch, kernels, rec, 1e-10)
+    res.update(blocks=rec["mesh"].nmb_total, levels=rec["levels"])
+    print(f"phase 29: [{card}] H with matter, tov_z4c_smr f64: {res}")
+    return res
+
+
+def phase_matter(torch, kernels, card):
+    """Phase 29 (the main process): DYN_WIDE (64 blocks of 32^3 on level
+    1, ng 4, f32) after one coupled cycle; H with and without the matter
+    source against its plain version on the four RK4 stages (2e-5 of
+    max(|value|, 1)), the matter call one device launch (profiled), its
+    CUDA-event ms (the launch on the stacked channels) beside the
+    vacuum call's on the same state and the wrapper's with the dict
+    (the stacking included), the plain stage's ms,
+    the eager RHS with matter that the dyngr stage runs now
+    (``Z4c._matter_rhs``) and the bound from bytes and operations."""
+    from athenak_tpu_torch.ops import z4c_stage as zs
+    rec = matter_state(torch, DYN_SHIPPED["tov_z4c_smr"], DYN_WIDE)
+    kernels.reset_counts()
+    res = matter_checks(torch, kernels, rec, 2e-5)
+    # the matter instance's launches in the stage calls of the checks
+    res["launches"] = kernels.Z4C_STAGE_MATTER.launches
+    Z, z, z0, mat, tm = (rec[k] for k in ("z4c", "z", "z0", "mat", "tm"))
+    args = (z, z0, Z) + rk4_sets(torch, z.dtype, rec["dt"])[1]
+    split = one_launch_split(
+        torch, lambda: zs._launch_stage(*args, mat), 20, "z4c_stage_matter")
+    res.update({
+        "ms": cuda_ms(lambda: zs._launch_stage(*args, mat), 20),
+        "vacuum_ms": cuda_ms(lambda: zs.fused_z4c_stage(*args), 20),
+        "call_ms": cuda_ms(lambda: zs.fused_z4c_stage(*args, tmunu=tm), 20),
+        "plain_ms": cuda_ms(
+            lambda: zs.fused_z4c_stage_plain(*args, tmunu=tm), 2),
+        "matter_rhs_ms": cuda_ms(lambda: Z._matter_rhs(z, tm), 3),
+        "device_us": split_us(split, 20),
+        "bound": z4c_bound(Z, z, matter=True),
+        "vacuum_bound": z4c_bound(Z, z),
+        "blocks": rec["mesh"].nmb_total, "levels": rec["levels"],
+        "inverse_spacing": rec["idx"]})
+    print(f"phase 29: [{card}] H with matter on DYN_WIDE "
+          f"({res['blocks']} blocks, levels {res['levels']}): "
+          f"{res['ms']:.4f} ms (the wrapper with the dict {res['call_ms']:.4f}"
+          f"; device {fmt_us(res['device_us'])}), vacuum "
+          f"{res['vacuum_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
+          f"({res['bound'][1]}; vacuum {res['vacuum_bound'][0]:.4f}), "
+          f"plain {res['plain_ms']:.2f} ms, the eager RHS with matter "
+          f"{res['matter_rhs_ms']:.2f} ms; worst scale-relative errors "
+          f"{res['worst']}, max abs {res['max_abs_err']:.3e}; launches "
+          f"in the checks' stage calls {res['launches']}")
+    return res
+
+
+# the longest run, the 64-cell linear wave's launch-bound cycles, alone;
+# the others dealt out so that no lane outlasts it (seconds a run beside
+# phases 13-22 on an NVIDIA H100 80GB HBM3 at 700 W: lwave64 375; lwave32
+# 219, shard_checks 266, window_checks 230, outputs_decks 206,
+# split_gather 126, be 114, dyn_bars 108, the rest 2-46)
+LANES = (("lwave64",),
+         ("lwave32", "diffusion_bars", "jeans_bars", "binary_bars",
           "hohlraum_bar", "relax_bars", "shadow_bar", "diffusion_bar",
-          "beam_bar"),
-         ("shard_checks", "dyn_bars", "slice_restart", "amr_restart",
-          "bbh_restart", "gr_restart", "gr_bars"),
-         ("outputs_decks", "outputs_split"),
+          "beam_bar", "epicycle_bar", "drag_bars"),
+         ("shard_checks", "slice_restart", "amr_restart", "bbh_restart",
+          "gr_restart", "gr_bars"),
+         ("outputs_decks", "outputs_split", "shwave_bar"),
          # -p in a fresh process (late in a long one the profiler drops
          # records), then phase 27's checks
-         ("outputs_profile", "split_gather"),
-         ("window_checks",))
+         ("outputs_profile", "split_gather", "dyn_bars", "be"),
+         ("window_checks", "mri3d_bar", "rk4_checks", "matter_f64"))
 LANE_TIMEOUT = 1100
 
 
@@ -8148,6 +8452,8 @@ def lane_parts():
             "outputs_profile": outputs_profile,
             "window_checks": window_checks,
             "split_gather": split_gather,
+            "rk4_checks": rk4_checks,
+            "matter_f64": matter_f64,
             # phase 27's timings alone, and on a machine of several
             # cards its nccl runs: python3 chip_smoke.py --lane
             # phase_split_gather
@@ -8348,6 +8654,9 @@ def main() -> int:
         # DYN_WIDE's rates before the lanes start; the runs that time
         # nothing go to the lanes, beside phases 13-22
         wide = phase("23 dyn_wide", phase_dyn_wide, torch, kernels, card)
+        # phase 29's and 28's timings on a quiet card, before the lanes
+        matter = phase("29", phase_matter, torch, kernels, card)
+        rk4 = phase("28", phase_rk4, torch, kernels, card)
         lanes = lanes_start()
         try:
             smr = phase("13", phase_smr_main, torch, kernels, card)
@@ -8370,6 +8679,8 @@ def main() -> int:
         gather = phase("27", phase_split_gather, torch, kernels, card)
     shard["checks"] = got["shard_checks"]
     gather["checks"] = got["split_gather"]
+    rk4 = {"rates": rk4, "checks": got["rk4_checks"]}
+    matter["f64"] = got["matter_f64"]
     outs = {"decks": got["outputs_decks"], "split": got["outputs_split"],
             "profile": got["outputs_profile"], "write_ms": write_ms}
     merge_lanes(card, got, slice_, amr, bbh, gr, grav, sbox, rad)
@@ -8413,7 +8724,12 @@ def main() -> int:
                    for k, v in outs["decks"].items()},
                 "outputs -p blast": outs["profile"]["launches"].get(name, 0),
                 **{f"window {k} {p}": r["launches"].get(name, 0)
-                   for k, v in win.items() for p, r in v.items()}}
+                   for k, v in win.items() for p, r in v.items()},
+                **{f"rk4 {k}": rk4["checks"][k]["true"]["launches"].get(
+                    name, 0) for k in ("blast", "sr_blast")},
+                "rk4 window blast graph":
+                    rk4["checks"]["window"]["window"]["launches"].get(name,
+                                                                     0)}
 
     ft, fe = fill_times, fill_errs
     zr = z4c_res["res"]["60^3 ng 2"]
@@ -8461,6 +8777,14 @@ def main() -> int:
         kernel_entry("z4c_stage", "z4c_rhs.cuh", "pallas_z4c.py:384",
                      runs("z4c_stage"), z4c_res["max_abs_err"], zr["ms"],
                      zr["plain_ms"], zr["bound"], None),
+        # the matter source: no CLI path launches it (its gate is the
+        # JAX package's, tmunu closes it), phase 29 calls it directly
+        kernel_entry("z4c_stage_matter", "z4c_rhs.cuh", "pallas_z4c.py:384",
+                     {"every CLI path": sum(runs("z4c_stage_matter")
+                                            .values()),
+                      "phase 29 stage calls": matter["launches"]},
+                     matter["max_abs_err"], matter["ms"],
+                     matter["plain_ms"], matter["bound"], None),
         kernel_entry("z4c_outflow_fill", "z4c_stage.cu", "pallas_z4c.py:533",
                      runs("z4c_outflow_fill"), z4c_res["fill_max_abs_err"],
                      zr["fill"]["ms"], zr["fill"]["plain_ms"],
@@ -8552,6 +8876,8 @@ def main() -> int:
                          for k, v in dyn["wide"].items()}},
         "shard": shard,
         "split_gather": gather,
+        "rk4": rk4,
+        "matter": {k: v for k, v in matter.items()},
         "outputs": outs,
         "window": {"rates": {k: {p: {kk: vv for kk, vv in r.items()
                                      if kk != "launches"}

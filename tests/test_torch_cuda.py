@@ -677,6 +677,40 @@ def test_z4c_stage_kernel_pool_and_ragged(card, dtype, layout, ng):
         assert float(err) <= tol, (s, float(err))
 
 
+@pytest.mark.parametrize("dtype", ["single", "double"])
+@pytest.mark.parametrize("layout", ["pool", "ragged"])
+@pytest.mark.parametrize("ng", [2, 4])
+def test_z4c_stage_matter_kernel(card, dtype, layout, ng):
+    """Kernel H's matter instances against the plain stage with the same
+    seeded physical stress-energy (``physical_tmunu``), for the four RK4
+    coefficient sets, on a pool of two blocks and on a ragged interior:
+    one launch of the matter instance a call (none of the vacuum one),
+    float32 to 2e-5 and float64 to 1e-10 of max(|value|, 1)."""
+    from athenak_tpu_torch.driver import make_integrator
+    from athenak_tpu_torch.ops import z4c_stage
+    from test_torch_z4c_host import physical_tmunu, tmunu_dict
+    phys, u, u1 = _z4c([f"mesh/nghost={ng}"] + Z4C_LAYOUTS[layout], dtype)
+    mat = tmunu_dict(torch.from_numpy(physical_tmunu(u.shape, 7)).to(
+        "cuda", u.dtype))
+    rk4 = make_integrator("rk4")
+    core = (slice(None), slice(None), slice(ng, -ng), slice(ng, -ng),
+            slice(ng, -ng))
+    tol = 2e-5 if dtype == "single" else 1e-10
+    for s in range(4):
+        args = (u, u1, phys, rk4.gam0[s], rk4.gam1[s], rk4.beta[s] * 0.1)
+        n0 = kernels.Z4C_STAGE_MATTER.launches
+        v0 = kernels.Z4C_STAGE.launches
+        got = z4c_stage.fused_z4c_stage(*args, tmunu=mat)
+        assert kernels.Z4C_STAGE_MATTER.launches == n0 + 1
+        assert kernels.Z4C_STAGE.launches == v0
+        want = z4c_stage.fused_z4c_stage_plain(*args, tmunu=mat)
+        err = ((got[core] - want[core]).abs()
+               / want[core].abs().clamp(min=1.0)).max()
+        assert float(err) <= tol, (s, float(err))
+        vac = z4c_stage.fused_z4c_stage(*args)
+        assert float((vac[core] - got[core]).abs().max()) > 0.0
+
+
 # the shapes of the binary-black-hole slice: the AwA gauge wave as
 # shipped ([1, 22, 12, 12, 72], nghost 4 on a 4-cell x2/x3 interior,
 # periodic) and the flat binary's one block of 128^3 with nghost 4

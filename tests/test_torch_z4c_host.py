@@ -19,11 +19,17 @@ deck:
     root (``cbrt`` in the kernel, ``x ** (1/3)`` in torch), and with
     chi_psi_power != -4 the conformal factor through ``pow``.
 
+The instances with the matter source are held alike, given a seeded
+physical stress-energy (``physical_tmunu``) at nghost 4 (the coupled
+TOV decks' depth): the channels AlgConstr leaves alone bitwise, all to
+the same tolerances, on the four RK4 stages.
+
 With a counting number type in place of the float, on boxes of one cell
 (so that a block's operations are one cell's, its inner derivatives
 included), it also counts the kernel's operations a cell (add, subtract,
 multiply, divide, negate; pow and cbrt count one), the numbers
-``chip_smoke.py`` takes for the kernel's bound.  The test skips where no
+``chip_smoke.py`` takes for the kernel's bound, and the operations the
+matter source adds.  The test skips where no
 g++ is installed.  This checks the source's arithmetic, not the CUDA
 build: the card runs the same checks in ``tests/test_torch_cuda.py``.
 """
@@ -126,9 +132,10 @@ double val(cnt::Op x) { return x.v; }
 // the operations of the last block.
 template <class T, class Sh>
 long long run_tiles(const std::vector<T>& u, const std::vector<T>& u1,
-                    const std::vector<T>& sbc, std::vector<T>& out,
-                    const int* h, const Z4cPrm<T>& P) {
+                    const std::vector<T>& sbc, const std::vector<T>& mat,
+                    std::vector<T>& out, const int* h, const Z4cPrm<T>& P) {
   const int nmb = h[2], n3 = h[3], n2 = h[4], n1 = h[5], has_sbc = h[6];
+  const int has_mat = h[7];
   const long long cs = (long long)n3 * n2 * n1;
   const Z4cGeom geo = z4c_geom(nmb, n3, n2, n1, Sh::NG, Sh::TX, Sh::TY,
                                Sh::TZ);
@@ -186,10 +193,18 @@ long long run_tiles(const std::vector<T>& u, const std::vector<T>& u1,
       if (box.k0 + q.z >= box.k1 || box.j0 + q.y >= box.j1 ||
           box.i0 + q.x >= box.i1)
         continue;
-      z4c_update<T>(Z4cCell<T, Sh::NC>{buf.data() + t, u.data() + mb + cell[t],
-                                       cs, sb[t].on},
-                    P, reinterpret_cast<const T(*)[3]>(&gu[9 * t]),
-                    u1.data() + mb + cell[t], cs, out.data() + mb + cell[t]);
+      const T* mc = has_mat ? mat.data() + (long long)box.m * kNMat * cs +
+                                  cell[t]
+                            : nullptr;
+      const Z4cCell<T, Sh::NC> F{buf.data() + t, u.data() + mb + cell[t], cs,
+                                 sb[t].on, mc};
+      const T(*g)[3] = reinterpret_cast<const T(*)[3]>(&gu[9 * t]);
+      if (has_mat)
+        z4c_update<T, true>(F, P, g, u1.data() + mb + cell[t], cs,
+                            out.data() + mb + cell[t]);
+      else
+        z4c_update<T>(F, P, g, u1.data() + mb + cell[t], cs,
+                      out.data() + mb + cell[t]);
     }
     ops = cnt::n;
   }
@@ -203,17 +218,19 @@ long long run(FILE* f, FILE* o, const int* h, const double* prm) {
   const int nmb = h[2], n3 = h[3], n2 = h[4], n1 = h[5], has_sbc = h[6];
   const size_t n = (size_t)nmb * 22 * n3 * n2 * n1;
   const size_t ns = (size_t)nmb * 5 * n3 * n2 * n1;
-  std::vector<T> u = rd<T>(f, n), u1 = rd<T>(f, n), sbc;
+  const size_t nm = (size_t)nmb * kNMat * n3 * n2 * n1;
+  std::vector<T> u = rd<T>(f, n), u1 = rd<T>(f, n), sbc, mat;
   if (has_sbc) sbc = rd<T>(f, ns);
+  if (h[7]) mat = rd<T>(f, nm);
   std::vector<T> out(n, T(0.0));
   Z4cPrm<T> P = make_z4c_prm<T>(prm);
   P.bdt = static_cast<T>(prm[P_COUNT]);  // the step, which the kernel reads
                                          // from device memory
   long long ops;
   if constexpr (std::is_same<T, cnt::Op>::value)
-    ops = run_tiles<T, Z4cShape<1, 1, 1, NG, 2>>(u, u1, sbc, out, h, P);
+    ops = run_tiles<T, Z4cShape<1, 1, 1, NG, 2>>(u, u1, sbc, mat, out, h, P);
   else
-    ops = run_tiles<T, Z4cTile<T, NG>>(u, u1, sbc, out, h, P);
+    ops = run_tiles<T, Z4cTile<T, NG>>(u, u1, sbc, mat, out, h, P);
   std::vector<double> d(n);
   for (size_t i = 0; i < n; ++i) d[i] = val(out[i]);
   fwrite(d.data(), 8, n, o);
@@ -230,9 +247,9 @@ long long dispatch(FILE* f, FILE* o, const int* h, const double* prm) {
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
   FILE* o = fopen(argv[2], "wb");
-  int h[7];  // type (0 float, 1 double, 2 counting), ng, nmb, n3, n2, n1,
-             // Sommerfeld geometry given
-  if (fread(h, 4, 7, f) != 7) return 1;
+  int h[8];  // type (0 float, 1 double, 2 counting), ng, nmb, n3, n2, n1,
+             // Sommerfeld geometry given, stress-energy given
+  if (fread(h, 4, 8, f) != 8) return 1;
   double prm[P_COUNT + 1];  // the parameter block, then the step
   if (fread(prm, 8, P_COUNT + 1, f) != P_COUNT + 1) return 1;
   long long ops = 0;
@@ -266,16 +283,17 @@ def harness(tmp_path_factory):
     return exe
 
 
-def run_harness(exe, kind, phys, u, u1, sbc, prm):
-    """Run the host build of kernel H on (u, u1); returns (out, the
+def run_harness(exe, kind, phys, u, u1, sbc, prm, mat=None):
+    """Run the host build of kernel H on (u, u1), with the matter source
+    where ``mat`` (the stacked stress-energy) is given; returns (out, the
     operations of the last cell)."""
     d = exe.parent
     nmb, _, n3, n2, n1 = u.shape
     with open(d / "in.bin", "wb") as f:
-        f.write(struct.pack("7i", kind, phys.ng, nmb, n3, n2, n1,
-                            int(sbc is not None)))
+        f.write(struct.pack("8i", kind, phys.ng, nmb, n3, n2, n1,
+                            int(sbc is not None), int(mat is not None)))
         f.write(np.asarray(prm, np.float64).tobytes())
-        for a in (u, u1) + (() if sbc is None else (sbc,)):
+        for a in (u, u1) + tuple(x for x in (sbc, mat) if x is not None):
             f.write(np.ascontiguousarray(a, np.float64).tobytes())
     res = subprocess.run([str(exe), str(d / "in.bin"), str(d / "out.bin")],
                          check=True, capture_output=True, text=True,
@@ -344,3 +362,86 @@ def test_operation_counts(harness, ng):
     _, plain = run_harness(harness, 2, phys, u, u, None, prm)
     _, somm = run_harness(harness, 2, phys, u, u, sbc, prm)
     assert chip_smoke.Z4C_OPS[ng] == (plain, somm - plain)
+
+
+def physical_tmunu(shape, seed):
+    """A seeded stress-energy for a Z4c state of ``shape`` [nmb, 22, n3,
+    n2, n1]: numpy float64 [nmb, 10, n3, n2, n1] in the order the kernel
+    reads (E, S_d, S_dd xx xy xz yy yz zz), of physical form: E in [0.01,
+    0.1], S_d = E v with |v_a| <= 0.5, S_dd = E (p delta + v v) with p in
+    [0.1, 0.3], symmetric and every component bounded by E."""
+    rng = np.random.default_rng(seed)
+    cells = (shape[0],) + tuple(shape[2:])
+    E = rng.uniform(0.01, 0.1, cells)
+    v = rng.uniform(-0.5, 0.5, (3,) + cells)
+    p = rng.uniform(0.1, 0.3, cells)
+    pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    chans = [E] + [E * v[a] for a in range(3)] + [
+        E * ((p if a == b else 0.0) + v[a] * v[b]) for a, b in pairs]
+    return np.stack(chans, axis=1)
+
+
+def tmunu_dict(mat):
+    """The stress-energy dict (as ``DynGRMHD.set_tmunu`` returns it) of a
+    stacked [nmb, 10, ...] tensor in ``physical_tmunu``'s order (views)."""
+    return {"E": mat[:, 0], "S_d": [mat[:, 1 + a] for a in range(3)],
+            "S_dd": [mat[:, 4 + q] for q in range(6)]}
+
+
+@pytest.mark.parametrize("prec", ["single", "double"])
+def test_host_build_matter_matches_plain_stage(harness, prec):
+    """The instances with the matter source against the plain stage with
+    the same stress-energy, on the four RK4 stages at nghost 4: bitwise
+    where AlgConstr takes no cube root, else to 1e-6 (float32) and 1e-13
+    (float64) of max(|value|, 1); the source moves every channel it
+    feeds beyond those."""
+    phys, u = _phys(["mesh/nghost=4"], prec)
+    dtype = phys.dtype
+    rng = np.random.default_rng(11)
+    u = u + 1e-2 * rng.normal(size=u.shape)
+    u1 = u * (1.0 + 1e-3 * rng.normal(size=u.shape))
+    ut, u1t = torch.tensor(u, dtype=dtype), torch.tensor(u1, dtype=dtype)
+    mat = torch.tensor(physical_tmunu(u.shape, 5), dtype=dtype)
+    sbc = phys.sbc_channels("cpu", dtype).double().numpy()
+    rk4 = make_integrator("rk4")
+    core = (slice(None), slice(None)) + (slice(4, -4),) * 3
+    tol = 1e-6 if prec == "single" else 1e-13
+    others = [c for c in range(22) if c not in CBRT_CHANNELS]
+    fed = [7, 14, 15, 16, 17] + list(range(8, 14))
+    for s in range(4):
+        g0, g1 = rk4.gam0[s], rk4.gam1[s]
+        bdt = float(torch.tensor(rk4.beta[s] * 0.1, dtype=dtype))
+        want = z4c_stage.fused_z4c_stage_plain(ut, u1t, phys, g0, g1, bdt,
+                                               tmunu=tmunu_dict(mat))
+        vac = z4c_stage.fused_z4c_stage_plain(ut, u1t, phys, g0, g1, bdt)
+        want = want.double().numpy()[core]
+        vac = vac.double().numpy()[core]
+        got, _ = run_harness(harness, 0 if prec == "single" else 1, phys,
+                             ut.double().numpy(), u1t.double().numpy(), sbc,
+                             z4c_stage.stage_params(phys, g0, g1) + [bdt],
+                             mat=mat.double().numpy())
+        got = got[core]
+        np.testing.assert_array_equal(got[:, others], want[:, others])
+        err = (np.abs(got - want) / np.maximum(np.abs(want), 1.0)).max()
+        assert err <= tol, (s, err)
+        moved = (np.abs(want - vac) / np.maximum(np.abs(want), 1.0))
+        assert all(moved[:, c].max() > 100 * tol for c in fed), s
+
+
+@pytest.mark.parametrize("ng", [2, 4])
+def test_matter_operation_counts(harness, ng):
+    """The operations the matter source adds a cell, on and off the
+    Sommerfeld mask: chip_smoke.Z4C_MATTER_OPS, whatever the depth."""
+    pin = ParameterInput.from_string(chip_smoke.Z4C_DECK)
+    pin.modify_from_cmdline([f"mesh/nghost={ng}", "mesh/nx1=16",
+                             "mesh/nx2=16", "mesh/nx3=16"])
+    _, phys, _, _, _ = torch_main.build(pin, device="cpu")
+    n = 2 * ng + 1
+    u = np.zeros((1, 22, n, n, n))
+    u[:, [0, 1, 4, 6, 18]] = 1.0
+    prm = z4c_stage.stage_params(phys, 0.5, 0.5) + [0.1]
+    mat = physical_tmunu(u.shape, 1)
+    for sbc in (None, np.ones((1, 5, n, n, n))):
+        _, vac = run_harness(harness, 2, phys, u, u, sbc, prm)
+        _, with_mat = run_harness(harness, 2, phys, u, u, sbc, prm, mat=mat)
+        assert with_mat - vac == chip_smoke.Z4C_MATTER_OPS

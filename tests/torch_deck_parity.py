@@ -8,7 +8,9 @@ float64 (JAX runs in float64 in this suite, tests/conftest.py):
     forcing and stage run under ``jax.jit`` at XLA's backend
     optimisation level 0 (the stage compiled once, with the RK
     coefficients traced), driven by the port driver's dt rule (2x
-    growth, CFL, the stop at tlim) for ``ncyc`` cycles;
+    growth, CFL, the stop at tlim) for ``ncyc`` cycles, under RK4 with
+    the physics' ``accumulate_rk4`` before every stage after the first
+    (eagerly);
   * the port runs the same deck through ``athenak_tpu_torch.main.run``
     with ``time/nlim=ncyc`` in a directory of its own.
 
@@ -144,6 +146,10 @@ class DeckPair:
                 st = force(st, jnp.asarray(dt, dtype))
             saved = phys.save_state(st)
             for s in range(integ.nexp_stages):
+                if s > 0 and integ.name == "rk4":
+                    # the 2S register, eagerly (one rounding a product
+                    # and a sum, as the port's torch ops)
+                    saved = phys.accumulate_rk4(saved, st, integ.delta[s])
                 st = stage(st, saved, *(jnp.asarray(v, dtype) for v in (
                     integ.gam0[s], integ.gam1[s],
                     integ.beta[s] * jnp.asarray(dt, dtype))))
